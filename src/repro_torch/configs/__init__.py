@@ -1,0 +1,25 @@
+"""Config registry of the port: ``get_config(arch_id)``.
+
+The port serves the architectures it has a config file for; the serving
+slice covers Mixtral-8x7B.
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import ModelConfig
+
+ARCH_IDS = ["mixtral_8x7b"]
+
+_ALIASES = {"mixtral-8x7b": "mixtral_8x7b"}
+
+
+def get_config(arch_id: str) -> ModelConfig:
+    key = _ALIASES.get(arch_id, arch_id)
+    if key not in ARCH_IDS:
+        raise KeyError(f"unknown arch {arch_id!r}; the port has {ARCH_IDS}")
+    return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
+
+
+__all__ = ["get_config", "ARCH_IDS", "ModelConfig"]

@@ -1,0 +1,145 @@
+"""Port parity: the serving slice end to end on a reduced Mixtral.
+
+Weights come from the reference's ``init_params`` and cross through
+``repro_torch.interop.params_from_jax``.  The reference runs its default
+expert layer (``moe_impl="blaze"``) and dense paged attention; the port
+runs its kernel composition (``blaze_pallas``) and paged attention kernel,
+here through their plain versions.  Everything is float32, so logits agree
+to 1e-4 (the same sums in another order through two layers); greedy tokens
+and the engine's accounting must be equal.
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.configs import get_config
+from repro.models import transformer as JT
+from repro.serve.engine import Request as JRequest
+from repro.serve.engine import ServeEngine as JServeEngine
+from torch_parity import np_params, to_torch, torch_config, tp  # noqa: F401
+
+JCFG = get_config("mixtral_8x7b").reduced()
+TCFG = torch_config(JCFG).replace(moe_impl="blaze_pallas")
+LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def params(tp):
+    jp = JT.init_params(jax.random.PRNGKey(0), JCFG)
+    return jp, tp.interop.params_from_jax(np_params(jp), TCFG, device="cpu")
+
+
+def test_prefill_and_decode_logits_match(tp, params):
+    TT, torch = tp.transformer, tp.torch
+    jp, tparams = params
+    rng = np.random.default_rng(0)
+    B, S, ps, pps = 2, 16, 8, 4
+    lengths = np.array([5, 11], np.int32)
+    tokens = np.zeros((B, S), np.int32)
+    for b, n in enumerate(lengths):
+        tokens[b, :n] = rng.integers(3, JCFG.vocab_size, size=n)
+    table = np.array([[1, 2, 3, 4], [5, 6, 7, 8]], np.int32)
+    n_pages = 1 + B * pps
+    jcache = JT.init_paged_cache(JCFG, n_pages, ps)
+    tcache = TT.init_paged_cache(TCFG, n_pages, ps, "cpu")
+    jl, jcache = JT.prefill(jp, jnp.asarray(tokens), jnp.asarray(lengths),
+                            jcache, jnp.asarray(table), JCFG)
+    with torch.inference_mode():
+        tl = TT.prefill(tparams, to_torch(tokens), to_torch(lengths), tcache,
+                        to_torch(table), TCFG)
+    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+    pos = lengths.copy()
+    for _ in range(3):                      # teacher-forced decode steps
+        tok = rng.integers(3, JCFG.vocab_size, size=(B, 1)).astype(np.int32)
+        jl, jcache = JT.paged_decode_step(jp, jcache, jnp.asarray(tok),
+                                          jnp.asarray(pos),
+                                          jnp.asarray(table), JCFG)
+        with torch.inference_mode():
+            tl = TT.paged_decode_step(tparams, tcache, to_torch(tok),
+                                      to_torch(pos), to_torch(table), TCFG)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), **LOGIT_TOL)
+        pos += 1
+
+
+STAT_KEYS = ("prefill_calls", "prefill_tokens", "decode_steps",
+             "decode_slot_tokens", "generated_tokens", "blocked_admissions",
+             "truncated_budgets", "peak_pages_used")
+
+
+@pytest.mark.parametrize("num_pages", [None, 5],
+                         ids=["full_budget", "tight_budget"])
+def test_engine_greedy_tokens_and_stats_match(tp, params, num_pages):
+    """Mixed prompt lengths, three slots refilled as requests finish, and a
+    48-token capacity on 16-token pages whose power-of-two prefill bucket
+    (64) overshoots the 48-wide page table.  With 4 allocatable pages the
+    head of the queue waits for pages (blocked admissions)."""
+    jp, tparams = params
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(3, JCFG.vocab_size, size=n).astype(np.int32)
+               for n in (3, 40, 17, 9, 25)]
+    kw = dict(batch_slots=3, capacity=48, page_size=16, num_pages=num_pages)
+    eos = JCFG.vocab_size              # outside the vocab: runs hit max_new
+    jeng = JServeEngine(JCFG, jp, **kw)
+    jreqs = jeng.generate([JRequest(prompt=p, max_new_tokens=6, eos_id=eos)
+                           for p in prompts])
+    teng = tp.engine.ServeEngine(TCFG, tparams, device="cpu", **kw)
+    treqs = teng.generate([tp.engine.Request(prompt=p, max_new_tokens=6,
+                                             eos_id=eos) for p in prompts])
+    for j, t in zip(jreqs, treqs):
+        assert t.out_tokens == j.out_tokens
+        assert t.finish_reason == j.finish_reason
+    for k in STAT_KEYS:
+        assert teng.stats[k] == jeng.stats[k], k
+    if num_pages is not None:
+        assert teng.stats["blocked_admissions"] > 0
+
+
+def test_engine_without_device_needs_cuda(tp, params, monkeypatch):
+    monkeypatch.setattr(tp.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tp.engine.ServeEngine(TCFG, params[1])
+
+
+def test_engine_refuses_unported_options(tp, params):
+    ServeEngine = tp.engine.ServeEngine
+    for kw in (dict(kv_dtype="int8"), dict(greedy=False),
+               dict(prefix_cache=True)):
+        with pytest.raises(NotImplementedError):
+            ServeEngine(TCFG, params[1], device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="moe_impl"):
+        ServeEngine(TCFG.replace(moe_impl="blaze"), params[1], device="cpu")
+
+
+def test_port_imports_no_jax_and_no_reference():
+    """``import repro_torch`` and a CPU engine run leave JAX and the
+    reference package out of ``sys.modules``."""
+    code = (
+        "import sys, numpy as np, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import repro_torch\n"
+        "from repro_torch.configs import get_config\n"
+        "from repro_torch.interop import init_params\n"
+        "from repro_torch.serve.engine import Request, ServeEngine\n"
+        "cfg = get_config('mixtral-8x7b').reduced().replace("
+        "moe_impl='blaze_pallas')\n"
+        "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "eng = ServeEngine(cfg, p, batch_slots=2, capacity=32, device='cpu')\n"
+        "r = eng.generate([Request(prompt=np.arange(3, 9, dtype=np.int32),"
+        " max_new_tokens=3)])[0]\n"
+        "assert len(r.out_tokens) == 3\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
+        "assert not bad, bad\n"
+        "print('clean')\n")
+    env = dict(os.environ, PYTHONPATH=os.path.join(REPO, "src"))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "clean" in out.stdout
