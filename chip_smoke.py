@@ -7,18 +7,22 @@ H100.
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card — the ``nvidia-smi`` name and power limit;
-2. build — the four CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
+2. build — the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
    source, in parallel);
 3. parity — each kernel against its plain PyTorch version on the card, in
-   bf16 at the serving slice's shapes (Mixtral-8x7B: d=4096, 32/8 heads of
-   128, E=8, top-2, expert width 14336), plus edge cases: empty experts, all
-   slots on one expert, slot counts that are not a multiple of the tile,
-   position 0 and a dead page table;
+   bf16 at the serving and training shapes (Mixtral-8x7B: d=4096, 32/8
+   heads of 128, E=8, top-2, expert width 14336; training 2 x 2048 tokens,
+   8192 slots), plus edge cases: empty experts, all slots on one expert,
+   slot counts that are not a multiple of the tile, position 0 and a dead
+   page table, windows shorter than the sequence, softcaps, float32; and
+   the expert layer's autograd Function against autograd through the plain
+   versions;
 4. timing — each kernel (median of warm runs, L2 flushed between runs) at
-   the prefill and decode shapes, beside its plain version, its bound (the
-   larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s, from this
-   run's inputs) and, where one PyTorch call computes the same function,
-   that call;
+   the prefill, decode and training shapes, beside its plain version, its
+   bound (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s,
+   from this run's inputs) and one PyTorch call that computes the same
+   function, where there is one (``torch._grouped_mm`` over pre-gathered
+   rows, ``scaled_dot_product_attention``), timed only;
 5. end to end — Mixtral-8x7B at full width with the depth cut to 2 layers
    (random bf16 weights from seed 0; 32 layers would not fit one 80 GB
    card), served by the port's engine: 4 slots, capacity 1024, 16-token
@@ -29,7 +33,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    all three must give the same tokens;
 6. CPU cross-check — one 24-token prompt through the same weights copied
    to the CPU (plain versions there); prefill logits must agree with the
-   card's within the bf16 tolerance below, with the same first token.
+   card's within the bf16 tolerance below, with the same first token;
+7. training — with the serving weights freed, Mixtral-8x7B at full width,
+   2 layers, float32 master weights from seed 0, bf16 compute,
+   ``blaze_pallas`` with ``use_pallas=True``, batches of 2 x 2048 tokens
+   from the port's pipeline (seed 0), through ``make_train_step``: one
+   cold step, 5 warm steps (measured: every training kernel's launch count
+   must rise during them), one step traced with torch.profiler, then one
+   batch fed 3 times, whose loss must fall; every loss and grad norm must
+   be finite;
+8. CPU training cross-check — one step of the reduced Mixtral (float32)
+   from the same weights and batch on the card (kernels) and on the CPU
+   (plain versions): loss, grad norm and updated parameters must agree
+   within the float32 tolerances below.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -44,6 +60,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -64,6 +81,31 @@ PAGED_ATOL = 2e-2
 # points and summed in other orders; logits of size ~4 have a bf16 step of
 # 2^-5, so four steps.
 CPU_LOGIT_ATOL = 0.125
+#  grouped weight gradient: float32 sums in another order, one rounding ->
+#    the gather-GMM tolerance in bf16; in float32 1e-5 relative over a
+#    floor of 1e-5 times the output's scale;
+#  flash attention in bf16: the kernel scales the float32 scores where the
+#    plain version scales q in bf16 (2^-8 relative on the scores), and the
+#    output rounds to bf16 -> 2e-2 absolute (outputs are averages of unit
+#    normals, |o| < 4); in float32 1e-5;
+#  expert layer Function vs autograd through the plain versions: float32
+#    1e-4 relative over a floor of 1e-4 times each output's scale (chains
+#    of products summed in other orders); bf16 rounds a, b, y_swi and every
+#    elementwise term of the backward to bf16 where the plain autograd
+#    keeps float32 -> 2^-4 of each output's scale (a wrong index, transpose
+#    or term is off by the output's own scale).
+F32_RTOL, F32_FLOOR = 1e-5, 1e-5
+FLASH_ATOL = 2e-2
+LAYER_F32, LAYER_BF16 = 1e-4, 2 ** -4
+# CPU vs card training step (float32, reduced Mixtral): loss and grad norm
+# 1e-4 relative (two layers of float32 sums in other orders).  AdamW's
+# first step moves each parameter by about lr (its gradient divided by its
+# own magnitude), so an element whose gradient is at the float32 noise of
+# the two sides (~1e-6 of its leaf's scale) may step either way: every
+# element within lr, and all but 1e-3 of each leaf's elements within
+# 2e-3 lr.
+STEP_RTOL, STEP_FAR_SHARE = 1e-4, 1e-3
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 
 
 def log(msg: str) -> None:
@@ -141,10 +183,14 @@ def main() -> int:
     from repro_torch.kernels import _lib
     from repro_torch.kernels import combine as KC
     from repro_torch.kernels import dispatch as KD
+    from repro_torch.kernels import flash_attention as KF
     from repro_torch.kernels import gather_gmm as KG
+    from repro_torch.kernels import gmm_dw as KW
     from repro_torch.kernels import paged_attention as KP
+    from repro_torch.kernels import ops as KO
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as SE
+    M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR)
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -187,7 +233,8 @@ def main() -> int:
 
     # -- 3. parity ----------------------------------------------------------
     errs = {n: 0.0 for n in ("build_dispatch", "gather_gmm", "combine",
-                             "paged_attention")}
+                             "paged_attention", "gmm_dw",
+                             "flash_attention")}
 
     def dispatch_case(name, topk, n_exp):
         got = KD.build_dispatch(topk, n_exp)
@@ -283,6 +330,16 @@ def main() -> int:
     log(f"parity paged_attention: max |err| {errs['paged_attention']:.4g} "
         f"(atol {PAGED_ATOL})")
 
+    # training shapes: 2 x 2048 tokens routed top-2 -> 8192 slots
+    L_tr = TRAIN_BATCH * TRAIN_SEQ
+    x_tr = randn(L_tr, d)
+    topk_tr = TR.top_k_gating(x_tr, moe["wg"], k).topk_experts.contiguous()
+    disp_tr = dispatch_case("training", topk_tr, E)
+    tr = train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr)
+    log(f"parity gmm_dw: max |err| {errs['gmm_dw']:.4g}; flash_attention: "
+        f"max |err| {errs['flash_attention']:.4g}; gather_gmm (with save_ab "
+        f"and transposed weights): {errs['gather_gmm']:.4g}")
+
     # -- 4. timing ----------------------------------------------------------
     timer = Timer(dev)
     rows = {}
@@ -303,25 +360,41 @@ def main() -> int:
         disp_entry(topk_pre, f"prefill: L={L_pre}, k={k}, E={E}"),
         disp_entry(topk_dec, f"decode: L={L_dec}, k={k}, E={E}")]
 
-    def gmm_entry(x, disp, w1, w2, idx, shape, plain_reps):
+    def gmm_entry(x, disp, w1, w2, idx, shape, plain_reps, save_ab=False,
+                  trans_w=False):
         off = disp.expert_token_offsets
         S = disp.num_slots
         lens = disp.expert_lengths.tolist()
         live = sum(1 for n in lens if n)
         nw = 2 if w2 is not None else 1
-        d_in, h_out = w1.shape[1], w1.shape[2]
+        d_in, h_out = ((w1.shape[2], w1.shape[1]) if trans_w
+                       else (w1.shape[1], w1.shape[2]))
         x_rows = x.shape[0]
+        n_out = 3 if save_ab else 1
         nbytes = (x_rows * d_in * EB + (S * 4 if idx is not None else 0)
                   + (E + 1) * 4 + live * d_in * h_out * EB * nw
-                  + S * h_out * EB)
+                  + n_out * S * h_out * EB)
         ops = 2.0 * sum(lens) * d_in * h_out * nw
+        kw = dict(save_ab=save_ab, trans_w=trans_w)
+        lib_ms = library_gmm_ms(timer, x, idx, off, w1, w2, trans_w)
         return entry(
-            timer(lambda: KG.gather_gmm(x, idx, off, w1, w2)),
-            timer(lambda: KG.gather_gmm_plain(x, idx, off, w1, w2),
+            timer(lambda: KG.gather_gmm(x, idx, off, w1, w2, **kw)),
+            timer(lambda: KG.gather_gmm_plain(x, idx, off, w1, w2, **kw),
                   warm=1 if plain_reps < 3 else 2, reps=plain_reps),
-            nbytes, ops, None, shape)
+            nbytes, ops, lib_ms, shape)
 
+    S_tr = disp_tr.num_slots
     rows["gather_gmm"] = [
+        gmm_entry(x_tr, disp_tr, moe["w1"], moe["w2"],
+                  disp_tr.expert_token_indices,
+                  f"training dual w1/w2 + save_ab: S={S_tr}, d={d}, h={h}",
+                  plain_reps=1, save_ab=True),
+        gmm_entry(tr["dyg"], disp_tr, moe["w3"], None, None,
+                  f"training w3^T: S={S_tr}, {d}->{h}", plain_reps=1,
+                  trans_w=True),
+        gmm_entry(tr["da"], disp_tr, moe["w1"], None, None,
+                  f"training w1^T: S={S_tr}, {h}->{d}", plain_reps=1,
+                  trans_w=True),
         gmm_entry(x_pre, disp_pre, moe["w1"], moe["w2"],
                   disp_pre.expert_token_indices,
                   f"prefill dual w1/w2: S={disp_pre.num_slots}, d={d}, "
@@ -349,6 +422,8 @@ def main() -> int:
                    f"prefill: S={disp_pre.num_slots}, L={L_pre}, d={d}"),
         comb_entry(p_dec, disp_dec, g_dec, L_dec,
                    f"decode: S={disp_dec.num_slots}, L={L_dec}, d={d}")]
+
+    rows.update(train_kernel_timing(M, timer, entry, tr, disp_tr, E))
 
     window = cfg.sliding_window
     live_tokens = [min(int(p_) + 1, window) for p_ in pos.tolist()]
@@ -379,7 +454,7 @@ def main() -> int:
             log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), library {r['library_ms']}")
-    del kd, vd, y_pre, p_pre
+    del kd, vd, y_pre, p_pre, tr
 
     # -- 5. end to end ------------------------------------------------------
     prompt_lens = (37, 129, 300, 511, 64)
@@ -428,8 +503,10 @@ def main() -> int:
     finally:
         T.prefill, T.paged_decode_step = real_prefill, real_decode
     log(f"e2e launches: {launches}")
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+    for name in ("build_dispatch", "gather_gmm", "combine",
+                 "paged_attention"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched on the serving path")
     for r in reqs:
         check(len(r.out_tokens) == 16 and r.finish_reason == "length",
               f"request of {r.prompt.size} tokens: {r.out_tokens}")
@@ -498,6 +575,21 @@ def main() -> int:
     check(int(gpu_logits.argmax()) == int(cpu_logits.argmax()),
           "CPU and card first tokens differ")
 
+    # -- 7. training ----------------------------------------------------------
+    # The training step holds ~65 GB; free the serving weights and what
+    # holds them first.
+    del params, cpu_params, moe, eng, _
+    torch.cuda.empty_cache()
+    log(f"train: serving weights freed, "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated")
+    cfg_train = get_config("mixtral-8x7b").replace(
+        num_layers=2, moe_impl="blaze_pallas", use_pallas=True)
+    train = training_phase(cfg_train, dev, K)
+    torch.cuda.empty_cache()
+
+    # -- 8. CPU training cross-check -------------------------------------------
+    xcheck = cpu_train_crosscheck(dev)
+
     # -- report ---------------------------------------------------------------
     sources = {
         "build_dispatch": ("src/repro_torch/csrc/dispatch.cu",
@@ -508,13 +600,21 @@ def main() -> int:
                     "src/repro/kernels/combine.py:44"),
         "paged_attention": ("src/repro_torch/csrc/paged_attention.cu",
                             "src/repro/kernels/paged_attention.py:97"),
+        "gmm_dw": ("src/repro_torch/csrc/gmm_dw.cu",
+                   "src/repro/kernels/gather_gmm.py:740"),
+        "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:72"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         main_row = rows[name][0]
+        # launches on this slice's main path (the warm training steps),
+        # or on the serving path for a kernel that training does not run
+        n_train, n_serve = train["launches"][name], launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
+            "replaces": replaces, "launches": n_train or n_serve,
+            "launches_train": n_train, "launches_serve": n_serve,
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -528,6 +628,8 @@ def main() -> int:
            "traced_wall_s": traced_wall,
            "traced_device_busy_s": busy, "stats": st}
     log(f"e2e-record: {json.dumps(e2e)}")
+    train_rec = {k_: v for k_, v in train.items() if k_ != "by_kernel_ms"}
+    log(f"train-record: {json.dumps(dict(train_rec, crosscheck=xcheck))}")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -536,12 +638,333 @@ def main() -> int:
     return 0
 
 
+def library_gmm_ms(timer, x, idx, off, w1, w2, trans_w) -> float:
+    """The library yardstick for gather-GMM: one ``torch._grouped_mm``
+    over rows gathered beforehand (the dual branch as one product with
+    w1 | w2 concatenated along h, epilogue excluded; a transposed weight
+    as a strided view).  The gather and the concatenation are not timed."""
+    xg = x if idx is None else x[idx.long()].contiguous()
+    if w2 is not None:
+        w = torch.cat([w1, w2], dim=2)
+    else:
+        w = w1.transpose(1, 2) if trans_w else w1
+    ends = off[1:].contiguous()
+    return timer(lambda: torch._grouped_mm(xg, w, offs=ends))
+
+
+def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
+    """Phase 3, training kernels: gather-GMM with ``save_ab`` and with
+    transposed weights, the grouped weight gradient and flash attention at
+    the training shapes and at edge cases, each against its plain version;
+    the expert layer's autograd Function against autograd through the
+    plain versions.  Returns the training-shape tensors for the timing."""
+    KG, KW, KF = M.KG, M.KW, M.KF
+    off, eti = disp_tr.expert_token_offsets, disp_tr.expert_token_indices
+    S = disp_tr.num_slots
+    d, h = moe["w1"].shape[1], moe["w1"].shape[2]
+
+    def gmm_close(name, got, want):
+        errs["gather_gmm"] = max(errs["gather_gmm"], require_close(
+            f"gather_gmm {name}", got, want, GMM_RTOL, GMM_ATOL))
+
+    got = KG.gather_gmm(x_tr, eti, off, moe["w1"], moe["w2"], save_ab=True)
+    want = KG.gather_gmm_plain(x_tr, eti, off, moe["w1"], moe["w2"],
+                               save_ab=True)
+    for name, g_, w_ in zip(("y", "a", "b"), got, want):
+        gmm_close(f"training save_ab {name}", g_, w_)
+    y_swi = got[0]
+    del want
+    dyg = randn(S, d)
+    da = randn(S, h, scale=0.05)
+    for name, rows_, w in (("w3^T", dyg, moe["w3"]), ("w1^T", da, moe["w1"])):
+        gmm_close(f"training {name}",
+                  KG.gather_gmm(rows_, None, off, w, epilogue=False,
+                                trans_w=True),
+                  KG.gather_gmm_plain(rows_, None, off, w, epilogue=False,
+                                      trans_w=True))
+
+    def dw_case(name, lhs, dout, offsets):
+        got = KW.gmm_dw(lhs, dout, offsets)
+        want = KW.gmm_dw_plain(lhs, dout, offsets)
+        if lhs.dtype == BF16:
+            e = require_close(f"gmm_dw {name}", got, want, GMM_RTOL, GMM_ATOL)
+        else:
+            e = require_close(f"gmm_dw {name}", got, want, F32_RTOL,
+                              F32_FLOOR * float(want.abs().max()))
+        lens = (offsets[1:] - offsets[:-1]).tolist()
+        for ex, n in enumerate(lens):
+            check(n > 0 or not bool(got[ex].any()),
+                  f"gmm_dw {name}: empty expert {ex} not zero")
+        errs["gmm_dw"] = max(errs["gmm_dw"], e)
+
+    xg = x_tr[eti.long()]
+    dw_case("training dw1", xg, da, off)
+    dw_case("training dw3", y_swi, dyg, off)
+    for dt in (BF16, torch.float32):
+        for name, lengths in (("empty experts", (0, 300, 0, 1000, 0, 7, 0,
+                                                 0)),
+                              ("one expert", (0, 0, 0, 0, 0, 2048, 0, 0)),
+                              ("ragged rows", (130, 1, 65, 0, 200, 3, 77,
+                                               500))):
+            n = sum(lengths)
+            offs = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int32,
+                                device=dev)
+            dw_case(f"{name} {dt}", randn(n, 256, dtype=dt),
+                    randn(n, 384, dtype=dt), offs)
+
+    def flash_case(name, q, k_, v, window, cap):
+        got = KF.flash_attention(q, k_, v, causal=True, window=window,
+                                 cap=cap)
+        want = KF.flash_attention_plain(q, k_, v, causal=True, window=window,
+                                        cap=cap, chunk=min(512, q.shape[1]))
+        if q.dtype == BF16:
+            e = require_close(f"flash_attention {name}", got, want, 0.0,
+                              FLASH_ATOL)
+        else:
+            e = require_close(f"flash_attention {name}", got, want, F32_RTOL,
+                              F32_FLOOR)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+
+    B, T_ = TRAIN_BATCH, TRAIN_SEQ
+    q = randn(B, T_, 32, 128)
+    kk, vv = randn(B, T_, 8, 128), randn(B, T_, 8, 128)
+    flash_case("training (window 4096 >= S)", q, kk, vv, 4096, 0.0)
+    flash_case("window 1000", q, kk, vv, 1000, 0.0)
+    flash_case("softcap 30", q[:, :512].contiguous(),
+               kk[:, :512].contiguous(), vv[:, :512].contiguous(), 0, 30.0)
+    flash_case("float32, window 100, softcap 5",
+               q[:1, :256].float().contiguous(),
+               kk[:1, :256].float().contiguous(),
+               vv[:1, :256].float().contiguous(), 100, 5.0)
+    layer_function_parity(M, dev, rng)
+    return {"x": x_tr, "xg": xg, "dyg": dyg, "da": da, "y_swi": y_swi,
+            "q": q, "k": kk, "v": vv}
+
+
+def layer_function_parity(M, dev, rng):
+    """The expert layer's autograd Function on the card against autograd
+    through the plain versions (E=8, top-2, L=2048, widths 1024 -> 2048),
+    in float32 and bf16: y, dx, dgates, dw1, dw2, dw3."""
+    L, d, h, E, k = 2048, 1024, 2048, 8, 2
+    for dt, tol in ((torch.float32, LAYER_F32), (BF16, LAYER_BF16)):
+        def make(*shape, s=1.0):
+            a = rng.standard_normal(shape).astype(np.float32) * s
+            return torch.from_numpy(a).to(dev, dt).requires_grad_()
+        x, w1, w2 = make(L, d), make(E, d, h, s=d ** -0.5), \
+            make(E, d, h, s=d ** -0.5)
+        w3 = make(E, h, d, s=h ** -0.5)
+        g = M.TR.top_k_gating(x.detach(), make(d, E).detach(), k)
+        disp = M.TR.build_dispatch(g.topk_experts, E)
+        gates = g.topk_weights.to(dt).requires_grad_()
+        dy = torch.from_numpy(rng.standard_normal((L, d)).astype(
+            np.float32)).to(dev, dt)
+        ins = (x, gates, w1, w2, w3)
+        y = M.KO.moe_ffn_blaze_pallas(x, gates, disp, w1, w3, w2)
+        got = [y, *torch.autograd.grad(y, ins, dy)]
+        y_swi = M.KG.gather_gmm_plain(x, disp.expert_token_indices,
+                                      disp.expert_token_offsets, w1, w2)
+        p_out = M.KG.gather_gmm_plain(y_swi, None, disp.expert_token_offsets,
+                                      w3, epilogue=False)
+        y_p = M.KC.combine_plain(p_out, disp.token_index_map, gates)
+        want = [y_p, *torch.autograd.grad(y_p, ins, dy)]
+        errs = []
+        for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw2", "dw3"),
+                                got, want):
+            g_, w_ = g_.detach(), w_.detach()
+            scale = float(w_.float().abs().max())
+            errs.append(require_close(f"layer Function {dt} {name}", g_,
+                                      w_, tol, tol * scale)
+                        / max(scale, 1e-30))
+        log(f"parity layer Function {dt}: max |err| / scale per output "
+            f"(y, dx, dgates, dw1, dw2, dw3) "
+            f"{[round(e, 6) for e in errs]} (tolerance {tol})")
+
+
+def train_kernel_timing(M, timer, entry, tr, disp_tr, E):
+    """Phase 4, training kernels at the training shapes: the grouped
+    weight gradient (dw1 and dw3) and the flash-attention forward, each
+    beside its plain version, its bound and its library yardstick."""
+    KW, KF = M.KW, M.KF
+    off = disp_tr.expert_token_offsets
+    ends = off[1:].contiguous()
+    lens = disp_tr.expert_lengths.tolist()
+    S = disp_tr.num_slots
+    rows = {"gmm_dw": [], "flash_attention": []}
+    for name, lhs, dout in (("dw1", tr["xg"], tr["da"]),
+                            ("dw3", tr["y_swi"], tr["dyg"])):
+        d_in, h_out = lhs.shape[1], dout.shape[1]
+        nbytes = (lhs.numel() + dout.numel() + E * d_in * h_out) * EB + \
+            (E + 1) * 4
+        ops = 2.0 * sum(lens) * d_in * h_out
+        lhs_t = lhs.t()
+        rows["gmm_dw"].append(entry(
+            timer(lambda: KW.gmm_dw(lhs, dout, off)),
+            timer(lambda: KW.gmm_dw_plain(lhs, dout, off), warm=1, reps=3),
+            nbytes, ops,
+            timer(lambda: torch._grouped_mm(lhs_t, dout, offs=ends)),
+            f"training {name}: S={S}, {d_in}x{h_out} per expert, E={E}"))
+    q, k, v = tr["q"], tr["k"], tr["v"]
+    B, T_, H, Dh = q.shape
+    window = 4096
+    pairs = sum(min(t + 1, window) for t in range(T_))   # live (q, k) pairs
+    ops = 4.0 * B * H * Dh * pairs
+    nbytes = (2 * q.numel() + k.numel() + v.numel()) * EB
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows["flash_attention"].append(entry(
+        timer(lambda: KF.flash_attention(q, k, v, causal=True,
+                                         window=window)),
+        timer(lambda: KF.flash_attention_plain(q, k, v, causal=True,
+                                               window=window, chunk=512),
+              warm=1, reps=3),
+        nbytes, ops,
+        timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        f"training: B={B}, S={T_}, {H}/{k.shape[2]} heads of {Dh}, causal"))
+    return rows
+
+
+def training_phase(cfg, dev, K):
+    """Phase 7: the Mixtral training step at full width through
+    ``make_train_step``.  Returns the measurements."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev, dtype=torch.float32)
+    opt = init_adamw(params)
+    n_params = sum(t.numel() for t in _leaves(params))
+    step_fn = make_train_step(cfg, tcfg, dev)
+    batches = make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
+                                  tcfg.batch_size, tcfg.seed)
+    tokens = tcfg.batch_size * tcfg.seq_len
+    steps_warm = 5
+    torch.cuda.synchronize()
+    log(f"train: {cfg.name} full width, {cfg.num_layers} layers, "
+        f"{n_params / 1e9:.3f} B float32 master parameters, "
+        f"{tcfg.batch_size} x {tcfg.seq_len} tokens per step; allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB after init")
+    history = []
+
+    def run(batch, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, _, m = step_fn(params, opt, batch)
+        m = {k_: float(v) for k_, v in m.items()}    # waits for the card
+        m["step_s"] = time.perf_counter() - t0
+        check(all(np.isfinite(m[k_]) for k_ in ("loss", "grad_norm")),
+              f"train {label}: non-finite loss or grad norm {m}")
+        log(f"train {label}: loss {m['loss']:.5f} ce {m['ce']:.5f} aux "
+            f"{m['aux']:.5f} grad_norm {m['grad_norm']:.5f} lr "
+            f"{m['lr']:.3g} step {m['step_s']:.4f} s")
+        history.append(dict(m, label=label))
+        return m
+
+    cold = run(next(batches), "cold step 0")
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    warm = [run(next(batches), f"warm step {i + 1}")
+            for i in range(steps_warm)]
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"train launches over {steps_warm} warm steps: {launches}")
+    for name in ("build_dispatch", "gather_gmm", "combine", "gmm_dw",
+                 "flash_attention"):
+        check(launches[name] > 0,
+              f"kernel {name} was not launched by the training steps")
+    step_s = statistics.median(m["step_s"] for m in warm)
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        traced = run(next(batches), "traced step")
+    by_kernel = _device_time_by_kernel(prof)
+    busy = sum(by_kernel.values()) / 1e6
+    # The forward and optimizer spans own their kernels; the backward's run
+    # on autograd's thread, so the backward is the busy time left over.
+    spans = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
+             if ev.key in ("train_step.forward", "train_step.optimizer")}
+    spans["backward (rest)"] = busy * 1e3 - sum(spans.values())
+    log(f"train trace (one step, profiler on): wall {traced['step_s']:.4f} "
+        f"s, device busy {busy:.4f} s "
+        f"({100 * busy / traced['step_s']:.1f}%); device ms by part {spans}")
+    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]:
+        log(f"  {us / 1e3:10.3f} ms  {name[:110]}")
+    again = next(batches)
+    refed = [run(again, f"re-fed batch, pass {i + 1}") for i in range(3)]
+    check(refed[-1]["loss"] < refed[0]["loss"],
+          "the loss did not fall on a re-fed batch")
+    log(f"train: {tokens / step_s:.1f} tokens/s (median warm step "
+        f"{step_s:.4f} s), peak memory {peak / 2 ** 30:.3f} GiB "
+        f"(max_memory_allocated over the warm steps), cold step "
+        f"{cold['step_s']:.3f} s")
+    return {"tokens_per_s": tokens / step_s, "step_s": step_s,
+            "peak_bytes": peak, "busy_s": busy,
+            "traced_wall_s": traced["step_s"], "launches": launches,
+            "launches_per_step": {k_: v / steps_warm
+                                  for k_, v in launches.items()},
+            "by_kernel_ms": {k_: v / 1e3 for k_, v in by_kernel.items()},
+            "span_device_ms": spans,
+            "history": history, "n_params": n_params}
+
+
+def cpu_train_crosscheck(dev):
+    """Phase 8: one training step of the reduced Mixtral (float32) from
+    the same weights and batch on the card and on the CPU."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw, tree_leaves
+    cfg = get_config("mixtral-8x7b").reduced().replace(
+        moe_impl="blaze_pallas", use_pallas=True)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10,
+                       batch_size=2, seq_len=128)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    p_card = init_params(cfg, gen, dev, dtype=torch.float32)
+    p_cpu = _to_device(p_card, torch.device("cpu"))
+    batch = next(make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
+                                     tcfg.batch_size, 0))
+    out = {}
+    for name, p, device in (("card", p_card, dev),
+                            ("cpu", p_cpu, torch.device("cpu"))):
+        step = make_train_step(cfg, tcfg, device)
+        _, _, m = step(p, init_adamw(p), batch)
+        out[name] = {k_: float(v) for k_, v in m.items()}
+    lr = tcfg.learning_rate
+    worst, n_far, n_all = 0.0, 0, 0
+    for a, b in zip(tree_leaves(p_card), tree_leaves(p_cpu)):
+        err = (a.detach().cpu() - b.detach()).abs()
+        worst = max(worst, float(err.max()))
+        far = int((err > 2e-3 * lr).sum())
+        check(far <= STEP_FAR_SHARE * err.numel(),
+              f"train cross-check: {far} of {err.numel()} elements of a "
+              "leaf moved apart by more than 2e-3 lr")
+        n_far += far
+        n_all += err.numel()
+    log(f"train cross-check (reduced Mixtral, float32, one step): card "
+        f"{out['card']} vs cpu {out['cpu']}; parameters max |diff| "
+        f"{worst:.3g} (lr {lr}), {n_far} of {n_all} beyond 2e-3 lr")
+    for key in ("loss", "ce", "grad_norm"):
+        check(abs(out["card"][key] - out["cpu"][key])
+              <= STEP_RTOL * abs(out["cpu"][key]),
+              f"train cross-check: {key} differs")
+    check(worst <= lr, "train cross-check: a parameter moved apart by more "
+          "than lr")
+    return {"card": out["card"], "cpu": out["cpu"], "param_max_diff": worst,
+            "param_far": n_far}
+
+
 def _device_time_by_kernel(prof) -> dict[str, float]:
-    """Self device time (us) of each device kernel in a profiler trace."""
+    """Self device time (us) of each device kernel in a profiler trace
+    (the training step's named spans are ranges, not kernels)."""
     out = {}
     for ev in prof.key_averages():
         us = getattr(ev, "self_device_time_total", 0.0)
-        if us > 0 and ev.device_type.name == "CUDA":
+        if (us > 0 and ev.device_type.name == "CUDA"
+                and not ev.key.startswith("train_step.")):
             out[ev.key] = out.get(ev.key, 0.0) + us
     return out
 
@@ -562,7 +985,7 @@ def _to_device(tree, device):
         return {k: _to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, list):
         return [_to_device(v, device) for v in tree]
-    return tree.to(device)
+    return tree.detach().to(device, copy=True)
 
 
 if __name__ == "__main__":

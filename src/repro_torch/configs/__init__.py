@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, TrainConfig
 
 ARCH_IDS = ["mixtral_8x7b"]
 
@@ -22,4 +22,4 @@ def get_config(arch_id: str) -> ModelConfig:
     return importlib.import_module(f"repro_torch.configs.{key}").CONFIG
 
 
-__all__ = ["get_config", "ARCH_IDS", "ModelConfig"]
+__all__ = ["get_config", "ARCH_IDS", "ModelConfig", "TrainConfig"]

@@ -3,8 +3,10 @@
 A copy of the reference package's ``ModelConfig`` with the same field names
 and defaults, so that a reference config converts field for field:
 ``ModelConfig(**dataclasses.asdict(reference_cfg))``.  Only the fields'
-values are shared; the reference's checkpoint-plan properties are not part
-of the serving slice and are left out.
+values are shared; the reference's checkpoint-plan properties
+are not ported and are left out.  :class:`TrainConfig` is the reference's
+training config without its checkpoint-saving and grouped-GEMM-backend
+fields.
 """
 
 from __future__ import annotations
@@ -122,3 +124,25 @@ class ModelConfig:
         if self.num_image_tokens:
             kw.update(num_image_tokens=16)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and batch shape of a training run."""
+
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 1000
+    weight_decay: float = 0.1
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    batch_size: int = 8
+    seq_len: int = 256
+    num_microbatches: int = 1            # gradient accumulation (not ported)
+    seed: int = 0
+    log_every: int = 10
+
+    def replace(self, **kw) -> "TrainConfig":
+        return dataclasses.replace(self, **kw)

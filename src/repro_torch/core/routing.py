@@ -56,6 +56,22 @@ def top_k_gating(x: torch.Tensor, w_gate: torch.Tensor, k: int,
     return GatingOut(topk_experts.to(torch.int32), topk_weights, probs, logits)
 
 
+def load_balance_loss(router_probs: torch.Tensor, topk_experts: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Switch/Mixtral-style auxiliary load-balance loss."""
+    L, k = topk_experts.shape
+    assign = torch.nn.functional.one_hot(topk_experts.long(),
+                                         num_experts).float()   # (L, k, E)
+    frac_tokens = assign.sum(dim=(0, 1)) / (L * k)
+    frac_probs = router_probs.mean(dim=0)
+    return num_experts * torch.sum(frac_tokens * frac_probs)
+
+
+def router_z_loss(logits: torch.Tensor) -> torch.Tensor:
+    """ST-MoE z-loss: penalizes large router logits for stability."""
+    return torch.mean(torch.logsumexp(logits, dim=-1) ** 2)
+
+
 def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
     """Sort-free dispatch build in plain PyTorch (one-hot map, column sums,
     exclusive scans).  The reference for the CUDA kernel."""

@@ -4,9 +4,23 @@ from a seed.
 :func:`params_from_jax` takes the reference's ``init_params`` pytree as
 numpy arrays (layer leaves stacked ``(num_groups, ...)``, one dict per
 block of the pattern) and returns the port's layout: ``{"layers": [one
-dict per layer], "embed", "unembed", "final_norm"}``.  Weights that the
-reference's forward casts to the model dtype on every use are cast once
-here; norm scales stay float32 because ``rms_norm`` reads them as float32.
+dict per layer], "embed", "unembed", "final_norm"}``.
+
+Storage dtype: both functions take ``dtype``, the dtype of the matrices
+(every leaf but the norm scales, which stay float32 because ``rms_norm``
+reads them as float32).  Serving stores them in ``cfg.dtype`` (the
+default), so the forward's casts on use are no-ops.  Training stores every
+leaf in ``cfg.param_dtype`` (float32 masters) and the forward casts on use.
+
+The reference casts ``wq``/``wk``/``wv``/``wo``, ``wg``, ``embed`` and
+``unembed`` to the model dtype on use, but multiplies by its float32
+expert weights ``w1``/``w2``/``w3`` uncast (``jnp.dot`` of bf16 rows and
+float32 weights promotes to float32).  The port does not: it rounds the
+expert weights to the model dtype as well, once per step in training
+(``models/moe_block.py``) and once here in serving, so the expert GEMMs
+run on bf16 tensor cores.  In float32 configs the two agree; in bf16 the
+difference is bounded by ``tests/test_torch_train.py`` and recorded in
+ROADMAP §C.
 
 A bfloat16 numpy array arrives as its ``uint16`` bit pattern (numpy has no
 bfloat16 of its own) and is reinterpreted, not converted.
@@ -20,8 +34,10 @@ import torch
 from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import check_supported, layer_kinds
 
-#: leaves the forward casts to the model dtype (everything else is a norm
-#: scale, kept float32)
+#: leaves stored in the storage dtype: the ones the forward casts to the
+#: model dtype on use, and the expert weights, which the port casts as well
+#: where the reference keeps them float32 (everything else is a norm scale,
+#: kept float32)
 CAST_TO_MODEL_DTYPE = {"wq", "wk", "wv", "wo", "wg", "w1", "w2", "w3",
                        "embed", "unembed"}
 
@@ -39,7 +55,8 @@ def _tensor(a: np.ndarray, name: str, dtype: torch.dtype,
 
 def params_from_jax(np_params: dict, cfg, device=None,
                     dtype: torch.dtype | None = None) -> dict:
-    """Convert the reference's parameter pytree (numpy leaves)."""
+    """Convert the reference's parameter pytree (numpy leaves); matrices
+    are stored in ``dtype`` (default ``cfg.dtype``, the serving layout)."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -63,14 +80,15 @@ def params_from_jax(np_params: dict, cfg, device=None,
 
 
 def init_params(cfg, generator: torch.Generator | None = None,
-                device=None) -> dict:
+                device=None, dtype: torch.dtype | None = None) -> dict:
     """Random parameters drawn from ``generator`` on ``device``, with the
     reference's init scales (LeCun-normal over the fan-in, embeddings
-    N(0, 0.02^2), zero norm scales), in the port's layout.  The numbers are
-    not the reference's (the generators differ)."""
+    N(0, 0.02^2), zero norm scales), in the port's layout; matrices are
+    stored in ``dtype`` (default ``cfg.dtype``, the serving layout).  The
+    numbers are not the reference's (the generators differ)."""
     check_supported(cfg)
     dev = resolve_device(device)
-    dt = getattr(torch, cfg.dtype)
+    dt = dtype or getattr(torch, cfg.dtype)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
     d, E, h = cfg.d_model, cfg.num_experts, cfg.moe_d_ff

@@ -12,10 +12,13 @@ from __future__ import annotations
 def _wrappers() -> dict:
     from repro_torch.kernels.combine import combine
     from repro_torch.kernels.dispatch import build_dispatch
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.gather_gmm import gather_gmm
+    from repro_torch.kernels.gmm_dw import gmm_dw
     from repro_torch.kernels.paged_attention import paged_attention
     return {"build_dispatch": build_dispatch, "gather_gmm": gather_gmm,
-            "combine": combine, "paged_attention": paged_attention}
+            "combine": combine, "paged_attention": paged_attention,
+            "gmm_dw": gmm_dw, "flash_attention": flash_attention}
 
 
 def launch_counts() -> dict[str, int]:

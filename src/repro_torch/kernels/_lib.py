@@ -39,7 +39,10 @@ F = ctypes.c_float
 # C signature of every entry point: (argtypes), all return int.
 SIGNATURES = {
     "repro_dispatch_build": [P, I, I, I, P, P, P, P, P, P, P],
-    "repro_gather_gmm": [I, P, P, P, P, P, P, I, I, I, I, I, I, I, P],
+    "repro_gather_gmm": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
+                         P],
+    "repro_gmm_dw": [I, P, P, P, P, I, I, I, I, P],
+    "repro_flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, F, P],
     "repro_combine": [I, P, P, P, P, I, I, I, P],
     "repro_paged_attention": [I, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
                               F, P],

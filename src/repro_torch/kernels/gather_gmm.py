@@ -5,14 +5,19 @@ the ``make_work_items`` grid).  Grouped matmul over rows of the unpermuted
 ``x`` gathered through ``idx`` (``expert_token_indices``), expert ``e``
 owning slot rows ``[offsets[e], offsets[e+1])``; with a second weight, the
 dual branch and its ``silu(a) * b`` epilogue in float32, stored in
-``x.dtype``.  Rows at or past ``offsets[E]`` are exact zeros.
+``x.dtype``; with ``save_ab`` also ``a`` and ``b`` in ``x.dtype`` (the
+training residuals).  With ``trans_w`` a single weight stored
+``(E, h, d)`` is used as its transpose, which is how the backward
+multiplies by ``w1ᵀ``, ``w2ᵀ`` and ``w3ᵀ`` without a transposed copy.
+Rows at or past ``offsets[E]`` are exact zeros.
 
-Bound on the card: operations at prefill, bytes (the expert weights) at
-decode.  ``csrc/gather_gmm.cu`` owns one output tile per block and loops
-over the experts overlapping it (no cross-block accumulation), gathers the
-A tile with 16-byte ``cp.async`` copies, and runs bf16 WMMA with float32
-accumulators; float32 inputs and widths that are not a multiple of 8 take a
-plain float32 tiled kernel.
+Bound on the card: operations at prefill and in training, bytes (the
+expert weights) at decode.  ``csrc/gather_gmm.cu`` splits the grid over
+the experts that overlap each row tile: a block owns one (row tile, column
+tile, expert) and stores only its expert's rows, so nothing is accumulated
+across blocks.  It gathers the A tile with 16-byte ``cp.async`` copies and
+runs bf16 WMMA with float32 accumulators; float32 inputs and widths that
+are not a multiple of 8 take a plain float32 tiled kernel.
 """
 
 from __future__ import annotations
@@ -31,37 +36,57 @@ def _silu(a: torch.Tensor) -> torch.Tensor:
 def gather_gmm_plain(x: torch.Tensor, idx: torch.Tensor | None,
                      offsets: torch.Tensor, w1: torch.Tensor,
                      w2: torch.Tensor | None = None, *,
-                     epilogue: bool = True) -> torch.Tensor:
+                     epilogue: bool = True, save_ab: bool = False,
+                     trans_w: bool = False):
     """Plain PyTorch version (the ``kernels/ref.py`` semantics of the
     reference): gather, per-expert float32 matmul, epilogue in float32, one
     cast to ``x.dtype``."""
+    _check_options(w2, epilogue, save_ab, trans_w)
     xg = x if idx is None else x[idx.long()]
     S = xg.shape[0]
-    h = w1.shape[2]
+    h = w1.shape[1] if trans_w else w1.shape[2]
     off = [int(v) for v in offsets.tolist()]
     y = torch.zeros(S, h, dtype=torch.float32, device=x.device)
+    a_all = torch.zeros_like(y) if save_ab else None
+    b_all = torch.zeros_like(y) if save_ab else None
     for e in range(w1.shape[0]):
         lo, hi = off[e], min(off[e + 1], S)
         if hi <= lo:
             continue
         xe = xg[lo:hi].float()
-        a = xe @ w1[e].float()
+        a = xe @ (w1[e].float().T if trans_w else w1[e].float())
         if w2 is not None and epilogue:
-            a = _silu(a) * (xe @ w2[e].float())
+            b = xe @ w2[e].float()
+            if save_ab:
+                a_all[lo:hi], b_all[lo:hi] = a, b
+            a = _silu(a) * b
         y[lo:hi] = a
+    if save_ab:
+        return y.to(x.dtype), a_all.to(x.dtype), b_all.to(x.dtype)
     return y.to(x.dtype)
+
+
+def _check_options(w2, epilogue: bool, save_ab: bool, trans_w: bool):
+    if save_ab and (w2 is None or not epilogue):
+        raise ValueError("save_ab needs the dual branch with its epilogue")
+    if trans_w and w2 is not None:
+        raise ValueError("trans_w takes a single weight")
 
 
 def gather_gmm(x: torch.Tensor, idx: torch.Tensor | None,
                offsets: torch.Tensor, w1: torch.Tensor,
-               w2: torch.Tensor | None = None, *,
-               epilogue: bool = True) -> torch.Tensor:
+               w2: torch.Tensor | None = None, *, epilogue: bool = True,
+               save_ab: bool = False, trans_w: bool = False):
     """x: (L, d); idx: (S,) int32 row ids, or ``None`` for identity rows
-    (S = L); offsets: (E+1,) int32; w1, w2: (E, d, h).  Returns (S, h) in
-    ``x.dtype``.  A CPU tensor takes the plain version; a CUDA tensor
-    launches the kernel (counted in ``gather_gmm.launches``)."""
+    (S = L); offsets: (E+1,) int32; w1, w2: (E, d, h), or with
+    ``trans_w`` a single w1 stored (E, h, d).  Returns y (S, h) in
+    ``x.dtype``, or ``(y, a, b)`` with ``save_ab``.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernel (counted in
+    ``gather_gmm.launches``)."""
     if not x.is_cuda:
-        return gather_gmm_plain(x, idx, offsets, w1, w2, epilogue=epilogue)
+        return gather_gmm_plain(x, idx, offsets, w1, w2, epilogue=epilogue,
+                                save_ab=save_ab, trans_w=trans_w)
+    _check_options(w2, epilogue, save_ab, trans_w)
     dt = x.dtype
     if dt not in _lib.DTYPE_CODE:
         raise ValueError(f"gather_gmm takes float32 or bfloat16, got {dt}")
@@ -70,7 +95,10 @@ def gather_gmm(x: torch.Tensor, idx: torch.Tensor | None,
     _lib.require(offsets, "offsets", dtype=torch.int32, ndim=1,
                  device=x.device)
     L, d = x.shape
-    E, dw, h = w1.shape
+    if trans_w:
+        E, h, dw = w1.shape
+    else:
+        E, dw, h = w1.shape
     if dw != d:
         raise ValueError(f"w1 is {tuple(w1.shape)} but x has d={d}")
     if E > MAX_EXPERTS or offsets.shape[0] != E + 1:
@@ -86,15 +114,16 @@ def gather_gmm(x: torch.Tensor, idx: torch.Tensor | None,
     else:
         S = L
     y = torch.empty(S, h, dtype=dt, device=x.device)
+    a = torch.empty_like(y) if save_ab else None
+    b = torch.empty_like(y) if save_ab else None
+    ptr = lambda t: None if t is None else t.data_ptr()
     code = _lib.lib().repro_gather_gmm(
-        _lib.DTYPE_CODE[dt], x.data_ptr(),
-        None if idx is None else idx.data_ptr(), offsets.data_ptr(),
-        w1.data_ptr(), None if w2 is None else w2.data_ptr(), y.data_ptr(),
-        S, L, d, h, E, int(w2 is not None), int(epilogue),
-        _lib.stream_ptr(x))
+        _lib.DTYPE_CODE[dt], x.data_ptr(), ptr(idx), offsets.data_ptr(),
+        w1.data_ptr(), ptr(w2), y.data_ptr(), ptr(a), ptr(b), S, L, d, h, E,
+        int(w2 is not None), int(epilogue), int(trans_w), _lib.stream_ptr(x))
     _lib.check("repro_gather_gmm", code)
     gather_gmm.launches += 1
-    return y
+    return (y, a, b) if save_ab else y
 
 
 gather_gmm.launches = 0

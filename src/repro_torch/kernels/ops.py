@@ -1,11 +1,23 @@
-"""The MoEBlaze expert layer composed from the kernels (forward only).
+"""The MoEBlaze expert layer composed from the kernels, with its
+Algorithm-1 backward.
 
-Mirrors the forward of ``repro/kernels/ops.py:moe_ffn_blaze_pallas``
-(``_moe_pallas_fwd``): gather-GMM with the dual SwiGLU epilogue, the second
-grouped GEMM over identity rows (already in expert order), then the
-gather-of-partials combine.  The routed ``(L*k, d)`` input never exists.
-The backward (an autograd ``Function`` over the training kernels) belongs
-to the training slice; until then an input that requires grad raises.
+Mirrors ``repro/kernels/ops.py:moe_ffn_blaze_pallas`` (``_moe_pallas``):
+
+- forward (``_moe_pallas_fwd``): gather-GMM with the dual SwiGLU epilogue,
+  saving ``a`` and ``b``; the second grouped GEMM over identity rows
+  (already in expert order); the gather-of-partials combine.  The routed
+  ``(L*k, d)`` input never exists.
+- backward (``_moe_pallas_bwd``): the slot gradients gathered through
+  ``expert_token_indices``; ``dw3``, ``dw1`` and ``dw2`` by the grouped
+  weight-gradient kernel; the products with ``w3ᵀ``, ``w1ᵀ`` and ``w2ᵀ``
+  by gather-GMM on the transposed weights; SiLU recomputed from ``a``;
+  the token gradient by a scatter-add over the index list.
+
+The elementwise terms and the index operations are plain PyTorch, as the
+reference computes them outside any Pallas kernel.  ``index_add_`` on the
+card adds in no fixed order, but every token row receives k <= 2 addends
+on a zero row, and a sum of two floating-point numbers commutes exactly,
+so the result does not depend on the order.
 """
 
 from __future__ import annotations
@@ -15,21 +27,55 @@ import torch
 from repro_torch.core.routing import Dispatch
 from repro_torch.kernels.combine import combine
 from repro_torch.kernels.gather_gmm import gather_gmm
+from repro_torch.kernels.gmm_dw import gmm_dw
+
+
+class MoEBlazePallas(torch.autograd.Function):
+    """y = combine(gather_gmm(gather_gmm(x, w1, w2), w3), gates) with the
+    residuals ``a``, ``b`` and ``y_swi`` (the reference's fixed set)."""
+
+    @staticmethod
+    def forward(ctx, x, gates, w1, w2, w3, eti, off, tim):
+        y_swi, a, b = gather_gmm(x, eti, off, w1, w2, save_ab=True)
+        p_out = gather_gmm(y_swi, None, off, w3, epilogue=False)
+        ctx.save_for_backward(x, w1, w2, w3, gates, eti, off, tim, a, b,
+                              y_swi)
+        return combine(p_out, tim, gates)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, w3, gates, eti, off, tim, a, b, y_swi = ctx.saved_tensors
+        eti_l, tim_l = eti.long(), tim.reshape(-1).long()
+        g_slot = torch.zeros(eti.shape[0], dtype=gates.dtype,
+                             device=gates.device)
+        g_slot[tim_l] = gates.reshape(-1)
+        g_col = g_slot[:, None].to(y_swi.dtype)
+        # slot gradients, gathered through the index metadata
+        dyg = dy.to(x.dtype)[eti_l]
+        dw3 = gmm_dw(y_swi * g_col, dyg, off)
+        dyu = gather_gmm(dyg, None, off, w3, epilogue=False, trans_w=True)
+        dgates = (y_swi * dyu).sum(-1)[tim_l].reshape(gates.shape)
+        dy_swi = dyu * g_col
+        # SwiGLU backward with SiLU recomputed
+        sa = torch.sigmoid(a)
+        da = dy_swi * b * (sa * (1.0 + a * (1.0 - sa)))
+        db = dy_swi * (a * sa)
+        xg = x[eti_l]
+        dw1 = gmm_dw(xg, da, off)
+        dw2 = gmm_dw(xg, db, off)
+        dxg = (gather_gmm(da, None, off, w1, epilogue=False, trans_w=True)
+               + gather_gmm(db, None, off, w2, epilogue=False, trans_w=True))
+        dx = torch.zeros_like(x).index_add_(0, eti_l, dxg.to(x.dtype))
+        return (dx, dgates.to(gates.dtype), dw1, dw2, dw3, None, None, None)
 
 
 def moe_ffn_blaze_pallas(x: torch.Tensor, gates: torch.Tensor,
                          dispatch: Dispatch, w1: torch.Tensor,
                          w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
     """SwiGLU expert layer: x (L, d), gates (L, k), w1/w2 (E, d, h),
-    w3 (E, h, d) -> (L, d) in ``x.dtype``."""
-    if torch.is_grad_enabled() and any(
-            t.requires_grad for t in (x, gates, w1, w2, w3)):
-        raise NotImplementedError(
-            "moe_ffn_blaze_pallas is forward-only in the port; its backward "
-            "comes with the training slice (ROADMAP queue A)")
+    w3 (E, h, d) -> (L, d) in ``x.dtype``; differentiable in x, gates and
+    the weights."""
     d = dispatch
-    y_swi = gather_gmm(x, d.expert_token_indices, d.expert_token_offsets,
-                       w1, w2)
-    p_out = gather_gmm(y_swi, None, d.expert_token_offsets, w3,
-                       epilogue=False)
-    return combine(p_out, d.token_index_map, gates.to(x.dtype).contiguous())
+    return MoEBlazePallas.apply(x, gates.to(x.dtype).contiguous(), w1, w2,
+                                w3, d.expert_token_indices,
+                                d.expert_token_offsets, d.token_index_map)

@@ -1,24 +1,31 @@
-"""Model assembly for paged serving: embeddings, the attention + MoE
-sublayers, and the prefill / decode entry points.
+"""Model assembly: embeddings, the attention + MoE sublayers, the
+full-sequence forward and training loss, and the paged prefill / decode
+entry points of serving.
 
 Mirrors ``repro/models/transformer.py`` (``_apply_sublayer`` for the
-``attn_moe`` / ``attn_local_moe`` kinds, ``init_paged_cache``, ``prefill``
-without prefix offsets, ``paged_decode_step``).  Layers run in a Python
-loop where the reference scans over stacked groups; ``params["layers"]`` is
-a list with one dict per layer (see ``repro_torch.interop``).  The KV pools
-are updated in place.
+``attn_moe`` / ``attn_local_moe`` kinds, ``forward`` and ``train_loss``
+for token inputs, ``init_paged_cache``, ``prefill`` without prefix
+offsets, ``paged_decode_step``).  Layers run in a Python loop where the
+reference scans over stacked groups; ``params["layers"]`` is a list with
+one dict per layer (see ``repro_torch.interop``).  Weights are cast to
+``cfg.dtype`` on use, as in the reference (a no-op for serving weights,
+which are stored cast).  The KV pools are updated in place.
 """
 
 from __future__ import annotations
 
+from functools import partial
+
 import torch
 
-from repro_torch.models.attention import paged_attention_sublayer
+from repro_torch.models.attention import (attention_sublayer,
+                                          paged_attention_sublayer)
 from repro_torch.models.common import rms_norm, softcap
+from repro_torch.models.moe_block import check_supported as check_moe
 from repro_torch.models.moe_block import moe_sublayer
 from repro_torch.serve.paged_cache import init_paged_kv
 
-SERVE_KINDS = ("attn_moe", "attn_local_moe")
+MOE_KINDS = ("attn_moe", "attn_local_moe")
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -28,29 +35,28 @@ def layer_kinds(cfg) -> list[str]:
 
 
 def check_supported(cfg) -> None:
-    bad = sorted(set(cfg.block_pattern) - set(SERVE_KINDS))
+    bad = sorted(set(cfg.block_pattern) - set(MOE_KINDS))
     if bad:
         raise NotImplementedError(
-            f"block kinds {bad} are not ported; the serving slice runs "
-            f"{SERVE_KINDS} (ROADMAP queue A)")
+            f"block kinds {bad} are not ported; the port runs "
+            f"{MOE_KINDS} (ROADMAP queue A)")
     if cfg.input_kind != "tokens":
-        raise NotImplementedError("the port serves token inputs only")
+        raise NotImplementedError("the port takes token inputs only")
 
 
-def _apply_sublayer(x, p, kind: str, cfg, *, positions, pages, page_table,
-                    prefill: bool):
+def _apply_sublayer(x, p, kind: str, cfg, attend):
+    """One attention + MoE block; ``attend(h, p_attn, cfg, is_local=...)``
+    is the attention sublayer (full-sequence or paged).  Returns the new
+    residual stream and the block's auxiliary loss."""
     is_local = "local" in kind and cfg.sliding_window > 0
-    h = paged_attention_sublayer(
-        rms_norm(x, p["ln1"]), p["attn"], cfg, is_local=is_local,
-        positions=positions, pages=pages, page_table=page_table,
-        prefill=prefill)
+    h = attend(rms_norm(x, p["ln1"]), p["attn"], cfg, is_local=is_local)
     if cfg.post_norms:
         h = rms_norm(h, p["ln1_post"])
     x = x + h
-    h = moe_sublayer(rms_norm(x, p["ln2"]), p["moe"], cfg)
+    h, aux = moe_sublayer(rms_norm(x, p["ln2"]), p["moe"], cfg)
     if cfg.post_norms:
         h = rms_norm(h, p["ln2_post"])
-    return x + h
+    return x + h, aux
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, device):
@@ -64,20 +70,54 @@ def init_paged_cache(cfg, num_pages: int, page_size: int, device):
 
 
 def _embed(params, tokens, cfg):
-    return params["embed"][tokens.long()] * (cfg.d_model ** 0.5)
+    dt = getattr(torch, cfg.dtype)
+    return params["embed"][tokens.long()].to(dt) * (cfg.d_model ** 0.5)
 
 
 def _logits(params, x, cfg):
     x = rms_norm(x, params["final_norm"])
-    return softcap((x @ params["unembed"]).float(), cfg.final_softcap)
+    return softcap((x @ params["unembed"].to(x.dtype)).float(),
+                   cfg.final_softcap)
 
 
 def _layers(params, x, cfg, *, positions, cache, page_table, prefill):
     for p, kind, pages in zip(params["layers"], layer_kinds(cfg), cache):
-        x = _apply_sublayer(x, p, kind, cfg, positions=positions,
-                            pages=pages, page_table=page_table,
-                            prefill=prefill)
+        attend = partial(paged_attention_sublayer, positions=positions,
+                         pages=pages, page_table=page_table,
+                         prefill=prefill)
+        x, _ = _apply_sublayer(x, p, kind, cfg, attend)
     return x
+
+
+def forward(params, batch, cfg):
+    """Full-sequence forward (training).  batch["tokens"]: (B, S) token
+    ids.  Returns float32 logits (B, S, vocab) and the layers' summed
+    auxiliary loss (float32 scalar)."""
+    check_supported(cfg)
+    check_moe(cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    positions = torch.arange(x.shape[1], device=x.device)
+    attend = partial(attention_sublayer, positions=positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, kind in zip(params["layers"], layer_kinds(cfg)):
+        x, a = _apply_sublayer(x, p, kind, cfg, attend)
+        aux = aux + a
+    return _logits(params, x, cfg), aux
+
+
+def train_loss(params, batch, cfg):
+    """Next-token cross entropy (labels < 0 masked) plus the auxiliary
+    loss.  Returns ``(loss, {"ce", "aux"})``."""
+    logits, aux = forward(params, batch, cfg)
+    labels = batch["labels"].long()
+    if cfg.causal:
+        logits = logits[:, :-1]
+        labels = labels[:, 1:]
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    mask = (labels >= 0).float()
+    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return ce + aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, tokens, lengths, cache, page_table, cfg):

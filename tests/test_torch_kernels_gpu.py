@@ -9,9 +9,14 @@ at small shapes that exercise the edge cases (empty experts, all slots on one ex
 widths, position 0, a dead page table).
 
 Tolerances: dispatch and combine must be bit-equal (same integers; the
-combine rounds each product and sum as the plain version does).  Gather-GMM
-and paged attention sum in another order than the plain version, so float32
-agrees to 1e-5 and bfloat16 to one bf16 step (2^-7 relative) plus 1e-2.
+combine rounds each product and sum as the plain version does).  Gather-GMM,
+the grouped weight gradient and paged attention sum in another order than
+the plain version, so float32 agrees to 1e-5 and bfloat16 to one bf16 step
+(2^-7 relative) plus 1e-2.  Flash attention in bf16 scales the float32
+scores where the plain version scales q in bf16, so 2e-2 absolute.  The
+expert layer's autograd Function against autograd through the plain
+versions: float32 1e-4 relative over a floor of 1e-4 times each output's
+scale (a chain of products summed in other orders).
 """
 
 import numpy as np
@@ -40,11 +45,13 @@ def K(dev):
     from types import SimpleNamespace
 
     from repro_torch.core import routing
-    from repro_torch.kernels import combine, dispatch, gather_gmm
-    from repro_torch.kernels import paged_attention
+    from repro_torch.kernels import (combine, dispatch, flash_attention,
+                                     gather_gmm, gmm_dw, ops,
+                                     paged_attention)
     return SimpleNamespace(routing=routing, combine=combine,
                            dispatch=dispatch, gather_gmm=gather_gmm,
-                           paged_attention=paged_attention)
+                           paged_attention=paged_attention, gmm_dw=gmm_dw,
+                           flash_attention=flash_attention, ops=ops)
 
 
 def _t(a, dev, dtype=None):
@@ -168,3 +175,145 @@ def test_paged_attention_kernel_mixtral_heads(dev, K):
     want = K.paged_attention.paged_attention_plain(*args, window=20)
     _sync()
     _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,d,h,lengths", [
+    (48, 32, 64, (30, 0, 41, 25)),        # empty expert
+    (50, 64, 136, (0, 400, 0, 0)),        # all slots on one expert
+    (60, 128, 64, (130, 7, 0, 64)),       # not a multiple of the tile
+    (30, 36, 70, (20, 0, 33, 10))])       # ragged widths
+def test_gather_gmm_save_ab_and_transposed(dev, K, dtype, L, d, h,
+                                           lengths):
+    rng = np.random.default_rng(L + h)
+    S, E = sum(lengths), len(lengths)
+    x = _t(rng.normal(size=(L, d)), dev, dtype)
+    idx = _t(rng.integers(0, L, size=S).astype(np.int32), dev)
+    off = _t(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32), dev)
+    w1, w2 = (_t(rng.normal(size=(E, d, h)) * 0.2, dev, dtype)
+              for _ in range(2))
+    G = K.gather_gmm
+    before = G.gather_gmm.launches
+    got = G.gather_gmm(x, idx, off, w1, w2, save_ab=True)
+    want = G.gather_gmm_plain(x, idx, off, w1, w2, save_ab=True)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, dtype)
+    # (S, h) rows times the transposed (E, d, h) weights -> (S, d)
+    dyu = _t(rng.normal(size=(S, h)), dev, dtype)
+    t = G.gather_gmm(dyu, None, off, w1, epilogue=False, trans_w=True)
+    _close(t, G.gather_gmm_plain(dyu, None, off, w1, epilogue=False,
+                                 trans_w=True), dtype)
+    _sync()
+    assert G.gather_gmm.launches == before + 2
+    assert t.shape == (S, d)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d,h,lengths", [
+    (32, 48, (30, 0, 41, 25)),            # empty expert
+    (64, 128, (0, 0, 200, 0)),            # all rows on one expert
+    (128, 64, (130, 7, 0, 64)),           # rows not a multiple of the tile
+    (36, 70, (20, 0, 33, 10))])           # ragged widths
+def test_gmm_dw_kernel(dev, K, dtype, d, h, lengths):
+    rng = np.random.default_rng(d + h)
+    S = sum(lengths) + 5                  # 5 rows past offsets[E]
+    lhs = _t(rng.normal(size=(S, d)), dev, dtype)
+    dout = _t(rng.normal(size=(S, h)), dev, dtype)
+    off = _t(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32), dev)
+    W = K.gmm_dw
+    before = W.gmm_dw.launches
+    got = W.gmm_dw(lhs, dout, off)
+    want = W.gmm_dw_plain(lhs, dout, off)
+    _sync()
+    assert W.gmm_dw.launches == before + 1
+    _close(got, want, dtype)
+    for e, n in enumerate(lengths):
+        if n == 0:
+            assert not got[e].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hkv,Dh,causal,window,cap", [
+    (256, 4, 4, 64, True, 0, 0.0),
+    (256, 8, 2, 128, True, 100, 0.0),      # G = 4, window < S
+    (192, 4, 2, 128, True, 0, 5.0),        # softcap, S not a power of two
+    (100, 4, 1, 64, True, 30, 20.0),       # S not a multiple of the tile
+    (128, 4, 2, 48, False, 0, 0.0)])       # other head width, bidirectional
+def test_flash_attention_kernel(dev, K, dtype, S, H, Hkv, Dh, causal,
+                                window, cap):
+    rng = np.random.default_rng(S + Dh)
+    q = _t(rng.normal(size=(2, S, H, Dh)), dev, dtype)
+    k, v = (_t(rng.normal(size=(2, S, Hkv, Dh)), dev, dtype)
+            for _ in range(2))
+    A = K.flash_attention
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    want = A.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   cap=cap, chunk=S)
+    _sync()
+    assert A.flash_attention.launches == before + 1
+    if dtype == "bfloat16":
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), atol=2e-2)
+    else:
+        _close(got, want, dtype)
+
+
+def _plain_layer(K, x, gates, disp, w1, w3, w2):
+    """The expert layer through the plain versions (autograd-able)."""
+    G, C = K.gather_gmm, K.combine
+    y_swi = G.gather_gmm_plain(x, disp.expert_token_indices,
+                               disp.expert_token_offsets, w1, w2)
+    p = G.gather_gmm_plain(y_swi, None, disp.expert_token_offsets, w3,
+                           epilogue=False)
+    return C.combine_plain(p, disp.token_index_map, gates)
+
+
+def test_moe_layer_function_matches_plain_autograd(dev, K):
+    """The autograd Function on the card (E=8, top-2, widths 256 -> 512)
+    against autograd through the plain versions on the same tensors."""
+    import torch
+    L, d, h, E, k = 512, 256, 512, 8, 2
+    rng = np.random.default_rng(7)
+    topk = _t(_topk(L, E, k, seed=7), dev)
+    disp = K.routing.build_dispatch(topk, E)
+    make = lambda *shape, s=1.0: _t(rng.normal(size=shape) * s, dev,
+                                    "float32").requires_grad_()
+    x, w1, w2 = make(L, d), make(E, d, h, s=0.1), make(E, d, h, s=0.1)
+    w3 = make(E, h, d, s=0.1)
+    gates = _t(rng.uniform(size=(L, k)), dev, "float32").requires_grad_()
+    dy = _t(rng.normal(size=(L, d)), dev, "float32")
+    ins = (x, gates, w1, w3, w2)
+    before = dict(g=K.gather_gmm.gather_gmm.launches,
+                  w=K.gmm_dw.gmm_dw.launches)
+    y = K.ops.moe_ffn_blaze_pallas(x, gates, disp, w1, w3, w2)
+    got = [y] + list(torch.autograd.grad(y, ins, dy))
+    y_p = _plain_layer(K, x, gates, disp, w1, w3, w2)
+    want = [y_p] + list(torch.autograd.grad(y_p, ins, dy))
+    _sync()
+    assert K.gather_gmm.gather_gmm.launches == before["g"] + 5
+    assert K.gmm_dw.gmm_dw.launches == before["w"] + 3
+    for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw3", "dw2"),
+                            got, want):
+        w_ = w_.detach().float().cpu().numpy()
+        np.testing.assert_allclose(
+            g_.detach().float().cpu().numpy(), w_, rtol=1e-4,
+            atol=1e-4 * float(np.abs(w_).max()), err_msg=name)
+
+
+def test_flash_attention_function_backward(dev, K):
+    """dq, dk, dv of the differentiable wrapper equal autograd through the
+    plain attention (the wrapper's backward recomputes through it)."""
+    import torch
+    rng = np.random.default_rng(3)
+    q = _t(rng.normal(size=(1, 128, 4, 64)), dev, "float32").requires_grad_()
+    k, v = (_t(rng.normal(size=(1, 128, 2, 64)), dev,
+               "float32").requires_grad_() for _ in range(2))
+    do = _t(rng.normal(size=(1, 128, 4, 64)), dev, "float32")
+    A = K.flash_attention
+    got = torch.autograd.grad(A.flash_attention_fused(q, k, v, True, 50),
+                              (q, k, v), do)
+    want = torch.autograd.grad(
+        A.flash_attention_plain(q, k, v, window=50, chunk=128), (q, k, v), do)
+    for g_, w_ in zip(got, want):
+        _close(g_, w_, "float32")

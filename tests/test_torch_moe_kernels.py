@@ -154,9 +154,13 @@ def test_moe_forward_matches_reference(tp, dtype):
 
 
 def test_moe_forward_refuses_grad(tp):
+    """An input that requires grad is taken, not refused: the layer records
+    its autograd Function and gives the same output as without grad."""
     x, w1, w2, w3, topk, gates = _layer_inputs("float32")
     td = tp.routing.build_dispatch(to_torch(topk), E)
-    with pytest.raises(NotImplementedError, match="training slice"):
-        tp.ops.moe_ffn_blaze_pallas(
-            to_torch(x).requires_grad_(), to_torch(gates), td, to_torch(w1),
-            to_torch(w3), to_torch(w2))
+    args = [to_torch(a) for a in (x, gates, w1, w3, w2)]
+    y0 = tp.ops.moe_ffn_blaze_pallas(args[0], args[1], td, *args[2:])
+    y1 = tp.ops.moe_ffn_blaze_pallas(args[0].clone().requires_grad_(),
+                                     args[1], td, *args[2:])
+    assert type(y1.grad_fn).__name__ == "MoEBlazePallasBackward"
+    assert tp.torch.equal(y0, y1.detach())

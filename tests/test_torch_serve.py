@@ -117,16 +117,41 @@ def test_engine_refuses_unported_options(tp, params):
         ServeEngine(TCFG.replace(moe_impl="blaze"), params[1], device="cpu")
 
 
+def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch import train as launch_train
+    from repro_torch.train.loop import make_train_step, train
+    cfg = TCFG.replace(use_pallas=True)
+    tcfg = TrainConfig(total_steps=1, batch_size=1, seq_len=16)
+    monkeypatch.setattr(tp.torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, tcfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train(cfg, tcfg, log=lambda _: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch_train.main(["--arch", "mixtral-8x7b", "--reduced",
+                           "--steps", "1"])
+    assert make_train_step(cfg, tcfg, device="cpu").device.type == "cpu"
+    with pytest.raises(NotImplementedError, match="A4"):
+        make_train_step(cfg.replace(remat_policy="paper"), tcfg, "cpu")
+    with pytest.raises(NotImplementedError, match="A1"):
+        make_train_step(cfg, tcfg.replace(num_microbatches=2), "cpu")
+
+
 def test_port_imports_no_jax_and_no_reference():
-    """``import repro_torch`` and a CPU engine run leave JAX and the
-    reference package out of ``sys.modules``."""
+    """``import repro_torch``, a CPU engine run and a CPU training step
+    leave JAX and the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
         "import repro_torch\n"
-        "from repro_torch.configs import get_config\n"
+        "from repro_torch.configs import TrainConfig, get_config\n"
         "from repro_torch.interop import init_params\n"
         "from repro_torch.serve.engine import Request, ServeEngine\n"
+        "from repro_torch.train.loop import train\n"
+        "import repro_torch.launch.train, repro_torch.launch.serve\n"
+        "import repro_torch.kernels.flash_attention\n"
+        "import repro_torch.kernels.gmm_dw, repro_torch.data.pipeline\n"
         "cfg = get_config('mixtral-8x7b').reduced().replace("
         "moe_impl='blaze_pallas')\n"
         "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
@@ -134,6 +159,10 @@ def test_port_imports_no_jax_and_no_reference():
         "r = eng.generate([Request(prompt=np.arange(3, 9, dtype=np.int32),"
         " max_new_tokens=3)])[0]\n"
         "assert len(r.out_tokens) == 3\n"
+        "_, _, h = train(cfg.replace(use_pallas=True), TrainConfig("
+        "total_steps=1, batch_size=1, seq_len=32), device='cpu', "
+        "log=lambda _: None)\n"
+        "assert np.isfinite(h[0]['loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"
