@@ -7,22 +7,25 @@ H100.
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card — the ``nvidia-smi`` name and power limit;
-2. build — the six CUDA kernels from ``src/repro_torch/csrc`` (one nvcc per
-   source, in parallel);
+2. build — the eight CUDA kernels from ``src/repro_torch/csrc`` (one nvcc
+   per source, in parallel);
 3. parity — each kernel against its plain PyTorch version on the card, in
    bf16 at the serving and training shapes (Mixtral-8x7B: d=4096, 32/8
    heads of 128, E=8, top-2, expert width 14336; training 2 x 2048 tokens,
    8192 slots), plus edge cases: empty experts, all slots on one expert,
    slot counts that are not a multiple of the tile, position 0 and a dead
-   page table, windows shorter than the sequence, softcaps, float32; and
-   the expert layer's autograd Function against autograd through the plain
-   versions;
+   page table, windows shorter than the sequence, softcaps, float32; the
+   expert layer's autograd Functions (``blaze_pallas``, ``moe_ffn_blaze``
+   on ``pallas`` in each residual mode and on ``pallas_fused``) against
+   autograd through the plain versions; and the bytes one full-width
+   expert layer saves for its backward, per implementation;
 4. timing — each kernel (median of warm runs, L2 flushed between runs) at
    the prefill, decode and training shapes, beside its plain version, its
    bound (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s,
-   from this run's inputs) and one PyTorch call that computes the same
-   function, where there is one (``torch._grouped_mm`` over pre-gathered
-   rows, ``scaled_dot_product_attention``), timed only;
+   from this run's inputs) and PyTorch calls that compute the same
+   function, where there are (``torch._grouped_mm`` over pre-gathered
+   rows, ``scaled_dot_product_attention``; for the fused pair the sum of
+   its products as grouped_mm calls, a composition), timed only;
 5. end to end — Mixtral-8x7B at full width with the depth cut to 2 layers
    (random bf16 weights from seed 0; 32 layers would not fit one 80 GB
    card), served by the port's engine: 4 slots, capacity 1024, 16-token
@@ -42,9 +45,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    must rise during them), one step traced with torch.profiler, then one
    batch fed 3 times, whose loss must fall; every loss and grad norm must
    be finite;
-8. CPU training cross-check — one step of the reduced Mixtral (float32)
+8. training on the reference's default expert layer — phase 7 again with
+   ``moe_impl="blaze"`` on the ``pallas_fused`` backend (the fused forward
+   and backward kernels must be launched), after phase 7's parameters and
+   moments are freed;
+9. CPU training cross-checks — one step of the reduced Mixtral (float32)
    from the same weights and batch on the card (kernels) and on the CPU
-   (plain versions): loss, grad norm and updated parameters must agree
+   (plain versions), for ``blaze_pallas`` and for ``blaze`` on
+   ``pallas_fused``: loss, grad norm and updated parameters must agree
    within the float32 tolerances below.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
@@ -96,6 +104,14 @@ CPU_LOGIT_ATOL = 0.125
 #    or term is off by the output's own scale).
 F32_RTOL, F32_FLOOR = 1e-5, 1e-5
 FLASH_ATOL = 2e-2
+#  fused MoE forward and backward: float32 outputs whose sums over h-chunks,
+#    slots and row tiles run through atomics in another order than the
+#    plain version's, from bf16 operands (the backward also rounds da, db
+#    and g y_swi to bf16 for the tensor cores, where the plain version
+#    keeps float32) -> one bf16 step (2^-7) of each output's scale plus the
+#    gather-GMM absolute term; in float32 1e-5 relative over a floor of
+#    1e-5 times the output's scale.
+FUSED_SCALE_STEP = 2 ** -7
 LAYER_F32, LAYER_BF16 = 1e-4, 2 ** -4
 # CPU vs card training step (float32, reduced Mixtral): loss and grad norm
 # 1e-4 relative (two layers of float32 sums in other orders).  AdamW's
@@ -184,13 +200,16 @@ def main() -> int:
     from repro_torch.kernels import combine as KC
     from repro_torch.kernels import dispatch as KD
     from repro_torch.kernels import flash_attention as KF
+    from repro_torch.kernels import fused_moe as KFM
     from repro_torch.kernels import gather_gmm as KG
     from repro_torch.kernels import gmm_dw as KW
     from repro_torch.kernels import paged_attention as KP
     from repro_torch.kernels import ops as KO
     from repro_torch.models import transformer as T
     from repro_torch.serve import engine as SE
-    M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR)
+    from repro_torch.core import moe_layer as ML
+    M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR, KFM=KFM,
+                        ML=ML)
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -234,7 +253,8 @@ def main() -> int:
     # -- 3. parity ----------------------------------------------------------
     errs = {n: 0.0 for n in ("build_dispatch", "gather_gmm", "combine",
                              "paged_attention", "gmm_dw",
-                             "flash_attention")}
+                             "flash_attention", "fused_moe_fwd",
+                             "fused_moe_bwd")}
 
     def dispatch_case(name, topk, n_exp):
         got = KD.build_dispatch(topk, n_exp)
@@ -339,6 +359,9 @@ def main() -> int:
     log(f"parity gmm_dw: max |err| {errs['gmm_dw']:.4g}; flash_attention: "
         f"max |err| {errs['flash_attention']:.4g}; gather_gmm (with save_ab "
         f"and transposed weights): {errs['gather_gmm']:.4g}")
+    fz = fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr,
+                             x_dec, disp_dec)
+    residual_bytes(M, moe, x_tr, disp_tr)
 
     # -- 4. timing ----------------------------------------------------------
     timer = Timer(dev)
@@ -424,6 +447,7 @@ def main() -> int:
                    f"decode: S={disp_dec.num_slots}, L={L_dec}, d={d}")]
 
     rows.update(train_kernel_timing(M, timer, entry, tr, disp_tr, E))
+    rows.update(fused_kernel_timing(M, timer, entry, fz, moe))
 
     window = cfg.sliding_window
     live_tokens = [min(int(p_) + 1, window) for p_ in pos.tolist()]
@@ -454,7 +478,7 @@ def main() -> int:
             log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), library {r['library_ms']}")
-    del kd, vd, y_pre, p_pre, tr
+    del kd, vd, y_pre, p_pre, tr, fz
 
     # -- 5. end to end ------------------------------------------------------
     prompt_lens = (37, 129, 300, 511, 64)
@@ -584,11 +608,23 @@ def main() -> int:
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB still allocated")
     cfg_train = get_config("mixtral-8x7b").replace(
         num_layers=2, moe_impl="blaze_pallas", use_pallas=True)
-    train = training_phase(cfg_train, dev, K)
+    train = training_phase(cfg_train, dev, K, (
+        "build_dispatch", "gather_gmm", "combine", "gmm_dw",
+        "flash_attention"), "blaze_pallas")
     torch.cuda.empty_cache()
 
-    # -- 8. CPU training cross-check -------------------------------------------
-    xcheck = cpu_train_crosscheck(dev)
+    # -- 8. training, the reference's default layer on the fused pair ---------
+    # (the previous phase's parameters and moments are freed with it)
+    cfg_fused = get_config("mixtral-8x7b").replace(
+        num_layers=2, gmm_backend="pallas_fused", use_pallas=True)
+    train_fused = training_phase(cfg_fused, dev, K, (
+        "build_dispatch", "fused_moe_fwd", "fused_moe_bwd",
+        "flash_attention"), "blaze+pallas_fused")
+    torch.cuda.empty_cache()
+
+    # -- 9. CPU training cross-checks -------------------------------------------
+    xcheck = cpu_train_crosscheck(dev, moe_impl="blaze_pallas")
+    xcheck_fused = cpu_train_crosscheck(dev, gmm_backend="pallas_fused")
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -604,13 +640,20 @@ def main() -> int:
                    "src/repro/kernels/gather_gmm.py:740"),
         "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                             "src/repro/kernels/flash_attention.py:72"),
+        "fused_moe_fwd": ("src/repro_torch/csrc/fused_moe_fwd.cu",
+                          "src/repro/kernels/gather_gmm.py:399"),
+        "fused_moe_bwd": ("src/repro_torch/csrc/fused_moe_bwd.cu",
+                          "src/repro/kernels/gather_gmm.py:576"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
         main_row = rows[name][0]
-        # launches on this slice's main path (the warm training steps),
-        # or on the serving path for a kernel that training does not run
-        n_train, n_serve = train["launches"][name], launches[name]
+        # launches on the main path that runs the kernel: the warm steps of
+        # the fused training phase for the fused pair, of the blaze_pallas
+        # one for the others, or the serving path for a kernel that
+        # training does not run
+        phase = train_fused if name.startswith("fused_moe") else train
+        n_train, n_serve = phase["launches"][name], launches[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_train or n_serve,
@@ -628,8 +671,11 @@ def main() -> int:
            "traced_wall_s": traced_wall,
            "traced_device_busy_s": busy, "stats": st}
     log(f"e2e-record: {json.dumps(e2e)}")
-    train_rec = {k_: v for k_, v in train.items() if k_ != "by_kernel_ms"}
-    log(f"train-record: {json.dumps(dict(train_rec, crosscheck=xcheck))}")
+    for tag, rec, xc in (("blaze_pallas", train, xcheck),
+                         ("blaze+pallas_fused", train_fused, xcheck_fused)):
+        rec = {k_: v for k_, v in rec.items() if k_ != "by_kernel_ms"}
+        log(f"train-record [{tag}]: "
+            f"{json.dumps(dict(rec, crosscheck=xc))}")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -742,10 +788,18 @@ def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
 
 
 def layer_function_parity(M, dev, rng):
-    """The expert layer's autograd Function on the card against autograd
+    """The expert layer's autograd Functions on the card against autograd
     through the plain versions (E=8, top-2, L=2048, widths 1024 -> 2048),
-    in float32 and bf16: y, dx, dgates, dw1, dw2, dw3."""
+    in float32 and bf16: y, dx, dgates, dw1, dw2, dw3.  The kernel
+    composition (``blaze_pallas``), ``moe_ffn_blaze`` on the ``pallas``
+    backend in each residual mode, and on ``pallas_fused``."""
     L, d, h, E, k = 2048, 1024, 2048, 8, 2
+    impls = [("blaze_pallas", lambda *a: M.KO.moe_ffn_blaze_pallas(*a))] + [
+        (f"blaze+pallas {m}", lambda *a, m=m: M.ML.moe_ffn_blaze(
+            *a, residuals=m, backend="pallas"))
+        for m in ("ab_yswi", "ab", "x")] + [
+        ("blaze+pallas_fused", lambda *a: M.ML.moe_ffn_blaze(
+            *a, backend="pallas_fused"))]
     for dt, tol in ((torch.float32, LAYER_F32), (BF16, LAYER_BF16)):
         def make(*shape, s=1.0):
             a = rng.standard_normal(shape).astype(np.float32) * s
@@ -759,25 +813,206 @@ def layer_function_parity(M, dev, rng):
         dy = torch.from_numpy(rng.standard_normal((L, d)).astype(
             np.float32)).to(dev, dt)
         ins = (x, gates, w1, w2, w3)
-        y = M.KO.moe_ffn_blaze_pallas(x, gates, disp, w1, w3, w2)
-        got = [y, *torch.autograd.grad(y, ins, dy)]
         y_swi = M.KG.gather_gmm_plain(x, disp.expert_token_indices,
                                       disp.expert_token_offsets, w1, w2)
         p_out = M.KG.gather_gmm_plain(y_swi, None, disp.expert_token_offsets,
                                       w3, epilogue=False)
         y_p = M.KC.combine_plain(p_out, disp.token_index_map, gates)
         want = [y_p, *torch.autograd.grad(y_p, ins, dy)]
-        errs = []
-        for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw2", "dw3"),
-                                got, want):
-            g_, w_ = g_.detach(), w_.detach()
-            scale = float(w_.float().abs().max())
-            errs.append(require_close(f"layer Function {dt} {name}", g_,
-                                      w_, tol, tol * scale)
-                        / max(scale, 1e-30))
-        log(f"parity layer Function {dt}: max |err| / scale per output "
-            f"(y, dx, dgates, dw1, dw2, dw3) "
-            f"{[round(e, 6) for e in errs]} (tolerance {tol})")
+        for label, fn in impls:
+            y = fn(x, gates, disp, w1, w3, w2)
+            got = [y, *torch.autograd.grad(y, ins, dy)]
+            errs = []
+            for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw2",
+                                     "dw3"), got, want):
+                g_, w_ = g_.detach(), w_.detach()
+                scale = float(w_.float().abs().max())
+                errs.append(require_close(f"layer {label} {dt} {name}", g_,
+                                          w_, tol, tol * scale)
+                            / max(scale, 1e-30))
+            log(f"parity layer {label} {dt}: max |err| / scale per output "
+                f"(y, dx, dgates, dw1, dw2, dw3) "
+                f"{[round(e, 6) for e in errs]} (tolerance {tol})")
+
+
+def slot_gates(M, x, wg, disp, k):
+    """The gates of ``x`` in (S,) float32 slot order."""
+    gates = M.TR.top_k_gating(x, wg, k).topk_weights
+    g_slot = torch.zeros(disp.num_slots, dtype=torch.float32,
+                         device=x.device)
+    g_slot[disp.token_index_map.reshape(-1).long()] = gates.reshape(-1)
+    return g_slot
+
+
+def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
+                        disp_dec):
+    """Phase 3, the fused MoE pair: forward and backward against their
+    plain versions at the training shape (real top-2 routing from the
+    gate), at decode, with an empty expert and a slot count that is not a
+    multiple of the row tile, and in float32 at a small shape.  Returns
+    the training- and decode-shape inputs for the timing."""
+    KFM = M.KFM
+    E, k = moe["w1"].shape[0], 2
+    w = (moe["w1"], moe["w2"], moe["w3"])
+
+    def case(name, x, disp, g_slot, ws):
+        idx, off = disp.expert_token_indices, disp.expert_token_offsets
+        dy = randn(*x.shape, dtype=x.dtype)
+        got = [KFM.fused_moe_fwd(x, g_slot, idx, off, *ws)]
+        want = [KFM.fused_moe_fwd_plain(x, g_slot, idx, off, *ws)]
+        got += KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws)
+        want += KFM.fused_moe_bwd_plain(x, dy, g_slot, idx, off, *ws)
+        rel = []
+        for i, (out, g_, w_) in enumerate(zip(
+                ("y", "dx", "dgates", "dw1", "dw2", "dw3"), got, want)):
+            scale = float(w_.abs().max())
+            if x.dtype == BF16:
+                rt, at = 0.0, FUSED_SCALE_STEP * scale + GMM_ATOL
+            else:
+                rt, at = F32_RTOL, F32_FLOOR * scale
+            e = require_close(f"fused_moe {name} {out}", g_, w_, rt, at)
+            key = "fused_moe_fwd" if i == 0 else "fused_moe_bwd"
+            errs[key] = max(errs[key], e)
+            rel.append(round(e / max(scale, 1e-30), 6))
+        lens = disp.expert_lengths.tolist()
+        for ex, n in enumerate(lens):
+            check(n > 0 or not any(bool(t[ex].any()) for t in got[3:]),
+                  f"fused_moe {name}: empty expert {ex} has weight grads")
+        log(f"parity fused_moe {name}: max |err| / scale (y, dx, dgates, "
+            f"dw1, dw2, dw3) {rel}")
+        return dy
+
+    g_tr = slot_gates(M, x_tr, moe["wg"], disp_tr, k)
+    dy_tr = case(f"training S={disp_tr.num_slots}", x_tr, disp_tr, g_tr, w)
+    g_dec = slot_gates(M, x_dec, moe["wg"], disp_dec, k)
+    case("decode S=8", x_dec, disp_dec, g_dec, w)
+    topk = torch.from_numpy(np.stack([rng.permutation([2, 6])
+                                      for _ in range(150)]).astype(np.int32))
+    topk[:50, 1] = 4
+    d_emp = M.TR.build_dispatch(topk.to(dev), E)      # 5 empty experts
+    x_emp = x_tr[:150].contiguous()
+    case("5 empty experts, S=300", x_emp, d_emp,
+         slot_gates(M, x_emp, moe["wg"], d_emp, k), w)
+    L32, d32, h32 = 100, 256, 384
+    x32 = randn(L32, d32, dtype=torch.float32)
+    ws32 = (randn(E, d32, h32, dtype=torch.float32, scale=d32 ** -0.5),
+            randn(E, d32, h32, dtype=torch.float32, scale=d32 ** -0.5),
+            randn(E, h32, d32, dtype=torch.float32, scale=h32 ** -0.5))
+    wg32 = randn(d32, E, dtype=torch.float32)
+    d32_disp = M.TR.build_dispatch(
+        M.TR.top_k_gating(x32, wg32, k).topk_experts, E)
+    case(f"float32 L={L32} {d32}->{h32}", x32, d32_disp,
+         slot_gates(M, x32, wg32, d32_disp, k), ws32)
+    return {"x": x_tr, "dy": dy_tr, "g": g_tr, "disp": disp_tr, "x_dec": x_dec, "g_dec": g_dec,
+            "disp_dec": disp_dec}
+
+
+def residual_bytes(M, moe, x, disp):
+    """Bytes that one full-width expert layer saves for its backward, per
+    implementation, counted by ``saved_tensors_hooks`` (the weights
+    excluded): the kernel composition (``blaze_pallas``), the unfused
+    ``blaze`` layer on ``pallas`` in each residual mode, and the fused
+    pair (``pallas_fused``)."""
+    ws = [moe[n].detach().requires_grad_() for n in ("w1", "w2", "w3")]
+    weight_ptrs = {t.data_ptr() for t in ws}
+    gates = M.TR.top_k_gating(x, moe["wg"], 2).topk_weights.to(BF16)
+    out = {}
+    impls = [("blaze_pallas", None, None)] + [
+        (f"blaze+pallas {m}", "pallas", m) for m in ("ab_yswi", "ab", "x")
+    ] + [("blaze+pallas_fused", "pallas_fused", "ab_yswi")]
+    for name, backend, mode in impls:
+        saved = []
+
+        def pack(t):
+            if t.data_ptr() not in weight_ptrs:
+                saved.append((tuple(t.shape), t.numel() * t.element_size()))
+            return t
+
+        xi = x.detach().requires_grad_()
+        gi = gates.detach().requires_grad_()
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            if backend is None:
+                y = M.KO.moe_ffn_blaze_pallas(xi, gi, disp, ws[0], ws[2],
+                                              ws[1])
+            else:
+                y = M.ML.moe_ffn_blaze(xi, gi, disp, ws[0], ws[2], ws[1],
+                                       residuals=mode, backend=backend)
+        del y
+        total = sum(b for _, b in saved)
+        big = [sh for sh, b in saved if b >= 2 ** 20]
+        out[name] = total
+        log(f"residual bytes {name}: {total / 1e6:.1f} MB saved "
+            f"({len(saved)} tensors; of 1 MB or more: {big})")
+    check(out["blaze+pallas_fused"] < 35e6,
+          "the fused layer saves 35 MB or more")
+    return out
+
+
+def fused_kernel_timing(M, timer, entry, fz, moe):
+    """Phase 4, the fused MoE pair at the training and decode shapes,
+    beside its plain version and its bound.  No single PyTorch call
+    computes the fused function; the library yardstick is the composition
+    of its products as ``torch._grouped_mm`` calls over rows gathered
+    beforehand (gathers, elementwise terms and the combine not timed)."""
+    KFM = M.KFM
+    w1, w2, w3 = moe["w1"], moe["w2"], moe["w3"]
+    E, d, h = w1.shape
+    w12 = torch.cat([w1, w2], dim=2)                       # (E, d, 2h)
+    rows = {"fused_moe_fwd": [], "fused_moe_bwd": []}
+    for label, x, g, disp in (("training", fz["x"], fz["g"], fz["disp"]),
+                              ("decode", fz["x_dec"], fz["g_dec"],
+                               fz["disp_dec"])):
+        idx, off = disp.expert_token_indices, disp.expert_token_offsets
+        S, L = disp.num_slots, x.shape[0]
+        lens = disp.expert_lengths.tolist()
+        n, live = sum(lens), sum(1 for c in lens if c)
+        ends = off[1:].contiguous()
+        dy = fz["dy"] if label == "training" else torch.randn_like(x)
+        # the composition's operands, gathered and computed beforehand
+        xg = x[idx.long()].contiguous()
+        dyg = dy[idx.long()].contiguous()
+        ab = torch._grouped_mm(xg, w12, offs=ends)
+        y_swi = (torch.nn.functional.silu(ab[:, :h].float())
+                 * ab[:, h:].float()).to(BF16)
+        dadb = (ab * 0.01).contiguous()
+        da, db = dadb[:, :h].contiguous(), dadb[:, h:].contiguous()
+        xg_t, ys_t = xg.t(), y_swi.t()
+        w12_t, w3_t = w12.transpose(1, 2), w3.transpose(1, 2)
+        gm = torch._grouped_mm
+
+        def lib_fwd():
+            gm(xg, w12, offs=ends)
+            gm(y_swi, w3, offs=ends)
+
+        def lib_bwd():
+            gm(xg, w12, offs=ends)
+            gm(dyg, w3_t, offs=ends)
+            gm(xg_t, da, offs=ends)
+            gm(xg_t, db, offs=ends)
+            gm(ys_t, dyg, offs=ends)
+            gm(dadb, w12_t, offs=ends)
+
+        wbytes = live * 3 * d * h * EB
+        meta = S * 8 + (E + 1) * 4
+        plain_reps = 3 if label == "training" else 5
+        shape = f"{label}: L={L}, S={S}, d={d}, h={h}, E={E}"
+        rows["fused_moe_fwd"].append(entry(
+            timer(lambda: KFM.fused_moe_fwd(x, g, idx, off, w1, w2, w3)),
+            timer(lambda: KFM.fused_moe_fwd_plain(x, g, idx, off, w1, w2,
+                                                  w3), warm=1,
+                  reps=plain_reps),
+            L * d * EB + meta + wbytes + L * d * 4, 6.0 * n * d * h,
+            timer(lib_fwd), shape + " (library: 2 grouped_mm, composition)"))
+        rows["fused_moe_bwd"].append(entry(
+            timer(lambda: KFM.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3)),
+            timer(lambda: KFM.fused_moe_bwd_plain(x, dy, g, idx, off, w1,
+                                                  w2, w3), warm=1,
+                  reps=plain_reps),
+            2 * L * d * EB + meta + wbytes + L * d * 4 + S * 4
+            + 3 * E * d * h * 4, 16.0 * n * d * h,
+            timer(lib_bwd), shape + " (library: 6 grouped_mm, composition)"))
+        del xg, dyg, ab, y_swi, dadb, da, db
+    return rows
 
 
 def train_kernel_timing(M, timer, entry, tr, disp_tr, E):
@@ -823,9 +1058,10 @@ def train_kernel_timing(M, timer, entry, tr, disp_tr, E):
     return rows
 
 
-def training_phase(cfg, dev, K):
-    """Phase 7: the Mixtral training step at full width through
-    ``make_train_step``.  Returns the measurements."""
+def training_phase(cfg, dev, K, required, tag):
+    """Phases 7 and 8: the Mixtral training step at full width through
+    ``make_train_step``; every kernel in ``required`` must be launched
+    during the warm steps.  Returns the measurements."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.interop import init_params
@@ -843,7 +1079,9 @@ def training_phase(cfg, dev, K):
     tokens = tcfg.batch_size * tcfg.seq_len
     steps_warm = 5
     torch.cuda.synchronize()
-    log(f"train: {cfg.name} full width, {cfg.num_layers} layers, "
+    log(f"train [{tag}]: {cfg.name} full width, {cfg.num_layers} layers, "
+        f"moe_impl={cfg.moe_impl}, gmm_backend "
+        f"{step_fn.resolved_backend.name}, "
         f"{n_params / 1e9:.3f} B float32 master parameters, "
         f"{tcfg.batch_size} x {tcfg.seq_len} tokens per step; allocated "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB after init")
@@ -857,7 +1095,7 @@ def training_phase(cfg, dev, K):
         m["step_s"] = time.perf_counter() - t0
         check(all(np.isfinite(m[k_]) for k_ in ("loss", "grad_norm")),
               f"train {label}: non-finite loss or grad norm {m}")
-        log(f"train {label}: loss {m['loss']:.5f} ce {m['ce']:.5f} aux "
+        log(f"train [{tag}] {label}: loss {m['loss']:.5f} ce {m['ce']:.5f} aux "
             f"{m['aux']:.5f} grad_norm {m['grad_norm']:.5f} lr "
             f"{m['lr']:.3g} step {m['step_s']:.4f} s")
         history.append(dict(m, label=label))
@@ -870,11 +1108,11 @@ def training_phase(cfg, dev, K):
             for i in range(steps_warm)]
     launches = K.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    log(f"train launches over {steps_warm} warm steps: {launches}")
-    for name in ("build_dispatch", "gather_gmm", "combine", "gmm_dw",
-                 "flash_attention"):
+    log(f"train [{tag}] launches over {steps_warm} warm steps: {launches}")
+    for name in required:
         check(launches[name] > 0,
-              f"kernel {name} was not launched by the training steps")
+              f"kernel {name} was not launched by the [{tag}] training "
+              "steps")
     step_s = statistics.median(m["step_s"] for m in warm)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -887,7 +1125,8 @@ def training_phase(cfg, dev, K):
     spans = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
              if ev.key in ("train_step.forward", "train_step.optimizer")}
     spans["backward (rest)"] = busy * 1e3 - sum(spans.values())
-    log(f"train trace (one step, profiler on): wall {traced['step_s']:.4f} "
+    log(f"train [{tag}] trace (one step, profiler on): wall "
+        f"{traced['step_s']:.4f} "
         f"s, device busy {busy:.4f} s "
         f"({100 * busy / traced['step_s']:.1f}%); device ms by part {spans}")
     for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:20]:
@@ -896,7 +1135,7 @@ def training_phase(cfg, dev, K):
     refed = [run(again, f"re-fed batch, pass {i + 1}") for i in range(3)]
     check(refed[-1]["loss"] < refed[0]["loss"],
           "the loss did not fall on a re-fed batch")
-    log(f"train: {tokens / step_s:.1f} tokens/s (median warm step "
+    log(f"train [{tag}]: {tokens / step_s:.1f} tokens/s (median warm step "
         f"{step_s:.4f} s), peak memory {peak / 2 ** 30:.3f} GiB "
         f"(max_memory_allocated over the warm steps), cold step "
         f"{cold['step_s']:.3f} s")
@@ -907,19 +1146,21 @@ def training_phase(cfg, dev, K):
                                   for k_, v in launches.items()},
             "by_kernel_ms": {k_: v / 1e3 for k_, v in by_kernel.items()},
             "span_device_ms": spans,
-            "history": history, "n_params": n_params}
+            "history": history, "n_params": n_params,
+            "gmm_backend": step_fn.resolved_backend.name}
 
 
-def cpu_train_crosscheck(dev):
-    """Phase 8: one training step of the reduced Mixtral (float32) from
-    the same weights and batch on the card and on the CPU."""
+def cpu_train_crosscheck(dev, **overrides):
+    """Phase 9: one training step of the reduced Mixtral (float32) with
+    ``overrides`` from the same weights and batch on the card and on the
+    CPU."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.interop import init_params
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optimizer import init_adamw, tree_leaves
-    cfg = get_config("mixtral-8x7b").reduced().replace(
-        moe_impl="blaze_pallas", use_pallas=True)
+    cfg = get_config("mixtral-8x7b").reduced().replace(use_pallas=True,
+                                                       **overrides)
     tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10,
                        batch_size=2, seq_len=128)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -944,7 +1185,8 @@ def cpu_train_crosscheck(dev):
               "leaf moved apart by more than 2e-3 lr")
         n_far += far
         n_all += err.numel()
-    log(f"train cross-check (reduced Mixtral, float32, one step): card "
+    log(f"train cross-check {overrides} (reduced Mixtral, float32, one "
+        f"step): card "
         f"{out['card']} vs cpu {out['cpu']}; parameters max |diff| "
         f"{worst:.3g} (lr {lr}), {n_far} of {n_all} beyond 2e-3 lr")
     for key in ("loss", "ce", "grad_norm"):

@@ -5,8 +5,7 @@ and defaults, so that a reference config converts field for field:
 ``ModelConfig(**dataclasses.asdict(reference_cfg))``.  Only the fields'
 values are shared; the reference's checkpoint-plan properties
 are not ported and are left out.  :class:`TrainConfig` is the reference's
-training config without its checkpoint-saving and grouped-GEMM-backend
-fields.
+training config without its checkpoint-saving fields.
 """
 
 from __future__ import annotations
@@ -141,6 +140,7 @@ class TrainConfig:
     batch_size: int = 8
     seq_len: int = 256
     num_microbatches: int = 1            # gradient accumulation (not ported)
+    gmm_backend: str = "auto"            # over ModelConfig.gmm_backend
     seed: int = 0
     log_every: int = 10
 

@@ -1,1 +1,2 @@
-"""Core data structures of the port: routing and device resolution."""
+"""Core of the port: routing, device resolution, the grouped-GEMM backend
+registry and the MoEBlaze expert layer."""

@@ -107,9 +107,11 @@ def init_params(cfg, generator: torch.Generator | None = None,
         if cfg.qk_norm:
             attn["q_norm"] = torch.zeros(dh, device=dev)
             attn["k_norm"] = torch.zeros(dh, device=dev)
-        layer = {"ln1": zeros(), "ln2": zeros(), "attn": attn,
-                 "moe": {"wg": dense((d, E), d), "w1": dense((E, d, h), d),
-                         "w2": dense((E, d, h), d), "w3": dense((E, h, d), h)}}
+        moe = {"wg": dense((d, E), d), "w1": dense((E, d, h), d)}
+        if cfg.ffn_act == "swiglu":
+            moe["w2"] = dense((E, d, h), d)
+        moe["w3"] = dense((E, h, d), h)
+        layer = {"ln1": zeros(), "ln2": zeros(), "attn": attn, "moe": moe}
         if cfg.post_norms:
             layer["ln1_post"] = zeros()
             layer["ln2_post"] = zeros()

@@ -46,6 +46,9 @@ SIGNATURES = {
     "repro_combine": [I, P, P, P, P, I, I, I, P],
     "repro_paged_attention": [I, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
                               F, P],
+    "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I,
+                            I, I, I, P],
 }
 
 _lib: ctypes.CDLL | None = None

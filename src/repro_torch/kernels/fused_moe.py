@@ -1,0 +1,172 @@
+"""Fused dispatch→GEMM→combine SwiGLU MoE forward and backward: CUDA
+kernels and their plain versions.
+
+Replace ``repro/kernels/gather_gmm.py:fused_moe_fwd`` and
+``fused_moe_bwd``.  The whole expert layer in one launch per direction:
+the gather of token rows, both first-layer GEMMs, SiLU·gate, the second
+GEMM and the gated scatter-combine; the backward replays the gather and
+recomputes a, b and SiLU.  Neither direction writes an ``(S, h)`` or
+``(S, d)`` buffer (S = L·k slots) to device memory.
+
+Rounding points (the reference's, kept by the plain versions): ``y_swi``
+is rounded to the I/O dtype before the second GEMM and in the backward;
+``dyu`` is rounded to the I/O dtype; everything else is float32, and the
+outputs are float32 (the caller casts).
+
+Bound on the card: operations (6·S·d·h forward, 16·S·d·h backward) in
+training, the touched experts' weight bytes at decode.  ``csrc/
+fused_moe_fwd.cu`` and ``csrc/fused_moe_bwd.cu`` give each block one row
+tile of one expert and one h-chunk and sum across blocks with float32
+atomics into zeroed outputs; see the sources for the designs.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import _lib
+from repro_torch.kernels.gather_gmm import MAX_EXPERTS, _silu
+
+
+def _dsilu(a: torch.Tensor) -> torch.Tensor:
+    s = torch.sigmoid(a)
+    return s * (1.0 + a * (1.0 - s))
+
+
+def _round(t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    return t.to(dtype).float()
+
+
+def _expert_rows(offsets: torch.Tensor, S: int):
+    off = [int(v) for v in offsets.tolist()]
+    for e in range(len(off) - 1):
+        lo, hi = min(off[e], S), min(off[e + 1], S)
+        if hi > lo:
+            yield e, lo, hi
+
+
+def fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_moe_fwd`."""
+    S = idx.shape[0]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    for e, lo, hi in _expert_rows(offsets, S):
+        rows = idx[lo:hi].long()
+        xe = x[rows].float()
+        a = xe @ w1[e].float()
+        b = xe @ w2[e].float()
+        y_swi = _round(_silu(a) * b, x.dtype)
+        y.index_add_(0, rows, g_slot[lo:hi, None] * (y_swi @ w3[e].float()))
+    return y
+
+
+def fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3):
+    """Plain PyTorch version of :func:`fused_moe_bwd`."""
+    S = idx.shape[0]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros(x.shape, **f32)
+    dg = torch.zeros(S, **f32)
+    dw1 = torch.zeros(w1.shape, **f32)
+    dw2 = torch.zeros(w2.shape, **f32)
+    dw3 = torch.zeros(w3.shape, **f32)
+    for e, lo, hi in _expert_rows(offsets, S):
+        rows = idx[lo:hi].long()
+        xe, dye = x[rows].float(), dy[rows].float()
+        w1e, w2e, w3e = w1[e].float(), w2[e].float(), w3[e].float()
+        a, b = xe @ w1e, xe @ w2e
+        sa = _silu(a)
+        y_swi = _round(sa * b, x.dtype)
+        dyu = _round(dye @ w3e.T, x.dtype)
+        g = g_slot[lo:hi, None]
+        dy_swi = dyu * g
+        da = dy_swi * b * _dsilu(a)
+        db = dy_swi * sa
+        dg[lo:hi] = (y_swi * dyu).sum(-1)
+        dw1[e] = xe.T @ da
+        dw2[e] = xe.T @ db
+        dw3[e] = (y_swi * g).T @ dye
+        dx.index_add_(0, rows, da @ w1e.T + db @ w2e.T)
+    return dx, dg, dw1, dw2, dw3
+
+
+def _check(x, g_slot, idx, offsets, w1, w2, w3, dy=None):
+    """Checks of what the kernels take; returns (S, L, d, h, E)."""
+    dt = x.dtype
+    if dt not in _lib.DTYPE_CODE:
+        raise ValueError(f"the fused MoE kernels take float32 or bfloat16, "
+                         f"got {dt}")
+    dev = x.device
+    _lib.require(x, "x", dtype=dt, ndim=2)
+    if dy is not None:
+        _lib.require(dy, "dy", dtype=dt, ndim=2, device=dev)
+        if dy.shape != x.shape:
+            raise ValueError(f"dy {tuple(dy.shape)} != x {tuple(x.shape)}")
+    _lib.require(g_slot, "g_slot", dtype=torch.float32, ndim=1, device=dev)
+    _lib.require(idx, "idx", dtype=torch.int32, ndim=1, device=dev)
+    _lib.require(offsets, "offsets", dtype=torch.int32, ndim=1, device=dev)
+    for name, w in (("w1", w1), ("w2", w2), ("w3", w3)):
+        _lib.require(w, name, dtype=dt, ndim=3, device=dev)
+    L, d = x.shape
+    E, dw, h = w1.shape
+    S = idx.shape[0]
+    if dw != d or w2.shape != w1.shape or tuple(w3.shape) != (E, h, d):
+        raise ValueError(f"weights w1 {tuple(w1.shape)}, w2 "
+                         f"{tuple(w2.shape)}, w3 {tuple(w3.shape)} do not "
+                         f"fit x (L, d) = {tuple(x.shape)}")
+    if g_slot.shape[0] != S:
+        raise ValueError(f"g_slot has {g_slot.shape[0]} slots, idx has {S}")
+    if not 1 <= E <= MAX_EXPERTS or offsets.shape[0] != E + 1:
+        raise ValueError(f"offsets must have E+1={E + 1} entries and E <= "
+                         f"{MAX_EXPERTS}")
+    return S, L, d, h, E
+
+
+def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
+                  offsets: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
+                  w3: torch.Tensor) -> torch.Tensor:
+    """x: (L, d); g_slot: (S,) float32 slot gates in expert order; idx:
+    (S,) int32 ``expert_token_indices``; offsets: (E+1,) int32; w1, w2:
+    (E, d, h); w3: (E, h, d).  Returns the combined (L, d) output in
+    float32.  A CPU tensor takes the plain version; a CUDA tensor launches
+    the kernel (counted in ``fused_moe_fwd.launches``)."""
+    if not x.is_cuda:
+        return fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3)
+    S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3)
+    y = torch.zeros(L, d, dtype=torch.float32, device=x.device)
+    code = _lib.lib().repro_fused_moe_fwd(
+        _lib.DTYPE_CODE[x.dtype], x.data_ptr(), g_slot.data_ptr(),
+        idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+        w3.data_ptr(), y.data_ptr(), S, L, d, h, E, _lib.stream_ptr(x))
+    _lib.check("repro_fused_moe_fwd", code)
+    fused_moe_fwd.launches += 1
+    return y
+
+
+def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
+                  idx: torch.Tensor, offsets: torch.Tensor, w1: torch.Tensor,
+                  w2: torch.Tensor, w3: torch.Tensor):
+    """Backward of :func:`fused_moe_fwd`; ``dy`` (L, d) in ``x.dtype``.
+    Returns ``(dx (L, d), dgates_slot (S,), dw1, dw2, dw3)``, all float32.
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (counted in ``fused_moe_bwd.launches``)."""
+    if not x.is_cuda:
+        return fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3)
+    S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3, dy=dy)
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros(L, d, **f32)
+    dg = torch.zeros(S, **f32)
+    dw1 = torch.zeros(E, d, h, **f32)
+    dw2 = torch.zeros(E, d, h, **f32)
+    dw3 = torch.zeros(E, h, d, **f32)
+    code = _lib.lib().repro_fused_moe_bwd(
+        _lib.DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
+        g_slot.data_ptr(), idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(),
+        w2.data_ptr(), w3.data_ptr(), dx.data_ptr(), dg.data_ptr(),
+        dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), S, L, d, h, E,
+        _lib.stream_ptr(x))
+    _lib.check("repro_fused_moe_bwd", code)
+    fused_moe_bwd.launches += 1
+    return dx, dg, dw1, dw2, dw3
+
+
+fused_moe_fwd.launches = 0
+fused_moe_bwd.launches = 0

@@ -1,5 +1,5 @@
 """The MoEBlaze expert layer composed from the kernels, with its
-Algorithm-1 backward.
+Algorithm-1 backward, and the layer as one fused kernel pair.
 
 Mirrors ``repro/kernels/ops.py:moe_ffn_blaze_pallas`` (``_moe_pallas``):
 
@@ -18,6 +18,10 @@ reference computes them outside any Pallas kernel.  ``index_add_`` on the
 card adds in no fixed order, but every token row receives k <= 2 addends
 on a zero row, and a sum of two floating-point numbers commutes exactly,
 so the result does not depend on the order.
+
+``moe_ffn_blaze_fused`` mirrors ``moe_ffn_blaze_fused`` (``_moe_fused``):
+the fused forward and backward kernels of ``kernels/fused_moe.py``; the
+residuals are the inputs and the ``(S,)`` float32 slot gates only.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import torch
 
 from repro_torch.core.routing import Dispatch
 from repro_torch.kernels.combine import combine
+from repro_torch.kernels.fused_moe import fused_moe_bwd, fused_moe_fwd
 from repro_torch.kernels.gather_gmm import gather_gmm
 from repro_torch.kernels.gmm_dw import gmm_dw
 
@@ -79,3 +84,40 @@ def moe_ffn_blaze_pallas(x: torch.Tensor, gates: torch.Tensor,
     return MoEBlazePallas.apply(x, gates.to(x.dtype).contiguous(), w1, w2,
                                 w3, d.expert_token_indices,
                                 d.expert_token_offsets, d.token_index_map)
+
+
+class MoEBlazeFused(torch.autograd.Function):
+    """y = fused_moe_fwd(...) cast to ``x.dtype``; the backward is
+    fused_moe_bwd, which replays the gather and recomputes a, b and SiLU,
+    so nothing of size (S, h) or (S, d) is saved."""
+
+    @staticmethod
+    def forward(ctx, x, gates, w1, w2, w3, eti, off, tim):
+        g_slot = torch.zeros(eti.shape[0], dtype=torch.float32,
+                             device=x.device)
+        g_slot[tim.reshape(-1).long()] = gates.reshape(-1).float()
+        y = fused_moe_fwd(x, g_slot, eti, off, w1, w2, w3)
+        ctx.save_for_backward(x, w1, w2, w3, eti, off, tim, g_slot)
+        ctx.gates_dtype = gates.dtype
+        return y.to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, w3, eti, off, tim, g_slot = ctx.saved_tensors
+        dx, dgs, dw1, dw2, dw3 = fused_moe_bwd(
+            x, dy.to(x.dtype).contiguous(), g_slot, eti, off, w1, w2, w3)
+        dgates = dgs[tim.reshape(-1).long()].reshape(tim.shape)
+        return (dx.to(x.dtype), dgates.to(ctx.gates_dtype), dw1.to(w1.dtype),
+                dw2.to(w2.dtype), dw3.to(w3.dtype), None, None, None)
+
+
+def moe_ffn_blaze_fused(x: torch.Tensor, gates: torch.Tensor,
+                        dispatch: Dispatch, w1: torch.Tensor,
+                        w3: torch.Tensor, w2: torch.Tensor) -> torch.Tensor:
+    """SwiGLU expert layer as one fused kernel pair: x (L, d), gates
+    (L, k), w1/w2 (E, d, h), w3 (E, h, d) -> (L, d) in ``x.dtype``;
+    differentiable in x, gates and the weights."""
+    d = dispatch
+    return MoEBlazeFused.apply(x.contiguous(), gates, w1, w2, w3,
+                               d.expert_token_indices,
+                               d.expert_token_offsets, d.token_index_map)

@@ -5,9 +5,9 @@ prompts, greedy decoding through the paged engine.
         --reduced --device cpu [--layers 2] [--prompts 4] [--max-new 16]
 
 Runs on the card by default (``--device cuda``).  Prints each request's
-tokens and then one JSON run record with the engine stats.  The expert
-layer is the kernel-composed ``blaze_pallas`` one, the only one the port
-has.
+tokens and then one JSON run record with the engine stats and the
+resolved grouped-GEMM backend (``REPRO_GMM_BACKEND`` selects it, as in the
+reference).
 """
 
 from __future__ import annotations
@@ -41,7 +41,6 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.replace(moe_impl="blaze_pallas")
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     dev = resolve_device(args.device)
@@ -66,6 +65,8 @@ def main(argv=None):
            "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
+           "moe_impl": cfg.moe_impl, "gmm_backend": eng.backend.name,
+           "gmm_backend_source": eng.backend.source,
            "capacity": args.capacity, "page_size": args.page_size,
            "seconds": seconds, "stats": dict(eng.stats)}
     print(f"run-record: {json.dumps(rec)}")

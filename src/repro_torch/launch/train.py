@@ -4,10 +4,13 @@ batches from the synthetic pipeline, the MoEBlaze training step.
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
         --reduced --steps 3 --device cpu [--batch 2] [--seq 64] [--layers 2]
 
-Runs on the card by default (``--device cuda``).  The path is the
-reference's ``moe_impl="blaze_pallas"`` with ``use_pallas=True``: the
-expert layer and attention run the port's kernels (their plain versions
-on the CPU).  Prints a line per logged step and then one JSON run record.
+Runs on the card by default (``--device cuda``).  The expert layer is the
+config's ``moe_impl`` (``blaze`` for Mixtral) with attention on
+``use_pallas=True``; the grouped-GEMM backend is chosen, as in the
+reference, by ``REPRO_GMM_BACKEND`` (``segment`` when unset;
+``pallas_fused`` runs the fused kernel pair).  Kernels take their plain
+versions on the CPU.  Prints a line per logged step and then one JSON run
+record, which names the resolved backend.
 """
 
 from __future__ import annotations
@@ -40,7 +43,7 @@ def main(argv=None):
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
-    cfg = cfg.replace(moe_impl="blaze_pallas", use_pallas=True)
+    cfg = cfg.replace(use_pallas=True)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
     tcfg = TrainConfig(total_steps=args.steps, batch_size=args.batch,
@@ -53,6 +56,8 @@ def main(argv=None):
            "param_dtype": cfg.param_dtype, "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
+           "moe_impl": cfg.moe_impl,
+           "gmm_backend": history[-1]["gmm_backend"],
            "batch": args.batch, "seq": args.seq, "history": history}
     print(f"run-record: {json.dumps(rec)}")
 

@@ -16,10 +16,15 @@ Mirrors the synchronous path of ``repro/serve/engine.py``
 * **emission** — the only host sync: token ids to Python, EOS/limit
   decisions.
 
-Not ported yet, and refused at construction: prefix sharing with
-copy-on-write pages, int8 KV pages, temperature sampling, per-request
-grouped-GEMM backends (the port has one expert-layer implementation).  The
-async runtime and its streaming callbacks are not ported either.
+The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once at
+construction (engine argument > active ``use_backend`` scope >
+``cfg.gmm_backend`` > ``REPRO_GMM_BACKEND`` > auto) and held in
+``self.backend``; ``generate`` runs inside ``use_backend`` of it.
+
+Not ported yet, and refused: prefix sharing with copy-on-write pages, int8
+KV pages, temperature sampling (at construction), per-request grouped-GEMM
+backends (at ``generate``).  The async runtime and its streaming callbacks
+are not ported either.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core import gmm_backend as GB
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_block import check_supported as check_moe
@@ -44,6 +50,7 @@ class Request:
     out_tokens: list = field(default_factory=list)
     done: bool = False
     finish_reason: str | None = None    # "eos" | "length" | "error"
+    gmm_backend: str | None = None      # per-request override (not ported)
 
 
 def _pow2(n: int) -> int:
@@ -68,8 +75,10 @@ class ServeEngine:
                  capacity: int = 512, page_size: int = 16,
                  num_pages: int | None = None, kv_dtype: str | None = None,
                  greedy: bool = True, prefix_cache: bool = False,
-                 device=None):
+                 gmm_backend: str | None = None, device=None):
         self.device = resolve_device(device)
+        self.backend = GB.resolve(gmm_backend, config=cfg.gmm_backend)
+        cfg = cfg.replace(gmm_backend=self.backend.name)
         if kv_dtype not in (None, "model"):
             raise NotImplementedError(
                 f"kv_dtype={kv_dtype!r}: int8 KV pages are not ported yet "
@@ -121,6 +130,10 @@ class ServeEngine:
                    self.capacity - request.prompt.size + 1)
 
     def _validate(self, request: Request) -> None:
+        if request.gmm_backend is not None:
+            raise NotImplementedError(
+                "a per-request gmm_backend is not ported; the engine serves "
+                f"with its own ({self.backend.name}) (ROADMAP queue A5)")
         if request.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {request.max_new_tokens} "
@@ -142,6 +155,10 @@ class ServeEngine:
         device work); returns them with ``out_tokens`` filled."""
         for r in requests:
             self._validate(r)
+        with GB.use_backend(self.backend.name):
+            return self._generate(requests)
+
+    def _generate(self, requests: list[Request]) -> list[Request]:
         sched = _Scheduler(self, requests)
         try:
             while sched.has_work():

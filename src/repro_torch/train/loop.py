@@ -6,6 +6,12 @@ without the mesh, the simulated peak and the budget fit) and ``train``
 ``train_loss``, global-norm clipping, the cosine schedule and AdamW.
 PyTorch runs eagerly, so there is nothing to compile; the step updates
 the parameters and the optimizer state in place and returns them.
+
+The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once per step
+function, as in the reference: call-site argument > active
+``use_backend`` scope > ``tcfg.gmm_backend`` > ``cfg.gmm_backend`` >
+``REPRO_GMM_BACKEND`` > auto; each step runs inside ``use_backend`` of
+that name.
 """
 
 from __future__ import annotations
@@ -15,6 +21,7 @@ import time
 import torch
 from torch.profiler import record_function
 
+from repro_torch.core import gmm_backend as GB
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_batch_iterator
 from repro_torch.interop import init_params
@@ -31,14 +38,25 @@ def batch_to_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
-def make_train_step(cfg, tcfg, device=None):
+def _config_backend(cfg, tcfg) -> str:
+    """The config slot of the precedence chain: the train config's choice
+    wins over the model config's."""
+    if tcfg.gmm_backend not in (None, "", "auto"):
+        return tcfg.gmm_backend
+    return cfg.gmm_backend
+
+
+def make_train_step(cfg, tcfg, device=None, backend=None):
     """Returns ``step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy
     arrays or tensors; ``params`` is the port's parameter tree of float32
     masters (``interop.init_params(..., dtype=torch.float32)``), updated in
     place with ``opt_state``.  The metrics are 0-d tensors on the device
-    (``loss``, ``ce``, ``aux``, ``grad_norm``) and the float ``lr``."""
+    (``loss``, ``ce``, ``aux``, ``grad_norm``) and the float ``lr``.  The
+    resolved grouped-GEMM backend is ``step_fn.resolved_backend``."""
     dev = resolve_device(device)
+    resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
+    cfg = cfg.replace(gmm_backend=resolved.name)
     T.check_supported(cfg)
     check_moe(cfg)
     if tcfg.num_microbatches > 1:
@@ -46,7 +64,7 @@ def make_train_step(cfg, tcfg, device=None):
             "num_microbatches > 1 (gradient accumulation) is not ported "
             "(ROADMAP queue A1)")
 
-    def step_fn(params, opt_state: AdamWState, batch):
+    def _step(params, opt_state: AdamWState, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
@@ -71,7 +89,12 @@ def make_train_step(cfg, tcfg, device=None):
             "loss": loss.detach(), "ce": metrics["ce"].detach(),
             "aux": metrics["aux"].detach(), "grad_norm": gnorm, "lr": lr}
 
+    def step_fn(params, opt_state: AdamWState, batch):
+        with GB.use_backend(resolved.name):
+            return _step(params, opt_state, batch)
+
     step_fn.device = dev
+    step_fn.resolved_backend = resolved
     return step_fn
 
 
@@ -84,7 +107,7 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     Every step's metrics are read back as floats (which waits for the
     device), with ``step_s`` the step's host time; ``step_hook(step,
     metrics)`` sees each of them, and ``history`` keeps every
-    ``log_every``-th step and the last."""
+    ``log_every``-th step and the last, with the step's ``gmm_backend``."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
@@ -107,6 +130,7 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
             step_hook(step, m)
         if step % tcfg.log_every == 0 or step == tcfg.total_steps - 1:
             m["step"] = step
+            m["gmm_backend"] = step_fn.resolved_backend.name
             m["wall_s"] = time.perf_counter() - t0
             history.append(m)
             log(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "

@@ -1,0 +1,118 @@
+"""Port parity: the fused dispatch→GEMM→combine kernel pair.
+
+The plain versions of ``fused_moe_fwd`` / ``fused_moe_bwd`` (what a CPU
+tensor takes, and the yardstick the CUDA kernels are held to on the card)
+against the reference's Pallas kernels in interpret mode, on the same
+inputs: an expert left empty, and a slot count that is not a multiple of
+the reference's row tile.  Then the ``MoEBlazeFused`` autograd Function
+against ``jax.vjp`` of the reference's ``moe_ffn_blaze_fused``.
+
+Tolerances: float32 1e-5 relative over 1e-5 of each output's scale (the
+same products, summed in another order); bfloat16 one bf16 step (2^-7) of
+the scale: both sides round ``y_swi`` and ``dyu`` at the same points, but a
+float32 sum in another order can round one element to the neighbouring
+bf16 value.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from repro.core import routing as R
+from repro.kernels.gather_gmm import fused_moe_bwd as j_bwd
+from repro.kernels.gather_gmm import fused_moe_fwd as j_fwd
+from repro.kernels.ops import moe_ffn_blaze_fused as j_layer
+from torch_parity import as_dtype, f32, to_torch
+from torch_parity import tp  # noqa: F401
+
+D, H, E, K = 64, 128, 8, 2
+
+
+def _tol(dtype, want):
+    scale = float(np.abs(want).max())
+    if dtype == "bfloat16":
+        return dict(rtol=0.0, atol=2 ** -7 * scale)
+    return dict(rtol=1e-5, atol=1e-5 * scale)
+
+
+def _inputs(L, dtype, empty=None, seed=0):
+    rng = np.random.default_rng(seed)
+    x = as_dtype(rng.normal(size=(L, D)), dtype)
+    w1, w2 = (as_dtype(rng.normal(size=(E, D, H)) * 0.15, dtype)
+              for _ in range(2))
+    w3 = as_dtype(rng.normal(size=(E, H, D)) * 0.1, dtype)
+    scores = rng.normal(size=(L, E)).astype(np.float32)
+    if empty is not None:
+        scores[:, empty] -= 100.0
+    topk = np.argsort(-scores, axis=1)[:, :K].astype(np.int32)
+    g = np.exp(np.take_along_axis(scores, topk, 1))
+    gates = (g / g.sum(1, keepdims=True)).astype(np.float32)
+    dy = as_dtype(rng.normal(size=(L, D)), dtype)
+    return x, w1, w2, w3, topk, gates, dy
+
+
+def _slot_inputs(topk, gates):
+    d = R.build_dispatch(jnp.asarray(topk), E)
+    S = topk.size
+    g_slot = np.zeros(S, np.float32)
+    g_slot[np.asarray(d.token_index_map).reshape(-1)] = gates.reshape(-1)
+    return (g_slot, np.asarray(d.expert_token_indices),
+            np.asarray(d.expert_token_offsets))
+
+
+CASES = [pytest.param(64, None, 128, id="L64"),
+         pytest.param(64, 5, 128, id="L64-empty-expert"),
+         pytest.param(50, None, 32, id="S100-ragged-tile")]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,empty,bl", CASES)
+def test_plain_fused_pair_matches_reference_kernels(tp, L, empty, bl, dtype):
+    from repro_torch.kernels import fused_moe as FM
+    x, w1, w2, w3, topk, gates, dy = _inputs(L, dtype, empty)
+    g_slot, idx, off = _slot_inputs(topk, gates)
+    j_args = [jnp.asarray(a) for a in (g_slot, idx, off, w1, w2, w3)]
+    t_args = [to_torch(a) for a in (g_slot, idx, off, w1, w2, w3)]
+    want = f32(j_fwd(jnp.asarray(x), *j_args, bl=bl))
+    got = FM.fused_moe_fwd(to_torch(x), *t_args)
+    assert got.dtype == tp.torch.float32
+    np.testing.assert_allclose(f32(got), want, **_tol(dtype, want))
+
+    wants = j_bwd(jnp.asarray(x), jnp.asarray(dy), *j_args, bl=bl)
+    gots = FM.fused_moe_bwd(to_torch(x), to_torch(dy), *t_args)
+    for name, g, w in zip(("dx", "dgates", "dw1", "dw2", "dw3"), gots,
+                          wants):
+        w = f32(w)
+        assert g.dtype == tp.torch.float32 and g.shape == w.shape, name
+        np.testing.assert_allclose(f32(g), w, **_tol(dtype, w), err_msg=name)
+    if empty is not None:
+        for g in gots[2:]:
+            assert not g[empty].any(), "the empty expert's dw must be zero"
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fused_layer_function_matches_reference(tp, dtype):
+    """``moe_ffn_blaze_fused``: output in x's dtype, and the gradients of
+    x, the (L, k) gates and the three weights."""
+    import jax
+    x, w1, w2, w3, topk, gates, dy = _inputs(64, dtype, empty=2, seed=1)
+    gates = as_dtype(gates, dtype)
+    jd = R.build_dispatch(jnp.asarray(topk), E)
+    y_ref, vjp = jax.vjp(
+        lambda x_, g_, a_, b_, c_: j_layer(x_, g_, jd, a_, c_, b_),
+        *(jnp.asarray(a) for a in (x, gates, w1, w2, w3)))
+    grads_ref = vjp(jnp.asarray(dy))
+    td = tp.routing.build_dispatch(to_torch(topk), E)
+    tx, tg, t1, t2, t3 = (to_torch(a).requires_grad_()
+                          for a in (x, gates, w1, w2, w3))
+    y = tp.ops.moe_ffn_blaze_fused(tx, tg, td, t1, t3, t2)
+    assert y.dtype == tx.dtype
+    y.backward(to_torch(dy))
+    want = f32(y_ref)
+    np.testing.assert_allclose(f32(y), want, **_tol(dtype, want))
+    for name, t, r in zip(("x", "gates", "w1", "w2", "w3"),
+                          (tx, tg, t1, t2, t3), grads_ref):
+        want = f32(r)
+        assert t.grad.dtype == t.dtype, name
+        np.testing.assert_allclose(f32(t.grad), want, **_tol(dtype, want),
+                                   err_msg=f"d{name}")

@@ -16,7 +16,11 @@ the plain version, so float32 agrees to 1e-5 and bfloat16 to one bf16 step
 scores where the plain version scales q in bf16, so 2e-2 absolute.  The
 expert layer's autograd Function against autograd through the plain
 versions: float32 1e-4 relative over a floor of 1e-4 times each output's
-scale (a chain of products summed in other orders).
+scale (a chain of products summed in other orders).  The fused MoE pair:
+float32 outputs summed by atomics in another order, so float32 agrees to
+1e-5 relative over 1e-5 of each output's scale, and bfloat16 (whose
+backward also feeds da, db and g y_swi to the tensor cores in bf16) to one
+bf16 step (2^-7) of each output's scale plus 1e-2.
 """
 
 import numpy as np
@@ -45,13 +49,15 @@ def K(dev):
     from types import SimpleNamespace
 
     from repro_torch.core import routing
+    from repro_torch.core import moe_layer
     from repro_torch.kernels import (combine, dispatch, flash_attention,
-                                     gather_gmm, gmm_dw, ops,
+                                     fused_moe, gather_gmm, gmm_dw, ops,
                                      paged_attention)
     return SimpleNamespace(routing=routing, combine=combine,
                            dispatch=dispatch, gather_gmm=gather_gmm,
                            paged_attention=paged_attention, gmm_dw=gmm_dw,
-                           flash_attention=flash_attention, ops=ops)
+                           flash_attention=flash_attention, ops=ops,
+                           fused_moe=fused_moe, moe_layer=moe_layer)
 
 
 def _t(a, dev, dtype=None):
@@ -317,3 +323,118 @@ def test_flash_attention_function_backward(dev, K):
         A.flash_attention_plain(q, k, v, window=50, chunk=128), (q, k, v), do)
     for g_, w_ in zip(got, want):
         _close(g_, w_, "float32")
+
+
+def _fused_inputs(dev, dtype, L, E, d, h, experts, seed):
+    from repro_torch.core import routing
+    rng = np.random.default_rng(seed)
+    disp = routing.build_dispatch(_t(_topk(L, E, 2, seed, experts), dev), E)
+    g_slot = _t(rng.uniform(size=disp.num_slots), dev, "float32")
+    x = _t(rng.normal(size=(L, d)), dev, dtype)
+    dy = _t(rng.normal(size=(L, d)), dev, dtype)
+    w1, w2 = (_t(rng.normal(size=(E, d, h)) * d ** -0.5, dev, dtype)
+              for _ in range(2))
+    w3 = _t(rng.normal(size=(E, h, d)) * h ** -0.5, dev, dtype)
+    return x, dy, g_slot, disp, (w1, w2, w3)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,E,d,h,experts", [
+    (100, 8, 256, 192, (0, 1, 2, 4, 5, 6, 7)),   # empty expert 3; S=200
+    (300, 8, 136, 72, (1, 2, 6)),                # 5 empty; d, h not tiles
+    (37, 4, 100, 60, None),                      # d, h not multiples of 8
+    (4, 8, 512, 256, None)])                     # decode: 8 slots
+def test_fused_moe_kernels(dev, K, dtype, L, E, d, h, experts):
+    F = K.fused_moe
+    x, dy, g, disp, ws = _fused_inputs(dev, dtype, L, E, d, h, experts,
+                                       seed=L + d)
+    idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    before = (F.fused_moe_fwd.launches, F.fused_moe_bwd.launches)
+    got = [F.fused_moe_fwd(x, g, idx, off, *ws),
+           *F.fused_moe_bwd(x, dy, g, idx, off, *ws)]
+    want = [F.fused_moe_fwd_plain(x, g, idx, off, *ws),
+            *F.fused_moe_bwd_plain(x, dy, g, idx, off, *ws)]
+    _sync()
+    assert (F.fused_moe_fwd.launches,
+            F.fused_moe_bwd.launches) == (before[0] + 1, before[1] + 1)
+    for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw2", "dw3"),
+                            got, want):
+        assert g_.dtype == w_.dtype and g_.shape == w_.shape, name
+        w_ = w_.cpu().numpy()
+        scale = float(np.abs(w_).max())
+        tol = (dict(rtol=0.0, atol=2 ** -7 * scale + 1e-2)
+               if dtype == "bfloat16"
+               else dict(rtol=1e-5, atol=1e-5 * scale))
+        np.testing.assert_allclose(g_.cpu().numpy(), w_, err_msg=name,
+                                   **tol)
+    lens = disp.expert_lengths.tolist()
+    for e, n in enumerate(lens):
+        if n == 0:
+            assert not any(t[e].any() for t in got[3:]), e
+
+
+def test_fused_moe_refuses_what_it_does_not_take(dev, K):
+    """A CUDA tensor of another dtype or layout raises; it is never handed
+    to the plain version."""
+    import torch
+    F = K.fused_moe
+    x, dy, g, disp, ws = _fused_inputs(dev, "bfloat16", 16, 4, 64, 32, None,
+                                       seed=0)
+    idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    before = F.fused_moe_fwd.launches
+    bad = [
+        (x.half(), g, idx, off, *ws),                       # float16
+        (x.t().contiguous().t(), g, idx, off, *ws),         # strided x
+        (x, g.to(torch.bfloat16), idx, off, *ws),           # bf16 gates
+        (x, g, idx.long(), off, *ws),                       # int64 ids
+        (x, g, idx, off, ws[0].float(), ws[1], ws[2]),      # mixed dtypes
+        (x, g, idx, off, ws[0], ws[1], ws[0]),              # w3 shape
+        (x, g, idx, off[:-1], *ws)]                         # offsets
+    for args in bad:
+        with pytest.raises(ValueError):
+            F.fused_moe_fwd(*args)
+    with pytest.raises(ValueError):
+        F.fused_moe_bwd(x, dy.float(), g, idx, off, *ws)
+    assert F.fused_moe_fwd.launches == before
+
+
+@pytest.mark.parametrize("backend,residuals", [
+    ("pallas", "ab_yswi"), ("pallas", "ab"), ("pallas", "x"),
+    ("pallas_fused", "ab_yswi")])
+def test_moe_ffn_blaze_on_card_matches_plain_autograd(dev, K, backend,
+                                                      residuals):
+    """``moe_ffn_blaze`` on the card (its kernels) against autograd
+    through the plain versions on the same tensors, float32, E=8, top-2,
+    widths 256 -> 512."""
+    import torch
+    L, d, h, E, k = 512, 256, 512, 8, 2
+    rng = np.random.default_rng(11)
+    disp = K.routing.build_dispatch(_t(_topk(L, E, k, seed=11), dev), E)
+    make = lambda *shape, s=1.0: _t(rng.normal(size=shape) * s, dev,
+                                    "float32").requires_grad_()
+    x, w1, w2 = make(L, d), make(E, d, h, s=0.1), make(E, d, h, s=0.1)
+    w3 = make(E, h, d, s=0.1)
+    gates = _t(rng.uniform(size=(L, k)), dev, "float32").requires_grad_()
+    dy = _t(rng.normal(size=(L, d)), dev, "float32")
+    ins = (x, gates, w1, w3, w2)
+    counts = lambda: (K.gather_gmm.gather_gmm.launches,
+                      K.fused_moe.fused_moe_fwd.launches,
+                      K.fused_moe.fused_moe_bwd.launches)
+    before = counts()
+    y = K.moe_layer.moe_ffn_blaze(x, gates, disp, w1, w3, w2,
+                                  residuals=residuals, backend=backend)
+    got = [y] + list(torch.autograd.grad(y, ins, dy))
+    y_p = _plain_layer(K, x, gates, disp, w1, w3, w2)
+    want = [y_p] + list(torch.autograd.grad(y_p, ins, dy))
+    _sync()
+    after = counts()
+    if backend == "pallas_fused":
+        assert after[1:] == (before[1] + 1, before[2] + 1)
+    else:
+        assert after[0] > before[0] and after[1:] == before[1:]
+    for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw3", "dw2"),
+                            got, want):
+        w_ = w_.detach().float().cpu().numpy()
+        np.testing.assert_allclose(
+            g_.detach().float().cpu().numpy(), w_, rtol=1e-4,
+            atol=1e-4 * float(np.abs(w_).max()), err_msg=name)

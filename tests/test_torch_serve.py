@@ -3,10 +3,17 @@
 Weights come from the reference's ``init_params`` and cross through
 ``repro_torch.interop.params_from_jax``.  The reference runs its default
 expert layer (``moe_impl="blaze"``) and dense paged attention; the port
-runs its kernel composition (``blaze_pallas``) and paged attention kernel,
-here through their plain versions.  Everything is float32, so logits agree
-to 1e-4 (the same sums in another order through two layers); greedy tokens
-and the engine's accounting must be equal.
+runs its kernel composition (``blaze_pallas``), or ``blaze`` on the
+``pallas_fused`` backend, and its paged attention kernel, here through
+their plain versions.  Everything is float32, so logits agree to 1e-4 (the
+same sums in another order through two layers).
+
+The engine's greedy tokens are held to the reference model's own greedy
+decode (``forward`` over each prompt and the tokens so far), not to the
+reference engine's tokens: that engine hands numpy buffers to jitted calls
+that may alias them and then mutates them, so its tokens vary from run to
+run (ROADMAP §C).  Its accounting depends only on lengths and scheduling,
+and the port's must equal it.
 """
 
 import os
@@ -26,6 +33,7 @@ from torch_parity import np_params, to_torch, torch_config, tp  # noqa: F401
 
 JCFG = get_config("mixtral_8x7b").reduced()
 TCFG = torch_config(JCFG).replace(moe_impl="blaze_pallas")
+TCFG_FUSED = torch_config(JCFG).replace(gmm_backend="pallas_fused")
 LOGIT_TOL = dict(rtol=1e-4, atol=1e-4)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -73,27 +81,57 @@ STAT_KEYS = ("prefill_calls", "prefill_tokens", "decode_steps",
              "truncated_budgets", "peak_pages_used")
 
 
-@pytest.mark.parametrize("num_pages", [None, 5],
-                         ids=["full_budget", "tight_budget"])
-def test_engine_greedy_tokens_and_stats_match(tp, params, num_pages):
+CAPACITY, MAX_NEW = 48, 6
+
+
+def _engine_prompts():
+    rng = np.random.default_rng(1)
+    return [rng.integers(3, JCFG.vocab_size, size=n).astype(np.int32)
+            for n in (3, 40, 17, 9, 25)]
+
+
+@pytest.fixture(scope="module")
+def greedy_ref(params):
+    """The reference model's greedy continuation of each prompt: ``forward``
+    over prompt + tokens so far, right-padded to the capacity (one compiled
+    shape; causal, so the padding does not reach the real positions), the
+    argmax at the last real position."""
+    jp = params[0]
+    fwd = jax.jit(lambda p, t: JT.forward(p, {"tokens": t}, JCFG)[0])
+    prompts = _engine_prompts()
+    seqs = [list(p) for p in prompts]
+    for _ in range(MAX_NEW):
+        toks = np.zeros((len(seqs), CAPACITY), np.int32)
+        for i, q in enumerate(seqs):
+            toks[i, :len(q)] = q
+        logits = np.asarray(fwd(jp, jnp.asarray(toks)))
+        for i, q in enumerate(seqs):
+            q.append(int(logits[i, len(q) - 1].argmax()))
+    return [q[len(p):] for q, p in zip(seqs, prompts)]
+
+
+@pytest.mark.parametrize("num_pages,port_cfg", [
+    (None, TCFG), (5, TCFG), (None, TCFG_FUSED)],
+    ids=["full_budget", "tight_budget", "blaze_pallas_fused"])
+def test_engine_greedy_tokens_and_stats_match(tp, params, greedy_ref,
+                                              num_pages, port_cfg):
     """Mixed prompt lengths, three slots refilled as requests finish, and a
     48-token capacity on 16-token pages whose power-of-two prefill bucket
     (64) overshoots the 48-wide page table.  With 4 allocatable pages the
     head of the queue waits for pages (blocked admissions)."""
     jp, tparams = params
-    rng = np.random.default_rng(1)
-    prompts = [rng.integers(3, JCFG.vocab_size, size=n).astype(np.int32)
-               for n in (3, 40, 17, 9, 25)]
-    kw = dict(batch_slots=3, capacity=48, page_size=16, num_pages=num_pages)
+    prompts = _engine_prompts()
+    kw = dict(batch_slots=3, capacity=CAPACITY, page_size=16,
+              num_pages=num_pages)
     eos = JCFG.vocab_size              # outside the vocab: runs hit max_new
     jeng = JServeEngine(JCFG, jp, **kw)
-    jreqs = jeng.generate([JRequest(prompt=p, max_new_tokens=6, eos_id=eos)
-                           for p in prompts])
-    teng = tp.engine.ServeEngine(TCFG, tparams, device="cpu", **kw)
-    treqs = teng.generate([tp.engine.Request(prompt=p, max_new_tokens=6,
+    jreqs = jeng.generate([JRequest(prompt=p, max_new_tokens=MAX_NEW,
+                                    eos_id=eos) for p in prompts])
+    teng = tp.engine.ServeEngine(port_cfg, tparams, device="cpu", **kw)
+    treqs = teng.generate([tp.engine.Request(prompt=p, max_new_tokens=MAX_NEW,
                                              eos_id=eos) for p in prompts])
-    for j, t in zip(jreqs, treqs):
-        assert t.out_tokens == j.out_tokens
+    for want, j, t in zip(greedy_ref, jreqs, treqs):
+        assert t.out_tokens == want
         assert t.finish_reason == j.finish_reason
     for k in STAT_KEYS:
         assert teng.stats[k] == jeng.stats[k], k
@@ -114,7 +152,13 @@ def test_engine_refuses_unported_options(tp, params):
         with pytest.raises(NotImplementedError):
             ServeEngine(TCFG, params[1], device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="moe_impl"):
-        ServeEngine(TCFG.replace(moe_impl="blaze"), params[1], device="cpu")
+        ServeEngine(TCFG.replace(moe_impl="megablocks"), params[1],
+                    device="cpu")
+    eng = ServeEngine(TCFG, params[1], device="cpu")
+    with pytest.raises(NotImplementedError, match="A5"):
+        eng.generate([tp.engine.Request(prompt=np.arange(3, 6,
+                                                         dtype=np.int32),
+                                        gmm_backend="segment")])
 
 
 def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
@@ -139,8 +183,9 @@ def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """``import repro_torch``, a CPU engine run and a CPU training step
-    leave JAX and the reference package out of ``sys.modules``."""
+    """``import repro_torch``, a CPU engine run and CPU training steps
+    (``blaze_pallas``, and ``blaze`` on ``pallas_fused``) leave JAX and
+    the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
@@ -162,6 +207,12 @@ def test_port_imports_no_jax_and_no_reference():
         "_, _, h = train(cfg.replace(use_pallas=True), TrainConfig("
         "total_steps=1, batch_size=1, seq_len=32), device='cpu', "
         "log=lambda _: None)\n"
+        "assert np.isfinite(h[0]['loss'])\n"
+        "fcfg = get_config('mixtral-8x7b').reduced().replace("
+        "gmm_backend='pallas_fused', use_pallas=True)\n"
+        "_, _, h = train(fcfg, TrainConfig(total_steps=1, batch_size=1, "
+        "seq_len=32), device='cpu', log=lambda _: None)\n"
+        "assert h[0]['gmm_backend'] == 'pallas_fused'\n"
         "assert np.isfinite(h[0]['loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"

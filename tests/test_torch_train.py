@@ -14,6 +14,9 @@
   the same weights and pipeline batch.
 - A 3-step float32 run of the port's ``train`` against the reference's
   ``make_train_step`` on the same pipeline batches.
+- The last two again with the port on the reference's default expert layer
+  (``moe_impl="blaze"``) and the ``pallas_fused`` backend: the fused kernel
+  pair's plain versions.
 
 Tolerances (float32): the layer 1e-5 relative over a floor of 1e-5 times
 each output's scale (the same sums in another order); the reduced model's
@@ -49,6 +52,7 @@ L, D, H, E, K = 48, 32, 64, 4, 2
 JCFG = get_config("mixtral_8x7b").reduced().replace(
     moe_impl="blaze", gmm_backend="segment", use_pallas=True)
 TCFG = torch_config(JCFG).replace(moe_impl="blaze_pallas")
+TCFG_FUSED = torch_config(JCFG).replace(gmm_backend="pallas_fused")
 BATCH, SEQ = 2, 128          # SEQ > the reduced sliding window of 64
 
 
@@ -126,6 +130,14 @@ def _port_params(tp, jp):
 
 
 def test_train_loss_and_grads_match_reference(tp, jparams):
+    _check_train_loss(tp, jparams, TCFG)
+
+
+def test_train_loss_and_grads_match_reference_blaze_fused(tp, jparams):
+    _check_train_loss(tp, jparams, TCFG_FUSED)
+
+
+def _check_train_loss(tp, jparams, tcfg):
     from repro_torch.train.optimizer import tree_leaves
     batch = next(j_batches(JCFG.vocab_size, SEQ, BATCH, seed=0))
     (loss_ref, met_ref), grads_ref = jax.value_and_grad(
@@ -137,7 +149,7 @@ def test_train_loss_and_grads_match_reference(tp, jparams):
     for p in leaves:
         p.requires_grad_(True)
     tbatch = {k: to_torch(v) for k, v in batch.items()}
-    loss, met = tp.transformer.train_loss(params, tbatch, TCFG)
+    loss, met = tp.transformer.train_loss(params, tbatch, tcfg)
     grads = tp.torch.autograd.grad(loss, leaves)
     np.testing.assert_allclose(float(loss.detach()), float(loss_ref),
                                rtol=1e-5)
@@ -155,6 +167,14 @@ def test_train_loss_and_grads_match_reference(tp, jparams):
 
 
 def test_three_step_trajectory_matches_reference(tp, jparams):
+    _check_trajectory(tp, jparams, TCFG)
+
+
+def test_three_step_trajectory_matches_reference_blaze_fused(tp, jparams):
+    _check_trajectory(tp, jparams, TCFG_FUSED)
+
+
+def _check_trajectory(tp, jparams, port_cfg):
     from repro_torch.configs import TrainConfig
     from repro_torch.train.loop import train
     from repro_torch.train.optimizer import tree_leaves
@@ -171,7 +191,7 @@ def test_three_step_trajectory_matches_reference(tp, jparams):
     fields = {f.name for f in dataclasses.fields(TrainConfig)}
     tcfg = TrainConfig(**{k: v for k, v in dataclasses.asdict(jt).items()
                           if k in fields})
-    params, _, history = train(TCFG, tcfg, device="cpu",
+    params, _, history = train(port_cfg, tcfg, device="cpu",
                                params=_port_params(tp, jparams),
                                log=lambda _: None)
     np.testing.assert_allclose([h["loss"] for h in history], losses_ref,
