@@ -1,7 +1,7 @@
 """Config registry of the port: ``get_config(arch_id)``.
 
-The port serves the architectures it has a config file for; the serving
-slice covers Mixtral-8x7B.
+The port runs the architectures it has a config file for: Mixtral-8x7B
+(MoE) and Qwen3-14B (dense SwiGLU).
 """
 
 from __future__ import annotations
@@ -10,9 +10,9 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 
-ARCH_IDS = ["mixtral_8x7b"]
+ARCH_IDS = ["mixtral_8x7b", "qwen3_14b"]
 
-_ALIASES = {"mixtral-8x7b": "mixtral_8x7b"}
+_ALIASES = {"mixtral-8x7b": "mixtral_8x7b", "qwen3-14b": "qwen3_14b"}
 
 
 def get_config(arch_id: str) -> ModelConfig:

@@ -17,6 +17,7 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) { return (float)v; }
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);

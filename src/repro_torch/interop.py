@@ -32,12 +32,14 @@ import numpy as np
 import torch
 
 from repro_torch.core.device import resolve_device
-from repro_torch.models.transformer import check_supported, layer_kinds
+from repro_torch.models.transformer import (MOE_KINDS, check_supported,
+                                            layer_kinds)
 
 #: leaves stored in the storage dtype: the ones the forward casts to the
-#: model dtype on use, and the expert weights, which the port casts as well
-#: where the reference keeps them float32 (everything else is a norm scale,
-#: kept float32)
+#: model dtype on use (the dense FFN's ``w1``/``w2``/``w3`` among them), and
+#: the expert weights, which the port casts as well where the reference
+#: keeps them float32 (everything else is a norm scale, the ``q_norm`` and
+#: ``k_norm`` scales included, kept float32)
 CAST_TO_MODEL_DTYPE = {"wq", "wk", "wv", "wo", "wg", "w1", "w2", "w3",
                        "embed", "unembed"}
 
@@ -85,13 +87,15 @@ def init_params(cfg, generator: torch.Generator | None = None,
     reference's init scales (LeCun-normal over the fan-in, embeddings
     N(0, 0.02^2), zero norm scales), in the port's layout; matrices are
     stored in ``dtype`` (default ``cfg.dtype``, the serving layout).  The
-    numbers are not the reference's (the generators differ)."""
+    numbers are not the reference's (the generators differ).  A MoE block
+    draws ``moe = {wg, w1, w2, w3}``; a dense block draws ``ffn = {w1 (d,
+    d_ff), w2 (d, d_ff) for swiglu, w3 (d_ff, d)}``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
     if generator is None:
         generator = torch.Generator(device=dev).manual_seed(0)
-    d, E, h = cfg.d_model, cfg.num_experts, cfg.moe_d_ff
+    d, E, h, d_ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff, cfg.d_ff
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     def dense(shape, fan_in):
@@ -107,11 +111,19 @@ def init_params(cfg, generator: torch.Generator | None = None,
         if cfg.qk_norm:
             attn["q_norm"] = torch.zeros(dh, device=dev)
             attn["k_norm"] = torch.zeros(dh, device=dev)
-        moe = {"wg": dense((d, E), d), "w1": dense((E, d, h), d)}
-        if cfg.ffn_act == "swiglu":
-            moe["w2"] = dense((E, d, h), d)
-        moe["w3"] = dense((E, h, d), h)
-        layer = {"ln1": zeros(), "ln2": zeros(), "attn": attn, "moe": moe}
+        layer = {"ln1": zeros(), "ln2": zeros(), "attn": attn}
+        if kind in MOE_KINDS:
+            moe = {"wg": dense((d, E), d), "w1": dense((E, d, h), d)}
+            if cfg.ffn_act == "swiglu":
+                moe["w2"] = dense((E, d, h), d)
+            moe["w3"] = dense((E, h, d), h)
+            layer["moe"] = moe
+        else:
+            ffn = {"w1": dense((d, d_ff), d)}
+            if cfg.ffn_act == "swiglu":
+                ffn["w2"] = dense((d, d_ff), d)
+            ffn["w3"] = dense((d_ff, d), d_ff)
+            layer["ffn"] = ffn
         if cfg.post_norms:
             layer["ln1_post"] = zeros()
             layer["ln2_post"] = zeros()

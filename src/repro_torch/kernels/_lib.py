@@ -49,6 +49,11 @@ SIGNATURES = {
     "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I,
                             I, I, I, P],
+    "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, I, I, I, P],
+    "repro_fused_swiglu_bwd_x": [I, P, P, P, P, P, P, I, I, I, P],
+    "repro_fused_swiglu_bwd_w": [I, P, P, P, P, P, P, I, I, I, P],
+    "repro_paged_attention_int8": [I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                                   I, I, F, F, P],
 }
 
 _lib: ctypes.CDLL | None = None

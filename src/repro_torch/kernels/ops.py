@@ -22,6 +22,13 @@ so the result does not depend on the order.
 ``moe_ffn_blaze_fused`` mirrors ``moe_ffn_blaze_fused`` (``_moe_fused``):
 the fused forward and backward kernels of ``kernels/fused_moe.py``; the
 residuals are the inputs and the ``(S,)`` float32 slot gates only.
+
+``swiglu`` mirrors the dense ``swiglu`` custom VJP (``ops.py:42-60``):
+forward ``fused_swiglu_fwd``, saving only ``x``, ``w1``, ``w2``, ``a`` and
+``b`` (the paper's policy: save A and B, recompute SiLU; ``y`` is never
+saved); backward ``fused_swiglu_bwd_x`` for dx and ``fused_swiglu_bwd_w``
+for dw1 and dw2, returned in ``x.dtype`` as the reference returns them
+(autograd carries them to float32 masters through the cast).
 """
 
 from __future__ import annotations
@@ -31,6 +38,9 @@ import torch
 from repro_torch.core.routing import Dispatch
 from repro_torch.kernels.combine import combine
 from repro_torch.kernels.fused_moe import fused_moe_bwd, fused_moe_fwd
+from repro_torch.kernels.fused_swiglu import (fused_swiglu_bwd_w,
+                                              fused_swiglu_bwd_x,
+                                              fused_swiglu_fwd)
 from repro_torch.kernels.gather_gmm import gather_gmm
 from repro_torch.kernels.gmm_dw import gmm_dw
 
@@ -121,3 +131,29 @@ def moe_ffn_blaze_fused(x: torch.Tensor, gates: torch.Tensor,
     return MoEBlazeFused.apply(x.contiguous(), gates, w1, w2, w3,
                                d.expert_token_indices,
                                d.expert_token_offsets, d.token_index_map)
+
+
+class SwiGLU(torch.autograd.Function):
+    """y = silu(x w1) (x w2) through the fused forward kernel; the
+    residuals are the inputs and the kernel's a and b."""
+
+    @staticmethod
+    def forward(ctx, x, w1, w2):
+        y, a, b = fused_swiglu_fwd(x, w1, w2)
+        ctx.save_for_backward(x, w1, w2, a, b)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w1, w2, a, b = ctx.saved_tensors
+        dy = dy.to(x.dtype).contiguous()
+        dx = fused_swiglu_bwd_x(dy, a, b, w1, w2)
+        dw1, dw2 = fused_swiglu_bwd_w(x, dy, a, b)
+        return dx, dw1, dw2
+
+
+def swiglu(x: torch.Tensor, w1: torch.Tensor,
+           w2: torch.Tensor) -> torch.Tensor:
+    """Dense fused SwiGLU: x (L, d), w1/w2 (d, h) -> (L, h) in
+    ``x.dtype``; differentiable in x and the weights."""
+    return SwiGLU.apply(x.contiguous(), w1.contiguous(), w2.contiguous())

@@ -3,11 +3,14 @@ prompts, greedy decoding through the paged engine.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --reduced --device cpu [--layers 2] [--prompts 4] [--max-new 16]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
+        --reduced --device cpu [--kv-dtype int8]
 
-Runs on the card by default (``--device cuda``).  Prints each request's
-tokens and then one JSON run record with the engine stats and the
-resolved grouped-GEMM backend (``REPRO_GMM_BACKEND`` selects it, as in the
-reference).
+Runs on the card by default (``--device cuda``).  ``--kv-dtype int8``
+stores the KV pages as int8 with float16 scales.  Prints each request's
+tokens and then one JSON run record with the engine stats, the KV bytes
+per cached token and the resolved grouped-GEMM backend
+(``REPRO_GMM_BACKEND`` selects it, as in the reference).
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ def main(argv=None):
     ap.add_argument("--max-new", type=int, default=16)
     ap.add_argument("--capacity", type=int, default=512)
     ap.add_argument("--page-size", type=int, default=16)
+    ap.add_argument("--kv-dtype", choices=("model", "int8"), default="model")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -48,7 +52,7 @@ def main(argv=None):
     params = init_params(cfg, gen, dev)
     eng = ServeEngine(cfg, params, batch_slots=args.prompts,
                       capacity=args.capacity, page_size=args.page_size,
-                      device=dev)
+                      kv_dtype=args.kv_dtype, device=dev)
     rng = np.random.default_rng(0)
     reqs = [Request(prompt=rng.integers(
         3, cfg.vocab_size, size=int(rng.integers(2, 9))).astype(np.int32),
@@ -65,9 +69,12 @@ def main(argv=None):
            "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
-           "moe_impl": cfg.moe_impl, "gmm_backend": eng.backend.name,
+           "moe_impl": cfg.moe_impl if cfg.is_moe else None,
+           "gmm_backend": eng.backend.name,
            "gmm_backend_source": eng.backend.source,
            "capacity": args.capacity, "page_size": args.page_size,
+           "kv_dtype": args.kv_dtype,
+           "kv_bytes_per_token": eng.kv_bytes_per_token,
            "seconds": seconds, "stats": dict(eng.stats)}
     print(f"run-record: {json.dumps(rec)}")
 

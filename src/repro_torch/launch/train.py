@@ -3,12 +3,16 @@ batches from the synthetic pipeline, the MoEBlaze training step.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x7b \
         --reduced --steps 3 --device cpu [--batch 2] [--seq 64] [--layers 2]
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
+        --reduced --steps 3 --device cpu
 
-Runs on the card by default (``--device cuda``).  The expert layer is the
-config's ``moe_impl`` (``blaze`` for Mixtral) with attention on
-``use_pallas=True``; the grouped-GEMM backend is chosen, as in the
-reference, by ``REPRO_GMM_BACKEND`` (``segment`` when unset;
-``pallas_fused`` runs the fused kernel pair).  Kernels take their plain
+Runs on the card by default (``--device cuda``), with ``use_pallas=True``:
+attention through the flash-attention kernel and, for a dense SwiGLU
+model, the FFN through the fused SwiGLU kernels.  A MoE model's expert
+layer is the config's ``moe_impl`` (``blaze`` for Mixtral); the
+grouped-GEMM backend is chosen, as in the reference, by
+``REPRO_GMM_BACKEND`` (``segment`` when unset; ``pallas_fused`` runs the
+fused kernel pair).  Kernels take their plain
 versions on the CPU.  Prints a line per logged step and then one JSON run
 record, which names the resolved backend.
 """
@@ -56,7 +60,7 @@ def main(argv=None):
            "param_dtype": cfg.param_dtype, "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
-           "moe_impl": cfg.moe_impl,
+           "moe_impl": cfg.moe_impl if cfg.is_moe else None,
            "gmm_backend": history[-1]["gmm_backend"],
            "batch": args.batch, "seq": args.seq, "history": history}
     print(f"run-record: {json.dumps(rec)}")

@@ -53,12 +53,9 @@ def check_supported(cfg) -> None:
     if cfg.moe_impl == "blaze":
         GB.resolve(config=cfg.gmm_backend)  # raises for an unavailable one
     # The residual set follows the checkpoint plan in the reference
-    # (``moe_residual_mode``); the port has no plans yet, so only the plan
-    # without remat, whose mode is set by ``save_yswi``.
-    if cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: checkpoint plans are not "
-            "ported (ROADMAP queue A4); the port runs remat_policy='none'")
+    # (``moe_residual_mode``); the port has no plans yet and
+    # ``transformer.check_supported`` refuses every ``remat_policy`` but
+    # "none", whose mode is set by ``save_yswi``.
 
 
 def _aux_of(g: routing.GatingOut, cfg) -> torch.Tensor:

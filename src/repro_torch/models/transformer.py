@@ -1,9 +1,11 @@
-"""Model assembly: embeddings, the attention + MoE sublayers, the
-full-sequence forward and training loss, and the paged prefill / decode
-entry points of serving.
+"""Model assembly: embeddings, the attention + MoE or dense FFN
+sublayers, the full-sequence forward and training loss, and the paged
+prefill / decode entry points of serving.
 
 Mirrors ``repro/models/transformer.py`` (``_apply_sublayer`` for the
-``attn_moe`` / ``attn_local_moe`` kinds, ``forward`` and ``train_loss``
+``attn_moe`` / ``attn_local_moe`` and ``attn_ffn`` / ``attn_local_ffn``
+kinds, whose dense blocks add no auxiliary loss, ``forward`` and
+``train_loss``
 for token inputs, ``init_paged_cache``, ``prefill`` without prefix
 offsets, ``paged_decode_step``).  Layers run in a Python loop where the
 reference scans over stacked groups; ``params["layers"]`` is a list with
@@ -21,11 +23,14 @@ import torch
 from repro_torch.models.attention import (attention_sublayer,
                                           paged_attention_sublayer)
 from repro_torch.models.common import rms_norm, softcap
+from repro_torch.models.ffn import FFN_ACTS, ffn_sublayer
 from repro_torch.models.moe_block import check_supported as check_moe
 from repro_torch.models.moe_block import moe_sublayer
 from repro_torch.serve.paged_cache import init_paged_kv
 
 MOE_KINDS = ("attn_moe", "attn_local_moe")
+DENSE_KINDS = ("attn_ffn", "attn_local_ffn")
+KINDS = MOE_KINDS + DENSE_KINDS
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -35,37 +40,56 @@ def layer_kinds(cfg) -> list[str]:
 
 
 def check_supported(cfg) -> None:
-    bad = sorted(set(cfg.block_pattern) - set(MOE_KINDS))
+    """Raise for configurations the port does not run yet (the MoE
+    settings are checked by ``moe_block.check_supported``)."""
+    bad = sorted(set(cfg.block_pattern) - set(KINDS))
     if bad:
         raise NotImplementedError(
             f"block kinds {bad} are not ported; the port runs "
-            f"{MOE_KINDS} (ROADMAP queue A)")
+            f"{KINDS} (ROADMAP queue A)")
     if cfg.input_kind != "tokens":
         raise NotImplementedError("the port takes token inputs only")
+    if cfg.remat_policy != "none":
+        raise NotImplementedError(
+            f"remat_policy={cfg.remat_policy!r}: checkpoint plans are not "
+            "ported (ROADMAP queue A4); the port runs remat_policy='none'")
+    if (set(cfg.block_pattern) & set(DENSE_KINDS)
+            and cfg.ffn_act not in FFN_ACTS):
+        raise NotImplementedError(
+            f"ffn_act={cfg.ffn_act!r}: the dense FFN takes {FFN_ACTS}")
 
 
 def _apply_sublayer(x, p, kind: str, cfg, attend):
-    """One attention + MoE block; ``attend(h, p_attn, cfg, is_local=...)``
-    is the attention sublayer (full-sequence or paged).  Returns the new
-    residual stream and the block's auxiliary loss."""
+    """One attention + MoE or dense FFN block; ``attend(h, p_attn, cfg,
+    is_local=...)`` is the attention sublayer (full-sequence or paged).
+    Returns the new residual stream and the block's auxiliary loss (zero
+    for a dense block)."""
     is_local = "local" in kind and cfg.sliding_window > 0
     h = attend(rms_norm(x, p["ln1"]), p["attn"], cfg, is_local=is_local)
     if cfg.post_norms:
         h = rms_norm(h, p["ln1_post"])
     x = x + h
-    h, aux = moe_sublayer(rms_norm(x, p["ln2"]), p["moe"], cfg)
+    h = rms_norm(x, p["ln2"])
+    if kind in MOE_KINDS:
+        h, aux = moe_sublayer(h, p["moe"], cfg)
+    else:
+        h = ffn_sublayer(h, p["ffn"], cfg)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.post_norms:
         h = rms_norm(h, p["ln2_post"])
     return x + h, aux
 
 
-def init_paged_cache(cfg, num_pages: int, page_size: int, device):
+def init_paged_cache(cfg, num_pages: int, page_size: int, device, *,
+                     quantized: bool = False):
     """One :class:`~repro_torch.serve.paged_cache.PagedKV` pool per layer
-    (physical page 0 is the trash page), in the model dtype."""
+    (physical page 0 is the trash page), in the model dtype, or with
+    ``quantized`` int8 values and float16 per-(position, head) scales."""
     check_supported(cfg)
     dt = getattr(torch, cfg.dtype)
     return [init_paged_kv(num_pages, page_size, cfg.num_kv_heads,
-                          cfg.resolved_head_dim, dt, device)
+                          cfg.resolved_head_dim, dt, device,
+                          quantized=quantized)
             for _ in range(cfg.num_layers)]
 
 
@@ -94,7 +118,8 @@ def forward(params, batch, cfg):
     ids.  Returns float32 logits (B, S, vocab) and the layers' summed
     auxiliary loss (float32 scalar)."""
     check_supported(cfg)
-    check_moe(cfg)
+    if cfg.is_moe:
+        check_moe(cfg)
     x = _embed(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     attend = partial(attention_sublayer, positions=positions)

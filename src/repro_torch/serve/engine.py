@@ -21,10 +21,16 @@ construction (engine argument > active ``use_backend`` scope >
 ``cfg.gmm_backend`` > ``REPRO_GMM_BACKEND`` > auto) and held in
 ``self.backend``; ``generate`` runs inside ``use_backend`` of it.
 
-Not ported yet, and refused: prefix sharing with copy-on-write pages, int8
-KV pages, temperature sampling (at construction), per-request grouped-GEMM
-backends (at ``generate``).  The async runtime and its streaming callbacks
-are not ported either.
+``kv_dtype="int8"`` stores the pools quantized with ``serve/kv_quant``'s
+symmetric per-(position, head) scheme (the int8 paged-attention kernel
+reads them); ``kv_bytes_per_token`` reports the pools' bytes per cached
+token as the reference's serving bench does (``cache_bytes`` of the pools
+over ``num_pages * page_size``).
+
+Not ported yet, and refused: prefix sharing with copy-on-write pages,
+temperature sampling (at construction), per-request grouped-GEMM backends
+(at ``generate``).  The async runtime and its streaming callbacks are not
+ported either.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_block import check_supported as check_moe
 from repro_torch.serve import paged_cache as PC
+from repro_torch.serve.kv_quant import cache_bytes
 
 
 @dataclass
@@ -79,10 +86,9 @@ class ServeEngine:
         self.device = resolve_device(device)
         self.backend = GB.resolve(gmm_backend, config=cfg.gmm_backend)
         cfg = cfg.replace(gmm_backend=self.backend.name)
-        if kv_dtype not in (None, "model"):
-            raise NotImplementedError(
-                f"kv_dtype={kv_dtype!r}: int8 KV pages are not ported yet "
-                "(ROADMAP queue A, serving)")
+        if kv_dtype not in (None, "model", "int8"):
+            raise ValueError(f"kv_dtype must be None|'model'|'int8', "
+                             f"got {kv_dtype!r}")
         if not greedy:
             raise NotImplementedError(
                 "temperature sampling is not ported yet; the port decodes "
@@ -104,6 +110,7 @@ class ServeEngine:
         self.slots = batch_slots
         self.capacity = capacity
         self.page_size = page_size
+        self.quantized = kv_dtype == "int8"
         self.pages_per_seq = PC.pages_needed(capacity, page_size)
         self.num_pages = (num_pages if num_pages is not None
                           else 1 + batch_slots * self.pages_per_seq)
@@ -121,7 +128,16 @@ class ServeEngine:
             self._pool = PC.PagePool(self.num_pages)
             self._cache = T.init_paged_cache(self.cfg, self.num_pages,
                                              self.page_size,
-                                             _params_device(self.params))
+                                             _params_device(self.params),
+                                             quantized=self.quantized)
+
+    @property
+    def kv_bytes_per_token(self) -> float:
+        """KV bytes (values and scales) one cached token costs across all
+        layers: the pools, allocated in full at first use, over their
+        positions."""
+        self._ensure_state()
+        return cache_bytes(self._cache) / (self.num_pages * self.page_size)
 
     def _limit(self, request: Request) -> int:
         """New-token budget: the cache holds ``prompt + (T - 1)`` written

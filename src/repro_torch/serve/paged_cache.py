@@ -1,8 +1,11 @@
 """Block-paged KV storage for the serving engine.
 
-Mirrors ``repro/serve/paged_cache.py`` for model-dtype pages:
+Mirrors ``repro/serve/paged_cache.py``:
 
-* :class:`PagedKV` — one layer's page pool, ``(P, page_size, Hkv, Dh)``;
+* :class:`PagedKV` — one layer's page pool, ``(P, page_size, Hkv, Dh)`` in
+  the model dtype, or int8 values with float16 per-(position, head) scales
+  ``(P, page_size, Hkv, 1)`` (``serve/kv_quant``'s scheme, applied at
+  write time);
 * per-request page tables ``(B, pages_per_seq)`` map logical positions to
   physical pages; unused entries point at the reserved **trash page**
   (page 0), so writes to padded positions land there and reads of it are
@@ -11,8 +14,8 @@ Mirrors ``repro/serve/paged_cache.py`` for model-dtype pages:
 
 The port updates the pools in place (``index_put_``) where the reference
 returns new arrays: a pool is a few hundred MB at full width, and a copy
-per write would double the cache.  int8 pages (``kv_quant``) and the
-prefix-sharing trie are not ported yet.
+per write would double the cache.  The prefix-sharing trie is not ported
+yet.
 """
 
 from __future__ import annotations
@@ -21,7 +24,11 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.kernels.paged_attention import paged_attention as _paged_attention_kernel
+from repro_torch.kernels.paged_attention import (paged_attention_int8 as
+                                                 _paged_attention_int8_kernel)
+from repro_torch.kernels.paged_attention import (paged_attention as
+                                                 _paged_attention_kernel)
+from repro_torch.serve.kv_quant import quantize
 
 NEG_INF = -1e30
 
@@ -30,10 +37,18 @@ TRASH_PAGE = 0
 
 
 class PagedKV(NamedTuple):
-    """One attention layer's page pool, ``(P, page_size, Hkv, Dh)`` each."""
+    """One attention layer's page pool: ``k``/``v`` ``(P, page_size, Hkv,
+    Dh)`` in the storage dtype; int8 storage carries float16 per-vector
+    scales ``(P, page_size, Hkv, 1)`` (``None`` otherwise)."""
 
     k: torch.Tensor
     v: torch.Tensor
+    k_scale: torch.Tensor | None = None
+    v_scale: torch.Tensor | None = None
+
+    @property
+    def quantized(self) -> bool:
+        return self.k_scale is not None
 
     @property
     def page_size(self) -> int:
@@ -41,8 +56,15 @@ class PagedKV(NamedTuple):
 
 
 def init_paged_kv(num_pages: int, page_size: int, n_kv: int, head_dim: int,
-                  dtype, device) -> PagedKV:
+                  dtype, device, *, quantized: bool = False) -> PagedKV:
     shape = (num_pages, page_size, n_kv, head_dim)
+    if quantized:
+        sshape = shape[:-1] + (1,)
+        return PagedKV(
+            k=torch.zeros(shape, dtype=torch.int8, device=device),
+            v=torch.zeros(shape, dtype=torch.int8, device=device),
+            k_scale=torch.zeros(sshape, dtype=torch.float16, device=device),
+            v_scale=torch.zeros(sshape, dtype=torch.float16, device=device))
     return PagedKV(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
 
@@ -53,8 +75,15 @@ def init_paged_kv(num_pages: int, page_size: int, n_kv: int, head_dim: int,
 
 
 def _scatter(pages: PagedKV, k, v, phys, off) -> None:
-    pages.k[phys, off] = k.to(pages.k.dtype)
-    pages.v[phys, off] = v.to(pages.v.dtype)
+    """Write flattened k/v rows at ``(phys, off)`` page coordinates,
+    quantized first when the pool is int8."""
+    if pages.quantized:
+        q, scale = quantize(torch.stack((k, v)))   # per vector: k, v at once
+        pages.k[phys, off], pages.v[phys, off] = q[0], q[1]
+        pages.k_scale[phys, off], pages.v_scale[phys, off] = scale[0], scale[1]
+    else:
+        pages.k[phys, off] = k.to(pages.k.dtype)
+        pages.v[phys, off] = v.to(pages.v.dtype)
 
 
 def write_prefill(pages: PagedKV, k: torch.Tensor, v: torch.Tensor,
@@ -113,7 +142,9 @@ def paged_gather_attention(q: torch.Tensor, pages: PagedKV,
     """Attention of ``Sq`` query tokens per request against the request's
     gathered pages (the reference's dense path, same rounding points: the
     scaled query is cast to the page dtype, scores and the value sum are
-    float32, probabilities are cast to the page dtype).
+    float32, probabilities are cast to the page dtype).  Over int8 pages
+    the scaled query stays in its dtype, the scores of the int8 keys are
+    multiplied by ``k_scale`` and the probabilities by ``v_scale``.
 
     q: ``(B, Sq, Hq, Dh)``; ``pos_q`` ``(B, Sq)`` absolute positions."""
     B, Sq, Hq, Dh = q.shape
@@ -122,10 +153,20 @@ def paged_gather_attention(q: torch.Tensor, pages: PagedKV,
     T = pt.shape[1] * ps
     Hkv = pages.k.shape[2]
     G = Hq // Hkv
-    kg = pages.k[pt].reshape(B, T, Hkv, Dh)
-    vg = pages.v[pt].reshape(B, T, Hkv, Dh)
-    qf = (q.reshape(B, Sq, Hkv, G, Dh) * Dh ** -0.5).to(kg.dtype)
+
+    def gather(a):
+        return a[pt].reshape((B, T) + a.shape[2:])
+
+    def scales(a):   # (P, ps, Hkv, 1) -> (B, 1, Hkv, 1, T) float32
+        return gather(a)[..., 0].float().transpose(1, 2)[:, None, :, None, :]
+
+    kg, vg = gather(pages.k), gather(pages.v)
+    qf = q.reshape(B, Sq, Hkv, G, Dh) * Dh ** -0.5
+    if not pages.quantized:
+        qf = qf.to(kg.dtype)
     s = torch.einsum("bqhgd,bthd->bqhgt", qf.float(), kg.float())
+    if pages.quantized:
+        s = s * scales(pages.k_scale)
     if cap:
         s = cap * torch.tanh(s / cap)
     t_ids = torch.arange(T, device=q.device)
@@ -136,8 +177,11 @@ def paged_gather_attention(q: torch.Tensor, pages: PagedKV,
     s = torch.where(valid[:, :, None, None, :], s,
                     torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bqhgt,bthd->bqhgd", p.to(vg.dtype).float(),
-                       vg.float())
+    if pages.quantized:
+        p = p * scales(pages.v_scale)
+    else:
+        p = p.to(vg.dtype).float()
+    out = torch.einsum("bqhgt,bthd->bqhgd", p, vg.float())
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
@@ -145,8 +189,13 @@ def paged_attention(q: torch.Tensor, pages: PagedKV,
                     page_table: torch.Tensor, positions: torch.Tensor, *,
                     window: int = 0, cap: float = 0.0) -> torch.Tensor:
     """One-token attention against the paged cache, through the paged
-    attention kernel (its plain version for CPU tensors).  q:
-    ``(B, 1, Hq, Dh)``; ``positions`` ``(B,)`` int32 current positions."""
+    attention kernel for the pool's storage (its plain version for CPU
+    tensors).  q: ``(B, 1, Hq, Dh)``; ``positions`` ``(B,)`` int32 current
+    positions."""
+    if pages.quantized:
+        return _paged_attention_int8_kernel(
+            q, pages.k, pages.v, pages.k_scale, pages.v_scale, page_table,
+            positions, window=window, cap=cap)
     return _paged_attention_kernel(q, pages.k, pages.v, page_table,
                                    positions, window=window, cap=cap)
 

@@ -58,7 +58,8 @@ def make_train_step(cfg, tcfg, device=None, backend=None):
     resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
     cfg = cfg.replace(gmm_backend=resolved.name)
     T.check_supported(cfg)
-    check_moe(cfg)
+    if cfg.is_moe:
+        check_moe(cfg)
     if tcfg.num_microbatches > 1:
         raise NotImplementedError(
             "num_microbatches > 1 (gradient accumulation) is not ported "

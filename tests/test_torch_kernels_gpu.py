@@ -20,7 +20,13 @@ scale (a chain of products summed in other orders).  The fused MoE pair:
 float32 outputs summed by atomics in another order, so float32 agrees to
 1e-5 relative over 1e-5 of each output's scale, and bfloat16 (whose
 backward also feeds da, db and g y_swi to the tensor cores in bf16) to one
-bf16 step (2^-7) of each output's scale plus 1e-2.
+bf16 step (2^-7) of each output's scale plus 1e-2.  The fused dense SwiGLU
+kernels: the same float32 sums in another order from the same bf16
+operands (da and db rounded to bf16 on both sides, with a fast exponential
+in the kernel), so float32 agrees to 1e-5 relative over 1e-5 of each
+output's scale and bfloat16 to one bf16 step of each output's scale plus
+1e-2; their autograd Function against autograd through the plain versions
+as the expert layer's.  The int8 paged kernel: as the model-dtype one.
 """
 
 import numpy as np
@@ -51,13 +57,15 @@ def K(dev):
     from repro_torch.core import routing
     from repro_torch.core import moe_layer
     from repro_torch.kernels import (combine, dispatch, flash_attention,
-                                     fused_moe, gather_gmm, gmm_dw, ops,
-                                     paged_attention)
+                                     fused_moe, fused_swiglu, gather_gmm,
+                                     gmm_dw, ops, paged_attention)
+    from repro_torch.serve import kv_quant
     return SimpleNamespace(routing=routing, combine=combine,
                            dispatch=dispatch, gather_gmm=gather_gmm,
                            paged_attention=paged_attention, gmm_dw=gmm_dw,
                            flash_attention=flash_attention, ops=ops,
-                           fused_moe=fused_moe, moe_layer=moe_layer)
+                           fused_moe=fused_moe, moe_layer=moe_layer,
+                           fused_swiglu=fused_swiglu, kv_quant=kv_quant)
 
 
 def _t(a, dev, dtype=None):
@@ -438,3 +446,123 @@ def test_moe_ffn_blaze_on_card_matches_plain_autograd(dev, K, backend,
         np.testing.assert_allclose(
             g_.detach().float().cpu().numpy(), w_, rtol=1e-4,
             atol=1e-4 * float(np.abs(w_).max()), err_msg=name)
+
+
+def _scale_close(name, got, want, dtype):
+    want = want.float()
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    if dtype == "bfloat16":
+        tol = dict(rtol=0.0, atol=2 ** -7 * scale + 1e-2)
+    else:
+        tol = dict(rtol=1e-5, atol=1e-5 * scale)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.cpu().numpy(), err_msg=name, **tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,d,h", [
+    (256, 256, 512),     # whole tiles
+    (4, 512, 1000),      # decode rows; h not a multiple of the tile
+    (300, 320, 520),     # ragged rows and d
+    (37, 100, 140),      # widths not a multiple of 8 (general path)
+    (0, 64, 128)])       # no rows: zero weight gradients
+def test_fused_swiglu_kernels(dev, K, dtype, L, d, h):
+    import torch
+    rng = np.random.default_rng(L + d + h)
+    x = _t(rng.normal(size=(L, d)), dev, dtype)
+    w1, w2 = (_t(rng.normal(size=(d, h)) * d ** -0.5, dev, dtype)
+              for _ in range(2))
+    dy = _t(rng.normal(size=(L, h)), dev, dtype)
+    FS = K.fused_swiglu
+    before = [f.launches for f in (FS.fused_swiglu_fwd,
+                                   FS.fused_swiglu_bwd_x,
+                                   FS.fused_swiglu_bwd_w)]
+    got = FS.fused_swiglu_fwd(x, w1, w2)
+    want = FS.fused_swiglu_fwd_plain(x, w1, w2)
+    for name, g_, w_ in zip(("y", "a", "b"), got, want):
+        assert g_.dtype == x.dtype and g_.shape == (L, h)
+        _scale_close(name, g_, w_, dtype)
+    _, a, b = got
+    dx = FS.fused_swiglu_bwd_x(dy, a, b, w1, w2)
+    _scale_close("dx", dx, FS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2),
+                 dtype)
+    dw = FS.fused_swiglu_bwd_w(x, dy, a, b)
+    for name, g_, w_ in zip(("dw1", "dw2"), dw,
+                            FS.fused_swiglu_bwd_w_plain(x, dy, a, b)):
+        assert g_.dtype == x.dtype and g_.shape == (d, h)
+        _scale_close(name, g_, w_, dtype)
+    if L == 0:
+        assert not dw[0].any() and not dw[1].any()
+    _sync()
+    after = [f.launches for f in (FS.fused_swiglu_fwd,
+                                  FS.fused_swiglu_bwd_x,
+                                  FS.fused_swiglu_bwd_w)]
+    assert after == [n + 1 for n in before]
+    assert bool(torch.isfinite(dx.float()).all())
+
+
+def test_fused_swiglu_refuses_what_it_does_not_take(dev, K):
+    import torch
+    FS = K.fused_swiglu
+    x = torch.zeros(8, 16, device=dev, dtype=torch.bfloat16)
+    w = torch.zeros(16, 32, device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bfloat16"):
+        FS.fused_swiglu_fwd(x, w.float(), w)
+    with pytest.raises(ValueError, match="bad shapes"):
+        FS.fused_swiglu_fwd(x, w, w[:8].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        FS.fused_swiglu_bwd_w(x, w.t(), w.t(), w.t())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        FS.fused_swiglu_fwd(x.half(), w.half(), w.half())
+
+
+@pytest.mark.parametrize("dtype,tol", [("float32", 1e-4),
+                                       ("bfloat16", 2 ** -4)])
+def test_swiglu_function_matches_plain_autograd(dev, K, dtype, tol):
+    """``ops.swiglu`` on the card (the three kernels) against autograd
+    through the plain forward: y, dx, dw1, dw2, each within ``tol`` of its
+    scale (bf16 rounds da and db to bf16 where autograd keeps float32)."""
+    import torch
+    rng = np.random.default_rng(11)
+    L, d, h = 1024, 1024, 2048
+
+    def make(*shape, s=1.0):
+        return _t(rng.normal(size=shape) * s, dev, dtype).requires_grad_()
+
+    x, w1, w2 = make(L, d), make(d, h, s=d ** -0.5), make(d, h, s=d ** -0.5)
+    dy = _t(rng.normal(size=(L, h)), dev, dtype)
+    y = K.ops.swiglu(x, w1, w2)
+    got = [y, *torch.autograd.grad(y, (x, w1, w2), dy)]
+    y_p = K.fused_swiglu.fused_swiglu_fwd_plain(x, w1, w2)[0]
+    want = [y_p, *torch.autograd.grad(y_p, (x, w1, w2), dy)]
+    for name, g_, w_ in zip(("y", "dx", "dw1", "dw2"), got, want):
+        w_ = w_.detach().float()
+        scale = float(w_.abs().max())
+        np.testing.assert_allclose(g_.detach().float().cpu().numpy(),
+                                   w_.cpu().numpy(), rtol=tol,
+                                   atol=tol * scale, err_msg=name)
+        assert g_.dtype == x.dtype
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (10, 0.0), (0, 5.0),
+                                        (6, 5.0)])
+@pytest.mark.parametrize("hkv,g,dh,ps", [(2, 2, 16, 8), (8, 5, 128, 16)],
+                         ids=["small", "qwen3_heads"])
+def test_paged_attention_int8_kernel(dev, K, dtype, window, cap, hkv, g, dh,
+                                     ps):
+    """Over int8 pools quantized on the card; the Qwen3-14B heads (40
+    query heads over 8 kv heads of 128, a group of 5); position 0 and a
+    dead slot (table all trash)."""
+    q, k, v, table, pos = _paged_case(dtype, dev, P=13, ps=ps, hkv=hkv, g=g,
+                                      dh=dh)
+    kq, ks = K.kv_quant.quantize(k)
+    vq, vs = K.kv_quant.quantize(v)
+    A = K.paged_attention
+    before = A.paged_attention_int8.launches
+    args = (q, kq, vq, ks, vs, table, pos)
+    got = A.paged_attention_int8(*args, window=window, cap=cap)
+    want = A.paged_attention_int8_plain(*args, window=window, cap=cap)
+    _sync()
+    assert A.paged_attention_int8.launches == before + 1
+    _close(got, want, dtype)

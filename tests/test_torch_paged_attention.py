@@ -6,6 +6,15 @@ The plain version runs here against the reference's Pallas kernel
 slot (table all trash).  Tolerances: float32 1e-5; bfloat16 2e-2 (the dense
 reference rounds the scaled query and the probabilities to bf16, the kernel
 keeps float32, and the output rounds to bf16 once).
+
+The int8 branch: ``kv_quant.quantize`` is bit-equal to the reference's
+(round half to even of the value over the float32 scale, the scale stored
+as float16), and the plain version over int8 pools against the reference's
+Pallas kernel (interpret) and its dense gather path on the same pools, with
+a GQA group of 5, the same windows and softcaps, position 0 and a dead
+slot.  Tolerances: a float32 query 1e-5; a bfloat16 query 2e-2 (the dense
+reference rounds the scaled query to bf16, the kernel keeps float32, and
+the bf16 output of either kernel may round to a neighbouring value).
 """
 
 import jax.numpy as jnp
@@ -13,6 +22,7 @@ import numpy as np
 import pytest
 
 from repro.kernels.paged_attention import paged_attention_pallas
+from repro.serve import kv_quant as JKQ
 from repro.serve import paged_cache as JPC
 from torch_parity import as_dtype, f32, to_torch, tp  # noqa: F401
 
@@ -57,4 +67,61 @@ def test_paged_attention_matches_reference(tp, dtype, window, cap):
         tq, tp.paged_cache.PagedKV(tk, tv), tt, tpos[:, None],
         window=window, cap=cap)
     np.testing.assert_allclose(f32(dense), f32(ref_dense), **TOL["float32"])
+    assert np.isfinite(f32(out)).all()
+
+
+def test_quantize_matches_reference(tp):
+    rng = np.random.default_rng(3)
+    x = rng.normal(size=(40, 3, 16)).astype(np.float32) * 3.0
+    x[0, 0] = 0.0                              # absmax 0: the 1e-8 floor
+    x[1, 0, :4] = [127.0, -63.5, 0.5, 1.5]     # ties round half to even
+    jq, js = JKQ.quantize(jnp.asarray(x))
+    tq, ts = tp.kv_quant.quantize(to_torch(x))
+    assert tq.dtype == tp.torch.int8 and ts.dtype == tp.torch.float16
+    assert (tq.numpy() == np.asarray(jq)).all()
+    assert (ts.numpy() == np.asarray(js)).all()
+    deq = tp.kv_quant.dequantize(tq, ts)
+    np.testing.assert_array_equal(deq.numpy(),
+                                  np.asarray(JKQ.dequantize(jq, js)))
+
+
+def _int8_case(dtype, seed=1):
+    """As :func:`_case` with a GQA group of 5 and int8 pools quantized from
+    normal keys and values."""
+    rng = np.random.default_rng(seed)
+    k = rng.normal(size=(P, PS, HKV, DH)).astype(np.float32)
+    v = rng.normal(size=(P, PS, HKV, DH)).astype(np.float32)
+    q = as_dtype(rng.normal(size=(4, 1, HKV * 5, DH)), dtype)
+    kq, ks = (np.asarray(a) for a in JKQ.quantize(jnp.asarray(k)))
+    vq, vs = (np.asarray(a) for a in JKQ.quantize(jnp.asarray(v)))
+    _, _, _, table, pos = _case(dtype)
+    return q, kq, vq, ks, vs, table, pos
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (10, 0.0), (0, 5.0),
+                                        (6, 5.0)])
+def test_paged_attention_int8_matches_reference(tp, dtype, window, cap):
+    q, kq, vq, ks, vs, table, pos = _int8_case(dtype)
+    jin = [jnp.asarray(a) for a in (q, kq, vq, ks, vs, table, pos)]
+    ref_kernel = paged_attention_pallas(*jin, window=window, cap=cap)
+    ref_dense = JPC.paged_gather_attention(
+        jin[0], JPC.PagedKV(*jin[1:5]), jin[5], jin[6][:, None],
+        window=window, cap=cap)
+    tin = [to_torch(a) for a in (q, kq, vq, ks, vs, table, pos)]
+    out = tp.paged_attention.paged_attention_int8(*tin, window=window,
+                                                  cap=cap)
+    assert out.dtype == tin[0].dtype and out.shape == tin[0].shape
+    np.testing.assert_allclose(f32(out), f32(ref_kernel), **TOL[dtype])
+    np.testing.assert_allclose(f32(out), f32(ref_dense), **TOL[dtype])
+    # the port's dense path over int8 pools, same rounding points as the
+    # reference's
+    pages = tp.paged_cache.PagedKV(*tin[1:5])
+    dense = tp.paged_cache.paged_gather_attention(
+        tin[0], pages, tin[5], tin[6][:, None], window=window, cap=cap)
+    np.testing.assert_allclose(f32(dense), f32(ref_dense), **TOL[dtype])
+    # and the serving entry point picks the int8 kernel for int8 pools
+    via_pool = tp.paged_cache.paged_attention(tin[0], pages, tin[5], tin[6],
+                                              window=window, cap=cap)
+    assert tp.torch.equal(via_pool, out)
     assert np.isfinite(f32(out)).all()

@@ -147,8 +147,7 @@ def test_engine_without_device_needs_cuda(tp, params, monkeypatch):
 
 def test_engine_refuses_unported_options(tp, params):
     ServeEngine = tp.engine.ServeEngine
-    for kw in (dict(kv_dtype="int8"), dict(greedy=False),
-               dict(prefix_cache=True)):
+    for kw in (dict(greedy=False), dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError):
             ServeEngine(TCFG, params[1], device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="moe_impl"):
@@ -183,8 +182,9 @@ def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """``import repro_torch``, a CPU engine run and CPU training steps
-    (``blaze_pallas``, and ``blaze`` on ``pallas_fused``) leave JAX and
+    """``import repro_torch``, CPU engine runs (Mixtral; Qwen3-14B over
+    bf16 and over int8 pages) and CPU training steps (``blaze_pallas``,
+    ``blaze`` on ``pallas_fused``, and the dense Qwen3-14B) leave JAX and
     the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
@@ -213,6 +213,18 @@ def test_port_imports_no_jax_and_no_reference():
         "_, _, h = train(fcfg, TrainConfig(total_steps=1, batch_size=1, "
         "seq_len=32), device='cpu', log=lambda _: None)\n"
         "assert h[0]['gmm_backend'] == 'pallas_fused'\n"
+        "assert np.isfinite(h[0]['loss'])\n"
+        "qcfg = get_config('qwen3-14b').reduced().replace("
+        "dtype='bfloat16', use_pallas=True)\n"
+        "qp = init_params(qcfg, torch.Generator().manual_seed(0), 'cpu')\n"
+        "for kv in ('model', 'int8'):\n"
+        "    eng = ServeEngine(qcfg, qp, batch_slots=2, capacity=32, "
+        "kv_dtype=kv, device='cpu')\n"
+        "    r = eng.generate([Request(prompt=np.arange(3, 9, "
+        "dtype=np.int32), max_new_tokens=3)])[0]\n"
+        "    assert len(r.out_tokens) == 3\n"
+        "_, _, h = train(qcfg, TrainConfig(total_steps=1, batch_size=1, "
+        "seq_len=32), device='cpu', log=lambda _: None)\n"
         "assert np.isfinite(h[0]['loss'])\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"

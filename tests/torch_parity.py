@@ -33,7 +33,7 @@ def port() -> SimpleNamespace:
                                      gather_gmm, gmm_dw, ops,
                                      paged_attention)
     from repro_torch.models import transformer
-    from repro_torch.serve import engine, paged_cache
+    from repro_torch.serve import engine, kv_quant, paged_cache
 
     # The suite runs with several worker processes; keep each one's
     # intra-op pool small.
@@ -43,7 +43,7 @@ def port() -> SimpleNamespace:
         dispatch=dispatch, gather_gmm=gather_gmm, gmm_dw=gmm_dw,
         flash_attention=flash_attention, ops=ops,
         paged_attention=paged_attention, transformer=transformer,
-        engine=engine, paged_cache=paged_cache,
+        engine=engine, paged_cache=paged_cache, kv_quant=kv_quant,
         dtype={"float32": torch.float32, "bfloat16": torch.bfloat16})
 
 
