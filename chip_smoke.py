@@ -7,7 +7,7 @@ H100.
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. card — the ``nvidia-smi`` name and power limit;
-2. build — the twelve CUDA kernels from ``src/repro_torch/csrc`` (one
+2. build — the thirteen CUDA kernels from ``src/repro_torch/csrc`` (one
    nvcc per source, in parallel);
 3. parity — each kernel against its plain PyTorch version on the card, in
    bf16 at the serving and training shapes (Mixtral-8x7B: d=4096, 32/8
@@ -54,7 +54,38 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (plain versions), for ``blaze_pallas`` and for ``blaze`` on
    ``pallas_fused``: loss, grad norm and updated parameters must agree
    within the float32 tolerances below;
-10. Qwen3-14B parity — with Mixtral's state freed, the dense model's
+10. the row gather — the dispatch builds of the ``ep_a2a`` path bit-equal
+   to the plain build at its shapes (the pack by destination over 2 and 5
+   groups, the local expert bank over 9 and 3, pads in its trash group)
+   and the pack's send-buffer order against a plain pack at capacity 2.0
+   and 0.25; the send-buffer kernel against its plain version, bit for
+   bit, at Mixtral's width in bf16: the one-rank training buffer (2 x 2048
+   tokens, 8192 rows, all valid) and one rank's buffer of four (a
+   1024-token chunk packed by destination, about half the rows pads), at
+   d=4100 in bf16 (the element-wise copy) and float32, from a misaligned
+   source and at N=0; then their times beside the byte bound and
+   ``index_select`` on clamped ids (which does not zero the pads), timed
+   only;
+11. the MoE layer on a mesh — this process as a one-rank NCCL group laid
+   out as a (data=1, model=1) mesh; Mixtral-8x7B's MoE sublayer at full
+   width (2 x 2048 tokens, bf16, ``blaze`` on ``pallas``) under ``ep``,
+   ``ep_a2a`` (one and two chunks) and ``tp`` against the layer without a
+   mesh: the output and the gradients of mean(y**2) (``ep`` and ``tp``
+   bit-equal, since one rank runs the same kernels on the same rows),
+   overflow exactly 0;
+12. training ``ep_a2a`` — phase 7 with ``moe_impl="blaze"`` on ``pallas``
+   and ``moe_parallel="ep_a2a"`` on the one-rank mesh (the packing, the
+   row gather, the exchanges and the trash expert all run on the card):
+   ``gather_rows`` exactly once per MoE layer a step, overflow 0;
+13. several ranks on the one card — spawned ranks share the H100 over gloo
+   (staged through host memory) at a reduced width (d=1024, expert width
+   3584, 1024 tokens per rank): 2 ranks run ``ep``, ``ep_a2a`` (one and
+   two chunks), ``tp`` and ``ep_a2a`` at capacity 0.25; 4 ranks run
+   ``ep_a2a_hier``; 4 ranks (data=2, model=2) run one ``ep_a2a`` training
+   step; each rank is held against this process's result without a mesh,
+   the tight ``ep_a2a`` against this process's layer with the slots a
+   plain pack drops given gate 0;
+14. Qwen3-14B parity — with Mixtral's state freed, the dense model's
    kernels against their plain versions on the card in bf16 at its widths
    (d=5120, FFN width 17408, 40/8 heads of 128): the fused-SwiGLU forward,
    bwd_x and bwd_w at the training (L=4096) and decode (L=4) shapes, at a
@@ -62,11 +93,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    multiple of 8 and in float32; the ``swiglu`` autograd Function against
    autograd through the plain versions; the int8 paged-attention kernel
    (a window, a softcap, position 0, a dead page table);
-11. Qwen3-14B timing — those four kernels at the training, prefill and
+15. Qwen3-14B timing — those four kernels at the training, prefill and
    decode shapes, as phase 4 (library yardsticks: one ``torch.matmul``
    per kernel over w1 | w2 concatenated, the epilogue excluded;
    ``scaled_dot_product_attention`` over dequantized gathered pages);
-12. Qwen3-14B serving at full width and full depth (40 layers, random
+16. Qwen3-14B serving at full width and full depth (40 layers, random
    bf16 weights from seed 0, ``use_pallas=True``): phase 5's requests,
    cold, warm (the fused-SwiGLU forward, flash attention and paged
    attention must be launched) and traced; then the same requests on an
@@ -74,11 +105,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    must be launched; every first token must equal the bf16 run's, since
    prefill attends over the in-flight k/v), the share of decode tokens
    that agree, and the KV bytes per cached token of both pools;
-13. Qwen3-14B CPU cross-check — phase 6 on a 2-layer cut of those weights;
-14. Qwen3-14B training — with the serving weights freed, full width with
+17. Qwen3-14B CPU cross-check — phase 6 on a 2-layer cut of those weights;
+18. Qwen3-14B training — with the serving weights freed, full width with
    the depth cut from 40 to 4 layers, as phase 7 (the three fused-SwiGLU
    kernels and flash attention must be launched during the warm steps);
-15. Qwen3-14B CPU training cross-check — phase 9 on the reduced Qwen3-14B.
+19. Qwen3-14B CPU training cross-check — phase 9 on the reduced Qwen3-14B.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -148,6 +179,19 @@ LAYER_F32, LAYER_BF16 = 1e-4, 2 ** -4
 # 2e-3 lr.
 STEP_RTOL, STEP_FAR_SHARE = 1e-4, 1e-3
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+# The MoE layer on a mesh against the layer without one, in bf16: the
+# reference's bf16 tolerance (tests/test_sharding.py:74-75, rtol = atol =
+# 5e-2), with the absolute term taken relative to each output's scale (the
+# gradients of mean(y**2) are of size ~1e-8): the a2a path sums each
+# token's k expert outputs after rounding them to bf16 where the combine
+# rounds once, and the modes sum in other orders.
+LAYER_MESH_TOL = (5e-2, 5e-2)
+# Ranks sharing the card (phase 13): widths (d, expert h), tokens per rank,
+# and the training step's loss and grad norm against the step without a
+# mesh: bf16 compute, the a2a sum over k rounded as above, and the
+# load-balance loss estimated per rank's chunk -> 1e-3 relative (the
+# readings are ~1e-5 for the loss and ~1e-4 for the grad norm).
+MR_WIDTHS, MR_TOKENS, MR_STEP_RTOL = (1024, 3584), 1024, 1e-3
 
 
 def log(msg: str) -> None:
@@ -236,8 +280,15 @@ def main() -> int:
     from repro_torch.serve import engine as SE
     from repro_torch.serve import kv_quant as KQ
     from repro_torch.core import moe_layer as ML
+    from repro_torch import sharding as SH
+    from repro_torch.core import collectives as CL
+    from repro_torch.core import memsim as MS
+    from repro_torch.kernels import gather_rows as KR
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import moe_block as MB
     M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR, KFM=KFM,
-                        ML=ML, KS=KS, KP=KP, KQ=KQ, SE=SE, T=T, K=K)
+                        ML=ML, KS=KS, KP=KP, KQ=KQ, SE=SE, T=T, K=K, SH=SH,
+                        CL=CL, MS=MS, KR=KR, MESH=MESH, MB=MB)
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -284,7 +335,7 @@ def main() -> int:
                              "flash_attention", "fused_moe_fwd",
                              "fused_moe_bwd", "fused_swiglu_fwd",
                              "fused_swiglu_bwd_x", "fused_swiglu_bwd_w",
-                             "paged_attention_int8")}
+                             "paged_attention_int8", "gather_rows")}
 
     def dispatch_case(name, topk, n_exp):
         got = KD.build_dispatch(topk, n_exp)
@@ -550,11 +601,39 @@ def main() -> int:
     xcheck_fused = cpu_train_crosscheck(dev, gmm_backend="pallas_fused")
     torch.cuda.empty_cache()
 
-    # -- 10. Qwen3-14B parity ---------------------------------------------------
+    # -- 10. the row gather (the ep_a2a send buffer) ------------------------------
+    rows["gather_rows"] = gather_rows_checks(M, dev, rng, timer, entry, randn,
+                                             errs, dispatch_case, topk_tr)
+    torch.cuda.empty_cache()
+
+    # -- 11. the MoE layer on a one-rank NCCL mesh, full width -----------------
+    mesh1 = one_rank_mesh(M, dev)
+    layer1 = layer_mesh_parity(M, dev, mesh1)
+    torch.cuda.empty_cache()
+
+    # -- 12. training, ep_a2a on the one-rank mesh --------------------------------
+    cfg_a2a = get_config("mixtral-8x7b").replace(
+        num_layers=2, gmm_backend="pallas", moe_parallel="ep_a2a",
+        use_pallas=True)
+    train_a2a = training_phase(cfg_a2a, dev, K, (
+        "build_dispatch", "gather_gmm", "gmm_dw", "flash_attention",
+        "gather_rows"), "ep_a2a", mesh=mesh1,
+        per_step={"gather_rows": cfg_a2a.num_layers})
+    check(all(v == 0.0 for v in train_a2a["moe_overflow"]),
+          "train [ep_a2a]: slots dropped at one rank")
+    torch.distributed.destroy_process_group()
+    del mesh1
+    torch.cuda.empty_cache()
+
+    # -- 13. several ranks on the one card ---------------------------------------
+    multi = multi_rank_phase(M, dev)
+    torch.cuda.empty_cache()
+
+    # -- 14. Qwen3-14B parity ---------------------------------------------------
     qcfg = get_config("qwen3-14b").replace(use_pallas=True)
     qz = qwen_kernel_parity(M, dev, rng, randn, errs, qcfg)
 
-    # -- 11. Qwen3-14B timing ---------------------------------------------------
+    # -- 15. Qwen3-14B timing ---------------------------------------------------
     rows.update(qwen_kernel_timing(M, timer, entry, qz, randn))
     for name in ("fused_swiglu_fwd", "fused_swiglu_bwd_x",
                  "fused_swiglu_bwd_w", "paged_attention_int8"):
@@ -564,7 +643,7 @@ def main() -> int:
                 f"({r['bound_by']}), library {r['library_ms']}")
     del qz
 
-    # -- 12. Qwen3-14B serving, 40 layers, bf16 then int8 pages ----------------
+    # -- 16. Qwen3-14B serving, 40 layers, bf16 then int8 pages ----------------
     gen = torch.Generator(device=dev).manual_seed(0)
     qparams = init_params(qcfg, gen, dev)
     torch.cuda.synchronize()
@@ -595,7 +674,7 @@ def main() -> int:
           and qserve8["kv_bytes_per_token"] == 83200,
           "KV bytes per token are not 163,840 (bf16) and 83,200 (int8)")
 
-    # -- 13. Qwen3-14B CPU cross-check, 2-layer cut ------------------------------
+    # -- 17. Qwen3-14B CPU cross-check, 2-layer cut ------------------------------
     qprompt = rng.integers(3, qcfg.vocab_size, size=24).astype(np.int32)
     qx = cpu_prefill_crosscheck(T, qcfg.replace(num_layers=2),
                                 dict(qparams, layers=qparams["layers"][:2]),
@@ -603,7 +682,7 @@ def main() -> int:
     del qparams
     torch.cuda.empty_cache()
 
-    # -- 14. Qwen3-14B training, 4 layers --------------------------------------
+    # -- 18. Qwen3-14B training, 4 layers --------------------------------------
     cfg_qtrain = get_config("qwen3-14b").replace(num_layers=4,
                                                  use_pallas=True)
     qtrain = training_phase(cfg_qtrain, dev, K, (
@@ -611,7 +690,7 @@ def main() -> int:
         "flash_attention"), "qwen3-14b")
     torch.cuda.empty_cache()
 
-    # -- 15. Qwen3-14B CPU training cross-check ----------------------------------
+    # -- 19. Qwen3-14B CPU training cross-check ----------------------------------
     # One element of a leaf may step apart: in the reduced Qwen3-14B a
     # 256-wide norm scale has an element whose gradient is ~1.7e-5 of its
     # leaf's scale, which clipping (grad norm ~8) brings to a few AdamW
@@ -646,6 +725,8 @@ def main() -> int:
                                "src/repro/kernels/fused_swiglu.py:180"),
         "paged_attention_int8": ("src/repro_torch/csrc/paged_attention.cu",
                                  "src/repro/kernels/paged_attention.py:97"),
+        "gather_rows": ("src/repro_torch/csrc/gather_rows.cu",
+                        "src/repro/kernels/gather_gmm.py:680"),
     }
     kernels = []
     for name, (source, replaces) in sources.items():
@@ -660,6 +741,8 @@ def main() -> int:
                                 qserve["launches"][name])
         elif name == "paged_attention_int8":
             n_train, n_serve = 0, qserve8["launches"][name]
+        elif name == "gather_rows":
+            n_train, n_serve = train_a2a["launches"][name], 0
         else:
             phase = train_fused if name.startswith("fused_moe") else train
             n_train, n_serve = phase["launches"][name], launches[name]
@@ -683,8 +766,11 @@ def main() -> int:
         log(f"e2e-record{tag}: "
             f"{json.dumps(dict(rec, weight_bytes=nbytes))}")
     log(f"cpu cross-check [qwen3-14b, 2-layer cut]: {json.dumps(qx)}")
+    log(f"layer-record [one-rank mesh]: {json.dumps(layer1)}")
+    log(f"multi-rank-record: {json.dumps(multi)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
                          ("blaze+pallas_fused", train_fused, xcheck_fused),
+                         ("ep_a2a", train_a2a, None),
                          ("qwen3-14b", qtrain, xcheck_q)):
         rec = {k_: v for k_, v in rec.items() if k_ != "by_kernel_ms"}
         log(f"train-record [{tag}]: "
@@ -699,7 +785,7 @@ def main() -> int:
 
 def serving_phase(M, cfg, params, prompts, dev, required, tag,
                   kv_dtype=None) -> dict:
-    """Phases 5 and 12: ``prompts`` (16 new tokens each) served by the
+    """Phases 5 and 16: ``prompts`` (16 new tokens each) served by the
     port's engine on 4 slots (capacity 1024, 16-token pages) three times:
     cold, then warm (measured: every kernel in ``required`` must be
     launched during this run), then traced with torch.profiler (device
@@ -805,7 +891,7 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
 
 def cpu_prefill_crosscheck(T, cfg, params, prompt, dev,
                            allow_near_tie=False) -> dict:
-    """Phases 6 and 13: one 24-token prompt through the same weights on the
+    """Phases 6 and 17: one 24-token prompt through the same weights on the
     card and copied to the CPU (plain versions there); the prefill logits
     must agree within ``CPU_LOGIT_ATOL`` and give the same first token.
     With ``allow_near_tie`` (a vocabulary of 151,936 random logits, whose
@@ -846,7 +932,7 @@ def cpu_prefill_crosscheck(T, cfg, params, prompt, dev,
 
 
 def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
-    """Phase 10: the fused-SwiGLU kernels and the int8 paged-attention
+    """Phase 14: the fused-SwiGLU kernels and the int8 paged-attention
     kernel against their plain versions at Qwen3-14B's widths, and the
     ``swiglu`` autograd Function against autograd through the plain
     versions.  Returns the weights and the int8 decode inputs for the
@@ -953,7 +1039,7 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
 
 
 def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
-    """Phase 11: the fused-SwiGLU kernels at the training (L=4096),
+    """Phase 15: the fused-SwiGLU kernels at the training (L=4096),
     prefill (L=2048, the serving run's 4 x 512 bucket) and decode (L=4)
     shapes, and the int8 paged kernel at decode, each beside its plain
     version, its bound and a library yardstick: ``torch.matmul`` of the
@@ -1399,10 +1485,450 @@ def train_kernel_timing(M, timer, entry, tr, disp_tr, E):
     return rows
 
 
-def training_phase(cfg, dev, K, required, tag):
-    """Phases 7 and 8: the Mixtral training step at full width through
-    ``make_train_step``; every kernel in ``required`` must be launched
-    during the warm steps.  Returns the measurements."""
+def gather_rows_checks(M, dev, rng, timer, entry, randn, errs,
+                       dispatch_case, topk_tr) -> list:
+    """Phase 10: the ``ep_a2a`` path's send-buffer bookkeeping and the
+    row-gather kernel.  The dispatch builds of ``_a2a_pack`` and of the
+    local expert bank, bit-equal to the plain build at the shapes the path
+    gives them, and the pack's send-buffer order against a plain pack (a
+    wrong order within a destination drops the wrong slots at a tight
+    capacity).  Then the kernel against its plain version, bit for bit, at
+    the send buffers of the path at Mixtral's width (one rank: all 2 x 2048
+    tokens' 8192 slots; four ranks: one rank's 1024-token chunk packed by
+    destination at capacity 2.0, about half the rows pads), at an odd
+    width in bf16 (the element-wise copy) and float32 (the vector copy), a
+    misaligned source and N = 0; then their times."""
+    KR, MB = M.KR, M.MB
+    d, k, E = 4096, 2, 8
+    i32 = torch.int32
+
+    def pack_case(name, dest, G, C):
+        dispatch_case(name, dest.to(i32).reshape(-1, 1).contiguous(), G + 1)
+        src, slot_ok, *_ = MB._a2a_pack(dest, G, C)
+        want = torch.full((G * C,), -1, dtype=i32, device=dev)
+        for g in range(G):
+            rows = (dest == g).nonzero().flatten()[:C]
+            want[g * C:g * C + rows.numel()] = rows.to(i32)
+        check(torch.equal(src, want) and torch.equal(slot_ok, want >= 0),
+              f"a2a pack {name}: send-buffer order differs from the plain "
+              "pack")
+        log(f"parity a2a pack [{name}]: dispatch over {G + 1} groups "
+            f"bit-equal, send buffer as the plain pack, "
+            f"{int((want >= 0).sum())} of {dest.numel()} slots sent")
+        return src, slot_ok
+
+    def cap(c, slots, n):
+        return M.MS._a2a_capacity(SimpleNamespace(moe_a2a_capacity=c),
+                                  slots, n)
+
+    # one rank: every slot goes to rank 0; the local bank gets them all
+    n_slots = TRAIN_BATCH * TRAIN_SEQ * k
+    pack_case(f"n=1: {n_slots} slots, capacity 2.0",
+              torch.zeros(n_slots, dtype=i32, device=dev), 1,
+              cap(2.0, n_slots, 1))
+    dispatch_case("n=1 local bank", topk_tr.reshape(-1, 1).contiguous(),
+                  E + 1)
+    log(f"parity build_dispatch [n=1 local bank: {n_slots} rows, {E + 1} "
+        "groups]: bit-equal")
+    # four ranks: one rank's chunk routed top-2 over 8 experts, packed by
+    # destination rank at the default capacity and at 0.25
+    n, Lc = 4, 1024
+    topk = torch.from_numpy(np.stack([rng.permutation(E)[:k]
+                                      for _ in range(Lc)]).astype(np.int32))
+    dest = (topk.to(dev) // (E // n)).reshape(-1)
+    C = cap(2.0, Lc * k, n)
+    src_of_slot, slot_ok = pack_case(f"n=4: {Lc * k} slots, capacity 2.0",
+                                     dest, n, C)
+    pack_case(f"n=4: {Lc * k} slots, capacity 0.25", dest, n,
+              cap(0.25, Lc * k, n))
+    e_loc = (topk.to(dev) % (E // n)).reshape(-1)
+    bank = torch.where(slot_ok, e_loc[src_of_slot.long().clamp(min=0)],
+                       E // n)
+    dispatch_case("n=4 local bank", bank.to(i32).reshape(-1, 1)
+                  .contiguous(), E // n + 1)
+    log(f"parity build_dispatch [n=4 local bank: {bank.numel()} rows, "
+        f"{E // n + 1} groups, the pads in the trash group]: bit-equal")
+
+    def case(name, src, ids):
+        got = KR.gather_rows(src, ids)
+        want = KR.gather_rows_plain(src, ids)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and torch.equal(got, want),
+              f"gather_rows {name}: differs from its plain version")
+        check(not bool(got[ids < 0].any()),
+              f"gather_rows {name}: a pad row is not zero")
+        log(f"parity gather_rows [{name}]: bit-equal, {ids.numel()} rows, "
+            f"{int((ids < 0).sum())} zero rows")
+
+    # one rank: slot s of the send buffer holds token s // k
+    src1 = randn(TRAIN_BATCH * TRAIN_SEQ, d)
+    ids1 = (torch.arange(src1.shape[0] * k, device=dev) // k).to(i32)
+    ids4 = torch.where(slot_ok, src_of_slot // k, -1).to(i32)
+    src4 = randn(Lc, d)
+    shape1 = (f"n=1 training send buffer: L={src1.shape[0]}, N={ids1.numel()}"
+              f", d={d}, bf16")
+    shape4 = f"n=4 rank send buffer: Lc={Lc}, C={C}, N={ids4.numel()}, d={d}"
+    case(shape1, src1, ids1)
+    case(shape4, src4, ids4)
+    odd_ids = rng.integers(0, 300, size=513).astype(np.int32)
+    odd_ids[::7] = -1                          # pad rows in every case
+    odd_ids = torch.from_numpy(odd_ids).to(dev)
+    case("d=4100 bf16, 8200-byte rows: element copy", randn(300, 4100),
+         odd_ids)
+    case("d=4100 float32, 16400-byte rows: vector copy",
+         randn(300, 4100, dtype=torch.float32), odd_ids)
+    shifted = randn(300 * d + 1)[1:].view(300, d)
+    case("d=4096 bf16, source 2 bytes off 16-byte alignment: element copy",
+         shifted, odd_ids)
+    before = KR.gather_rows.launches
+    empty = KR.gather_rows(src4, ids4[:0])
+    check(empty.shape == (0, d) and KR.gather_rows.launches == before,
+          "gather_rows N=0: wrong shape or a launch")
+    log("parity gather_rows [N=0]: empty output, no launch")
+    errs["gather_rows"] = 0.0
+
+    def row(src, ids, shape):
+        valid = ids[ids >= 0]
+        n_src = int(valid.unique().numel())
+        N = ids.numel()
+        nbytes = n_src * d * EB + N * 4 + N * d * EB
+        lib_ids = ids.clamp_min(0)
+        return entry(timer(lambda: KR.gather_rows(src, ids)),
+                     timer(lambda: KR.gather_rows_plain(src, ids)),
+                     nbytes, 0, timer(lambda: torch.index_select(
+                         src, 0, lib_ids)), shape)
+
+    rows = [row(src1, ids1, shape1), row(src4, ids4, shape4)]
+    for r in rows:
+        log(f"time gather_rows [{r['shape']}]: {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}: each referenced source row read once, ids, "
+            f"the buffer written once), library {r['library_ms']:.4f} ms "
+            "(index_select on clamped ids, which leaves the pad rows "
+            "unzeroed)")
+    return rows
+
+
+def one_rank_mesh(M, dev):
+    """Phase 11's process group: this process as a world of one rank over
+    NCCL, laid out as a (data=1, model=1) mesh."""
+    dist = torch.distributed
+    M.MESH.init_distributed(dev)
+    mesh = M.MESH.make_debug_mesh(1, 1)
+    log(f"mesh: {mesh.shape}, world size {dist.get_world_size()}, backend "
+        f"{dist.get_backend()}, transport "
+        f"{M.CL.transport(mesh.group(mesh.axis_names), dev)}")
+    return mesh
+
+
+def _scaled_close(name, got, want, rtol, frac) -> float:
+    """|got - want| <= rtol |want| + frac max|want|; returns the largest
+    |err| over max|want|."""
+    got, want = got.float(), want.float()
+    scale = float(want.abs().max())
+    err = (got - want).abs()
+    bad = int((err > rtol * want.abs() + frac * scale).sum())
+    check(bad == 0 and bool(torch.isfinite(got).all()),
+          f"{name}: {bad} elements outside tolerance (max |err| / scale "
+          f"{float(err.max()) / max(scale, 1e-30):.4g})")
+    return float(err.max()) / max(scale, 1e-30)
+
+
+def _layer_grads(MB, x, p, cfg, mesh=None):
+    """y and the gradients of mean(y**2) with respect to x and the four
+    MoE weights; the layer's overflow share."""
+    names = ("wg", "w1", "w2", "w3")
+    xr = x.detach().requires_grad_(True)
+    leaves = [p[n].detach().requires_grad_(True) for n in names]
+    pl = dict(zip(names, leaves))
+    if mesh is None:
+        y, _ = MB.moe_sublayer(xr, pl, cfg)
+        over = 0.0
+    else:
+        y, _, st = MB.moe_sublayer(xr, pl, cfg, mesh=mesh, dp_axes=(),
+                                   with_stats=True)
+        over = float(st["a2a_overflow"])
+    grads = torch.autograd.grad(y.float().square().mean(), [xr] + leaves)
+    return dict(zip(("y", "dx") + tuple("d" + n for n in names),
+                    (y.detach(),) + grads)), over
+
+
+def layer_mesh_parity(M, dev, mesh) -> dict:
+    """Phase 11: Mixtral-8x7B's MoE sublayer at full width (2 x 2048
+    tokens, bf16, ``blaze`` on ``pallas``) under ``ep``, ``ep_a2a`` (one
+    and two chunks) and ``tp`` on the one-rank mesh, against the layer
+    without a mesh on the same weights and input: the output and the
+    gradients of mean(y**2): bit-equal under ``ep`` and ``tp`` (one rank
+    slices nothing off and runs the same kernels on the same rows), within
+    LAYER_MESH_TOL of their scale under ``ep_a2a`` (its sum over k rounds
+    each slot to bf16 first); the overflow must be exactly 0 (at one rank
+    C = L k)."""
+    from repro_torch.configs import get_config
+    MB, SH, K = M.MB, M.SH, M.K
+    cfg = get_config("mixtral-8x7b").replace(dtype="bfloat16",
+                                             gmm_backend="pallas")
+    E, d, h = cfg.num_experts, cfg.d_model, cfg.moe_d_ff
+    gen = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, fan_in=1):
+        return (torch.randn(shape, generator=gen, device=dev)
+                .div_(fan_in ** 0.5).to(BF16))
+
+    p = {"wg": rnd(d, E, fan_in=d), "w1": rnd(E, d, h, fan_in=d),
+         "w2": rnd(E, d, h, fan_in=d), "w3": rnd(E, h, d, fan_in=h)}
+    x = rnd(TRAIN_BATCH, TRAIN_SEQ, d)
+    want, _ = _layer_grads(MB, x, p, cfg)
+    out = {}
+    for label, mode, chunks in (("ep", "ep", 1), ("ep_a2a", "ep_a2a", 1),
+                                ("ep_a2a chunks 2", "ep_a2a", 2),
+                                ("tp", "tp", 1)):
+        c = cfg.replace(moe_parallel=mode, moe_a2a_chunks=chunks)
+        local = SH.local_params({"moe": p}, mesh, mode)["moe"]
+        K.reset_launches()
+        got, over = _layer_grads(MB, x, local, c, mesh)
+        torch.cuda.synchronize()
+        n_gather = K.launch_counts()["gather_rows"]
+        errs = {n: _scaled_close(f"layer [{label}] {n}", got[n], want[n],
+                                 *LAYER_MESH_TOL) for n in want}
+        exact = mode in ("ep", "tp")
+        if exact:
+            for n in want:
+                check(torch.equal(got[n], want[n]),
+                      f"layer [{label}] {n}: not bit-equal at one rank")
+        check(over == 0.0, f"layer [{label}]: overflow {over} at one rank")
+        check(n_gather == (1 if mode == "ep_a2a" else 0),
+              f"layer [{label}]: {n_gather} gather_rows launches")
+        log(f"parity layer [{label}, one-rank NCCL mesh, full width]: max "
+            f"|err| / scale {json.dumps(errs)} ("
+            + ("bit-equal required" if exact else
+               f"tol {LAYER_MESH_TOL[0]} |want| + {LAYER_MESH_TOL[1]} scale")
+            + f"); overflow {over}; "
+            f"gather_rows launches {n_gather}")
+        out[label] = {"err_over_scale": errs, "overflow": over}
+        del got
+    return out
+
+
+def _a2a_tight_want(M, x, p, cfg, n: int):
+    """The ``ep_a2a`` layer's output on ``n`` ranks at a tight capacity,
+    run in this process: each rank's chunk routed as the rank routes it,
+    the slots past each destination's capacity (in ascending slot order,
+    as the reference packs them) given gate 0 in the single-device layer.
+    Returns (y, the share of slots dropped)."""
+    TR, MB = M.TR, M.MB
+    E, k = cfg.num_experts, cfg.top_k
+    xf = x.reshape(-1, x.shape[-1])
+    Lc = xf.shape[0] // n
+    C = M.MS._a2a_capacity(cfg, Lc * k, n)
+    rb = MB.GB.resolve(None, config=cfg.gmm_backend)
+    ys, dropped = [], 0
+    with torch.no_grad():
+        for r in range(n):
+            xc = xf[r * Lc:(r + 1) * Lc]
+            g = TR.top_k_gating(xc, p["wg"].to(xc.dtype), k)
+            dest = (g.topk_experts // (E // n)).reshape(-1)
+            keep = torch.zeros_like(dest, dtype=torch.bool)
+            for j in range(n):
+                keep[(dest == j).nonzero().flatten()[:C]] = True
+            dropped += int((~keep).sum())
+            gates = torch.where(keep, g.topk_weights.reshape(-1), 0.0)
+            disp = TR.build_dispatch(g.topk_experts.contiguous(), E)
+            ys.append(MB._expert_ffn(xc, gates.reshape(Lc, k).to(xc.dtype),
+                                     disp, p, cfg, rb))
+    return torch.cat(ys).reshape(x.shape), dropped / float(n * Lc * k)
+
+
+def multi_rank_phase(M, dev) -> dict:
+    """Phase 13: several ranks share the one card over gloo, staged through
+    host memory, at a reduced width (MR_WIDTHS; 1024 tokens per rank,
+    bf16, ``blaze`` on ``pallas``): 2 ranks (data=1, model=2) run ``ep``,
+    ``ep_a2a`` (one and two chunks), ``tp`` and ``ep_a2a`` at capacity
+    0.25; 4 ranks (data=1, node=2, model=2) run ``ep_a2a_hier``; 4 ranks
+    (data=2, model=2) run one ``ep_a2a`` training step.  Every rank holds
+    its output rows and gradients against this process's layer without a
+    mesh (LAYER_MESH_TOL), the output at capacity 0.25 against this
+    process's layer with the slots a plain pack drops given gate 0
+    (LAYER_MESH_TOL; the same overflow share, which must be positive), the
+    training step's loss and grad norm against this process's step without
+    a mesh (MR_STEP_RTOL); the overflow must be 0 at capacity 8.0, and
+    every rank must launch the row-gather kernel.  A rank that fails fails
+    the phase."""
+    import tempfile
+    import torch.multiprocessing as mp
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    MB = M.MB
+    d, h = MR_WIDTHS
+    cfg = get_config("mixtral-8x7b").replace(
+        d_model=d, moe_d_ff=h, num_heads=8, num_kv_heads=2, head_dim=128,
+        num_layers=2, dtype="bfloat16", gmm_backend="pallas",
+        moe_a2a_capacity=8.0, use_pallas=True)
+    E = cfg.num_experts
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def rnd(*shape, fan_in=1):
+        return (torch.randn(shape, generator=gen, device=dev)
+                .div_(fan_in ** 0.5).to(BF16))
+
+    p = {"wg": rnd(d, E, fan_in=d), "w1": rnd(E, d, h, fan_in=d),
+         "w2": rnd(E, d, h, fan_in=d), "w3": rnd(E, h, d, fan_in=h)}
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       batch_size=4, seq_len=MR_TOKENS, seed=0)
+    batch = next(make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
+                                     tcfg.batch_size, tcfg.seed))
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev, dtype=torch.float32)
+    _, _, m = make_train_step(cfg, tcfg, dev)(params, init_adamw(params),
+                                              batch)
+    step_ref = {k_: float(m[k_]) for k_ in ("loss", "grad_norm")}
+    del params
+    jobs = [
+        ("2 ranks (data=1, model=2)", (1, 2), ("data", "model"),
+         [("ep", "ep", {}), ("ep_a2a", "ep_a2a", {}),
+          ("ep_a2a chunks 2", "ep_a2a", {"moe_a2a_chunks": 2}),
+          ("tp", "tp", {}),
+          ("ep_a2a capacity 0.25", "ep_a2a", {"moe_a2a_capacity": 0.25})],
+         False),
+        ("4 ranks (data=1, node=2, model=2)", (1, 2, 2),
+         ("data", "node", "model"), [("ep_a2a_hier", "ep_a2a_hier", {})],
+         False),
+        ("4 ranks (data=2, model=2)", (2, 2), ("data", "model"), [], True)]
+    out = {}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = Path(tmp)
+        for label, sizes, names, cases, train in jobs:
+            n_tok = int(np.prod(sizes)) * MR_TOKENS
+            x = rnd(1, n_tok, d) if cases else None
+            job = {"sizes": sizes, "names": names, "cfg": cfg, "cases": cases,
+                   "train": train, "tcfg": tcfg, "batch": batch,
+                   "device": dev.type}
+            if cases:
+                want, _ = _layer_grads(MB, x, p, cfg)
+                tight = {}
+                for label_, mode_, over_ in cases:
+                    if "moe_a2a_capacity" in over_:
+                        y_, share = _a2a_tight_want(
+                            M, x, p, cfg.replace(moe_parallel=mode_, **over_),
+                            sizes[-1])
+                        check(share > 0.0, f"{label} {label_}: the plain "
+                              "pack drops no slot")
+                        tight[label_] = {"y": y_.cpu(), "overflow": share}
+                job.update(x=x.cpu(), p={k_: v.cpu() for k_, v in p.items()},
+                           want={k_: v.cpu() for k_, v in want.items()},
+                           tight=tight)
+            torch.save(job, work / "job.pt")
+            t0 = time.perf_counter()
+            world = int(np.prod(sizes))
+            mp.start_processes(_rank_main, args=(world, str(work)),
+                               nprocs=world, join=True, start_method="spawn")
+            ranks = [torch.load(work / f"rank{r}.pt") for r in range(world)]
+            for f in work.glob("*.pt"):
+                f.unlink()
+            (work / "store").unlink(missing_ok=True)
+            for r, res in enumerate(ranks):
+                check(res["gather_rows_launches"] > 0,
+                      f"{label} rank {r}: gather_rows was not launched")
+                for name, rec in res["cases"].items():
+                    over = rec["overflow"]
+                    want_over = job["tight"][name]["overflow"] \
+                        if name in job.get("tight", {}) else 0.0
+                    check(abs(over - want_over) <= 1e-6 * max(want_over, 1.0),
+                          f"{label} {name} rank {r}: overflow {over}, want "
+                          f"{want_over}")
+                if train:
+                    for k_, v in step_ref.items():
+                        got = res["train"][k_]
+                        check(abs(got - v) <= MR_STEP_RTOL * abs(v),
+                              f"{label} rank {r}: {k_} {got} vs {v}")
+            rec = {"transport": ranks[0]["transport"],
+                   "seconds": time.perf_counter() - t0,
+                   "cases": ranks[0]["cases"],
+                   "gather_rows_launches": [r_["gather_rows_launches"]
+                                            for r_ in ranks]}
+            if train:
+                rec["train"] = [r_["train"] for r_ in ranks]
+                rec["train_ref"] = step_ref
+            log(f"multi-rank [{label}] on one card, transport "
+                f"{rec['transport']}: {json.dumps(rec)}")
+            out[label] = rec
+    return out
+
+
+def _rank_main(rank: int, world: int, workdir: str) -> None:
+    """One rank of phase 13, spawned: the job in ``workdir/job.pt``, its
+    results to ``workdir/rank<r>.pt``."""
+    import os
+    from datetime import timedelta
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    from repro_torch import kernels as K
+    from repro_torch import sharding as SH
+    from repro_torch.core.collectives import transport
+    from repro_torch.interop import init_params
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    from repro_torch.models import moe_block as MB
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    work = Path(workdir)
+    job = torch.load(work / "job.pt", weights_only=False)
+    dev = init_distributed(job["device"], backend="gloo",
+                           init_method=f"file://{work / 'store'}",
+                           timeout=timedelta(seconds=300))
+    mesh = Mesh(job["sizes"], job["names"])
+    K.reset_launches()
+    out = {"transport": transport(mesh.group(mesh.axis_names), dev),
+           "cases": {}}
+    if job["cases"]:
+        x = job["x"].to(dev)
+        p = {k_: v.to(dev) for k_, v in job["p"].items()}
+        want = job["want"]
+        for label, mode, over in job["cases"]:
+            cfg = job["cfg"].replace(moe_parallel=mode, **over)
+            local = SH.local_params({"moe": p}, mesh, mode)["moe"]
+            got, overflow = _layer_grads(MB, x, local, cfg, mesh)
+            rec = {"overflow": overflow}
+            if label in job["tight"]:
+                want_y = job["tight"][label]["y"].to(dev)
+                rec["want_overflow"] = job["tight"][label]["overflow"]
+                rec["err_over_scale"] = {"y": _scaled_close(
+                    f"rank {rank} [{label}] y", got["y"], want_y,
+                    *LAYER_MESH_TOL)}
+            else:
+                grads = {k_[1:]: v for k_, v in got.items()
+                         if k_ not in ("y", "dx")}
+                whole = SH.gather_params({"moe": grads}, mesh, mode)["moe"]
+                got.update({"d" + k_: v for k_, v in whole.items()})
+                rec["err_over_scale"] = {
+                    k_: _scaled_close(f"rank {rank} [{label}] {k_}", v,
+                                      want[k_].to(dev), *LAYER_MESH_TOL)
+                    for k_, v in got.items()}
+            out["cases"][label] = rec
+    if job["train"]:
+        cfg = job["cfg"].replace(moe_parallel="ep_a2a")
+        gen = torch.Generator(device=dev).manual_seed(0)
+        params = init_params(cfg, gen, dev, dtype=torch.float32)
+        step = make_train_step(cfg, job["tcfg"], dev, mesh=mesh)
+        local = SH.local_params(params, mesh, step.moe_parallel)
+        del params
+        _, _, m = step(local, init_adamw(local), job["batch"])
+        out["train"] = {k_: float(v) for k_, v in m.items()}
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    out["gather_rows_launches"] = K.launch_counts()["gather_rows"]
+    torch.save(out, work / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None):
+    """Phases 7, 8, 12 and 18: a training step at full width through
+    ``make_train_step`` (on ``mesh``'s ranks when given); every kernel in
+    ``required`` must be launched during the warm steps, and each kernel
+    in ``per_step`` exactly that many times a step.  Returns the
+    measurements."""
+    from repro_torch import sharding as SH
     from repro_torch.configs import TrainConfig
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.interop import init_params
@@ -1412,9 +1938,11 @@ def training_phase(cfg, dev, K, required, tag):
                        batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev, dtype=torch.float32)
+    step_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
+    if mesh is not None:
+        params = SH.local_params(params, mesh, step_fn.moe_parallel)
     opt = init_adamw(params)
     n_params = sum(t.numel() for t in _leaves(params))
-    step_fn = make_train_step(cfg, tcfg, dev)
     batches = make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
                                   tcfg.batch_size, tcfg.seed)
     tokens = tcfg.batch_size * tcfg.seq_len
@@ -1438,7 +1966,8 @@ def training_phase(cfg, dev, K, required, tag):
               f"train {label}: non-finite loss or grad norm {m}")
         log(f"train [{tag}] {label}: loss {m['loss']:.5f} ce {m['ce']:.5f} aux "
             f"{m['aux']:.5f} grad_norm {m['grad_norm']:.5f} lr "
-            f"{m['lr']:.3g} step {m['step_s']:.4f} s")
+            f"{m['lr']:.3g} moe_overflow {m['moe_overflow']} step "
+            f"{m['step_s']:.4f} s")
         history.append(dict(m, label=label))
         return m
 
@@ -1454,6 +1983,10 @@ def training_phase(cfg, dev, K, required, tag):
         check(launches[name] > 0,
               f"kernel {name} was not launched by the [{tag}] training "
               "steps")
+    for name, n in (per_step or {}).items():
+        check(launches[name] == n * steps_warm,
+              f"kernel {name}: {launches[name]} launches over {steps_warm} "
+              f"[{tag}] steps, expected {n} a step")
     step_s = statistics.median(m["step_s"] for m in warm)
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
@@ -1488,12 +2021,14 @@ def training_phase(cfg, dev, K, required, tag):
             "by_kernel_ms": {k_: v / 1e3 for k_, v in by_kernel.items()},
             "span_device_ms": spans,
             "history": history, "n_params": n_params,
-            "gmm_backend": step_fn.resolved_backend.name}
+            "gmm_backend": step_fn.resolved_backend.name,
+            "moe_parallel": step_fn.moe_parallel,
+            "moe_overflow": [m_["moe_overflow"] for m_ in history]}
 
 
 def cpu_train_crosscheck(dev, arch="mixtral-8x7b", far_floor=0,
                          **overrides):
-    """Phases 9 and 15: one training step of the reduced ``arch``
+    """Phases 9 and 19: one training step of the reduced ``arch``
     (float32) with ``overrides`` from the same weights and batch on the
     card and on the CPU.  The loss's gradients must agree leaf by leaf
     (``STEP_RTOL`` relative over ``STEP_RTOL`` of each leaf's scale, as

@@ -97,3 +97,42 @@ def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
         token_index_map=dest.reshape(L, k).to(i32),
         expert_lengths=lengths.to(i32),
     )
+
+
+def slice_dispatch(d: Dispatch, e_lo, e_hi=None, *,
+                   count: int | None = None) -> Dispatch:
+    """Compact a global :class:`Dispatch` to the expert range ``[e_lo,
+    e_hi)`` (the device-local view under expert parallelism), as the
+    reference's ``routing.slice_dispatch``.
+
+    The slot axis is rotated by ``offsets[e_lo]`` modulo ``L*k``, a
+    bijection: the local experts' slots land at ``[0, n_loc)`` in expert
+    order, every other slot lands once in the dead zone ``[n_loc, L*k)``,
+    where a grouped GEMM over the rebased ``expert_lengths`` writes zeros.
+    Offsets and lengths are rebased to the range; ``token_expert_indices``
+    is shifted by ``-e_lo`` (values outside ``[0, count)`` mark non-local
+    slots).  ``e_lo`` may be a Python int or a 0-d tensor; the local
+    expert ``count`` is a Python int (pass it when ``e_hi`` is omitted).
+    The rotation is index arithmetic on the dispatch's own tensors, so on
+    the card it runs on the dispatch kernel's output."""
+    if count is None:
+        count = int(e_hi) - int(e_lo)
+    if count <= 0:
+        raise ValueError(f"empty expert range [{e_lo}, {e_hi})")
+    off_all = d.expert_token_offsets
+    dev = off_all.device
+    e_lo = torch.as_tensor(e_lo, device=dev).long()
+    rng = e_lo + torch.arange(count + 1, device=dev)
+    off = off_all[rng]
+    lens = d.expert_lengths[rng[:-1]]
+    start = off[0].long()
+    S = d.num_slots
+    src = (torch.arange(S, device=dev) + start) % S
+    i32 = torch.int32
+    return Dispatch(
+        expert_token_indices=d.expert_token_indices[src],
+        expert_token_offsets=(off - off[0]).to(i32),
+        token_expert_indices=(d.token_expert_indices - e_lo).to(i32),
+        token_index_map=((d.token_index_map.long() - start) % S).to(i32),
+        expert_lengths=lens.to(i32),
+    )

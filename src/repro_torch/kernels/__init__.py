@@ -18,6 +18,7 @@ def _wrappers() -> dict:
                                                   fused_swiglu_bwd_x,
                                                   fused_swiglu_fwd)
     from repro_torch.kernels.gather_gmm import gather_gmm
+    from repro_torch.kernels.gather_rows import gather_rows
     from repro_torch.kernels.gmm_dw import gmm_dw
     from repro_torch.kernels.paged_attention import (paged_attention,
                                                      paged_attention_int8)
@@ -28,7 +29,8 @@ def _wrappers() -> dict:
             "fused_swiglu_fwd": fused_swiglu_fwd,
             "fused_swiglu_bwd_x": fused_swiglu_bwd_x,
             "fused_swiglu_bwd_w": fused_swiglu_bwd_w,
-            "paged_attention_int8": paged_attention_int8}
+            "paged_attention_int8": paged_attention_int8,
+            "gather_rows": gather_rows}
 
 
 def launch_counts() -> dict[str, int]:

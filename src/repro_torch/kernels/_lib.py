@@ -54,6 +54,7 @@ SIGNATURES = {
     "repro_fused_swiglu_bwd_w": [I, P, P, P, P, P, P, I, I, I, P],
     "repro_paged_attention_int8": [I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                    I, I, F, F, P],
+    "repro_gather_rows": [I, P, P, P, I, I, I, P],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -23,6 +23,13 @@ so the result does not depend on the order.
 the fused forward and backward kernels of ``kernels/fused_moe.py``; the
 residuals are the inputs and the ``(S,)`` float32 slot gates only.
 
+``gather_rows`` mirrors ``gather_rows`` (``ops.py:213-233``): the forward
+is the row-gather kernel, the backward the reference's
+``_gather_rows_bwd``, computed outside any kernel as the reference does:
+the rows with a non-negative id are scatter-added into a zero ``(L, d)``
+in ``src.dtype`` by ``index_add_``, whose order of additions on the card
+is not fixed (exact for a row gathered at most twice).
+
 ``swiglu`` mirrors the dense ``swiglu`` custom VJP (``ops.py:42-60``):
 forward ``fused_swiglu_fwd``, saving only ``x``, ``w1``, ``w2``, ``a`` and
 ``b`` (the paper's policy: save A and B, recompute SiLU; ``y`` is never
@@ -42,6 +49,7 @@ from repro_torch.kernels.fused_swiglu import (fused_swiglu_bwd_w,
                                               fused_swiglu_bwd_x,
                                               fused_swiglu_fwd)
 from repro_torch.kernels.gather_gmm import gather_gmm
+from repro_torch.kernels.gather_rows import gather_rows as _gather_rows
 from repro_torch.kernels.gmm_dw import gmm_dw
 
 
@@ -157,3 +165,30 @@ def swiglu(x: torch.Tensor, w1: torch.Tensor,
     """Dense fused SwiGLU: x (L, d), w1/w2 (d, h) -> (L, h) in
     ``x.dtype``; differentiable in x and the weights."""
     return SwiGLU.apply(x.contiguous(), w1.contiguous(), w2.contiguous())
+
+
+class GatherRows(torch.autograd.Function):
+    """out[i] = src[row_ids[i]], zero rows for negative ids; the backward
+    scatter-adds the valid rows' gradients back."""
+
+    @staticmethod
+    def forward(ctx, src, row_ids):
+        ctx.save_for_backward(row_ids)
+        ctx.src_shape = src.shape
+        return _gather_rows(src, row_ids)
+
+    @staticmethod
+    def backward(ctx, dout):
+        (row_ids,) = ctx.saved_tensors
+        valid = (row_ids >= 0)[:, None]
+        contrib = torch.where(valid, dout, dout.new_zeros(()))
+        dsrc = dout.new_zeros(ctx.src_shape).index_add_(
+            0, row_ids.long().clamp(min=0), contrib)
+        return dsrc, None
+
+
+def gather_rows(src: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
+    """Differentiable row gather: src (L, d), row_ids (N,) int32 -> (N, d)
+    in ``src.dtype``; a negative id gives a zero row."""
+    return GatherRows.apply(src.contiguous(),
+                            row_ids.to(torch.int32).contiguous())

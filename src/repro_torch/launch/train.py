@@ -5,6 +5,9 @@ batches from the synthetic pipeline, the MoEBlaze training step.
         --reduced --steps 3 --device cpu [--batch 2] [--seq 64] [--layers 2]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
         --reduced --steps 3 --device cpu
+    PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
+        --arch mixtral-8x7b --reduced --device cpu --mesh 1,2 \
+        --moe-parallel ep_a2a
 
 Runs on the card by default (``--device cuda``), with ``use_pallas=True``:
 attention through the flash-attention kernel and, for a dense SwiGLU
@@ -12,9 +15,15 @@ model, the FFN through the fused SwiGLU kernels.  A MoE model's expert
 layer is the config's ``moe_impl`` (``blaze`` for Mixtral); the
 grouped-GEMM backend is chosen, as in the reference, by
 ``REPRO_GMM_BACKEND`` (``segment`` when unset; ``pallas_fused`` runs the
-fused kernel pair).  Kernels take their plain
-versions on the CPU.  Prints a line per logged step and then one JSON run
-record, which names the resolved backend.
+fused kernel pair).  Kernels take their plain versions on the CPU.
+
+``--mesh D,M`` (or ``D,M,N``) lays the ranks that torchrun starts out as a
+``('data', 'model')`` mesh of D x M ranks (or ``('data', 'node',
+'model')`` with N nodes of M ranks each) and runs the MoE layers in the
+``--moe-parallel`` mode (``ep``, ``ep_a2a``, ``ep_a2a_hier`` or ``tp``).
+Every rank prints its steps' lines only on rank 0.  Prints a line per
+logged step and then one JSON run record (rank 0), which names the
+resolved backend, the mode, the mesh and the transport.
 """
 
 from __future__ import annotations
@@ -25,8 +34,21 @@ import json
 import torch
 
 from repro_torch.configs import TrainConfig, get_config
+from repro_torch.core.collectives import transport
 from repro_torch.core.device import resolve_device
+from repro_torch.launch.mesh import (init_distributed, make_debug_mesh,
+                                     make_node_mesh)
 from repro_torch.train.loop import train
+
+
+def _mesh(spec: str):
+    sizes = [int(v) for v in spec.split(",")]
+    if len(sizes) == 2:
+        return make_debug_mesh(*sizes)
+    if len(sizes) == 3:
+        data, model, node = sizes
+        return make_node_mesh(data, node, model)
+    raise ValueError(f"--mesh takes D,M or D,M,N, got {spec!r}")
 
 
 def main(argv=None):
@@ -42,6 +64,10 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--mesh", default=None,
+                    help="D,M: data x model ranks; D,M,N: with N nodes")
+    ap.add_argument("--moe-parallel", default=None,
+                    help="ep | ep_a2a | ep_a2a_hier | tp (with --mesh)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -50,20 +76,37 @@ def main(argv=None):
     cfg = cfg.replace(use_pallas=True)
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
+    if args.moe_parallel is not None:
+        cfg = cfg.replace(moe_parallel=args.moe_parallel)
     tcfg = TrainConfig(total_steps=args.steps, batch_size=args.batch,
                        seq_len=args.seq, learning_rate=args.lr,
                        num_microbatches=args.microbatches,
                        log_every=args.log_every)
-    dev = resolve_device(args.device)
-    _, _, history = train(cfg, tcfg, device=dev)
+    mesh = None
+    if args.mesh is not None:
+        dev = init_distributed(args.device)
+        mesh = _mesh(args.mesh)
+    else:
+        dev = resolve_device(args.device)
+    rank0 = mesh is None or mesh.rank == 0
+    log = print if rank0 else (lambda *_: None)
+    _, _, history = train(cfg, tcfg, device=dev, mesh=mesh, log=log)
     rec = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
            "moe_impl": cfg.moe_impl if cfg.is_moe else None,
            "gmm_backend": history[-1]["gmm_backend"],
+           "moe_parallel": cfg.moe_parallel if mesh is not None else None,
+           "mesh": mesh.shape if mesh is not None else None,
+           "transport": (transport(mesh.group(mesh.axis_names), dev)
+                         if mesh is not None else None),
+           "moe_overflow": history[-1]["moe_overflow"],
            "batch": args.batch, "seq": args.seq, "history": history}
-    print(f"run-record: {json.dumps(rec)}")
+    if rank0:
+        print(f"run-record: {json.dumps(rec)}")
+    if mesh is not None:
+        torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

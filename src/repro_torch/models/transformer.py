@@ -20,6 +20,7 @@ from functools import partial
 
 import torch
 
+from repro_torch.core.collectives import all_reduce_
 from repro_torch.models.attention import (attention_sublayer,
                                           paged_attention_sublayer)
 from repro_torch.models.common import rms_norm, softcap
@@ -59,11 +60,13 @@ def check_supported(cfg) -> None:
             f"ffn_act={cfg.ffn_act!r}: the dense FFN takes {FFN_ACTS}")
 
 
-def _apply_sublayer(x, p, kind: str, cfg, attend):
+def _apply_sublayer(x, p, kind: str, cfg, attend, *, mesh=None,
+                    dp_axes=("pod", "data")):
     """One attention + MoE or dense FFN block; ``attend(h, p_attn, cfg,
     is_local=...)`` is the attention sublayer (full-sequence or paged).
-    Returns the new residual stream and the block's auxiliary loss (zero
-    for a dense block)."""
+    Returns the new residual stream, the block's auxiliary loss and its
+    ``ep_a2a`` overflow share (both zero for a dense block).  ``mesh`` and
+    ``dp_axes`` go to the MoE sublayer."""
     is_local = "local" in kind and cfg.sliding_window > 0
     h = attend(rms_norm(x, p["ln1"]), p["attn"], cfg, is_local=is_local)
     if cfg.post_norms:
@@ -71,13 +74,16 @@ def _apply_sublayer(x, p, kind: str, cfg, attend):
     x = x + h
     h = rms_norm(x, p["ln2"])
     if kind in MOE_KINDS:
-        h, aux = moe_sublayer(h, p["moe"], cfg)
+        h, aux, stats = moe_sublayer(h, p["moe"], cfg, mesh=mesh,
+                                     dp_axes=dp_axes, with_stats=True)
+        overflow = stats["a2a_overflow"]
     else:
         h = ffn_sublayer(h, p["ffn"], cfg)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        overflow = aux
     if cfg.post_norms:
         h = rms_norm(h, p["ln2_post"])
-    return x + h, aux
+    return x + h, aux, overflow
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, device, *,
@@ -109,14 +115,21 @@ def _layers(params, x, cfg, *, positions, cache, page_table, prefill):
         attend = partial(paged_attention_sublayer, positions=positions,
                          pages=pages, page_table=page_table,
                          prefill=prefill)
-        x, _ = _apply_sublayer(x, p, kind, cfg, attend)
+        x, _, _ = _apply_sublayer(x, p, kind, cfg, attend)
     return x
 
 
-def forward(params, batch, cfg):
+def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
+            with_stats: bool = False):
     """Full-sequence forward (training).  batch["tokens"]: (B, S) token
     ids.  Returns float32 logits (B, S, vocab) and the layers' summed
-    auxiliary loss (float32 scalar)."""
+    auxiliary loss (float32 scalar), plus ``{"moe_overflow"}`` (the
+    layers' summed ``ep_a2a`` overflow share) with ``with_stats``.
+
+    Under a mesh, ``batch`` and ``params`` are this rank's (its batch rows
+    when the batch is split over ``dp_axes``, its
+    ``sharding.local_params``); every block but the MoE sublayer runs
+    whole on each rank."""
     check_supported(cfg)
     if cfg.is_moe:
         check_moe(cfg)
@@ -124,16 +137,29 @@ def forward(params, batch, cfg):
     positions = torch.arange(x.shape[1], device=x.device)
     attend = partial(attention_sublayer, positions=positions)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    overflow = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        x, a = _apply_sublayer(x, p, kind, cfg, attend)
+        x, a, o = _apply_sublayer(x, p, kind, cfg, attend, mesh=mesh,
+                                  dp_axes=dp_axes)
         aux = aux + a
-    return _logits(params, x, cfg), aux
+        overflow = overflow + o
+    logits = _logits(params, x, cfg)
+    if with_stats:
+        return logits, aux, {"moe_overflow": overflow}
+    return logits, aux
 
 
-def train_loss(params, batch, cfg):
+def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data")):
     """Next-token cross entropy (labels < 0 masked) plus the auxiliary
-    loss.  Returns ``(loss, {"ce", "aux"})``."""
-    logits, aux = forward(params, batch, cfg)
+    loss.  Returns ``(loss, {"ce", "aux", "moe_overflow"})``.
+
+    Under a mesh whose ``dp_axes`` split the batch, the cross entropy is
+    the global masked mean: this rank's masked sum over the mask count
+    summed over those axes.  The returned ``loss`` is then this rank's
+    share, whose gradients summed over the data axes are the global
+    loss's; ``metrics["ce"]`` is the global cross entropy (no gradient)."""
+    logits, aux, stats = forward(params, batch, cfg, mesh=mesh,
+                                 dp_axes=dp_axes, with_stats=True)
     labels = batch["labels"].long()
     if cfg.causal:
         logits = logits[:, :-1]
@@ -141,8 +167,24 @@ def train_loss(params, batch, cfg):
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     mask = (labels >= 0).float()
-    ce = (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)
-    return ce + aux, {"ce": ce, "aux": aux}
+    count = mask.sum()
+    data = _data_group(mesh, dp_axes)
+    if data is not None:
+        count = all_reduce_(count.detach().clone(), data)
+    ce = (nll * mask).sum() / torch.clamp(count, min=1.0)
+    ce_all = ce.detach()
+    if data is not None:
+        ce_all = all_reduce_(ce_all.clone(), data)
+    return ce + aux, {"ce": ce_all, "aux": aux,
+                      "moe_overflow": stats["moe_overflow"]}
+
+
+def _data_group(mesh, dp_axes):
+    """The process group the batch is split over, or None."""
+    if mesh is None:
+        return None
+    axes = tuple(a for a in mesh.axis_names if a in dp_axes)
+    return mesh.group(axes) if axes else None
 
 
 def prefill(params, tokens, lengths, cache, page_table, cfg):

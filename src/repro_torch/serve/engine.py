@@ -82,7 +82,11 @@ class ServeEngine:
                  capacity: int = 512, page_size: int = 16,
                  num_pages: int | None = None, kv_dtype: str | None = None,
                  greedy: bool = True, prefix_cache: bool = False,
-                 gmm_backend: str | None = None, device=None):
+                 gmm_backend: str | None = None, device=None, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "serving over a mesh is not ported; the engine runs on one "
+                "card (ROADMAP queue A7: ServeEngine(mesh=...))")
         self.device = resolve_device(device)
         self.backend = GB.resolve(gmm_backend, config=cfg.gmm_backend)
         cfg = cfg.replace(gmm_backend=self.backend.name)

@@ -1,11 +1,20 @@
 """Training step and loop.
 
-Mirrors ``repro/train/loop.py``: ``make_train_step`` (single device,
-without the mesh, the simulated peak and the budget fit) and ``train``
-(without checkpoint saving).  A step is value-and-grad of
-``train_loss``, global-norm clipping, the cosine schedule and AdamW.
-PyTorch runs eagerly, so there is nothing to compile; the step updates
-the parameters and the optimizer state in place and returns them.
+Mirrors ``repro/train/loop.py``: ``make_train_step`` (without the
+simulated peak and the budget fit) and ``train`` (without checkpoint
+saving).  A step is value-and-grad of ``train_loss``, global-norm
+clipping, the cosine schedule and AdamW.  PyTorch runs eagerly, so there
+is nothing to compile; the step updates the parameters and the optimizer
+state in place and returns them.
+
+Under a :class:`~repro_torch.launch.mesh.Mesh` every rank runs the step
+on its own batch rows (``sharding.batch_specs``) and its own parameters
+(``sharding.local_params`` for the resolved MoE mode), and the step gives
+the single-device step's numbers: the loss is the global masked mean, the
+gradients are summed over the data axes the batch is split over, the
+global norm counts each expert shard once (summed over the axes the
+shards are split over) and each replicated leaf once, and AdamW updates
+the local shards.  Every rank reports the same metrics.
 
 The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once per step
 function, as in the reference: call-site argument > active
@@ -21,12 +30,15 @@ import time
 import torch
 from torch.profiler import record_function
 
+from repro_torch import sharding as SH
 from repro_torch.core import gmm_backend as GB
+from repro_torch.core.collectives import all_reduce_
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_batch_iterator
 from repro_torch.interop import init_params
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_block import check_supported as check_moe
+from repro_torch.models.moe_block import resolve_moe_parallel
 from repro_torch.train.optimizer import (AdamWState, adamw_update,
                                          clip_by_global_norm,
                                          cosine_schedule, init_adamw,
@@ -46,14 +58,19 @@ def _config_backend(cfg, tcfg) -> str:
     return cfg.gmm_backend
 
 
-def make_train_step(cfg, tcfg, device=None, backend=None):
+def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None):
     """Returns ``step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy
     arrays or tensors; ``params`` is the port's parameter tree of float32
     masters (``interop.init_params(..., dtype=torch.float32)``), updated in
     place with ``opt_state``.  The metrics are 0-d tensors on the device
-    (``loss``, ``ce``, ``aux``, ``grad_norm``) and the float ``lr``.  The
-    resolved grouped-GEMM backend is ``step_fn.resolved_backend``."""
+    (``loss``, ``ce``, ``aux``, ``moe_overflow``, ``grad_norm``) and the
+    float ``lr``.  The resolved grouped-GEMM backend is
+    ``step_fn.resolved_backend``.
+
+    With a ``mesh``, ``batch`` is the global batch (each rank takes its
+    rows) and ``params`` this rank's
+    ``sharding.local_params(whole, mesh, step_fn.moe_parallel)``."""
     dev = resolve_device(device)
     resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
     cfg = cfg.replace(gmm_backend=resolved.name)
@@ -64,31 +81,52 @@ def make_train_step(cfg, tcfg, device=None, backend=None):
         raise NotImplementedError(
             "num_microbatches > 1 (gradient accumulation) is not ported "
             "(ROADMAP queue A1)")
+    mode, shard_group = "single", None
+    if mesh is not None:
+        # an invalid (mode, mesh) pairing raises here, at construction
+        if cfg.is_moe:
+            mode = resolve_moe_parallel(cfg, mesh)
+        ax = SH.shard_axes(mesh, mode)
+        shard_group = mesh.group(ax) if ax else None
 
     def _step(params, opt_state: AdamWState, batch):
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
+        dp = ()
+        if mesh is not None:
+            dp = SH.batch_axes(mesh, batch["tokens"].shape[0])
+            batch = SH.local_batch(
+                batch, SH.batch_specs(batch, mesh), mesh)
         # Spans that name the step's parts in a profiler trace (no cost
         # without a profiler).  The backward's kernels are launched from
         # autograd's own thread, so a trace does not attribute them to the
         # backward span.
         with record_function("train_step.forward"):
             loss, metrics = T.train_loss(
-                params, batch_to_device(batch, dev), cfg)
+                params, batch_to_device(batch, dev), cfg, mesh=mesh,
+                dp_axes=dp)
         with record_function("train_step.backward"):
             grads = list(torch.autograd.grad(loss, leaves))
         with record_function("train_step.optimizer"):
-            gnorm = clip_by_global_norm(grads, tcfg.grad_clip)
+            if dp:
+                for g in grads:
+                    all_reduce_(g, mesh.group(dp))
+            sharded = (SH.sharded_leaves(params, mesh, mode)
+                       if shard_group is not None else None)
+            gnorm = clip_by_global_norm(grads, tcfg.grad_clip,
+                                        sharded=sharded, group=shard_group)
             lr = cosine_schedule(opt_state.step, peak_lr=tcfg.learning_rate,
                                  warmup=tcfg.warmup_steps,
                                  total=tcfg.total_steps)
             opt_state = adamw_update(grads, opt_state, leaves, lr=lr,
                                      b1=tcfg.b1, b2=tcfg.b2, eps=tcfg.eps,
                                      weight_decay=tcfg.weight_decay)
+        ce, aux = metrics["ce"], metrics["aux"].detach()
         return params, opt_state, {
-            "loss": loss.detach(), "ce": metrics["ce"].detach(),
-            "aux": metrics["aux"].detach(), "grad_norm": gnorm, "lr": lr}
+            "loss": ce + aux, "ce": ce, "aux": aux,
+            "moe_overflow": metrics["moe_overflow"].detach(),
+            "grad_norm": gnorm, "lr": lr}
 
     def step_fn(params, opt_state: AdamWState, batch):
         with GB.use_backend(resolved.name):
@@ -96,11 +134,13 @@ def make_train_step(cfg, tcfg, device=None, backend=None):
 
     step_fn.device = dev
     step_fn.resolved_backend = resolved
+    step_fn.moe_parallel = mode
+    step_fn.mesh = mesh
     return step_fn
 
 
 def train(cfg, tcfg, *, device=None, params=None, log=print,
-          batch_iterator=None, step_hook=None):
+          batch_iterator=None, step_hook=None, mesh=None):
     """End-to-end training loop.  Returns ``(params, opt_state,
     history)``.  Without ``params`` the weights are drawn from
     ``tcfg.seed`` as float32 masters; without ``batch_iterator`` the
@@ -108,14 +148,20 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     Every step's metrics are read back as floats (which waits for the
     device), with ``step_s`` the step's host time; ``step_hook(step,
     metrics)`` sees each of them, and ``history`` keeps every
-    ``log_every``-th step and the last, with the step's ``gmm_backend``."""
+    ``log_every``-th step and the last, with the step's ``gmm_backend``.
+
+    With a ``mesh`` every rank draws the same whole parameters (or takes
+    ``params``, the whole tree) and keeps its
+    ``sharding.local_params``; the returned ``params`` are this rank's."""
     dev = resolve_device(device)
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         params = init_params(cfg, gen, dev,
                              dtype=getattr(torch, cfg.param_dtype))
+    step_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
+    if mesh is not None:
+        params = SH.local_params(params, mesh, step_fn.moe_parallel)
     opt_state = init_adamw(params)
-    step_fn = make_train_step(cfg, tcfg, dev)
     if batch_iterator is None:
         batch_iterator = make_batch_iterator(
             cfg.vocab_size, tcfg.seq_len, tcfg.batch_size, tcfg.seed)

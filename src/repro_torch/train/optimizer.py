@@ -15,6 +15,8 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.core.collectives import all_reduce_
+
 
 def tree_leaves(tree) -> list[torch.Tensor]:
     """Leaves of a nested dict / list of tensors, in a fixed order."""
@@ -49,15 +51,27 @@ def cosine_schedule(step: int, *, peak_lr: float, warmup: int, total: int,
                       * 0.5 * (1 + math.cos(math.pi * frac)))
 
 
-def global_norm(grads: list[torch.Tensor]) -> torch.Tensor:
-    return torch.sqrt(sum(g.float().square().sum() for g in grads))
+def global_norm(grads: list[torch.Tensor], *, sharded=None,
+                group=None) -> torch.Tensor:
+    """The norm of all gradient leaves.  With ``sharded`` (one flag per
+    leaf) and ``group``, the flagged leaves are this rank's shards of
+    leaves split over ``group``: their squares are summed over the group,
+    so each shard counts once, and every other leaf counts once."""
+    sq = lambda gs: sum((g.float().square().sum() for g in gs),
+                        torch.zeros((), device=grads[0].device))
+    if sharded is None:
+        return torch.sqrt(sq(grads))
+    local = sq(g for g, s in zip(grads, sharded) if s)
+    rest = sq(g for g, s in zip(grads, sharded) if not s)
+    return torch.sqrt(rest + all_reduce_(local, group))
 
 
-def clip_by_global_norm(grads: list[torch.Tensor],
-                        max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float, *,
+                        sharded=None, group=None) -> torch.Tensor:
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns the norm before clipping."""
-    norm = global_norm(grads)
+    returns the norm before clipping (``sharded`` and ``group`` as in
+    :func:`global_norm`)."""
+    norm = global_norm(grads, sharded=sharded, group=group)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))

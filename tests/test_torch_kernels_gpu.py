@@ -58,14 +58,16 @@ def K(dev):
     from repro_torch.core import moe_layer
     from repro_torch.kernels import (combine, dispatch, flash_attention,
                                      fused_moe, fused_swiglu, gather_gmm,
-                                     gmm_dw, ops, paged_attention)
+                                     gather_rows, gmm_dw, ops,
+                                     paged_attention)
     from repro_torch.serve import kv_quant
     return SimpleNamespace(routing=routing, combine=combine,
                            dispatch=dispatch, gather_gmm=gather_gmm,
                            paged_attention=paged_attention, gmm_dw=gmm_dw,
                            flash_attention=flash_attention, ops=ops,
                            fused_moe=fused_moe, moe_layer=moe_layer,
-                           fused_swiglu=fused_swiglu, kv_quant=kv_quant)
+                           fused_swiglu=fused_swiglu, kv_quant=kv_quant,
+                           gather_rows=gather_rows)
 
 
 def _t(a, dev, dtype=None):
@@ -566,3 +568,113 @@ def test_paged_attention_int8_kernel(dev, K, dtype, window, cap, hkv, g, dh,
     _sync()
     assert A.paged_attention_int8.launches == before + 1
     _close(got, want, dtype)
+
+
+def _row_ids(N, L, pad_share, seed):
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, L, size=N).astype(np.int32)
+    ids[rng.random(N) < pad_share] = -1
+    return ids
+
+
+@pytest.mark.parametrize("dtype,L,d,N,pad_share", [
+    ("bfloat16", 4096, 4096, 8192, 0.0),    # training send buffer, n = 1
+    ("bfloat16", 1024, 4096, 4096, 0.5),    # a rank's buffer, n = 4
+    ("float32", 33, 4100, 70, 0.3),         # width not a multiple of 4
+    ("bfloat16", 40, 4100, 70, 0.3),        # 8200-byte rows: element copy
+    ("bfloat16", 9, 5, 31, 0.2),
+    ("float32", 7, 64, 1, 1.0)])            # one pad row
+def test_gather_rows_kernel(dev, K, dtype, L, d, N, pad_share):
+    import torch
+    src = torch.randn(L, d, device=dev).to(getattr(torch, dtype))
+    ids = _t(_row_ids(N, L, pad_share, seed=L + d + N), dev)
+    before = K.gather_rows.gather_rows.launches
+    got = K.gather_rows.gather_rows(src, ids)
+    want = K.gather_rows.gather_rows_plain(src, ids)
+    _sync()
+    assert K.gather_rows.gather_rows.launches == before + 1
+    assert got.dtype == src.dtype and got.shape == (N, d)
+    assert torch.equal(got, want)
+    assert bool((got[ids < 0] == 0).all())
+
+
+def test_gather_rows_kernel_edges(dev, K):
+    """N = 0 launches nothing; a source that is not 16-byte aligned takes
+    the element copy and stays bit-equal; what the kernel does not take
+    raises."""
+    import torch
+    f = K.gather_rows.gather_rows
+    src = torch.randn(16, 64, device=dev, dtype=torch.bfloat16)
+    before = f.launches
+    out = f(src, torch.zeros(0, dtype=torch.int32, device=dev))
+    assert out.shape == (0, 64) and f.launches == before
+    buf = torch.randn(16 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    odd = buf[1:].view(16, 64)                 # 2 bytes past alignment
+    ids = _t(_row_ids(40, 16, 0.25, seed=3), dev)
+    assert torch.equal(f(odd, ids), K.gather_rows.gather_rows_plain(odd, ids))
+    with pytest.raises(ValueError, match="int32"):
+        f(src, ids.long())
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        f(src.half(), ids)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        f(src, ids.cpu())
+
+
+@pytest.mark.parametrize("R,G,cap", [(8192, 1, 8192), (2048, 4, 1024),
+                                     (2048, 4, 128), (777, 3, 5)])
+def test_a2a_pack_on_the_card(dev, R, G, cap):
+    """``_a2a_pack`` on a CUDA tensor (its dispatch build on the kernel)
+    gives the CPU pack's six outputs exactly: at a tight capacity the
+    kernel's order within each destination decides which slots drop."""
+    import torch
+    from repro_torch.models.moe_block import _a2a_pack
+    rng = np.random.default_rng(R + G + cap)
+    ids = rng.integers(0, G + 1, size=R).astype(np.int32)   # G: trash
+    got = _a2a_pack(_t(ids, dev), G, cap)
+    want = _a2a_pack(torch.from_numpy(ids), G, cap)
+    _sync()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("lo,count", [(0, 2), (2, 2), (6, 2), (4, 4)])
+def test_kernels_on_a_sliced_dispatch(dev, K, dtype, lo, count):
+    """The expert-parallel ranks run the kernels on ``slice_dispatch``'s
+    rotated slots: the local experts' slots first, every other slot in the
+    dead zone.  Gather-GMM writes zeros there, the combine picks them up
+    bit for bit, the weight gradient and the fused pair ignore the dead
+    rows; each against its plain version on the same sliced inputs."""
+    import torch
+    x, dy, g_slot, disp, ws = _fused_inputs(dev, dtype, 100, 8, 128, 96,
+                                            (0, 1, 2, 4, 5, 6, 7), seed=lo)
+    loc = K.routing.slice_dispatch(disp, lo, count=count)
+    idx, off = loc.expert_token_indices, loc.expert_token_offsets
+    w1, w2, w3 = (w[lo:lo + count].contiguous() for w in ws)
+    G = K.gather_gmm
+    a = G.gather_gmm(x, idx, off, w1, w2)
+    _close(a, G.gather_gmm_plain(x, idx, off, w1, w2), dtype)
+    assert not a[int(off[-1]):].any()
+    p = G.gather_gmm(a, None, off, w3, epilogue=False)
+    gates = torch.rand(100, 2, device=dev).to(x.dtype)
+    tim = loc.token_index_map
+    assert torch.equal(K.combine.combine(p, tim, gates),
+                       K.combine.combine_plain(p, tim, gates))
+    _close(K.gmm_dw.gmm_dw(x[idx.long()], a, off),
+           K.gmm_dw.gmm_dw_plain(x[idx.long()], a, off), dtype)
+    F = K.fused_moe
+    got = [F.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3),
+           *F.fused_moe_bwd(x, dy, g_slot, idx, off, w1, w2, w3)]
+    want = [F.fused_moe_fwd_plain(x, g_slot, idx, off, w1, w2, w3),
+            *F.fused_moe_bwd_plain(x, dy, g_slot, idx, off, w1, w2, w3)]
+    _sync()
+    for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw2", "dw3"),
+                            got, want):
+        w_ = w_.cpu().numpy()
+        scale = float(np.abs(w_).max())
+        tol = (dict(rtol=0.0, atol=2 ** -7 * scale + 1e-2)
+               if dtype == "bfloat16"
+               else dict(rtol=1e-5, atol=1e-5 * scale))
+        np.testing.assert_allclose(g_.cpu().numpy(), w_, err_msg=name, **tol)
+    # no gate gradient in the dead zone
+    assert not got[2][int(off[-1]):].any()

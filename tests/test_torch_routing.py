@@ -2,7 +2,12 @@
 
 The dispatch integers must be bit-identical to the reference's sort-free
 build and to its Pallas kernel (interpret mode).  Gating is compared at
-float32 rounding; the chosen experts must be equal.
+float32 rounding; the chosen experts must be equal.  ``slice_dispatch``
+must give the reference's integers for every expert range, and the
+sliced gather-GMM and combine, summed over a partition of the experts
+into ranges, must give the whole layer's output (float32: the same
+products summed in another order, 1e-6 relative over a floor of 1e-6
+times the output's scale).
 """
 
 import jax.numpy as jnp
@@ -65,3 +70,53 @@ def test_dispatch_bit_identical(tp, L, E, k, experts):
             t = getattr(got, name)
             assert t.dtype == tp.torch.int32, name
             np.testing.assert_array_equal(t.numpy(), want, err_msg=name)
+
+
+SLICE_CASES = [(37, 4, 2, None), (100, 8, 2, None), (129, 8, 2, [0, 3]),
+               (50, 8, 1, [7])]
+
+
+@pytest.mark.parametrize("L,E,k,experts", SLICE_CASES)
+def test_slice_dispatch_matches_reference(tp, L, E, k, experts):
+    topk = _topk(L, E, k, seed=L + E + k, experts=experts)
+    ref = R.build_dispatch(jnp.asarray(topk), E)
+    disp = tp.routing.build_dispatch(to_torch(topk), E)
+    for lo in range(E):
+        for hi in range(lo + 1, E + 1):
+            want = R.slice_dispatch(ref, lo, hi)
+            for e_lo in (lo, tp.torch.tensor(lo)):
+                got = tp.routing.slice_dispatch(disp, e_lo, count=hi - lo)
+                for name in R.Dispatch._fields:
+                    t = getattr(got, name)
+                    assert t.dtype == tp.torch.int32, name
+                    np.testing.assert_array_equal(
+                        t.numpy(), np.asarray(getattr(want, name)),
+                        err_msg=f"[{lo}, {hi}) {name}")
+
+
+@pytest.mark.parametrize("n_ranges", [2, 4])
+def test_sliced_layer_sums_to_whole(tp, n_ranges):
+    L, E, k, d, h = 45, 8, 2, 16, 24
+    rng = np.random.default_rng(7)
+    topk = _topk(L, E, k, seed=11, experts=[0, 1, 2, 5, 6, 7])
+    x = to_torch(rng.normal(size=(L, d)).astype(np.float32))
+    w1, w2 = (to_torch(rng.normal(size=(E, d, h)).astype(np.float32))
+              for _ in range(2))
+    g = to_torch(rng.uniform(size=(L, k)).astype(np.float32))
+    disp = tp.routing.build_dispatch(to_torch(topk), E)
+
+    def layer(dd, w1_, w2_):
+        p = tp.gather_gmm.gather_gmm(x, dd.expert_token_indices,
+                                     dd.expert_token_offsets, w1_, w2_)
+        return tp.combine.combine(p, dd.token_index_map, g)
+
+    want = layer(disp, w1, w2)
+    E_loc = E // n_ranges
+    total = tp.torch.zeros_like(want)
+    for r in range(n_ranges):
+        ws = slice(r * E_loc, (r + 1) * E_loc)
+        total += layer(tp.routing.slice_dispatch(disp, r * E_loc,
+                                                 count=E_loc), w1[ws], w2[ws])
+    scale = float(want.abs().max())
+    assert tp.torch.all((total - want).abs()
+                        <= 1e-6 * (want.abs() + scale))

@@ -184,8 +184,9 @@ def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
 def test_port_imports_no_jax_and_no_reference():
     """``import repro_torch``, CPU engine runs (Mixtral; Qwen3-14B over
     bf16 and over int8 pages) and CPU training steps (``blaze_pallas``,
-    ``blaze`` on ``pallas_fused``, and the dense Qwen3-14B) leave JAX and
-    the reference package out of ``sys.modules``."""
+    ``blaze`` on ``pallas_fused``, the dense Qwen3-14B, and ``ep_a2a`` on
+    ``pallas`` over a one-rank mesh) leave JAX and the reference package
+    out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
@@ -197,6 +198,10 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.launch.train, repro_torch.launch.serve\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.gmm_dw, repro_torch.data.pipeline\n"
+        "import repro_torch.sharding, repro_torch.core.collectives\n"
+        "import repro_torch.core.memsim, repro_torch.kernels.gather_rows\n"
+        "from repro_torch.launch.mesh import init_distributed, "
+        "make_debug_mesh\n"
         "cfg = get_config('mixtral-8x7b').reduced().replace("
         "moe_impl='blaze_pallas')\n"
         "p = init_params(cfg, torch.Generator().manual_seed(0), 'cpu')\n"
@@ -214,6 +219,11 @@ def test_port_imports_no_jax_and_no_reference():
         "seq_len=32), device='cpu', log=lambda _: None)\n"
         "assert h[0]['gmm_backend'] == 'pallas_fused'\n"
         "assert np.isfinite(h[0]['loss'])\n"
+        "init_distributed('cpu')\n"
+        "_, _, h = train(fcfg.replace(gmm_backend='pallas', moe_parallel="
+        "'ep_a2a'), TrainConfig(total_steps=1, batch_size=1, seq_len=32), "
+        "device='cpu', mesh=make_debug_mesh(1, 1), log=lambda _: None)\n"
+        "assert np.isfinite(h[0]['loss']) and h[0]['moe_overflow'] == 0.0\n"
         "qcfg = get_config('qwen3-14b').reduced().replace("
         "dtype='bfloat16', use_pallas=True)\n"
         "qp = init_params(qcfg, torch.Generator().manual_seed(0), 'cpu')\n"

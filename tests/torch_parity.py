@@ -30,7 +30,7 @@ def port() -> SimpleNamespace:
     from repro_torch import interop
     from repro_torch.core import routing
     from repro_torch.kernels import (combine, dispatch, flash_attention,
-                                     gather_gmm, gmm_dw, ops,
+                                     gather_gmm, gather_rows, gmm_dw, ops,
                                      paged_attention)
     from repro_torch.models import transformer
     from repro_torch.serve import engine, kv_quant, paged_cache
@@ -40,7 +40,8 @@ def port() -> SimpleNamespace:
     torch.set_num_threads(2)
     return SimpleNamespace(
         torch=torch, interop=interop, routing=routing, combine=combine,
-        dispatch=dispatch, gather_gmm=gather_gmm, gmm_dw=gmm_dw,
+        dispatch=dispatch, gather_gmm=gather_gmm, gather_rows=gather_rows,
+        gmm_dw=gmm_dw,
         flash_attention=flash_attention, ops=ops,
         paged_attention=paged_attention, transformer=transformer,
         engine=engine, paged_cache=paged_cache, kv_quant=kv_quant,
