@@ -14,12 +14,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    heads of 128, E=8, top-2, expert width 14336; training 2 x 2048 tokens,
    8192 slots), plus edge cases: empty experts, all slots on one expert,
    slot counts that are not a multiple of the tile, position 0 and a dead
-   page table, windows shorter than the sequence, softcaps, float32; the
+   page table, windows shorter than the sequence, positions on and across
+   the boundaries of paged attention's splits and a window that starts
+   inside a split, softcaps, float32; the
    expert layer's autograd Functions (``blaze_pallas``, ``moe_ffn_blaze``
-   on ``pallas`` in each residual mode and on ``pallas_fused``) against
-   autograd through the plain versions; and the bytes one full-width
-   expert layer saves for its backward, per implementation;
-4. timing — each kernel (median of warm runs, L2 flushed between runs) at
+   on ``pallas`` in each residual mode, on ``pallas_fused`` and on
+   ``ragged``, the backend ``auto`` resolves to) against
+   autograd through the plain versions; ``ragged`` at Mixtral's widths
+   with empty groups and rows past the group total (those rows, their
+   input gradient and the empty groups' weight gradient exactly 0); and
+   the bytes one full-width expert layer saves for its backward, per
+   implementation;
+4. timing — each kernel (median of warm runs, L2 flushed between runs
+   and the host's launch time hidden behind a device sleep) at
    the prefill, decode and training shapes, beside its plain version, its
    bound (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s,
    from this run's inputs) and PyTorch calls that compute the same
@@ -91,8 +98,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bwd_x and bwd_w at the training (L=4096) and decode (L=4) shapes, at a
    ragged L=300, with h not a multiple of the tile, with widths not a
    multiple of 8 and in float32; the ``swiglu`` autograd Function against
-   autograd through the plain versions; the int8 paged-attention kernel
-   (a window, a softcap, position 0, a dead page table);
+   autograd through the plain versions; the paged-attention kernel over
+   bf16 and over int8 pages at the GQA group of 5 (a window, a softcap,
+   position 0, a dead page table, split boundaries, a 2048-page table);
 15. Qwen3-14B timing — those four kernels at the training, prefill and
    decode shapes, as phase 4 (library yardsticks: one ``torch.matmul``
    per kernel over w1 | w2 concatenated, the epilogue excluded;
@@ -206,7 +214,11 @@ def check(cond: bool, msg: str) -> None:
 class Timer:
     """Median device time of ``fn`` over warm runs, CUDA events around each
     run, with the L2 cache flushed before each (the weights and pages a real
-    step reads come from HBM)."""
+    step reads come from HBM).  A device-side sleep after the flush keeps
+    the card busy while the host queues ``fn``'s launches, so a host slower
+    than the flush adds no idle time to the reading."""
+
+    SLEEP_CYCLES = 200_000     # ~0.1 ms at the H100's clock
 
     def __init__(self, dev):
         self.flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
@@ -217,6 +229,7 @@ class Timer:
         times = []
         for _ in range(reps):
             self.flush.zero_()
+            torch.cuda._sleep(self.SLEEP_CYCLES)
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
@@ -225,6 +238,18 @@ class Timer:
             end.synchronize()
             times.append(start.elapsed_time(end))
         return statistics.median(times)
+
+
+def split_boundaries(KP, dev, Hkv: int, pps: int, ps: int):
+    """Paged attention's kernel splits each request's page walk into runs
+    of ``span`` positions.  Returns ``span`` and, for 4 requests, the
+    positions on the last and the first row of a split, one row past a
+    boundary and at the table's end (a window of ``2 span - 1`` then
+    starts one row into a split)."""
+    span = KP.split_pages(4, Hkv, pps, torch.cuda.get_device_properties(
+        dev).multi_processor_count) * ps
+    return span, torch.tensor([span - 1, span, 3 * span + 1, pps * ps - 1],
+                              dtype=torch.int32, device=dev)
 
 
 def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
@@ -427,6 +452,11 @@ def main() -> int:
                torch.tensor([0, 700, 0, 1000], dtype=torch.int32,
                             device=dev), cfg.sliding_window)
     paged_case("window 100", q_dec, table, pos, 100)
+    span, split_pos = split_boundaries(KP, dev, Hkv, pps, ps)
+    paged_case(f"split boundaries (span {span})", q_dec, table, split_pos,
+               cfg.sliding_window)
+    paged_case(f"window {2 * span - 1} (span {span})", q_dec, table,
+               split_pos, 2 * span - 1)
     torch.cuda.synchronize()
     log(f"parity paged_attention: max |err| {errs['paged_attention']:.4g} "
         f"(atol {PAGED_ATOL})")
@@ -1003,9 +1033,13 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
             f"scale (y, dx, dw1, dw2) {rel} (tolerance {tol})")
         del x, v1, v2, dy, y, got, want
 
-    # int8 paged decode attention: Qwen3-14B's heads, the pool of a
-    # capacity-1024 engine quantized on the card, requests at the end of
-    # the serving run's prompts
+    # paged decode attention over bf16 and int8 pages at Qwen3-14B's heads
+    # (a GQA group of 5, its own instantiation of the split kernel): the
+    # pool of a capacity-1024 engine (int8 quantized on the card),
+    # requests at the end of the serving run's prompts, position 0 and a
+    # dead slot, the split boundaries, and a long-context table (2048
+    # pages a request, short and long positions: more than one run of 32
+    # pages per request)
     Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     ps, pps = 16, 64
     n_pages = 1 + 4 * pps
@@ -1021,20 +1055,49 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
     edge_table[2] = 0                                     # dead slot
     edge_pos = torch.tensor([0, 700, 0, 1000], dtype=torch.int32,
                             device=dev)
-    for name, tab, ps_, window, cap in (
-            ("decode", table, pos, 0, 0.0),
-            ("window 100, softcap 30", table, pos, 100, 30.0),
-            ("pos 0 + dead table", edge_table, edge_pos, 0, 0.0)):
-        args = (q, kq, vq, ks, vs, tab, ps_)
-        got = KP.paged_attention_int8(*args, window=window, cap=cap)
-        want = KP.paged_attention_int8_plain(*args, window=window, cap=cap)
-        errs["paged_attention_int8"] = max(
-            errs["paged_attention_int8"],
-            require_close(f"paged_attention_int8 {name}", got, want, 0.0,
-                          PAGED_ATOL))
-    torch.cuda.synchronize()
-    log(f"parity paged_attention_int8 ({Hq}/{Hkv} heads of {Dh}): max "
-        f"|err| {errs['paged_attention_int8']:.4g} (atol {PAGED_ATOL})")
+    span, split_pos = split_boundaries(KP, dev, Hkv, pps, ps)
+    long_pps = 2048
+    long_table = torch.randint(1, n_pages, (4, long_pps), dtype=torch.int32,
+                               generator=torch.Generator().manual_seed(3)
+                               ).to(dev)
+    long_pos = torch.tensor([5, 600, 20000, long_pps * ps - 1],
+                            dtype=torch.int32, device=dev)
+    long_span = KP.split_pages(4, Hkv, long_pps, torch.cuda
+                               .get_device_properties(dev)
+                               .multi_processor_count) * ps
+    # bf16 pages from their own generator: later phases draw from `rng`
+    g_pages = torch.Generator(device=dev).manual_seed(4)
+    kb, vb = (torch.randn(n_pages, ps, Hkv, Dh, generator=g_pages,
+                          device=dev, dtype=BF16) for _ in range(2))
+    cases = (
+        ("decode", table, pos, 0, 0.0),
+        ("window 100, softcap 30", table, pos, 100, 30.0),
+        ("pos 0 + dead table", edge_table, edge_pos, 0, 0.0),
+        (f"split boundaries (span {span})", table, split_pos, 0, 0.0),
+        (f"window {2 * span - 1} (span {span})", table, split_pos,
+         2 * span - 1, 0.0),
+        (f"{long_pps} pages a request (span {long_span})", long_table,
+         long_pos, 0, 0.0),
+        (f"{long_pps} pages a request, window 700", long_table, long_pos,
+         700, 0.0))
+    for name, (kernel, plain, pages) in (
+            ("paged_attention", (KP.paged_attention,
+                                 KP.paged_attention_plain, (kb, vb))),
+            ("paged_attention_int8", (KP.paged_attention_int8,
+                                      KP.paged_attention_int8_plain,
+                                      (kq, vq, ks, vs)))):
+        for case_name, tab, ps_, window, cap in cases:
+            args = (q, *pages, tab, ps_)
+            got = kernel(*args, window=window, cap=cap)
+            want = plain(*args, window=window, cap=cap)
+            errs[name] = max(errs[name], require_close(
+                f"{name} {case_name} ({Hq}/{Hkv} heads)", got, want, 0.0,
+                PAGED_ATOL))
+        torch.cuda.synchronize()
+        log(f"parity {name} ({Hq}/{Hkv} heads of {Dh}; "
+            f"{'; '.join(c[0] for c in cases)}): max |err| "
+            f"{errs[name]:.4g} (atol {PAGED_ATOL})")
+    del kb, vb, long_table
     return {"w1": w1, "w2": w2, "paged": (q, kq, vq, ks, vs, table, pos)}
 
 
@@ -1210,6 +1273,7 @@ def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
                kk[:1, :256].float().contiguous(),
                vv[:1, :256].float().contiguous(), 100, 5.0)
     layer_function_parity(M, dev, rng)
+    ragged_edges(M, dev)
     return {"x": x_tr, "xg": xg, "dyg": dyg, "da": da, "y_swi": y_swi,
             "q": q, "k": kk, "v": vv}
 
@@ -1219,14 +1283,17 @@ def layer_function_parity(M, dev, rng):
     through the plain versions (E=8, top-2, L=2048, widths 1024 -> 2048),
     in float32 and bf16: y, dx, dgates, dw1, dw2, dw3.  The kernel
     composition (``blaze_pallas``), ``moe_ffn_blaze`` on the ``pallas``
-    backend in each residual mode, and on ``pallas_fused``."""
+    backend in each residual mode, on ``pallas_fused``, and on ``ragged``
+    (``torch._grouped_mm``, what ``gmm_backend="auto"`` resolves to)."""
     L, d, h, E, k = 2048, 1024, 2048, 8, 2
     impls = [("blaze_pallas", lambda *a: M.KO.moe_ffn_blaze_pallas(*a))] + [
         (f"blaze+pallas {m}", lambda *a, m=m: M.ML.moe_ffn_blaze(
             *a, residuals=m, backend="pallas"))
         for m in ("ab_yswi", "ab", "x")] + [
         ("blaze+pallas_fused", lambda *a: M.ML.moe_ffn_blaze(
-            *a, backend="pallas_fused"))]
+            *a, backend="pallas_fused")),
+        ("blaze+ragged", lambda *a: M.ML.moe_ffn_blaze(
+            *a, backend="ragged"))]
     for dt, tol in ((torch.float32, LAYER_F32), (BF16, LAYER_BF16)):
         def make(*shape, s=1.0):
             a = rng.standard_normal(shape).astype(np.float32) * s
@@ -1260,6 +1327,51 @@ def layer_function_parity(M, dev, rng):
             log(f"parity layer {label} {dt}: max |err| / scale per output "
                 f"(y, dx, dgates, dw1, dw2, dw3) "
                 f"{[round(e, 6) for e in errs]} (tolerance {tol})")
+
+
+def ragged_edges(M, dev):
+    """``ragged`` (``torch._grouped_mm``) at Mixtral's widths with empty
+    groups and rows past the group total, in bf16 (the launchers' dtype)
+    and float32: ``gmm``'s trailing rows, their input gradient and an
+    empty group's weight gradient must be exactly 0, and the rest must
+    match ``segment`` (each output within LAYER_BF16 / LAYER_F32 of its
+    scale)."""
+    GB = M.MB.GB
+    d, h, S = 4096, 14336, 1000
+    lengths = (300, 0, 41, 0, 200, 0, 77, 0)
+    total = sum(lengths)
+    empty = [e for e, n in enumerate(lengths) if not n]
+    sizes = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for dt, tol in ((BF16, LAYER_BF16), (torch.float32, LAYER_F32)):
+        def make(*shape, s=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev) * s).to(dt)
+        lhs = make(S, d).requires_grad_()
+        rhs = make(len(lengths), d, h, s=d ** -0.5).requires_grad_()
+        dout = make(S, h)
+        y = GB.RaggedBackend.gmm(lhs, rhs, sizes)
+        dlhs, drhs = torch.autograd.grad(y, (lhs, rhs), dout)
+        torch.cuda.synchronize()
+        check(bool((y[total:] == 0).all()) and bool((dlhs[total:] == 0)
+                                                    .all()),
+              f"ragged {dt}: rows past the group total are not 0")
+        check(bool((drhs[empty] == 0).all()),
+              f"ragged {dt}: an empty group's weight gradient is not 0")
+        lhs0, rhs0 = lhs.detach(), rhs.detach()
+        errs = []
+        for name, got, want in (
+                ("gmm", y, GB.SegmentBackend.gmm(lhs0, rhs0, sizes)),
+                ("gmm_dw", drhs,
+                 GB.SegmentBackend.gmm_dw(lhs0, dout, sizes))):
+            scale = float(want.float().abs().max())
+            errs.append(require_close(f"ragged {dt} {name}", got.detach(),
+                                      want, tol, tol * scale)
+                        / max(scale, 1e-30))
+        log(f"parity ragged edges {dt} (groups {lengths}, {S} rows, "
+            f"{d}->{h}): trailing rows, their dx and empty groups' dw "
+            f"exactly 0; max |err| / scale (gmm, gmm_dw) "
+            f"{[round(e, 6) for e in errs]} (tolerance {tol})")
+        del lhs, rhs, dout, y, dlhs, drhs
 
 
 def slot_gates(M, x, wg, disp, k):

@@ -12,10 +12,14 @@ layer goes through two primitives:
 Both accumulate in float32 and return ``lhs.dtype``.  The backends, under
 the reference's names so that configs carry across unchanged:
 
-  * ``ragged`` — registered but not available: the reference's
-    ``jax.lax.ragged_dot`` path has no port yet (ROADMAP queue A2);
+  * ``ragged`` — ``torch._grouped_mm``, PyTorch's grouped GEMM, as the
+    reference's ``ragged`` is ``jax.lax.ragged_dot[_general]`` (an XLA op,
+    not a Pallas kernel); the trailing rows it leaves unwritten are zeroed
+    here.  What it refuses (strides that are not a multiple of 16 bytes,
+    mixed or unsupported dtypes) raises, naming the explicit backends;
   * ``segment`` — plain PyTorch, one float32 product per group; the
-    oracle the other backends are held to;
+    oracle the other backends are held to (never picked by auto while
+    ``ragged`` is available);
   * ``pallas`` — the port's hand-written kernels: gather-GMM over identity
     rows and the grouped weight gradient, each an autograd Function whose
     backward is built from the other;
@@ -65,22 +69,87 @@ def _groups(group_sizes: torch.Tensor, S: int):
             yield e, lo, hi
 
 
+def _grouped_mm(a, b, offs):
+    """``torch._grouped_mm`` with its refusals (mixed dtypes, strides that
+    are not a multiple of 16 bytes) re-raised to name the backends that
+    take every case."""
+    try:
+        return torch._grouped_mm(a, b, offs=offs)
+    except RuntimeError as exc:
+        raise RuntimeError(
+            f"gmm backend 'ragged' (torch._grouped_mm) refuses {a.dtype} "
+            f"{tuple(a.shape)} x {tuple(b.shape)} on {a.device}: {exc}; use "
+            f"backend 'segment', 'pallas' or 'pallas_fused'") from exc
+
+
+def _ends_of(group_sizes: torch.Tensor) -> torch.Tensor:
+    """(E,) group sizes -> (E,) int32 inclusive prefix sums (the group
+    ends that ``torch._grouped_mm`` takes as ``offs``)."""
+    return torch.cumsum(group_sizes.to(torch.int32), 0, dtype=torch.int32)
+
+
+def _ragged_gmm(lhs, rhs, ends):
+    out = _grouped_mm(lhs, rhs, ends)
+    # rows at and past the group total are left unwritten: zero them
+    # without reading the total back to the host
+    dead = torch.arange(lhs.shape[0], device=lhs.device) >= ends[-1]
+    return out.masked_fill_(dead[:, None], 0)
+
+
+def _ragged_dw(lhs, dout, ends):
+    # the 2-D x 2-D form contracts each group's rows: (d, S) x (S, h) ->
+    # (E, d, h), rows past the total in no group
+    return _grouped_mm(lhs.t(), dout, ends)
+
+
+class _RaggedGmm(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lhs, rhs, ends):
+        ctx.save_for_backward(lhs, rhs, ends)
+        return _ragged_gmm(lhs, rhs, ends)
+
+    @staticmethod
+    def backward(ctx, dout):
+        lhs, rhs, ends = ctx.saved_tensors
+        dout = dout.to(lhs.dtype).contiguous()
+        dlhs = _ragged_gmm(dout, rhs.transpose(1, 2), ends)
+        return dlhs, _ragged_dw(lhs, dout, ends).to(rhs.dtype), None
+
+
+class _RaggedDw(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lhs, dout, ends):
+        ctx.save_for_backward(lhs, dout, ends)
+        return _ragged_dw(lhs, dout, ends)
+
+    @staticmethod
+    def backward(ctx, ddw):
+        lhs, dout, ends = ctx.saved_tensors
+        ddw = ddw.to(lhs.dtype).contiguous()
+        dlhs = _ragged_gmm(dout, ddw.transpose(1, 2), ends)
+        ddout = _ragged_gmm(lhs, ddw, ends)
+        return dlhs, ddout.to(dout.dtype), None
+
+
 class RaggedBackend:
-    """The reference's ``jax.lax.ragged_dot`` backend: not ported."""
+    """The reference's ``jax.lax.ragged_dot[_general]`` backend on
+    ``torch._grouped_mm`` (float32 accumulation, output in ``lhs.dtype``),
+    differentiable through an autograd Function built as ``pallas``'s."""
 
     name = "ragged"
-    reason = ("the 'ragged' backend (jax.lax.ragged_dot) has no port yet "
-              "(ROADMAP queue A2)")
 
     @staticmethod
     def available() -> bool:
-        return False
+        return hasattr(torch, "_grouped_mm")
 
-    @classmethod
-    def gmm(cls, lhs, rhs, group_sizes):
-        raise NotImplementedError(cls.reason)
+    @staticmethod
+    def gmm(lhs, rhs, group_sizes):
+        return _RaggedGmm.apply(lhs.contiguous(), rhs, _ends_of(group_sizes))
 
-    gmm_dw = gmm
+    @staticmethod
+    def gmm_dw(lhs, dout, group_sizes):
+        return _RaggedDw.apply(lhs.contiguous(), dout.contiguous(),
+                               _ends_of(group_sizes))
 
 
 class SegmentBackend:

@@ -44,16 +44,16 @@ SIGNATURES = {
     "repro_gmm_dw": [I, P, P, P, P, I, I, I, I, P],
     "repro_flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, F, P],
     "repro_combine": [I, P, P, P, P, I, I, I, P],
-    "repro_paged_attention": [I, P, P, P, P, P, P, I, I, I, I, I, I, I, F,
-                              F, P],
+    "repro_paged_attention": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
+                              I, I, F, F, P],
     "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
     "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I,
                             I, I, I, P],
     "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, I, I, I, P],
     "repro_fused_swiglu_bwd_x": [I, P, P, P, P, P, P, I, I, I, P],
     "repro_fused_swiglu_bwd_w": [I, P, P, P, P, P, P, I, I, I, P],
-    "repro_paged_attention_int8": [I, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                                   I, I, F, F, P],
+    "repro_paged_attention_int8": [I, P, P, P, P, P, P, P, P, P, P, I, I, I,
+                                   I, I, I, I, I, F, F, P],
     "repro_gather_rows": [I, P, P, P, I, I, I, P],
 }
 

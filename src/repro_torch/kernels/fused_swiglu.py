@@ -20,8 +20,11 @@ Bound on the card: operations at prefill and in training (4 L d h each),
 bytes at decode (the weights).  ``csrc/fused_swiglu.cu`` gives every
 block one output tile and walks the contraction inside the block (the
 TPU carries float32 scratch across an ordered grid axis); see the source
-for the tiling.  Any L, d and h; float32 and widths that are not a
-multiple of 8 take a plain float32-FMA tiled kernel.
+for the tiling.  ``bwd_x`` in bf16 is a Hopper kernel: TMA streams dy, a,
+b and the weights into a ring of shared memory, and two consumer
+warpgroups form da and db in registers and feed them to ``wgmma``; it
+allocates nothing beyond dx.  Any L, d and h; float32 and widths that are
+not a multiple of 8 take a plain float32-FMA tiled kernel.
 """
 
 from __future__ import annotations

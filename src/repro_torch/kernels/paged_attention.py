@@ -12,13 +12,21 @@ each score (``k_scale``, before the softcap) and each probability
 (``v_scale``, after the softmax's denominator is taken), as in the TPU
 kernel's quantized branch; no dequantized page is written.
 
-Bound on the card: bytes (the live K/V rows).  ``csrc/paged_attention.cu``
-runs one block per (request, kv head) that walks the request's live pages
-(skipping pages wholly before the window) with the online softmax held in
-the block, instead of the TPU's page axis carried across grid steps.
+Bound on the card: bytes (the live K/V rows).  The TPU carries the
+online softmax across an ordered page axis; ``csrc/paged_attention.cu``
+splits the page walk instead (flash decoding): a grid of (request, kv
+head, split) blocks, each over ``pages_per_split`` pages
+(:func:`split_pages`), writes its split's ``(m, l, acc)`` to a float32
+workspace that the wrapper allocates, and a second kernel merges the
+splits in order.  :func:`paged_attention_split_plain` and
+:func:`paged_attention_int8_split_plain` compute the same per-split
+states and merge them as the kernel does: the CPU oracle of the split
+walk.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -90,6 +98,99 @@ def paged_attention_int8_plain(q: torch.Tensor, k_pages: torch.Tensor,
     return out.reshape(B, 1, Hq, Dh).to(q.dtype)
 
 
+def split_pages(B: int, Hkv: int, pps: int, n_sm: int) -> int:
+    """Pages per split of the card's page walk: the whole table's splits
+    (B x Hkv x ceil(pps / pages) blocks) come to about 8 blocks per SM
+    (2 pages a split at the serving smoke's 4 requests x 8 kv heads x 64
+    pages), and at most 32 pages, the page-table entries a block holds
+    one per lane (long tables get more splits).  Blocks of splits past a
+    request's position exit after reading it, so the live ones (decode
+    positions fill part of the table) still cover the SMs."""
+    return min(32, max(1, -(-pps * B * Hkv // (8 * n_sm))))
+
+
+def _split_walk(q, kg, vg, ksc, vsc, positions, span, window, cap):
+    """Per-split online-softmax states over ``span`` positions each, merged
+    in split order.  kg, vg: (B, T, Hkv, Dh) float32; ksc, vsc: (B, T, Hkv)
+    or None."""
+    B, _, Hq, Dh = q.shape
+    T, Hkv = kg.shape[1], kg.shape[2]
+    G = Hq // Hkv
+    n = -(-T // span)
+    qf = q.reshape(B, Hkv, G, Dh).float() * Dh ** -0.5
+    s = torch.einsum("bhgd,bthd->bhgt", qf, kg)
+    if ksc is not None:
+        s = s * ksc.transpose(1, 2)[:, :, None, :]
+    if cap:
+        s = cap * torch.tanh(s / cap)
+    t_ids = torch.arange(n * span, device=q.device)
+    pos = positions.long()[:, None]
+    valid = (t_ids[None, :] <= pos) & (t_ids[None, :] < T)
+    if window:
+        valid &= t_ids[None, :] > pos - window
+    s = torch.nn.functional.pad(s, (0, n * span - T))
+    s = s.reshape(B, Hkv, G, n, span)
+    valid = valid.reshape(B, 1, 1, n, span)
+    m = torch.where(valid, s, -torch.inf).amax(-1)            # (B,Hkv,G,n)
+    p = torch.where(valid, torch.exp(s - torch.where(
+        torch.isinf(m), 0.0, m)[..., None]), 0.0)
+    l = p.sum(-1)
+    if vsc is not None:
+        v_sc = torch.nn.functional.pad(vsc.transpose(1, 2), (0, n * span - T))
+        p = p * v_sc.reshape(B, Hkv, 1, n, span)
+    vs = torch.nn.functional.pad(vg, (0, 0, 0, 0, 0, n * span - T))
+    acc = torch.einsum("bhgnt,bnthd->bhgnd", p,
+                       vs.reshape(B, n, span, Hkv, Dh))
+    # the merge kernel: splits in order, an empty split (m = -inf) skipped
+    M = m.amax(-1, keepdim=True)
+    f = torch.where(torch.isinf(m), 0.0, torch.exp(m - M))
+    out = (acc * f[..., None]).sum(-2) / torch.clamp(
+        (l * f).sum(-1), min=1e-30)[..., None]
+    return out.reshape(B, 1, Hq, Dh).to(q.dtype)
+
+
+def _gather_pages(a, page_table):
+    B, pps = page_table.shape
+    g = a[page_table.long()]
+    return g.reshape((B, pps * a.shape[1]) + a.shape[2:]).float()
+
+
+def paged_attention_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor,
+                                page_table: torch.Tensor,
+                                positions: torch.Tensor, *,
+                                pages_per_split: int, window: int = 0,
+                                cap: float = 0.0) -> torch.Tensor:
+    """The kernel's split walk in plain PyTorch: per split of
+    ``pages_per_split`` pages the float32 ``(m, l, acc)`` of its unmasked
+    positions (an empty split has ``m = -inf``, ``l = 0``), merged in
+    split order.  Same arguments and result as :func:`paged_attention`."""
+    span = pages_per_split * k_pages.shape[1]
+    return _split_walk(q, _gather_pages(k_pages, page_table),
+                       _gather_pages(v_pages, page_table), None, None,
+                       positions, span, window, cap)
+
+
+def paged_attention_int8_split_plain(q: torch.Tensor, k_pages: torch.Tensor,
+                                     v_pages: torch.Tensor,
+                                     k_scale: torch.Tensor,
+                                     v_scale: torch.Tensor,
+                                     page_table: torch.Tensor,
+                                     positions: torch.Tensor, *,
+                                     pages_per_split: int, window: int = 0,
+                                     cap: float = 0.0) -> torch.Tensor:
+    """:func:`paged_attention_split_plain` over int8 pages: scores times
+    ``k_scale`` before the softcap, ``l`` over the unscaled
+    probabilities, probabilities times ``v_scale`` against the int8
+    values."""
+    span = pages_per_split * k_pages.shape[1]
+    return _split_walk(q, _gather_pages(k_pages, page_table),
+                       _gather_pages(v_pages, page_table),
+                       _gather_pages(k_scale, page_table)[..., 0],
+                       _gather_pages(v_scale, page_table)[..., 0],
+                       positions, span, window, cap)
+
+
 def _check_paged(q, k_pages, v_pages, page_table, positions, page_dtype):
     dt = q.dtype
     if dt not in _lib.DTYPE_CODE:
@@ -109,6 +210,33 @@ def _check_paged(q, k_pages, v_pages, page_table, positions, page_dtype):
                          f"{tuple(k_pages.shape)} / {tuple(v_pages.shape)}")
     if page_table.shape[0] != B or positions.shape[0] != B:
         raise ValueError("page_table and positions need one row per request")
+    vec = 16 // k_pages.element_size()
+    lanes = Dh // vec
+    if Dh % vec or lanes > 32 or lanes & (lanes - 1) or Hq // Hkv > 8:
+        raise ValueError(
+            f"paged attention kernel takes rows of 16 to 512 bytes in a power "
+            f"of two of 16-byte pieces and a GQA group of at most 8; got "
+            f"Dh={Dh} of {k_pages.dtype}, group {Hq // Hkv}")
+
+
+@functools.cache
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(
+        device_index).multi_processor_count
+
+
+def _workspace(q, Hkv, pps):
+    """Pages per split and the float32 split workspace, per (request,
+    query head, split) ``acc`` (Dh values) and then ``(m, l)``: returns
+    the pages, the two pointers and the tensor that holds them."""
+    B, _, Hq, Dh = q.shape
+    idx = q.device.index if q.device.index is not None else \
+        torch.cuda.current_device()
+    pages = split_pages(B, Hkv, pps, _sm_count(idx))
+    n_acc = B * Hq * -(-pps // pages) * Dh
+    ws = torch.empty(n_acc + 2 * n_acc // Dh, dtype=torch.float32,
+                     device=q.device)
+    return pages, ws.data_ptr(), ws.data_ptr() + 4 * n_acc, ws
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -127,12 +255,14 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     dt = q.dtype
     B, _, Hq, Dh = q.shape
     _, ps, Hkv, _ = k_pages.shape
+    pps = page_table.shape[1]
+    pages, ws_acc, ws_ml, _ws = _workspace(q, Hkv, pps)
     out = torch.empty_like(q)
     code = _lib.lib().repro_paged_attention(
         _lib.DTYPE_CODE[dt], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
-        out.data_ptr(), B, Hq, Hkv, Dh, ps, page_table.shape[1], int(window),
-        float(cap), float(Dh ** -0.5), _lib.stream_ptr(q))
+        out.data_ptr(), ws_acc, ws_ml, B, Hq, Hkv, Dh, ps, pps, pages,
+        int(window), float(cap), float(Dh ** -0.5), _lib.stream_ptr(q))
     _lib.check("repro_paged_attention", code)
     paged_attention.launches += 1
     return out
@@ -160,13 +290,15 @@ def paged_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
                              f"pages {tuple(k_pages.shape)}")
     B, _, Hq, Dh = q.shape
     _, ps, Hkv, _ = k_pages.shape
+    pps = page_table.shape[1]
+    pages, ws_acc, ws_ml, _ws = _workspace(q, Hkv, pps)
     out = torch.empty_like(q)
     code = _lib.lib().repro_paged_attention_int8(
         _lib.DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-        page_table.data_ptr(), positions.data_ptr(), out.data_ptr(), B, Hq,
-        Hkv, Dh, ps, page_table.shape[1], int(window), float(cap),
-        float(Dh ** -0.5), _lib.stream_ptr(q))
+        page_table.data_ptr(), positions.data_ptr(), out.data_ptr(),
+        ws_acc, ws_ml, B, Hq, Hkv, Dh, ps, pps, pages, int(window),
+        float(cap), float(Dh ** -0.5), _lib.stream_ptr(q))
     _lib.check("repro_paged_attention_int8", code)
     paged_attention_int8.launches += 1
     return out

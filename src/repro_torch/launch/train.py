@@ -14,8 +14,8 @@ attention through the flash-attention kernel and, for a dense SwiGLU
 model, the FFN through the fused SwiGLU kernels.  A MoE model's expert
 layer is the config's ``moe_impl`` (``blaze`` for Mixtral); the
 grouped-GEMM backend is chosen, as in the reference, by
-``REPRO_GMM_BACKEND`` (``segment`` when unset; ``pallas_fused`` runs the
-fused kernel pair).  Kernels take their plain versions on the CPU.
+``REPRO_GMM_BACKEND`` (``ragged``, ``torch._grouped_mm``, when unset;
+``pallas_fused`` runs the fused kernel pair).  Kernels take their plain versions on the CPU.
 
 ``--mesh D,M`` (or ``D,M,N``) lays the ranks that torchrun starts out as a
 ``('data', 'model')`` mesh of D x M ranks (or ``('data', 'node',

@@ -227,8 +227,9 @@ def _a2a_pack(ids: torch.Tensor, G: int, C: int):
 def _a2a_gather_x(xc, src_of_slot, slot_ok, k: int, rb):
     """Fill the send buffer's x rows: buffer slot <- token ``src // k``.
     Under ``pallas`` / ``pallas_fused`` the rows go through the
-    ``gather_rows`` kernel (on a CUDA slab); ``segment`` takes the masked
-    index op, as the reference takes its masked ``jnp.take``."""
+    ``gather_rows`` kernel (on a CUDA slab); ``ragged`` and ``segment``
+    take the masked index op, as the reference takes its masked
+    ``jnp.take``."""
     row_ids = torch.where(slot_ok, torch.div(src_of_slot, k,
                                              rounding_mode="floor"), -1)
     if rb.name in ("pallas", "pallas_fused"):

@@ -94,6 +94,11 @@ def adamw_update(grads: list[torch.Tensor], state: AdamWState,
         delta = m / c1
         delta.div_((v / c2).sqrt_().add_(eps))
         delta.add_(p.float(), alpha=weight_decay)
-        p.add_(delta.to(p.dtype), alpha=-lr)
+        if p.dtype == torch.float32:
+            p.add_(delta, alpha=-lr)
+        else:
+            # the reference's (p.f32 - lr * delta).astype(p.dtype): one
+            # rounding of the float32 update, not of delta first
+            p.copy_(p.float() - lr * delta)
     state.step = step
     return state

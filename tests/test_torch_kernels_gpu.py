@@ -113,6 +113,68 @@ def test_dispatch_kernel_refuses_too_many_experts(dev, K):
         K.dispatch.build_dispatch(_t(np.zeros((4, 2), np.int32), dev), 257)
 
 
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+def test_paged_attention_long_table(dev, K, quant):
+    """A long-context table (2048 pages of 16 a request, Qwen3-14B's heads)
+    with short and long positions: the split rule's cap of 32 pages gives
+    64 splits, of which a short request has one or two live."""
+    import torch
+    A = K.paged_attention
+    hkv, g, dh, ps, pps = 8, 5, 128, 16, 2048
+    assert A.split_pages(4, hkv, pps, torch.cuda.get_device_properties(
+        dev).multi_processor_count) == 32
+    q, k, v, _, _ = _paged_case("bfloat16", dev, P=97, ps=ps, hkv=hkv, g=g,
+                                dh=dh)
+    rng = np.random.default_rng(4)
+    table = _t(rng.integers(1, 97, size=(4, pps)).astype(np.int32), dev)
+    pos = _t(np.array([5, 600, 20000, pps * ps - 1], np.int32), dev)
+    if quant:
+        kq, ks = K.kv_quant.quantize(k)
+        vq, vs = K.kv_quant.quantize(v)
+        args = (q, kq, vq, ks, vs, table, pos)
+        kernel, plain = A.paged_attention_int8, A.paged_attention_int8_plain
+    else:
+        args = (q, k, v, table, pos)
+        kernel, plain = A.paged_attention, A.paged_attention_plain
+    for window in (0, 700):
+        got = kernel(*args, window=window)
+        _sync()
+        _close(got, plain(*args, window=window), "bfloat16")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,lengths", [
+    (700, (300, 0, 41, 0, 200, 0, 77, 0)),   # empty groups, rows past total
+    (64, (0, 0, 0, 0)),                      # every group empty
+    (96, (0, 96, 0))])                       # one group takes every row
+def test_ragged_backend_edges_on_card(dev, dtype, S, lengths):
+    """``ragged`` (``torch._grouped_mm``) on the card in the launchers' bf16
+    and in float32: the rows past the group total of ``gmm`` (and of its
+    input gradient) and an empty group's ``gmm_dw`` are exactly 0; the
+    rest matches ``segment``."""
+    import torch
+    from repro_torch.core import gmm_backend as GB
+    rng = np.random.default_rng(S)
+    E, d, h = len(lengths), 64, 128
+    lhs = _t(rng.normal(size=(S, d)), dev, dtype).requires_grad_()
+    rhs = _t(rng.normal(size=(E, d, h)) * d ** -0.5, dev,
+             dtype).requires_grad_()
+    dout = _t(rng.normal(size=(S, h)), dev, dtype)
+    sizes = _t(np.array(lengths, np.int32), dev)
+    total, empty = sum(lengths), [e for e, n in enumerate(lengths) if not n]
+    rb, sb = GB.RaggedBackend, GB.SegmentBackend
+    y = rb.gmm(lhs, rhs, sizes)
+    dlhs, drhs = torch.autograd.grad(y, (lhs, rhs), dout)
+    dw = rb.gmm_dw(lhs.detach(), dout, sizes)
+    _sync()
+    assert (y[total:] == 0).all() and (dlhs[total:] == 0).all()
+    assert (dw[empty] == 0).all() and (drhs[empty] == 0).all()
+    lhs0 = lhs.detach()
+    _close(y.detach(), sb.gmm(lhs0, rhs.detach(), sizes), dtype)
+    _close(dw, sb.gmm_dw(lhs0, dout, sizes), dtype)
+    _close(drhs, sb.gmm_dw(lhs0, dout, sizes), dtype)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("L,d,h,lengths", [
     (48, 32, 64, (30, 0, 41, 25)),        # empty expert, total == S
@@ -191,6 +253,45 @@ def test_paged_attention_kernel_mixtral_heads(dev, K):
     want = K.paged_attention.paged_attention_plain(*args, window=20)
     _sync()
     _close(got, want, "bfloat16")
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("g", [4, 5])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (40, 0.0), (0, 30.0)])
+def test_paged_attention_split_boundaries(dev, K, quant, g, window, cap):
+    """The split walk at the serving shapes (8 kv heads of 128, 16-token
+    pages, 64 pages a request) with the GQA groups of Mixtral (4) and
+    Qwen3-14B (5): positions on the last and first row of a split, one
+    row past a boundary, and the table's end; against the plain version
+    and against the split walk's plain version at the kernel's split."""
+    import torch
+    A = K.paged_attention
+    hkv, dh, ps, pps = 8, 128, 16, 64
+    span = A.split_pages(4, hkv, pps, torch.cuda.get_device_properties(
+        dev).multi_processor_count) * ps
+    q, k, v, _, _ = _paged_case("bfloat16", dev, P=1 + 4 * pps, ps=ps,
+                                hkv=hkv, g=g, dh=dh)
+    perm = np.random.default_rng(3).permutation(4 * pps) + 1
+    table = _t(perm.reshape(4, pps).astype(np.int32), dev)
+    pos = _t(np.array([span - 1, span, 3 * span + 1, pps * ps - 1],
+                      np.int32), dev)
+    if quant:
+        kq, ks = K.kv_quant.quantize(k)
+        vq, vs = K.kv_quant.quantize(v)
+        args = (q, kq, vq, ks, vs, table, pos)
+        kernel, plain = A.paged_attention_int8, A.paged_attention_int8_plain
+        split = A.paged_attention_int8_split_plain
+    else:
+        args = (q, k, v, table, pos)
+        kernel, plain = A.paged_attention, A.paged_attention_plain
+        split = A.paged_attention_split_plain
+    before = kernel.launches
+    got = kernel(*args, window=window, cap=cap)
+    _sync()
+    assert kernel.launches == before + 1
+    _close(got, plain(*args, window=window, cap=cap), "bfloat16")
+    _close(got, split(*args, window=window, cap=cap,
+                      pages_per_split=span // ps), "bfloat16")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -410,12 +511,12 @@ def test_fused_moe_refuses_what_it_does_not_take(dev, K):
 
 @pytest.mark.parametrize("backend,residuals", [
     ("pallas", "ab_yswi"), ("pallas", "ab"), ("pallas", "x"),
-    ("pallas_fused", "ab_yswi")])
+    ("pallas_fused", "ab_yswi"), ("ragged", "ab_yswi")])
 def test_moe_ffn_blaze_on_card_matches_plain_autograd(dev, K, backend,
                                                       residuals):
-    """``moe_ffn_blaze`` on the card (its kernels) against autograd
-    through the plain versions on the same tensors, float32, E=8, top-2,
-    widths 256 -> 512."""
+    """``moe_ffn_blaze`` on the card (its kernels, or ``torch._grouped_mm``
+    on ``ragged``) against autograd through the plain versions on the same
+    tensors, float32, E=8, top-2, widths 256 -> 512."""
     import torch
     L, d, h, E, k = 512, 256, 512, 8, 2
     rng = np.random.default_rng(11)
@@ -440,6 +541,8 @@ def test_moe_ffn_blaze_on_card_matches_plain_autograd(dev, K, backend,
     after = counts()
     if backend == "pallas_fused":
         assert after[1:] == (before[1] + 1, before[2] + 1)
+    elif backend == "ragged":      # torch._grouped_mm: no kernel of the port
+        assert after == before
     else:
         assert after[0] > before[0] and after[1:] == before[1:]
     for name, g_, w_ in zip(("y", "dx", "dgates", "dw1", "dw3", "dw2"),
@@ -501,6 +604,31 @@ def test_fused_swiglu_kernels(dev, K, dtype, L, d, h):
                                   FS.fused_swiglu_bwd_w)]
     assert after == [n + 1 for n in before]
     assert bool(torch.isfinite(dx.float()).all())
+
+
+@pytest.mark.parametrize("L,d,h", [
+    (4096, 5120, 17408),   # Qwen3-14B training width
+    (300, 5120, 17408),    # L not a multiple of the 128-row tile
+    (256, 5000, 17408),    # d not a multiple of the 256-column tile
+    (128, 512, 17400),     # h not a multiple of the 32-deep k-step
+    (4, 5120, 17408)])     # decode rows: one tile, its second half empty
+def test_fused_swiglu_bwd_x_wgmma(dev, K, L, d, h):
+    """The wgmma/TMA ``bwd_x`` at Qwen3-14B's widths and their ragged
+    edges, against its plain version (bf16 tolerance as above)."""
+    import torch
+    rng = np.random.default_rng(L + d + h)
+    dy, a, b = (_t(rng.normal(size=(L, h)), dev, "bfloat16")
+                for _ in range(3))
+    w1, w2 = (_t(rng.normal(size=(d, h)) * h ** -0.5, dev, "bfloat16")
+              for _ in range(2))
+    FS = K.fused_swiglu
+    before = FS.fused_swiglu_bwd_x.launches
+    dx = FS.fused_swiglu_bwd_x(dy, a, b, w1, w2)
+    _sync()
+    assert FS.fused_swiglu_bwd_x.launches == before + 1
+    assert dx.shape == (L, d) and dx.dtype == torch.bfloat16
+    _scale_close("dx", dx, FS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2),
+                 "bfloat16")
 
 
 def test_fused_swiglu_refuses_what_it_does_not_take(dev, K):

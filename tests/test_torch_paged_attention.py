@@ -125,3 +125,79 @@ def test_paged_attention_int8_matches_reference(tp, dtype, window, cap):
                                               window=window, cap=cap)
     assert tp.torch.equal(via_pool, out)
     assert np.isfinite(f32(out)).all()
+
+
+# The split walk (the card kernel's design) in plain PyTorch.  Requests:
+# far into the table (a window of 30 starts mid-split at every split size
+# here, one of 100 masks whole splits), position 0, a dead slot (table all
+# trash), the last position of page 5 and the first of page 6 (split
+# boundaries for splits of 1, 2 and 3 pages of 8).
+SPLIT_PPS = 16
+SPLIT_POS = np.array([120, 0, 0, 47, 48], np.int32)
+_SPLIT_REF: dict = {}
+
+
+def _split_case(kind, seed=5):
+    rng = np.random.default_rng(seed)
+    n_pages = 1 + 5 * SPLIT_PPS
+    table = (1 + rng.permutation(n_pages - 1)[:5 * SPLIT_PPS]).reshape(
+        5, SPLIT_PPS).astype(np.int32)
+    table[2] = 0
+    k = rng.normal(size=(n_pages, PS, HKV, DH)).astype(np.float32)
+    v = rng.normal(size=(n_pages, PS, HKV, DH)).astype(np.float32)
+    g = 5 if kind == "int8" else G
+    q = as_dtype(rng.normal(size=(5, 1, HKV * g, DH)),
+                 "float32" if kind == "float32" else "bfloat16")
+    if kind == "int8":
+        kq, ks = (np.asarray(a) for a in JKQ.quantize(jnp.asarray(k)))
+        vq, vs = (np.asarray(a) for a in JKQ.quantize(jnp.asarray(v)))
+        return [q, kq, vq, ks, vs, table, SPLIT_POS]
+    k, v = as_dtype(k, kind), as_dtype(v, kind)
+    return [q, k, v, None, None, table, SPLIT_POS]
+
+
+def _split_reference(kind, window, cap):
+    key = (kind, window, cap)
+    if key not in _SPLIT_REF:
+        ins = _split_case(kind)
+        _SPLIT_REF[key] = f32(paged_attention_pallas(
+            *(None if a is None else jnp.asarray(a) for a in ins),
+            window=window, cap=cap))
+    return _SPLIT_REF[key]
+
+
+@pytest.mark.parametrize("pages", [1, 2, 3])
+@pytest.mark.parametrize("window,cap", [(0, 0.0), (30, 0.0), (100, 5.0),
+                                        (0, 5.0)])
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "int8"])
+def test_split_walk_matches_reference(tp, kind, window, cap, pages):
+    """``paged_attention[_int8]_split_plain`` (per-split (m, l, acc),
+    merged in order) against the reference's Pallas kernel (interpret
+    mode) at splits of 1, 2 and 3 pages, with wholly masked splits
+    (positions past the request's, before its window, a dead slot) and
+    windows that start mid-split.  Tolerances as above (an int8 pool with
+    a bfloat16 query as a bfloat16 query)."""
+    A = tp.paged_attention
+    ins = _split_case(kind)
+    want = _split_reference(kind, window, cap)
+    tin = [to_torch(a) for a in ins if a is not None]
+    fn = (A.paged_attention_int8_split_plain if kind == "int8"
+          else A.paged_attention_split_plain)
+    got = fn(*tin, pages_per_split=pages, window=window, cap=cap)
+    assert got.dtype == tin[0].dtype and got.shape == tin[0].shape
+    tol = TOL["float32" if kind == "float32" else "bfloat16"]
+    np.testing.assert_allclose(f32(got), want, **tol)
+    assert np.isfinite(f32(got)).all()
+
+
+def test_split_pages_covers_the_card(tp):
+    """The split rule: about 8 blocks per SM over the whole table (at the
+    serving smoke's 4 requests x 8 kv heads x 64 pages on 132 SMs, 2 pages
+    a split), never fewer than one page and never more than 32 (a long
+    table gets more splits)."""
+    sp = tp.paged_attention.split_pages
+    assert sp(4, 8, 64, 132) == 2
+    assert sp(1, 1, 4, 132) == 1
+    assert sp(64, 8, 64, 132) == 32
+    assert sp(4, 8, 2048, 132) == 32
+    assert sp(64, 8, 4096, 132) == 32

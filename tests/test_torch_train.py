@@ -204,3 +204,55 @@ def _check_trajectory(tp, jparams, port_cfg):
         assert err.max() <= lr_sum, (i, err.max())
         n_far = int((err > 2e-3 * jt.learning_rate).sum())
         assert n_far <= 1e-4 * err.size, (i, n_far, err.size)
+
+
+def _adamw_case(dtype, n=120_000, seed=7):
+    """Parameters, gradients and moments of one leaf after some steps,
+    drawn with numpy: (p, g, m, v) with p in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    p = as_dtype(rng.normal(size=(n,)) * 0.05, dtype)
+    g = as_dtype(rng.normal(size=(n,)) * 1e-3, dtype)
+    m = (rng.normal(size=(n,)) * 1e-3).astype(np.float32)
+    v = (rng.random(size=(n,)) * 1e-3 + 5e-4).astype(np.float32) ** 2
+    return p, g, m, v
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+def test_adamw_update_matches_reference(tp, dtype):
+    """One AdamW update of a leaf of 1.2e5 elements against the
+    reference's ``adamw_update`` (step 5, lr 1e-3, weight decay 0.1).  The
+    reference rounds ``p.f32 - lr * delta`` to the leaf's dtype once; a
+    bf16 leaf may differ only where the two float32 sums round to a
+    neighbouring bf16 value (at most 0.01% of elements, one bf16 step
+    each).  A float32 leaf agrees to 1e-6 relative over 1e-7 of the
+    leaf's scale (updates that cancel the parameter come near zero).  The moments agree
+    to 1e-6 relative over 1e-6 of their scale (each is a sum of two terms
+    that may cancel)."""
+    from repro.train.optimizer import AdamWState as JAdamWState
+    from repro.train.optimizer import adamw_update as j_adamw_update
+    from repro_torch.train.optimizer import AdamWState, adamw_update
+    torch = tp.torch
+    p, g, m, v = _adamw_case(dtype)
+    jp, jstate = j_adamw_update(
+        jnp.asarray(g), JAdamWState(step=jnp.asarray(4, jnp.int32),
+                                    mu=jnp.asarray(m), nu=jnp.asarray(v)),
+        jnp.asarray(p), lr=1e-3)
+    tparam = to_torch(p)
+    state = AdamWState(step=4, mu=[to_torch(m)], nu=[to_torch(v)])
+    adamw_update([to_torch(g)], state, [tparam], lr=1e-3)
+    assert tparam.dtype == to_torch(p).dtype and state.step == 5
+    for got, want in ((state.mu[0], jstate.mu), (state.nu[0], jstate.nu)):
+        want = f32(want)
+        np.testing.assert_allclose(f32(got), want, rtol=1e-6,
+                                   atol=1e-6 * float(np.abs(want).max()))
+    got, want = f32(tparam), f32(jp)
+    if dtype == "bfloat16":
+        step = 2.0 ** (np.floor(np.log2(np.abs(want))) - 7)
+        diff = np.abs(got - want)
+        assert (diff <= step).all(), float((diff / step).max())
+        n_off = int((diff > 0).sum())
+        assert n_off <= 1e-4 * diff.size, (n_off, diff.size)
+    else:
+        np.testing.assert_allclose(got, want, rtol=1e-6,
+                                   atol=1e-7 * float(np.abs(want).max()))
+    assert torch.isfinite(tparam.float()).all()
