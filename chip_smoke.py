@@ -16,7 +16,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    slot counts that are not a multiple of the tile, position 0 and a dead
    page table, windows shorter than the sequence, positions on and across
    the boundaries of paged attention's splits and a window that starts
-   inside a split, softcaps, float32; the
+   inside a split, softcaps, float32; the fused MoE forward's tile
+   edges (two h-ranges with a ragged last one, an expert of one row, every
+   slot on one expert, d off the 256-wide tile) and flash attention at
+   Qwen3-14B's 40/8 heads (with a window and a softcap) and at S=300; the
    expert layer's autograd Functions (``blaze_pallas``, ``moe_ffn_blaze``
    on ``pallas`` in each residual mode, on ``pallas_fused`` and on
    ``ragged``, the backend ``auto`` resolves to) against
@@ -32,7 +35,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    from this run's inputs) and PyTorch calls that compute the same
    function, where there are (``torch._grouped_mm`` over pre-gathered
    rows, ``scaled_dot_product_attention``; for the fused pair the sum of
-   its products as grouped_mm calls, a composition), timed only;
+   its products as grouped_mm calls, a composition), timed only; flash
+   attention at both models' training shapes (32/8 and 40/8 heads);
 5. end to end — Mixtral-8x7B at full width with the depth cut to 2 layers
    (random bf16 weights from seed 0; 32 layers would not fit one 80 GB
    card), served by the port's engine: 4 slots, capacity 1024, 16-token
@@ -1272,10 +1276,18 @@ def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
                q[:1, :256].float().contiguous(),
                kk[:1, :256].float().contiguous(),
                vv[:1, :256].float().contiguous(), 100, 5.0)
+    # Qwen3-14B's heads (40/8, G = 5) at its training shape, and a window
+    # shorter than the sequence with a softcap
+    q40 = randn(B, T_, 40, 128)
+    flash_case("qwen3-14b heads 40/8", q40, kk, vv, 0, 0.0)
+    flash_case("qwen3-14b heads, window 700, softcap 30", q40, kk, vv, 700,
+               30.0)
+    flash_case("S=300, Dh 64", randn(1, 300, 8, 64), randn(1, 300, 2, 64),
+               randn(1, 300, 2, 64), 0, 0.0)
     layer_function_parity(M, dev, rng)
     ragged_edges(M, dev)
     return {"x": x_tr, "xg": xg, "dyg": dyg, "da": da, "y_swi": y_swi,
-            "q": q, "k": kk, "v": vv}
+            "q": q, "q40": q40, "k": kk, "v": vv}
 
 
 def layer_function_parity(M, dev, rng):
@@ -1442,6 +1454,35 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
         M.TR.top_k_gating(x32, wg32, k).topk_experts, E)
     case(f"float32 L={L32} {d32}->{h32}", x32, d32_disp,
          slot_gates(M, x32, wg32, d32_disp, k), ws32)
+    # The bf16 forward's tile edges: all slots on one expert at full width
+    # (k = 1); S = 4096 slots plan h-ranges of 2048, so h = 2600 runs two
+    # passes with a ragged last range of 552; an expert holding one row
+    # with d = 328, not a multiple of the 256-wide d tile.
+    one = M.TR.build_dispatch(torch.full((2048, 1), 3, dtype=torch.int32,
+                                         device=dev), E)
+    x_one = x_tr[:2048].contiguous()
+    case("all slots on expert 3, S=2048", x_one, one,
+         torch.rand(2048, device=dev), w)
+    for name, L_, d_, h_, one_row in (
+            ("two passes, ragged last range, h=2600", 2048, 256, 2600,
+             False),
+            ("one-row expert, d=328", 129, 328, 264, True)):
+        x_ = randn(L_, d_)
+        ws_ = (randn(E, d_, h_, scale=d_ ** -0.5),
+               randn(E, d_, h_, scale=d_ ** -0.5),
+               randn(E, h_, d_, scale=h_ ** -0.5))
+        if one_row:   # expert 0 takes token 0's first slot and no other
+            pick = np.stack([rng.choice(np.arange(1, E), size=k,
+                                        replace=False) for _ in range(L_)])
+            pick[0, 0] = 0
+            topk_ = torch.from_numpy(pick.astype(np.int32)).to(dev)
+        else:
+            topk_ = M.TR.top_k_gating(x_, randn(d_, E), k).topk_experts
+        disp_ = M.TR.build_dispatch(topk_.contiguous(), E)
+        if one_row:
+            check(disp_.expert_lengths.tolist()[0] == 1,
+                  "one-row case: expert 0 does not hold one row")
+        case(name, x_, disp_, torch.rand(disp_.num_slots, device=dev), ws_)
     return {"x": x_tr, "dy": dy_tr, "g": g_tr, "disp": disp_tr, "x_dec": x_dec, "g_dec": g_dec,
             "disp_dec": disp_dec}
 
@@ -1577,23 +1618,28 @@ def train_kernel_timing(M, timer, entry, tr, disp_tr, E):
             nbytes, ops,
             timer(lambda: torch._grouped_mm(lhs_t, dout, offs=ends)),
             f"training {name}: S={S}, {d_in}x{h_out} per expert, E={E}"))
-    q, k, v = tr["q"], tr["k"], tr["v"]
-    B, T_, H, Dh = q.shape
-    window = 4096
-    pairs = sum(min(t + 1, window) for t in range(T_))   # live (q, k) pairs
-    ops = 4.0 * B * H * Dh * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * EB
-    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    k, v = tr["k"], tr["v"]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    rows["flash_attention"].append(entry(
-        timer(lambda: KF.flash_attention(q, k, v, causal=True,
-                                         window=window)),
-        timer(lambda: KF.flash_attention_plain(q, k, v, causal=True,
-                                               window=window, chunk=512),
-              warm=1, reps=3),
-        nbytes, ops,
-        timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
-        f"training: B={B}, S={T_}, {H}/{k.shape[2]} heads of {Dh}, causal"))
+    window = 4096
+    # Mixtral's training shape (32/8 heads), then Qwen3-14B's (40/8)
+    for q, model in ((tr["q"], "mixtral-8x7b"), (tr["q40"], "qwen3-14b")):
+        B, T_, H, Dh = q.shape
+        pairs = sum(min(t + 1, window) for t in range(T_))  # live (q, k)
+        ops = 4.0 * B * H * Dh * pairs
+        nbytes = (2 * q.numel() + k.numel() + v.numel()) * EB
+        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        rows["flash_attention"].append(entry(
+            timer(lambda: KF.flash_attention(q, k, v, causal=True,
+                                             window=window)),
+            timer(lambda: KF.flash_attention_plain(q, k, v, causal=True,
+                                                   window=window,
+                                                   chunk=512),
+                  warm=1, reps=3),
+            nbytes, ops,
+            timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+                               enable_gqa=True)),
+            f"training {model}: B={B}, S={T_}, {H}/{k.shape[2]} heads of "
+            f"{Dh}, causal"))
     return rows
 
 

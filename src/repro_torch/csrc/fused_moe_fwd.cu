@@ -7,241 +7,414 @@
 //     y_swi = round(silu(a) * b)                       (to x's dtype)
 //     y[idx[s]] += g_slot[s] * (y_swi w3[e])           (float32)
 // into a zeroed float32 (L, d) output.  Neither the gathered rows, nor a,
-// b, y_swi, nor the slot partials are written to device memory.
+// b, nor an (S, h) y_swi, nor the slot partials are written to device
+// memory.
 //
 // The TPU kernel zeroes the whole output at its first grid step, carries
-// the second GEMM's partial across the sequential h axis in scratch, and
+// the second GEMM's partial across the sequential h axis in scratch and
 // scatter-adds each slot's gated partial through a one-hot matmul; all of
-// that relies on a grid that runs in order on one core.  Here a block owns
-// one row tile of one expert (up to BM slot rows, rows gathered from x by
-// 16-byte cp.async copies) and one h-chunk of BH columns.  It computes a
-// and b for its chunk over the full d, applies SiLU * gate and rounds y_swi
-// into shared memory, then walks the d-tiles of w3[e][chunk, :] and adds
-// g * (y_swi w3) into y with float32 atomic reductions (4 floats per
-// instruction; fused_moe.cuh:red_fragment).  So the sums over
-// h-chunks and over a token's k slots both happen in the float32 output
-// by atomics, zeroed beforehand by the wrapper; their order varies from
-// run to run (the tolerance against the plain version says so).
+// that relies on a grid that runs in order on one core.  A Hopper grid
+// runs in no order, so a sum across blocks needs atomics, and their count
+// is what the decomposition has to keep small: the first version gave
+// each block one 64-wide h-chunk and reduced its 128 x d float32 partial
+// into y, S d h / 64 reductions (7.5e9 at training) into a 67 MB y that
+// does not fit the 50 MB L2.
+//
+// Here the call walks h in ranges of width hc (kernels/fused_moe.py plans
+// them: the largest multiple of 128 whose bf16 (S, hc) chunk stays within
+// 16 MiB, so the chunk lives in L2), two launches per range:
+//   up   (moe_up_wgmma)   tiles (128 slot rows of one expert, 128 columns
+//        of the range): a producer warpgroup gathers the x rows by 16-byte
+//        cp.async (eight lanes to a row's 128 bytes, so a warp's copy
+//        touches 4 rows, not 32) and one thread brings w1 and w2 tiles by
+//        TMA into a 4-stage ring (mbarriers full / empty); two consumer
+//        warpgroups of 64 rows ldmatrix their x fragments into wgmma's
+//        register-A layout and run m64n128k16 against w1 and w2 (MN-major
+//        in shared memory) into the a and b accumulators; the epilogue
+//        writes round(silu(a) b) into the chunk, the reference's rounding
+//        point (gather_gmm.py:366-370);
+//   down (moe_down_wgmma) tiles (128 slot rows of one expert, 256 columns
+//        of d): chunk rows (contiguous in slot order) and w3[e][range, d
+//        tile] arrive by TMA; m64n256k16 from shared memory; the epilogue
+//        adds g_slot[s] acc into y[idx[s]] with float4 reductions
+//        (neighbouring lanes swap a row's halves first).
+// So y takes S d ceil(h / hc) reductions (4.7e8 at training, 16x fewer)
+// and every other sum stays in registers.  On an H100 80GB HBM3 at
+// 700 W the first version's reductions took about half of its 31 ms at
+// training (PERF.md §6 has the profile and this design's times).  Both
+// kernels are persistent (one block per SM walks the tiles, row tiles
+// fastest, so the blocks at work share their weight tiles in L2) and
+// mask every ragged edge: rows past an expert's end are computed and
+// never stored, columns past the range or past d are zero-filled by TMA
+// or skipped, the tail of the contraction reads zeros.  The order of the
+// reductions varies from run to run (the tolerance against the plain
+// version says so).
 //
 // Bound: operations (6 S d h; 2.9 TFLOP at S = 8192, d = 4096, h = 14336)
 // in training and prefill, the bytes of the touched experts' weights at
-// decode.  Design: bf16 WMMA (16x16x16, float32 accumulate) on 128 x 64
-// tiles, 8 warps of 32 x 32, a four-stage cp.async ring for the first
-// GEMMs and a double-buffered w3 tile for the second.  float32 inputs, and
-// d or h not a multiple of 8, take a plain float32-FMA kernel with the same
-// block decomposition.  There are S d h / BH reductions into y; a wider
-// h-chunk would halve them.  wgmma and TMA are later work.
+// decode.  float32 inputs, and d or h not a multiple of 8 (or unaligned
+// pointers), take a plain float32-FMA kernel: a block per (32-row tile,
+// 32-wide h-chunk) reducing its partial into y (fwd_simt_kernel).
+
+#include <algorithm>
 
 #include "fused_moe.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-using namespace repro::fused;
+using namespace repro::hopper;
+using repro::fused::load_rows;
+using repro::fused::locate_tile;
+using repro::fused::max_row_tiles;
+using repro::fused::red_add;
+using repro::fused::SBH;
+using repro::fused::SBK;
+using repro::fused::SBM;
+using repro::fused::sigmoidf;
 using bf16 = __nv_bfloat16;
 
-constexpr int STAGES = 4;
-constexpr int A_ST = BM * LDK;   // gathered x rows: BM x BK
-constexpr int W_ST = BK * LDH;   // w1 / w2 tile: BK x BH
-constexpr int STAGE_EL = A_ST + 2 * W_ST;
-constexpr int RING_BYTES = STAGES * STAGE_EL * (int)sizeof(bf16);
-constexpr int CS_BYTES = BM * LDC * (int)sizeof(float);
-constexpr int W3_EL = BH * LDN;  // w3 tile: BH x BN
-constexpr int W3_BYTES = 2 * W3_EL * (int)sizeof(bf16);
-constexpr int R_BYTES = RING_BYTES > CS_BYTES
-                            ? (RING_BYTES > W3_BYTES ? RING_BYTES : W3_BYTES)
-                            : (CS_BYTES > W3_BYTES ? CS_BYTES : W3_BYTES);
-constexpr int YS_BYTES = BM * LDH * (int)sizeof(bf16);
-constexpr int STG_BYTES = (THREADS / 32) * 16 * LDW * (int)sizeof(float);
-constexpr int SMEM_BYTES = R_BYTES + YS_BYTES + STG_BYTES;
+// Row tiles of `bm` slot rows per expert, in expert order (as
+// fused_moe.cuh:locate_tile): their count, and tile t's expert and rows
+// (e = -1 past the last).
+__device__ __forceinline__ int count_row_tiles(const int* __restrict__ offsets,
+                                               int E, int S, int bm) {
+  int n = 0;
+  for (int i = 0; i < E; ++i) {
+    const int lo = min(offsets[i], S);
+    const int hi = max(lo, min(offsets[i + 1], S));
+    n += (hi - lo + bm - 1) / bm;
+  }
+  return n;
+}
 
-__global__ void __launch_bounds__(THREADS)
-fwd_wmma_kernel(const bf16* __restrict__ x, const float* __restrict__ g_slot,
-                const int* __restrict__ idx, const int* __restrict__ offsets,
-                const bf16* __restrict__ w1, const bf16* __restrict__ w2,
-                const bf16* __restrict__ w3, float* __restrict__ y, int S,
-                int L, int d, int h, int E) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int info[3];
-  __shared__ int tok_s[BM];
-  __shared__ float g_s[BM];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-  bf16* W3s = reinterpret_cast<bf16*>(smem);
-  bf16* Ys = reinterpret_cast<bf16*>(smem + R_BYTES);
-  float* stg = reinterpret_cast<float*>(smem + R_BYTES + YS_BYTES);
+__device__ __forceinline__ void find_row_tile(const int* __restrict__ offsets,
+                                              int E, int S, int bm, int t,
+                                              int& e, int& r0, int& r1) {
+  e = -1;
+  r0 = r1 = 0;
+  for (int i = 0; i < E; ++i) {
+    const int lo = min(offsets[i], S);
+    const int hi = max(lo, min(offsets[i + 1], S));
+    const int n = (hi - lo + bm - 1) / bm;
+    if (t < n) {
+      e = i;
+      r0 = lo + t * bm;
+      r1 = min(r0 + bm, hi);
+      return;
+    }
+    t -= n;
+  }
+}
 
-  locate_tile(offsets, E, S, BM, info);
-  const int e = info[0];
-  if (e < 0) return;  // uniform over the block
-  const int r0 = info[1], r1 = info[2];
-  const int j0 = blockIdx.y * BH;
-  const int tid = threadIdx.x;
-  load_rows(idx, g_slot, r0, r1, L, BM, tok_s, g_s);
+// ---------------------------------------------------------------------------
+// up: (x rows, w1, w2) of one h-range -> chunk = round(silu(a) b)
+// ---------------------------------------------------------------------------
+
+namespace up {
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int LDX = BK + 8;                  // padded x rows (bf16)
+constexpr int W_BOX = BK * 64 * 2;           // one 64-wide box of w1 or w2
+constexpr int W_BYTES = BK * BN * 2;
+constexpr int X_BYTES = BM * LDX * 2;
+constexpr int STAGE_BYTES = 2 * W_BYTES + X_BYTES;   // w1, w2, x
+static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle alignment");
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+}  // namespace up
+
+__global__ void __launch_bounds__(up::THREADS, 1)
+moe_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
+             const __grid_constant__ CUtensorMap tm_w2,
+             const bf16* __restrict__ x, const int* __restrict__ idx,
+             const int* __restrict__ offsets, bf16* __restrict__ chunk,
+             int S, int L, int d, int E, int h0, int hw, int ldc) {
+  using namespace up;
+  extern __shared__ unsigned char smem[];
+  // the swizzle is a function of address bits: align the ring to 1024
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ring_p = smem + (ring - raw);
+  const uint32_t full = ring + STAGES * STAGE_BYTES;   // STAGES barriers
+  const uint32_t empty = full + STAGES * 8;            // STAGES barriers
+
+  const int n_rt = count_row_tiles(offsets, E, S, BM);
+  const int n_tiles = n_rt * ((hw + BN - 1) / BN);
+  const int nk = (d + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // 128 gathering threads (cp.async) and the TMA's expect_tx
+      mbar_init(full + 8 * s, 128 + 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);   // one arrival per warp
+    }
+    mbar_fence_init();
+  }
   __syncthreads();
 
-  const bf16* w1e = w1 + (size_t)e * d * h;
-  const bf16* w2e = w2 + (size_t)e * d * h;
-  const bf16* w3e = w3 + (size_t)e * h * d;
-
-  // Loads: x rows BM x BK (2 pieces of 16 bytes per thread), w1 and w2
-  // BK x BH (1 piece each).
-  const int b_row = tid / (BH / 8), b_col = (tid % (BH / 8)) * 8;
-  auto load_stage = [&](int step, int stage) {
-    const int k0 = step * BK;
-    bf16* A = ring + stage * STAGE_EL;
+  if (wg == 0) {
+    // producer warpgroup: lane l of warp w copies 16-byte piece l % 8 of
+    // rows 4 w + l / 8 + 16 c, c = 0..7 (eight lanes read one row's 128
+    // bytes, so a warp's copy touches 4 rows, not 32); thread 0 also
+    // brings the weight tiles.  No register reallocation: the compiler
+    // holds every thread to the launch's 168 registers, and the eight
+    // tokens would spill under a producer's 40.
+    const int r = threadIdx.x;
+    const int prow = (r / 32) * 4 + (r % 32) / 8, piece = r % 8;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int e, r0, r1;
+      find_row_tile(offsets, E, S, BM, tile % n_rt, e, r0, r1);
+      const int n0 = h0 + (tile / n_rt) * BN;
+      int tok[BM / 16];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int piece = tid + c * THREADS;
-      const int r = piece / (BK / 8), kc = k0 + (piece % (BK / 8)) * 8;
-      const int t = tok_s[r];
-      const bool ok = t >= 0 && kc < d;
-      repro::cp_async16(A + r * LDK + (piece % (BK / 8)) * 8,
-                        ok ? x + (size_t)t * d + kc : x, ok);
-    }
-    const int kr = k0 + b_row, col = j0 + b_col;
-    const bool ok = kr < d && col < h;
-    const size_t off = (size_t)kr * h + col;
-    repro::cp_async16(A + A_ST + b_row * LDH + b_col, ok ? w1e + off : w1e,
-                      ok);
-    repro::cp_async16(A + A_ST + W_ST + b_row * LDH + b_col,
-                      ok ? w2e + off : w2e, ok);
-  };
-
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;  // 4 x 2 warps, 32 x 32 each
-  const int wn = (warp % 2) * 32;
-  AccFrag acc1[2][2], acc2[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      wmma::fill_fragment(acc1[i][j], 0.f);
-      wmma::fill_fragment(acc2[i][j], 0.f);
-    }
-
-  // First GEMMs over d: the ring as in gather_gmm.cu.
-  const int nsteps = (d + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    repro::cp_async_commit();
-  }
-  for (int s = 0; s < nsteps; ++s) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = s + STAGES - 1;
-    if (nxt < nsteps) load_stage(nxt, nxt % STAGES);
-    repro::cp_async_commit();
-    const bf16* A = ring + (s % STAGES) * STAGE_EL;
-    const bf16* B1 = A + A_ST;
-    const bf16* B2 = B1 + W_ST;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], A + (wm + i * 16) * LDK + kk, LDK);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B1 + kk * LDH + wn + j * 16, LDH);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc1[i][j], a[i], b[j], acc1[i][j]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B2 + kk * LDH + wn + j * 16, LDH);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc2[i][j], a[i], b[j], acc2[i][j]);
-    }
-  }
-  repro::cp_async_wait<0>();
-  __syncthreads();  // the staging tile reuses the ring
-
-  // SiLU * gate on the fragments (both accumulators share one layout), then
-  // through the float32 staging tile into y_swi, rounded to bf16.
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      for (int t = 0; t < acc1[i][j].num_elements; ++t) {
-        const float av = acc1[i][j].x[t];
-        acc1[i][j].x[t] = (av * sigmoidf(av)) * acc2[i][j].x[t];
+      for (int c = 0; c < BM / 16; ++c) {
+        const int row = r0 + prow + 16 * c;
+        const int t = row < r1 ? idx[row] : -1;
+        tok[c] = t >= L ? -1 : t;
       }
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16,
-                              acc1[i][j], LDC, wmma::mem_row_major);
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
+        const uint32_t s0 = ring + st * STAGE_BYTES;
+        const uint32_t bar = full + 8 * st;
+        const int k0 = ks * BK;
+        if (r == 0) {
+          mbar_expect_tx(bar, 2 * W_BYTES);
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q) {
+            tma_load(s0 + q * W_BOX, &tm_w1, n0 + q * 64, k0, e, bar);
+            tma_load(s0 + W_BYTES + q * W_BOX, &tm_w2, n0 + q * 64, k0, e,
+                     bar);
+          }
+        }
+        unsigned char* xs = ring_p + st * STAGE_BYTES + 2 * W_BYTES;
+        const int kc = k0 + piece * 8;
+#pragma unroll
+        for (int c = 0; c < BM / 16; ++c) {
+          const int t = tok[c];
+          const bool ok = t >= 0 && kc < d;
+          repro::cp_async16(xs + (prow + 16 * c) * LDX * 2 + piece * 16,
+                            ok ? x + (size_t)t * d + kc : x, ok);
+        }
+        mbar_arrive_cp_async(bar);
+      }
     }
-  __syncthreads();
-  for (int i = tid; i < BM * BH; i += THREADS) {
-    const int r = i / BH, c = i % BH;
-    Ys[r * LDH + c] = __float2bfloat16_rn(Cs[r * LDC + c]);
+    return;
   }
-  __syncthreads();  // the w3 tiles reuse the staging tile
 
-  // Second GEMM over the d-tiles of w3[e][chunk, :], double-buffered; each
-  // tile's gated partial is reduced straight into y.
-  auto load_w3 = [&](int nt, int buf) {
-    const int n0 = nt * BN;
+  const int cw = wg - 1;                       // consumer warpgroup
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  // ldmatrix: lanes 0-7 / 8-15 / 16-23 / 24-31 address rows 0-7 / 8-15 /
+  // 0-7 / 8-15 of the warp's 16 rows, at k 0-7 / 0-7 / 8-15 / 8-15.
+  const int lrow = cw * 64 + warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
+  const uint32_t x_off = 2 * W_BYTES + lrow * LDX * 2 + (lane >> 4) * 16;
+  uint32_t fx[2][4] = {};                      // x fragments of two k-steps
+  float acc_a[64], acc_b[64];
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int piece = tid + c * THREADS;
-      const int jr = piece / (BN / 8), nc = (piece % (BN / 8)) * 8;
-      const bool ok = j0 + jr < h && n0 + nc < d;
-      const size_t off = (size_t)(j0 + jr) * d + n0 + nc;
-      repro::cp_async16(W3s + buf * W3_EL + jr * LDN + nc,
-                        ok ? w3e + off : w3e, ok);
+  for (int i = 0; i < 64; ++i) acc_a[i] = acc_b[i] = 0.f;
+  int it = 0;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int e, r0, r1;
+    find_row_tile(offsets, E, S, BM, tile % n_rt, e, r0, r1);
+    const int c0 = (tile / n_rt) * BN;         // first column in the range
+    if (r0 + cw * 64 >= r1) {
+      // rows wholly past the tile (uniform in the warpgroup): no
+      // products, but the ring's stages are released
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(full + 8 * st, (it / STAGES) & 1);
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+        __syncwarp();
+      }
+      continue;
     }
-  };
-  float* wstg = stg + warp * 16 * LDW;
-  const int ntiles = (d + BN - 1) / BN;
-  load_w3(0, 0);
-  repro::cp_async_commit();
-  for (int nt = 0; nt < ntiles; ++nt) {
-    repro::cp_async_wait<0>();
-    __syncthreads();
-    if (nt + 1 < ntiles) load_w3(nt + 1, (nt + 1) & 1);
-    repro::cp_async_commit();
-    const bf16* B = W3s + (nt & 1) * W3_EL;
-    AccFrag acc[2][2];
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      const uint32_t s0 = ring + st * STAGE_BYTES;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const int f = kk & 1;
+        ldmatrix_x4(fx[f], s0 + x_off + kk * 32);
+        wgmma_fence();
+        const int acc = ks > 0 || kk > 0;      // 0: overwrite
+        wgmma_m64n128k16_rs<1>(acc_a, fx[f],
+                               desc_mn_sw128(s0 + kk * 2048, W_BOX), acc);
+        wgmma_m64n128k16_rs<1>(
+            acc_b, fx[f], desc_mn_sw128(s0 + W_BYTES + kk * 2048, W_BOX),
+            acc);
+        wgmma_commit();
+        // the previous k-step's products are done: its fragments may be
+        // overwritten, and at a stage boundary its stage is free
+        wgmma_wait<1>();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-#pragma unroll
-    for (int kk = 0; kk < BH; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], Ys + (wm + i * 16) * LDH + kk, LDH);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B + kk * LDN + wn + j * 16, LDN);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+        for (int i = 0; i < 4; ++i) reg_fence(fx[f ^ 1][i]);
+        if (kk == 0 && ks > 0) {
+          if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+          __syncwarp();
+        }
+      }
     }
-    const int n0 = nt * BN;
+    wgmma_wait<0>();
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int rb = wm + i * 16;
+    for (int i = 0; i < 64; ++i) {
+      reg_fence(acc_a[i]);
+      reg_fence(acc_b[i]);
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    __syncwarp();
+
+    const int row = r0 + cw * 64 + warp * 16 + lane / 4;
+    const int col0 = c0 + 2 * (lane % 4);
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
-        red_fragment(
-            acc[i][j], wstg, y,
-            [&](int rr) -> long {
-              const int t = tok_s[rb + rr];
-              return t >= 0 ? (long)t * d : -1;
-            },
-            [&](int rr) { return g_s[rb + rr]; }, n0 + wn + j * 16, d);
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= hw) continue;                 // hw is a multiple of 8
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = row + 8 * i;
+        if (rr >= r1) continue;
+        const float a0 = acc_a[4 * j + 2 * i], a1 = acc_a[4 * j + 2 * i + 1];
+        const float b0 = acc_b[4 * j + 2 * i], b1 = acc_b[4 * j + 2 * i + 1];
+        *reinterpret_cast<uint32_t*>(chunk + (size_t)rr * ldc + col) =
+            pack_bf16((a0 * sigmoidf(a0)) * b0, (a1 * sigmoidf(a1)) * b1);
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// down: (chunk, w3[:, range, :]) -> y[idx] += g (chunk w3)
+// ---------------------------------------------------------------------------
+
+namespace down {
+constexpr int BM = 128, BN = 256, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int A_BYTES = BM * BK * 2;         // chunk rows: one TMA box
+constexpr int B_BOX = BK * 64 * 2;           // one 64-wide box of w3
+constexpr int B_BYTES = BK * BN * 2;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+}  // namespace down
+
+__global__ void __launch_bounds__(down::THREADS, 1)
+moe_down_wgmma(const __grid_constant__ CUtensorMap tm_chunk,
+               const __grid_constant__ CUtensorMap tm_w3,
+               const int* __restrict__ idx, const float* __restrict__ g_slot,
+               const int* __restrict__ offsets, float* __restrict__ y, int S,
+               int L, int d, int E, int h0, int hw) {
+  using namespace down;
+  extern __shared__ unsigned char smem[];
+  const uint32_t ring = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+
+  const int n_rt = count_row_tiles(offsets, E, S, BM);
+  const int n_tiles = n_rt * ((d + BN - 1) / BN);
+  const int nk = (hw + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::);
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        int e, r0, r1;
+        find_row_tile(offsets, E, S, BM, tile % n_rt, e, r0, r1);
+        const int n0 = (tile / n_rt) * BN;
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
+          const uint32_t s0 = ring + st * STAGE_BYTES;
+          const uint32_t bar = full + 8 * st;
+          const int k0 = ks * BK;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          tma_load(s0, &tm_chunk, k0, r0, bar);
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q)
+            tma_load(s0 + A_BYTES + q * B_BOX, &tm_w3, n0 + q * 64, h0 + k0,
+                     e, bar);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::);
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  // The epilogue's float4 reductions: lane pairs (2m, 2m+1) swap halves so
+  // that the even lane holds 4 neighbouring columns of accumulator row
+  // i = 0 and the odd lane 4 of row i = 1.
+  const int half = lane & 1;
+  const int my_row = warp * 16 + lane / 4 + 8 * half;
+  const int my_col = 4 * ((lane >> 1) & 1);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int it = 0;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int e, r0, r1;
+    find_row_tile(offsets, E, S, BM, tile % n_rt, e, r0, r1);
+    const int n0 = (tile / n_rt) * BN;
+    // A warpgroup whose rows all lie past the tile computes them anyway
+    // and stores nothing: a branch around the products here makes the
+    // compiler serialize every wgmma of the kernel.
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      const uint32_t s0 = ring + st * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n256k16_ss<1>(
+            acc, desc_k_sw128(s0 + cw * 64 * 128 + kk * 32),
+            desc_mn_sw128(s0 + A_BYTES + kk * 2048, B_BOX),
+            ks > 0 || kk > 0);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (ks > 0) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+        __syncwarp();
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    __syncwarp();
+
+    const int s = r0 + cw * 64 + my_row;
+    int t = s < r1 ? idx[s] : -1;
+    if (t >= L) t = -1;
+    const float g = t >= 0 ? g_slot[s] : 0.f;
+    float* yrow = y + (size_t)(t < 0 ? 0 : t) * d + n0 + my_col;
+#pragma unroll
+    for (int j = 0; j < 32; ++j) {
+      // even lanes send row 1's pair, odd lanes row 0's
+      const float s0v = half ? acc[4 * j] : acc[4 * j + 2];
+      const float s1v = half ? acc[4 * j + 1] : acc[4 * j + 3];
+      const float q0 = __shfl_xor_sync(0xffffffffu, s0v, 1);
+      const float q1 = __shfl_xor_sync(0xffffffffu, s1v, 1);
+      const float4 v = half ? make_float4(q0, q1, acc[4 * j + 2],
+                                          acc[4 * j + 3])
+                            : make_float4(acc[4 * j], acc[4 * j + 1], q0, q1);
+      if (t >= 0 && n0 + my_col + 8 * j < d)
+        atomicAdd(reinterpret_cast<float4*>(yrow + 8 * j),
+                  make_float4(g * v.x, g * v.y, g * v.z, g * v.w));
     }
   }
 }
@@ -347,25 +520,57 @@ fwd_simt_kernel(const T* __restrict__ x, const float* __restrict__ g_slot,
 
 // x: (L, d); g_slot: (S,) float32; idx: (S,) int32; offsets: (E+1,) int32;
 // w1, w2: (E, d, h); w3: (E, h, d), all of x's dtype; y: (L, d) float32,
-// zeroed by the caller.
+// zeroed by the caller; chunk: (S, hc) of x's dtype, hc a multiple of 128
+// (the h-range width, kernels/fused_moe.py:pass_width), used by the bf16
+// path only.  The bf16 path makes 2 ceil(h / hc) launches.
 REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
                                   const float* g_slot, const int* idx,
                                   const int* offsets, const void* w1,
                                   const void* w2, const void* w3, float* y,
-                                  int S, int L, int d, int h, int E,
-                                  cudaStream_t stream) {
+                                  void* chunk, int hc, int S, int L, int d,
+                                  int h, int E, cudaStream_t stream) {
   if (E < 1 || d <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   if (S <= 0 || L <= 0) return 0;
   if (dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
       repro::aligned16(x) && repro::aligned16(w1) && repro::aligned16(w2) &&
-      repro::aligned16(w3)) {
-    cudaFuncSetAttribute(fwd_wmma_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    dim3 grid(max_row_tiles(S, E, BM), (h + BH - 1) / BH);
-    fwd_wmma_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-        (const bf16*)x, g_slot, idx, offsets, (const bf16*)w1,
-        (const bf16*)w2, (const bf16*)w3, y, S, L, d, h, E);
+      repro::aligned16(w3) && chunk != nullptr && repro::aligned16(chunk)) {
+    if (hc <= 0 || hc % up::BN != 0) return (int)cudaErrorInvalidValue;
+    const int n_sm = sm_count();
+    if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
+    // weights as 3-D (E, rows, cols) maps, so the boxes of one expert read
+    // zeros past its rows and columns
+    CUtensorMap m1, m2, m3;
+    const cuuint64_t dw[3] = {(cuuint64_t)h, (cuuint64_t)d, (cuuint64_t)E};
+    const cuuint64_t sw[2] = {(cuuint64_t)h * 2, (cuuint64_t)d * h * 2};
+    const cuuint32_t bw[3] = {64, (cuuint32_t)up::BK, 1};
+    const cuuint64_t d3[3] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)E};
+    const cuuint64_t s3[2] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2};
+    const cuuint32_t b3[3] = {64, (cuuint32_t)down::BK, 1};
+    if (!tensor_map(&m1, w1, 3, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&m2, w2, 3, dw, sw, bw, CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map(&m3, w3, 3, d3, s3, b3, CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+    allow_smem(moe_up_wgmma, up::SMEM);
+    allow_smem(moe_down_wgmma, down::SMEM);
+    const int row_tiles = max_row_tiles(S, E, up::BM);
+    const int grid_b = std::min(row_tiles * ((d + down::BN - 1) / down::BN), n_sm);
+    for (int h0 = 0; h0 < h; h0 += hc) {
+      const int hw = std::min(hc, h - h0);
+      CUtensorMap mc;
+      if (!tensor_map_2d(&mc, chunk, S, hw, hc, down::BM, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+      const int grid_a = std::min(row_tiles * ((hw + up::BN - 1) / up::BN), n_sm);
+      moe_up_wgmma<<<grid_a, up::THREADS, up::SMEM, stream>>>(
+          m1, m2, (const bf16*)x, idx, offsets, (bf16*)chunk, S, L, d, E, h0,
+          hw, hc);
+      cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+      moe_down_wgmma<<<grid_b, down::THREADS, down::SMEM, stream>>>(
+          mc, m3, idx, g_slot, offsets, y, S, L, d, E, h0, hw);
+      err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
   } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {
     dim3 grid(max_row_tiles(S, E, SBM), (h + SBH - 1) / SBH);
     if (dtype == REPRO_DTYPE_BF16)

@@ -43,14 +43,15 @@
 // that are not a multiple of 8 (or unaligned pointers), take a plain
 // float32-FMA tiled kernel with scalar, masked loads.
 
-#include <cuda.h>
 #include <mma.h>
 
 #include <initializer_list>
 
-#include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+using namespace repro::hopper;
 
 using bf16 = __nv_bfloat16;
 using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16,
@@ -321,126 +322,6 @@ constexpr int STAGE_BYTES = 3 * A_BYTES + 2 * B_BYTES;
 constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 }  // namespace bwdx
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-      "r"(bytes)
-      : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-// Spins until the phase of the given parity has completed.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  uint32_t done = 0;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// TMA: the (BK x rows) box at (k0, row0) of a 2-D tensor map into shared
-// memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int k0, int row0, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.tile"
-      ".mbarrier::complete_tx::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(k0), "r"(row0), "r"(bar)
-      : "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with 64-byte swizzle:
-// rows of 64 bytes, 8-row groups 512 bytes apart.
-__device__ __forceinline__ uint64_t desc_sw64(uint32_t saddr) {
-  return (uint64_t)((saddr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(512 >> 4) << 32) | ((uint64_t)2 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// Keeps the compiler from moving reads or writes of v across this point
-// (the wgmma unit reads and writes these registers asynchronously).
-__device__ __forceinline__ void reg_fence(float& v) {
-  asm volatile("" : "+f"(v)::"memory");
-}
-__device__ __forceinline__ void reg_fence(uint32_t& v) {
-  asm volatile("" : "+r"(v)::"memory");
-}
-
-// d (64 x 256, float32, this thread's 128 values) += A (64 x 16, bf16, in
-// registers) x B (16 x 256, K-major in shared memory)
-__device__ __forceinline__ void wgmma_m64n256k16_rs(float (&d)[128],
-                                                    const uint32_t (&a)[4],
-                                                    uint64_t desc_b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
-      "{"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127},"
-      " {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
-}
-
 // da, db of two bf16 pairs (dy, a, b) as bf16 pairs, each element rounded
 // once from float32.
 __device__ __forceinline__ void grads_pair(uint32_t dy, uint32_t a,
@@ -487,7 +368,7 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
       mbar_init(full + 8 * s, 1);
       mbar_init(empty + 8 * s, CONSUMERS * 4);   // one arrival per warp
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_fence_init();
   }
   __syncthreads();
 
@@ -559,10 +440,10 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
         for (int i = 0; i < 4; ++i)
           grads_pair(vdy[i], va[i], vb[i], fa[kk][i], fb[kk][i]);
         wgmma_fence();
-        wgmma_m64n256k16_rs(acc, fa[kk],
-                            desc_sw64(s0 + 3 * A_BYTES + kk * 32));
-        wgmma_m64n256k16_rs(acc, fb[kk],
-                            desc_sw64(s0 + 3 * A_BYTES + B_BYTES + kk * 32));
+        wgmma_m64n256k16_rs<0>(acc, fa[kk],
+                               desc_sw64(s0 + 3 * A_BYTES + kk * 32), 1);
+        wgmma_m64n256k16_rs<0>(
+            acc, fb[kk], desc_sw64(s0 + 3 * A_BYTES + B_BYTES + kk * 32), 1);
         wgmma_commit();
         // the previous k-step's products are done: its fragments may be
         // overwritten, and at a stage boundary its stage is free
@@ -930,63 +811,6 @@ swiglu_bwd_w_simt(const T* __restrict__ x, const T* __restrict__ dy,
     }
 }
 
-// The tensor-core kernels' rings need more than the default 48 KB of
-// dynamic shared memory.
-template <typename K>
-void allow_smem(K kernel, int bytes) {
-  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       bytes);
-}
-
-// cuTensorMapEncodeTiled, looked up at run time with
-// cudaGetDriverEntryPoint (the library links no libcuda).
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                 void*, const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                cudaEnableDefault, &found) == cudaSuccess &&
-        found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A row-major (rows, cols) bf16 matrix read in (box_rows x box_cols) boxes
-// with the 64-byte swizzle; out-of-bounds elements read as zeros.
-bool tensor_map_2d(CUtensorMap* map, const void* ptr, int rows, int cols,
-                   int box_rows, int box_cols) {
-  const EncodeTiled encode = encode_tiled();
-  if (encode == nullptr) return false;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * sizeof(bf16)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t unit[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-                const_cast<void*>(ptr), dims, strides, box, unit,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
-                CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-// SMs of the current device (one persistent bwd_x block each).
-int sm_count() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 0;
-  return n;
-}
-
 bool vec_ok(int dtype, int d, int h, std::initializer_list<const void*> ps) {
   if (dtype != REPRO_DTYPE_BF16 || d % 8 != 0 || h % 8 != 0) return false;
   for (const void* p : ps)
@@ -1041,8 +865,9 @@ REPRO_API int repro_fused_swiglu_bwd_x(int dtype, const void* dy, const void* a,
     const void* src[5] = {dy, a, b, w1, w2};
     for (int i = 0; i < 5; ++i) {
       const bool act = i < 3;   // (L, h) activations, else (d, h) weights
-      if (!tensor_map_2d(&maps[i], src[i], act ? L : d, h,
-                         act ? bwdx::BM : bwdx::BN, BK))
+      if (!tensor_map_2d(&maps[i], src[i], act ? L : d, h, h,
+                         act ? bwdx::BM : bwdx::BN, BK,
+                         CU_TENSOR_MAP_SWIZZLE_64B))
         return (int)cudaErrorInvalidValue;
     }
     allow_smem(swiglu_bwd_x_wgmma, bwdx::SMEM);

@@ -46,7 +46,8 @@ SIGNATURES = {
     "repro_combine": [I, P, P, P, P, I, I, I, P],
     "repro_paged_attention": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                               I, I, F, F, P],
-    "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, P],
+    "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                            I, P],
     "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, I, I,
                             I, I, I, P],
     "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, I, I, I, P],

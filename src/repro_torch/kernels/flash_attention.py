@@ -9,10 +9,12 @@ online softmax, P rounded to v's dtype for P·V, float32 accumulation,
 output ``acc / max(l, 1e-30)`` in ``q.dtype``.
 
 Bound on the card: operations (4·B·S²·H·Dh/2 for causal attention).
-``csrc/flash_attention.cu`` runs one block per (batch·head, 64-query tile)
-that walks its kv tiles in a loop, instead of the TPU's kv grid axis
+``csrc/flash_attention.cu`` runs one block per (batch·head, 128-query
+tile) that walks its kv tiles in a loop, instead of the TPU's kv grid axis
 carried across steps, and reads the group's kv head in place instead of
-repeating it.
+repeating it: in bf16 with Dh 64 or 128, TMA tiles cut from the
+``(B, S, H, Dh)`` layout feed ``wgmma`` for Q·Kᵀ and for P·V (P in
+registers); float32 and other head widths take a plain kernel.
 
 The plain version, :func:`flash_attention_plain`, is the chunked
 online-softmax attention of ``repro/models/attention.py:flash_attention``;

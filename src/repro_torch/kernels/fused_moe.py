@@ -2,11 +2,19 @@
 kernels and their plain versions.
 
 Replace ``repro/kernels/gather_gmm.py:fused_moe_fwd`` and
-``fused_moe_bwd``.  The whole expert layer in one launch per direction:
-the gather of token rows, both first-layer GEMMs, SiLU·gate, the second
-GEMM and the gated scatter-combine; the backward replays the gather and
+``fused_moe_bwd``.  The whole expert layer in one call per direction: the
+gather of token rows, both first-layer GEMMs, SiLU·gate, the second GEMM
+and the gated scatter-combine; the backward replays the gather and
 recomputes a, b and SiLU.  Neither direction writes an ``(S, h)`` or
 ``(S, d)`` buffer (S = L·k slots) to device memory.
+
+The bf16 forward walks h in ranges of width ``hc`` (:func:`pass_width`):
+per range one kernel writes the rounded ``y_swi`` of those columns into a
+bf16 ``(S, hc)`` chunk, capped at :data:`CHUNK_CAP_BYTES` (16 MiB, so it
+stays in the H100's 50 MB L2), and a second adds the chunk's gated
+products into y.  A call is 2·⌈h/hc⌉ kernel launches (28 at Mixtral's
+training shape, 2 at decode) and counts once in
+``fused_moe_fwd.launches``.  The backward is one launch.
 
 Rounding points (the reference's, kept by the plain versions): ``y_swi``
 is rounded to the I/O dtype before the second GEMM and in the backward;
@@ -15,9 +23,10 @@ outputs are float32 (the caller casts).
 
 Bound on the card: operations (6·S·d·h forward, 16·S·d·h backward) in
 training, the touched experts' weight bytes at decode.  ``csrc/
-fused_moe_fwd.cu`` and ``csrc/fused_moe_bwd.cu`` give each block one row
-tile of one expert and one h-chunk and sum across blocks with float32
-atomics into zeroed outputs; see the sources for the designs.
+fused_moe_fwd.cu`` (wgmma + TMA, the two kernels per range) and ``csrc/
+fused_moe_bwd.cu`` (a block per row tile of one expert and h-chunk) sum
+across blocks with float32 atomics into zeroed outputs; see the sources
+for the designs.
 """
 
 from __future__ import annotations
@@ -26,6 +35,31 @@ import torch
 
 from repro_torch.kernels import _lib
 from repro_torch.kernels.gather_gmm import MAX_EXPERTS, _silu
+
+
+#: Bytes the bf16 forward's ``(S, hc)`` y_swi chunk may take.
+CHUNK_CAP_BYTES = 16 * 2 ** 20
+#: Columns of h per tile of the forward's first kernel; ``hc`` is a
+#: multiple of it.
+H_TILE = 128
+
+
+def pass_width(S: int, h: int, cap_bytes: int = CHUNK_CAP_BYTES,
+               itemsize: int = 2) -> int:
+    """Width ``hc`` of the forward's h-ranges: the largest multiple of
+    :data:`H_TILE` whose ``(S, hc)`` chunk of ``itemsize``-byte values fits
+    ``cap_bytes``, and no wider than h rounded up to the tile (one range).
+    Never below one tile: above ``cap_bytes / (itemsize · H_TILE)`` slots
+    (65,536 for bf16) the chunk is ``S · H_TILE`` values."""
+    hc = cap_bytes // (max(S, 1) * itemsize) // H_TILE * H_TILE
+    return min(max(hc, H_TILE), -(-h // H_TILE) * H_TILE)
+
+
+def h_ranges(h: int, hc: int) -> list[tuple[int, int]]:
+    """The forward's h-ranges ``(h0, width)`` for a range width ``hc``
+    (:func:`pass_width`): consecutive, covering ``[0, h)``, each ``hc``
+    wide but the last, as ``csrc/fused_moe_fwd.cu`` walks them."""
+    return [(h0, min(hc, h - h0)) for h0 in range(0, h, hc)]
 
 
 def _dsilu(a: torch.Tensor) -> torch.Tensor:
@@ -56,6 +90,30 @@ def fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3) -> torch.Tensor:
         b = xe @ w2[e].float()
         y_swi = _round(_silu(a) * b, x.dtype)
         y.index_add_(0, rows, g_slot[lo:hi, None] * (y_swi @ w3[e].float()))
+    return y
+
+
+def fused_moe_fwd_passes_plain(x, g_slot, idx, offsets, w1, w2, w3, *,
+                               hc: int) -> torch.Tensor:
+    """The bf16 kernel's decomposition in plain PyTorch: for each h-range
+    of :func:`h_ranges`, the ``(S, width)`` chunk of ``y_swi`` rounded to
+    x's dtype, then its gated products added into y.  The same function
+    as :func:`fused_moe_fwd_plain`, with the second product's float32 sum
+    split at the range boundaries."""
+    S, h = idx.shape[0], w1.shape[2]
+    y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
+    experts = [(e, lo, hi, idx[lo:hi].long())
+               for e, lo, hi in _expert_rows(offsets, S)]
+    for h0, width in h_ranges(h, hc):
+        cols = slice(h0, h0 + width)
+        chunk = torch.zeros(S, width, dtype=x.dtype, device=x.device)
+        for e, lo, hi, rows in experts:
+            xe = x[rows].float()
+            chunk[lo:hi] = _round(_silu(xe @ w1[e][:, cols].float())
+                                  * (xe @ w2[e][:, cols].float()), x.dtype)
+        for e, lo, hi, rows in experts:
+            y.index_add_(0, rows, g_slot[lo:hi, None]
+                         * (chunk[lo:hi].float() @ w3[e][cols].float()))
     return y
 
 
@@ -127,15 +185,24 @@ def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
     (S,) int32 ``expert_token_indices``; offsets: (E+1,) int32; w1, w2:
     (E, d, h); w3: (E, h, d).  Returns the combined (L, d) output in
     float32.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernel (counted in ``fused_moe_fwd.launches``)."""
+    the kernels (counted once per call in ``fused_moe_fwd.launches``).
+    In bf16 with d and h multiples of 8 the call allocates one ``(S, hc)``
+    bf16 workspace of at most :data:`CHUNK_CAP_BYTES` (:func:`pass_width`;
+    ``S · 128`` values above 65,536 slots) besides y."""
     if not x.is_cuda:
         return fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3)
     y = torch.zeros(L, d, dtype=torch.float32, device=x.device)
+    chunk, hc = None, 0
+    if x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0 and S > 0:
+        hc = pass_width(S, h)
+        chunk = torch.empty(S, hc, dtype=x.dtype, device=x.device)
     code = _lib.lib().repro_fused_moe_fwd(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), g_slot.data_ptr(),
         idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        w3.data_ptr(), y.data_ptr(), S, L, d, h, E, _lib.stream_ptr(x))
+        w3.data_ptr(), y.data_ptr(),
+        None if chunk is None else chunk.data_ptr(), hc, S, L, d, h, E,
+        _lib.stream_ptr(x))
     _lib.check("repro_fused_moe_fwd", code)
     fused_moe_fwd.launches += 1
     return y

@@ -4,7 +4,10 @@ The plain versions of ``fused_moe_fwd`` / ``fused_moe_bwd`` (what a CPU
 tensor takes, and the yardstick the CUDA kernels are held to on the card)
 against the reference's Pallas kernels in interpret mode, on the same
 inputs: an expert left empty, and a slot count that is not a multiple of
-the reference's row tile.  Then the ``MoEBlazeFused`` autograd Function
+the reference's row tile.  The bf16 kernel's h-range plan (pure Python:
+ranges that cover h in multiples of the tile, a chunk within its cap, one
+range at decode) and its pass decomposition, in plain PyTorch, against the
+same reference kernel.  Then the ``MoEBlazeFused`` autograd Function
 against ``jax.vjp`` of the reference's ``moe_ffn_blaze_fused``.
 
 Tolerances: float32 1e-5 relative over 1e-5 of each output's scale (the
@@ -35,12 +38,12 @@ def _tol(dtype, want):
     return dict(rtol=1e-5, atol=1e-5 * scale)
 
 
-def _inputs(L, dtype, empty=None, seed=0):
+def _inputs(L, dtype, empty=None, seed=0, h=H):
     rng = np.random.default_rng(seed)
     x = as_dtype(rng.normal(size=(L, D)), dtype)
-    w1, w2 = (as_dtype(rng.normal(size=(E, D, H)) * 0.15, dtype)
+    w1, w2 = (as_dtype(rng.normal(size=(E, D, h)) * 0.15, dtype)
               for _ in range(2))
-    w3 = as_dtype(rng.normal(size=(E, H, D)) * 0.1, dtype)
+    w3 = as_dtype(rng.normal(size=(E, h, D)) * 0.1, dtype)
     scores = rng.normal(size=(L, E)).astype(np.float32)
     if empty is not None:
         scores[:, empty] -= 100.0
@@ -88,6 +91,70 @@ def test_plain_fused_pair_matches_reference_kernels(tp, L, empty, bl, dtype):
     if empty is not None:
         for g in gots[2:]:
             assert not g[empty].any(), "the empty expert's dw must be zero"
+
+
+@pytest.mark.parametrize("S,h,n_ranges", [
+    (8192, 14336, 14),      # Mixtral training: 14 ranges of 1024
+    (8192, 14400, 15),      # a ragged last range of 64
+    (4096, 17408, 9),       # 2048-wide ranges, a ragged last of 1024
+    (100, 200, 1),          # h not a multiple of the tile, one range
+    (70000, 1000, 8),       # above the cap's slot count: one tile wide
+    (1, 8, 1)])
+def test_h_ranges_cover_h_in_tiles(tp, S, h, n_ranges):
+    from repro_torch.kernels import fused_moe as FM
+    hc = FM.pass_width(S, h)
+    ranges = FM.h_ranges(h, hc)
+    assert hc % FM.H_TILE == 0 and hc > 0
+    assert len(ranges) == n_ranges
+    assert [h0 for h0, _ in ranges] == list(range(0, h, hc))
+    assert all(w == hc for _, w in ranges[:-1])
+    assert 0 < ranges[-1][1] <= hc
+    assert sum(w for _, w in ranges) == h
+
+
+def test_pass_width_keeps_the_chunk_within_its_cap(tp):
+    """Every slot count from 1 to 65,536, at Mixtral's and Qwen3-14B's
+    expert widths; at Mixtral's training shape the chunk is exactly the
+    cap (S = 8192, hc = 1024)."""
+    from repro_torch.kernels import fused_moe as FM
+    cap = FM.CHUNK_CAP_BYTES
+    assert cap == 16 * 2 ** 20
+    for h in (14336, 17408):
+        widths = [FM.pass_width(S, h) for S in range(1, 65537)]
+        assert all(S * hc * 2 <= cap for S, hc in enumerate(widths, 1))
+        assert all(hc % FM.H_TILE == 0 for hc in widths)
+    assert FM.pass_width(8192, 14336) * 8192 * 2 == cap
+
+
+@pytest.mark.parametrize("h", [14336, 17408, 200])
+@pytest.mark.parametrize("S", [1, 4, 8, 64, 256])
+def test_one_range_at_decode(tp, S, h):
+    from repro_torch.kernels import fused_moe as FM
+    assert FM.h_ranges(h, FM.pass_width(S, h)) == [(0, h)]
+
+
+H_RAGGED = 200   # two ranges of the 128-wide tile: 128 and a ragged 72
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,empty,bl", CASES)
+def test_pass_decomposition_matches_reference_kernel(tp, L, empty, bl,
+                                                     dtype):
+    """The bf16 kernel's passes (rounded y_swi chunk of each h-range, then
+    its gated combine), in plain PyTorch, against the reference's fused
+    forward in interpret mode, at h not a multiple of the range width."""
+    from repro_torch.kernels import fused_moe as FM
+    x, w1, w2, w3, topk, gates, _ = _inputs(L, dtype, empty, h=H_RAGGED)
+    g_slot, idx, off = _slot_inputs(topk, gates)
+    j_args = [jnp.asarray(a) for a in (g_slot, idx, off, w1, w2, w3)]
+    want = f32(j_fwd(jnp.asarray(x), *j_args, bl=bl))
+    hc = FM.pass_width(L * K, H_RAGGED, cap_bytes=L * K * 2 * FM.H_TILE)
+    assert [w for _, w in FM.h_ranges(H_RAGGED, hc)] == [128, 72]
+    got = FM.fused_moe_fwd_passes_plain(
+        to_torch(x), *(to_torch(a) for a in (g_slot, idx, off, w1, w2, w3)),
+        hc=hc)
+    assert got.dtype == tp.torch.float32
+    np.testing.assert_allclose(f32(got), want, **_tol(dtype, want))
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

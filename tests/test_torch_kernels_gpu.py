@@ -93,6 +93,13 @@ def _topk(L, E, k, seed, experts=None):
                      for _ in range(L)]).astype(np.int32)
 
 
+def _one_row_topk(L, E):
+    """Top-2 routing in which expert 0 receives exactly one slot."""
+    topk = _topk(L, E, 2, seed=L, experts=range(1, E))
+    topk[0, 0] = 0
+    return topk
+
+
 @pytest.mark.parametrize("L,E,k,experts", [
     (1, 4, 1, None), (37, 4, 2, None), (300, 8, 2, [1, 5]),
     (129, 8, 2, [0, 3]), (50, 8, 1, [7]), (2048, 8, 2, None),
@@ -355,7 +362,12 @@ def test_gmm_dw_kernel(dev, K, dtype, d, h, lengths):
     (256, 8, 2, 128, True, 100, 0.0),      # G = 4, window < S
     (192, 4, 2, 128, True, 0, 5.0),        # softcap, S not a power of two
     (100, 4, 1, 64, True, 30, 20.0),       # S not a multiple of the tile
-    (128, 4, 2, 48, False, 0, 0.0)])       # other head width, bidirectional
+    (128, 4, 2, 48, False, 0, 0.0),        # other head width, bidirectional
+    (256, 40, 8, 128, True, 0, 0.0),       # Qwen3-14B's heads: G = 5
+    (1, 4, 2, 128, True, 0, 0.0),          # one position
+    (2048, 4, 2, 128, True, 700, 30.0),    # window < S and a softcap
+    (300, 4, 2, 64, True, 0, 0.0),         # S not a multiple of 128
+    (300, 8, 2, 128, True, 200, 0.0)])
 def test_flash_attention_kernel(dev, K, dtype, S, H, Hkv, Dh, causal,
                                 window, cap):
     rng = np.random.default_rng(S + Dh)
@@ -437,9 +449,13 @@ def test_flash_attention_function_backward(dev, K):
 
 
 def _fused_inputs(dev, dtype, L, E, d, h, experts, seed):
+    """``experts``: the pool each token's two experts come from (None:
+    all), or the (L, k) routing itself."""
     from repro_torch.core import routing
     rng = np.random.default_rng(seed)
-    disp = routing.build_dispatch(_t(_topk(L, E, 2, seed, experts), dev), E)
+    topk = (experts if isinstance(experts, np.ndarray)
+            else _topk(L, E, 2, seed, experts))
+    disp = routing.build_dispatch(_t(topk, dev), E)
     g_slot = _t(rng.uniform(size=disp.num_slots), dev, "float32")
     x = _t(rng.normal(size=(L, d)), dev, dtype)
     dy = _t(rng.normal(size=(L, d)), dev, dtype)
@@ -454,7 +470,17 @@ def _fused_inputs(dev, dtype, L, E, d, h, experts, seed):
     (100, 8, 256, 192, (0, 1, 2, 4, 5, 6, 7)),   # empty expert 3; S=200
     (300, 8, 136, 72, (1, 2, 6)),                # 5 empty; d, h not tiles
     (37, 4, 100, 60, None),                      # d, h not multiples of 8
-    (4, 8, 512, 256, None)])                     # decode: 8 slots
+    (4, 8, 512, 256, None),                      # decode: 8 slots
+    # the bf16 forward's tiles: S = 4096 slots take h-ranges of 2048, so
+    # h = 2600 is two passes with a ragged last range of 552
+    pytest.param(2048, 4, 256, 2600, None, id="two-passes-ragged-range"),
+    # expert 0 holds one row; d = 328 is not a multiple of the 256-wide
+    # d tile
+    pytest.param(129, 4, 328, 264, _one_row_topk(129, 4),
+                 id="one-row-expert-d328"),
+    # k = 1, every slot on expert 5
+    pytest.param(300, 8, 256, 384, np.full((300, 1), 5, np.int32),
+                 id="all-slots-one-expert")])
 def test_fused_moe_kernels(dev, K, dtype, L, E, d, h, experts):
     F = K.fused_moe
     x, dy, g, disp, ws = _fused_inputs(dev, dtype, L, E, d, h, experts,
