@@ -1455,7 +1455,7 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
     case(f"float32 L={L32} {d32}->{h32}", x32, d32_disp,
          slot_gates(M, x32, wg32, d32_disp, k), ws32)
     # The bf16 forward's tile edges: all slots on one expert at full width
-    # (k = 1); S = 4096 slots plan h-ranges of 2048, so h = 2600 runs two
+    # (k = 1); S = 8192 slots plan h-ranges of 2048, so h = 2600 runs two
     # passes with a ragged last range of 552; an expert holding one row
     # with d = 328, not a multiple of the 256-wide d tile.
     one = M.TR.build_dispatch(torch.full((2048, 1), 3, dtype=torch.int32,
@@ -1464,7 +1464,7 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
     case("all slots on expert 3, S=2048", x_one, one,
          torch.rand(2048, device=dev), w)
     for name, L_, d_, h_, one_row in (
-            ("two passes, ragged last range, h=2600", 2048, 256, 2600,
+            ("two passes, ragged last range, h=2600", 4096, 256, 2600,
              False),
             ("one-row expert, d=328", 129, 328, 264, True)):
         x_ = randn(L_, d_)
@@ -1482,6 +1482,10 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
         if one_row:
             check(disp_.expert_lengths.tolist()[0] == 1,
                   "one-row case: expert 0 does not hold one row")
+        else:
+            check([w for _, w in KFM.h_ranges(
+                h_, KFM.pass_width(disp_.num_slots, h_))] == [2048, 552],
+                  "two-pass case: the plan is not two ranges of 2048, 552")
         case(name, x_, disp_, torch.rand(disp_.num_slots, device=dev), ws_)
     return {"x": x_tr, "dy": dy_tr, "g": g_tr, "disp": disp_tr, "x_dec": x_dec, "g_dec": g_dec,
             "disp_dec": disp_dec}

@@ -22,7 +22,7 @@
 //
 // Here the call walks h in ranges of width hc (kernels/fused_moe.py plans
 // them: the largest multiple of 128 whose bf16 (S, hc) chunk stays within
-// 16 MiB, so the chunk lives in L2), two launches per range:
+// a fixed 32 MiB workspace), two launches per range:
 //   up   (moe_up_wgmma)   tiles (128 slot rows of one expert, 128 columns
 //        of the range): a producer warpgroup gathers the x rows by 16-byte
 //        cp.async (eight lanes to a row's 128 bytes, so a warp's copy
@@ -38,7 +38,7 @@
 //        tile] arrive by TMA; m64n256k16 from shared memory; the epilogue
 //        adds g_slot[s] acc into y[idx[s]] with float4 reductions
 //        (neighbouring lanes swap a row's halves first).
-// So y takes S d ceil(h / hc) reductions (4.7e8 at training, 16x fewer)
+// So y takes S d ceil(h / hc) reductions (2.3e8 at training, 32x fewer)
 // and every other sum stays in registers.  On an H100 80GB HBM3 at
 // 700 W the first version's reductions took about half of its 31 ms at
 // training (PERF.md §6 has the profile and this design's times).  Both

@@ -381,7 +381,8 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
         const int m0 = (tile % n_m) * BM, n0 = (tile / n_m) * BN;
         for (int ks = 0; ks < nk; ++ks, ++it) {
           const int st = it % STAGES;
-          if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
+          if (it >= STAGES)
+            mbar_wait_spin(empty + 8 * st, (it / STAGES - 1) & 1);
           const uint32_t bar = full + 8 * st;
           const uint32_t s0 = ring + st * STAGE_BYTES;
           const int k0 = ks * BK;
@@ -416,7 +417,7 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
       // the ring's stages are released
       for (int ks = 0; ks < nk; ++ks, ++it) {
         const int st = it % STAGES;
-        mbar_wait(full + 8 * st, (it / STAGES) & 1);
+        mbar_wait_spin(full + 8 * st, (it / STAGES) & 1);
         if (lane == 0) mbar_arrive(empty + 8 * st);
         __syncwarp();
       }
@@ -426,7 +427,7 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
     for (int i = 0; i < 128; ++i) acc[i] = 0.f;
     for (int ks = 0; ks < nk; ++ks, ++it) {
       const int st = it % STAGES;
-      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      mbar_wait_spin(full + 8 * st, (it / STAGES) & 1);
       const uint32_t s0 = ring + st * STAGE_BYTES;
 #pragma unroll
       for (int kk = 0; kk < BK / 16; ++kk) {

@@ -60,10 +60,14 @@ __device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
                : "memory");
 }
 
-// Spins until the phase of the given parity has completed.  A wait that
-// lasts 2^36 clock cycles (about 40 s) traps: a phase that never completes
-// (a lost copy, a miscounted arrival) ends the kernel with an error
-// instead of holding the card.
+// Waits until the phase of the given parity has completed, reading the
+// clock after each failed poll: a wait that lasts 2^36 cycles (about 40 s)
+// traps, so a phase that never completes (a lost copy, a miscounted
+// arrival) ends the kernel with an error instead of holding the card.
+// The clock read also paces the polling: on an H100 80GB HBM3 at 700 W
+// flash attention's forward read 0.2195 ms with this wait against 0.2944
+// with mbar_wait_spin, and fused_moe_fwd the same within 1%
+// (tools/kernel_ab.py).
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   uint32_t done = 0;
   long long t0 = -1;
@@ -80,6 +84,22 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
     if (t0 < 0) t0 = now;
     else if (now - t0 > (1ll << 36)) __trap();
   }
+}
+
+// Waits with nothing between polls and no time limit.  fused_swiglu_bwd_x
+// uses it: the clock read of mbar_wait cost that kernel 5% (2.9952 against
+// 2.8489 ms, same card and tool).
+__device__ __forceinline__ void mbar_wait_spin(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
 }
 
 // TMA: the box at coordinates (c0 innermost, c1, ...) of a tensor map into

@@ -10,9 +10,10 @@ recomputes a, b and SiLU.  Neither direction writes an ``(S, h)`` or
 
 The bf16 forward walks h in ranges of width ``hc`` (:func:`pass_width`):
 per range one kernel writes the rounded ``y_swi`` of those columns into a
-bf16 ``(S, hc)`` chunk, capped at :data:`CHUNK_CAP_BYTES` (16 MiB, so it
-stays in the H100's 50 MB L2), and a second adds the chunk's gated
-products into y.  A call is 2·⌈h/hc⌉ kernel launches (28 at Mixtral's
+bf16 ``(S, hc)`` chunk, capped at :data:`CHUNK_CAP_BYTES` (32 MiB, a
+fixed bound on the workspace whatever S; ``tools/fused_moe_ranges.py``
+times the forward per width), and a second adds the chunk's gated
+products into y.  A call is 2·⌈h/hc⌉ kernel launches (14 at Mixtral's
 training shape, 2 at decode) and counts once in
 ``fused_moe_fwd.launches``.  The backward is one launch.
 
@@ -38,20 +39,19 @@ from repro_torch.kernels.gather_gmm import MAX_EXPERTS, _silu
 
 
 #: Bytes the bf16 forward's ``(S, hc)`` y_swi chunk may take.
-CHUNK_CAP_BYTES = 16 * 2 ** 20
+CHUNK_CAP_BYTES = 32 * 2 ** 20
 #: Columns of h per tile of the forward's first kernel; ``hc`` is a
 #: multiple of it.
 H_TILE = 128
 
 
-def pass_width(S: int, h: int, cap_bytes: int = CHUNK_CAP_BYTES,
-               itemsize: int = 2) -> int:
+def pass_width(S: int, h: int) -> int:
     """Width ``hc`` of the forward's h-ranges: the largest multiple of
-    :data:`H_TILE` whose ``(S, hc)`` chunk of ``itemsize``-byte values fits
-    ``cap_bytes``, and no wider than h rounded up to the tile (one range).
-    Never below one tile: above ``cap_bytes / (itemsize · H_TILE)`` slots
-    (65,536 for bf16) the chunk is ``S · H_TILE`` values."""
-    hc = cap_bytes // (max(S, 1) * itemsize) // H_TILE * H_TILE
+    :data:`H_TILE` whose bf16 ``(S, hc)`` chunk fits
+    :data:`CHUNK_CAP_BYTES`, and no wider than h rounded up to the tile
+    (one range).  Never below one tile: above 131,072 slots the chunk is
+    ``S · H_TILE`` values."""
+    hc = CHUNK_CAP_BYTES // (max(S, 1) * 2) // H_TILE * H_TILE
     return min(max(hc, H_TILE), -(-h // H_TILE) * H_TILE)
 
 
@@ -188,7 +188,7 @@ def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
     the kernels (counted once per call in ``fused_moe_fwd.launches``).
     In bf16 with d and h multiples of 8 the call allocates one ``(S, hc)``
     bf16 workspace of at most :data:`CHUNK_CAP_BYTES` (:func:`pass_width`;
-    ``S · 128`` values above 65,536 slots) besides y."""
+    ``S · 128`` values above 131,072 slots) besides y."""
     if not x.is_cuda:
         return fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3)

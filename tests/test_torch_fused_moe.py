@@ -94,12 +94,13 @@ def test_plain_fused_pair_matches_reference_kernels(tp, L, empty, bl, dtype):
 
 
 @pytest.mark.parametrize("S,h,n_ranges", [
-    (8192, 14336, 14),      # Mixtral training: 14 ranges of 1024
-    (8192, 14400, 15),      # a ragged last range of 64
-    (4096, 17408, 9),       # 2048-wide ranges, a ragged last of 1024
-    (100, 200, 1),          # h not a multiple of the tile, one range
-    (70000, 1000, 8),       # above the cap's slot count: one tile wide
-    (1, 8, 1)])
+    pytest.param(8192, 14336, 7, id="mixtral-training"),  # 7 of 2048
+    pytest.param(8192, 14400, 8, id="ragged-last-64"),
+    pytest.param(4096, 17408, 5, id="ragged-last-1024"),  # 4096 wide
+    pytest.param(100, 200, 1, id="one-ragged-range"),
+    # above the cap's slot count (131,072): one tile wide
+    pytest.param(140000, 1000, 8, id="above-cap-slots"),
+    pytest.param(1, 8, 1, id="one-slot")])
 def test_h_ranges_cover_h_in_tiles(tp, S, h, n_ranges):
     from repro_torch.kernels import fused_moe as FM
     hc = FM.pass_width(S, h)
@@ -115,10 +116,10 @@ def test_h_ranges_cover_h_in_tiles(tp, S, h, n_ranges):
 def test_pass_width_keeps_the_chunk_within_its_cap(tp):
     """Every slot count from 1 to 65,536, at Mixtral's and Qwen3-14B's
     expert widths; at Mixtral's training shape the chunk is exactly the
-    cap (S = 8192, hc = 1024)."""
+    cap (S = 8192, hc = 2048)."""
     from repro_torch.kernels import fused_moe as FM
     cap = FM.CHUNK_CAP_BYTES
-    assert cap == 16 * 2 ** 20
+    assert cap == 32 * 2 ** 20
     for h in (14336, 17408):
         widths = [FM.pass_width(S, h) for S in range(1, 65537)]
         assert all(S * hc * 2 <= cap for S, hc in enumerate(widths, 1))
@@ -148,11 +149,10 @@ def test_pass_decomposition_matches_reference_kernel(tp, L, empty, bl,
     g_slot, idx, off = _slot_inputs(topk, gates)
     j_args = [jnp.asarray(a) for a in (g_slot, idx, off, w1, w2, w3)]
     want = f32(j_fwd(jnp.asarray(x), *j_args, bl=bl))
-    hc = FM.pass_width(L * K, H_RAGGED, cap_bytes=L * K * 2 * FM.H_TILE)
-    assert [w for _, w in FM.h_ranges(H_RAGGED, hc)] == [128, 72]
+    assert [w for _, w in FM.h_ranges(H_RAGGED, FM.H_TILE)] == [128, 72]
     got = FM.fused_moe_fwd_passes_plain(
         to_torch(x), *(to_torch(a) for a in (g_slot, idx, off, w1, w2, w3)),
-        hc=hc)
+        hc=FM.H_TILE)
     assert got.dtype == tp.torch.float32
     np.testing.assert_allclose(f32(got), want, **_tol(dtype, want))
 

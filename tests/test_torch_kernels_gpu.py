@@ -471,9 +471,9 @@ def _fused_inputs(dev, dtype, L, E, d, h, experts, seed):
     (300, 8, 136, 72, (1, 2, 6)),                # 5 empty; d, h not tiles
     (37, 4, 100, 60, None),                      # d, h not multiples of 8
     (4, 8, 512, 256, None),                      # decode: 8 slots
-    # the bf16 forward's tiles: S = 4096 slots take h-ranges of 2048, so
+    # the bf16 forward's tiles: S = 8192 slots take h-ranges of 2048, so
     # h = 2600 is two passes with a ragged last range of 552
-    pytest.param(2048, 4, 256, 2600, None, id="two-passes-ragged-range"),
+    pytest.param(4096, 4, 256, 2600, None, id="two-passes-ragged-range"),
     # expert 0 holds one row; d = 328 is not a multiple of the 256-wide
     # d tile
     pytest.param(129, 4, 328, 264, _one_row_topk(129, 4),

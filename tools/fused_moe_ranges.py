@@ -2,13 +2,13 @@
 several h-range widths.
 
 ``kernels/fused_moe.py:pass_width`` picks the width ``hc`` of the ranges
-the forward walks: the widest whose bf16 ``(S, hc)`` chunk fits 16 MiB
-(1024 at S = 8192).  A wider range means fewer passes, so fewer float32
+the forward walks: the widest whose bf16 ``(S, hc)`` chunk fits 32 MiB
+(2048 at S = 8192).  A wider range means fewer passes, so fewer float32
 reductions into y, and a larger chunk.  This script calls the kernel's C
 entry with each width given, on the same inputs as ``chip_smoke.py``'s
 training shape (2 x 2048 tokens of Mixtral-8x7B's width, top-2 of 8
 experts from a random gate, seed 0), and reports for each width the
-call's median time (L2 flushed before each run, as the smoke's timer),
+call's median time (``chip_smoke.Timer``: L2 flushed before each run),
 the device time of the two kernels per call from ``torch.profiler``, and
 the largest error against the plain version relative to its scale.
 
@@ -22,31 +22,12 @@ from __future__ import annotations
 
 import argparse
 import json
-import statistics
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 L, D, H, E, K = 4096, 4096, 14336, 8, 2
-
-
-def median_ms(fn, flush, reps: int = 10) -> float:
-    import torch
-    for _ in range(2):
-        fn()
-    times = []
-    for _ in range(reps):
-        flush.zero_()
-        torch.cuda._sleep(200_000)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
 
 
 def kernel_ms(fn, calls: int = 3) -> dict[str, float]:
@@ -69,9 +50,10 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--widths", default="512,1024,2048,3584,14336")
     args = ap.parse_args()
-    sys.path.insert(0, str(ROOT / "src"))
+    sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
+    from chip_smoke import Timer
     from repro_torch.core import routing
     from repro_torch.kernels import _lib
     from repro_torch.kernels import fused_moe as FM
@@ -101,7 +83,7 @@ def main() -> int:
     g_slot = torch.rand(S, generator=gen, device=dev)
     want = FM.fused_moe_fwd_plain(x, g_slot, idx, off, w1, w2, w3)
     scale = float(want.abs().max())
-    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device=dev)
+    timer = Timer(dev)
     y = torch.empty(L, D, dtype=torch.float32, device=dev)
     lib = _lib.lib()
     readings = []
@@ -122,7 +104,7 @@ def main() -> int:
         rec = {"hc": hc, "passes": len(FM.h_ranges(H, hc)),
                "chunk_mib": S * hc * 2 / 2 ** 20,
                "planned": hc == FM.pass_width(S, H),
-               "ms": median_ms(run, flush), **kernel_ms(run),
+               "ms": timer(run), **kernel_ms(run),
                "max_err_over_scale": err}
         print(json.dumps(rec), flush=True)
         readings.append(rec)
