@@ -16,10 +16,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    slot counts that are not a multiple of the tile, position 0 and a dead
    page table, windows shorter than the sequence, positions on and across
    the boundaries of paged attention's splits and a window that starts
-   inside a split, softcaps, float32; the fused MoE forward's tile
-   edges (two h-ranges with a ragged last one, an expert of one row, every
-   slot on one expert, d off the 256-wide tile) and flash attention at
-   Qwen3-14B's 40/8 heads (with a window and a softcap) and at S=300; the
+   inside a split, softcaps, float32; gather-GMM's wgmma instantiations
+   (the dual branch with and without ``save_ab``, the w3 forward, the
+   transposed w3 and w1) at their tile edges (an expert of one row with
+   300 slots and rows past the routed total, every slot on one expert,
+   widths off the tiles), each call repeated bit-equal; the fused MoE
+   forward's tile edges (two h-ranges with a ragged last one, an expert
+   of one row, every slot on one expert, d off the 256-wide tile) and
+   flash attention at Qwen3-14B's 40/8 heads (with a window and a
+   softcap) and at S=300; the
    expert layer's autograd Functions (``blaze_pallas``, ``moe_ffn_blaze``
    on ``pallas`` in each residual mode, on ``pallas_fused`` and on
    ``ragged``, the backend ``auto`` resolves to) against
@@ -30,7 +35,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    implementation;
 4. timing — each kernel (median of warm runs, L2 flushed between runs
    and the host's launch time hidden behind a device sleep) at
-   the prefill, decode and training shapes, beside its plain version, its
+   the prefill, decode and training shapes (gather-GMM at each of the
+   training step's instantiations: the dual branch with ``save_ab``, the
+   w3 forward, the backward's w3ᵀ and w1ᵀ), beside its plain version, its
    bound (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s,
    from this run's inputs) and PyTorch calls that compute the same
    function, where there are (``torch._grouped_mm`` over pre-gathered
@@ -100,8 +107,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    kernels against their plain versions on the card in bf16 at its widths
    (d=5120, FFN width 17408, 40/8 heads of 128): the fused-SwiGLU forward,
    bwd_x and bwd_w at the training (L=4096) and decode (L=4) shapes, at a
-   ragged L=300, with h not a multiple of the tile, with widths not a
-   multiple of 8 and in float32; the ``swiglu`` autograd Function against
+   ragged L=300, with h or d not a multiple of the tile, with widths not
+   a multiple of 8 and in float32; the ``swiglu`` autograd Function against
    autograd through the plain versions; the paged-attention kernel over
    bf16 and over int8 pages at the GQA group of 5 (a window, a softcap,
    position 0, a dead page table, split boundaries, a 2048-page table);
@@ -471,6 +478,7 @@ def main() -> int:
     topk_tr = TR.top_k_gating(x_tr, moe["wg"], k).topk_experts.contiguous()
     disp_tr = dispatch_case("training", topk_tr, E)
     tr = train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr)
+    gmm_edges(M, dev, rng, randn, errs, moe)
     log(f"parity gmm_dw: max |err| {errs['gmm_dw']:.4g}; flash_attention: "
         f"max |err| {errs['flash_attention']:.4g}; gather_gmm (with save_ab "
         f"and transposed weights): {errs['gather_gmm']:.4g}")
@@ -527,6 +535,8 @@ def main() -> int:
                   disp_tr.expert_token_indices,
                   f"training dual w1/w2 + save_ab: S={S_tr}, d={d}, h={h}",
                   plain_reps=1, save_ab=True),
+        gmm_entry(tr["y_swi"], disp_tr, moe["w3"], None, None,
+                  f"training w3 forward: S={S_tr}, {h}->{d}", plain_reps=1),
         gmm_entry(tr["dyg"], disp_tr, moe["w3"], None, None,
                   f"training w3^T: S={S_tr}, {d}->{h}", plain_reps=1,
                   trans_w=True),
@@ -1009,6 +1019,9 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
     h_odd = h - 24        # a multiple of 8, not of the 64-wide tile
     case(f"L=300, h={h_odd}", 300, w1[:, :h_odd].contiguous(),
          w2[:, :h_odd].contiguous())
+    d_odd = d - 120       # a multiple of 8, not of the 256-wide tile
+    case(f"L=300, d={d_odd}", 300, w1[:d_odd].contiguous(),
+         w2[:d_odd].contiguous())
     case("widths not a multiple of 8: L=37, d=100, h=140", 37,
          randn(100, 140, scale=0.1), randn(100, 140, scale=0.1))
     case("float32 L=300, d=512, h=1000", 300,
@@ -1339,6 +1352,61 @@ def layer_function_parity(M, dev, rng):
             log(f"parity layer {label} {dt}: max |err| / scale per output "
                 f"(y, dx, dgates, dw1, dw2, dw3) "
                 f"{[round(e, 6) for e in errs]} (tolerance {tol})")
+
+
+def gmm_edges(M, dev, rng, randn, errs, moe):
+    """Phase 3, gather-GMM's tile edges: each bf16 instantiation (the dual
+    branch over gathered rows with and without ``save_ab``, the w3
+    forward over identity rows, the backward's transposed w3 and w1)
+    against its plain version (GMM_RTOL, GMM_ATOL) for an expert of one
+    row with S = 300 slots and rows past offsets[E], every slot on one
+    expert, and widths off the tiles (d = 328, h = 520, with empty
+    experts); rows past offsets[E] exactly 0, and a repeated call
+    bit-equal (every output element has one block, so no order of
+    blocks shows)."""
+    KG = M.KG
+    mix = (moe["w1"], moe["w2"], moe["w3"])
+    d_, h_ = 328, 520
+    cases = (("one-row expert", (1, 130, 0, 169, 0, 0, 0, 0), 20, *mix),
+             ("one expert", (0, 0, 0, 0, 0, 300, 0, 0), 0, *mix),
+             (f"d={d_}, h={h_}, empty experts", (0, 200, 0, 77), 23,
+              randn(4, d_, h_, scale=d_ ** -0.5),
+              randn(4, d_, h_, scale=d_ ** -0.5),
+              randn(4, h_, d_, scale=h_ ** -0.5)))
+    for name, lengths, past, w1, w2, w3 in cases:
+        d, h = w1.shape[1], w1.shape[2]
+        S = sum(lengths) + past
+        L = S // 2
+        x = randn(L, d)
+        idx = torch.from_numpy(rng.integers(0, L, size=S).astype(np.int32)
+                               ).to(dev)
+        off = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int32,
+                           device=dev)
+        rows_h, rows_d = randn(S, h), randn(S, d)
+        for call, args, kw in (
+                ("dual + save_ab", (x, idx, off, w1, w2), dict(save_ab=True)),
+                ("dual", (x, idx, off, w1, w2), {}),
+                ("w3 forward", (rows_h, None, off, w3), dict(epilogue=False)),
+                ("w3^T", (rows_d, None, off, w3),
+                 dict(epilogue=False, trans_w=True)),
+                ("w1^T", (rows_h, None, off, w1),
+                 dict(epilogue=False, trans_w=True))):
+            got, again = (KG.gather_gmm(*args, **kw) for _ in range(2))
+            want = KG.gather_gmm_plain(*args, **kw)
+            got, again, want = ((t,) if isinstance(t, torch.Tensor) else t
+                                for t in (got, again, want))
+            for g_, a_, w_ in zip(got, again, want):
+                errs["gather_gmm"] = max(errs["gather_gmm"], require_close(
+                    f"gather_gmm {name} {call}", g_, w_, GMM_RTOL, GMM_ATOL))
+                check(torch.equal(g_, a_),
+                      f"gather_gmm {name} {call}: a repeated call differs")
+                check(not bool(g_[sum(lengths):].any()),
+                      f"gather_gmm {name} {call}: rows past offsets[E] "
+                      f"not zero")
+        log(f"parity gather_gmm edges [{name}: groups {lengths}, {past} rows "
+            f"past offsets[E], {d}->{h}]: dual + save_ab, dual, w3 forward, "
+            f"w3^T, w1^T within tolerance, repeated calls bit-equal, "
+            f"trailing rows 0")
 
 
 def ragged_edges(M, dev):

@@ -1,5 +1,5 @@
 // Shared pieces of the fused MoE forward and backward kernels
-// (fused_moe_fwd.cu, fused_moe_bwd.cu).
+// (fused_moe_fwd.cu, fused_moe_bwd.cu) and of gather-GMM (gather_gmm.cu).
 #pragma once
 
 #include <mma.h>
@@ -29,6 +29,39 @@ constexpr int SBM = 32, SBH = 32, SBK = 32;
 // its slot rows [offsets[e], offsets[e+1]) (clamped to S), in expert order.
 // Their count is at most ceil(S / bm) + E, the launch's grid.x.
 inline int max_row_tiles(int S, int E, int bm) { return (S + bm - 1) / bm + E; }
+
+// The same tiling walked by persistent blocks (moe_wgmma.cuh): the number
+// of row tiles of `bm` slot rows, and tile t's expert and rows (e = -1
+// past the last).
+__device__ __forceinline__ int count_row_tiles(const int* __restrict__ offsets,
+                                               int E, int S, int bm) {
+  int n = 0;
+  for (int i = 0; i < E; ++i) {
+    const int lo = min(offsets[i], S);
+    const int hi = max(lo, min(offsets[i + 1], S));
+    n += (hi - lo + bm - 1) / bm;
+  }
+  return n;
+}
+
+__device__ __forceinline__ void find_row_tile(const int* __restrict__ offsets,
+                                              int E, int S, int bm, int t,
+                                              int& e, int& r0, int& r1) {
+  e = -1;
+  r0 = r1 = 0;
+  for (int i = 0; i < E; ++i) {
+    const int lo = min(offsets[i], S);
+    const int hi = max(lo, min(offsets[i + 1], S));
+    const int n = (hi - lo + bm - 1) / bm;
+    if (t < n) {
+      e = i;
+      r0 = lo + t * bm;
+      r1 = min(r0 + bm, hi);
+      return;
+    }
+    t -= n;
+  }
+}
 
 // Finds blockIdx.x's row tile: info = {expert or -1, first row, end row}.
 __device__ __forceinline__ void locate_tile(const int* __restrict__ offsets,

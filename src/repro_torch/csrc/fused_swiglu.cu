@@ -28,16 +28,20 @@
 //          in registers, in the wgmma A-fragment layout, and issue wgmma
 //          against w1 and w2 into one float32 accumulator.  da and db never
 //          reach HBM; they are recomputed for each 256-wide d-tile.
-//   bwd_w: block = (128 rows of d x 64 columns of h) of dw1 and dw2; per
-//          32-row chunk of L it forms da and db in shared memory the same
-//          way and accumulates x^T da and x^T db (the x chunk read
-//          column-major is x^T without a copy).
+//   bwd_w: block = (64 columns of h x 256 columns of d) of dw1^T and
+//          dw2^T, warp-specialized the same way: TMA brings dy, a, b and x
+//          tiles of 64 rows of L; the two consumer warpgroups turn dy and
+//          a into da and db in shared memory, once per block, then one
+//          runs wgmma with da^T, the other with db^T, as A (MN-major from
+//          shared memory) against the x tile; the epilogue stores the
+//          transposes through shared memory.
 //
 // Bound: operations at training and prefill (4 L d h each: 1.46 TFLOP at
 // L = 4096, d = 5120, h = 17408) and bytes at decode (L = 4 slots read
-// 356.5 MB of w1 | w2).  Design: fwd and bwd_w are bf16 WMMA (16x16x16,
-// float32 accumulate) fed by rings of 16-byte cp.async copies; bwd_x is
-// wgmma (m64n256k16, A from registers) fed by TMA.
+// 356.5 MB of w1 | w2).  Design: fwd is bf16 WMMA (16x16x16, float32
+// accumulate) fed by a ring of 16-byte cp.async copies; bwd_x (m64n256k16,
+// A from registers) and bwd_w (m64n128k16, A from shared memory) are wgmma
+// fed by TMA.
 // Any L, d and h: tails are bounds-checked (rows past L and columns past d
 // or h are zero-filled on load and never stored).  float32, and bf16 widths
 // that are not a multiple of 8 (or unaligned pointers), take a plain
@@ -487,126 +491,199 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
 }
 
 // ---------------------------------------------------------------------------
-// backward dw, tensor cores: (x, dy, a, b) -> (dw1, dw2)
+// backward dw, Hopper tensor cores: (x, dy, a, b) -> (dw1, dw2)
+//
+// Computed transposed: dw1^T (h x d) = da^T x and dw2^T = db^T x, with
+// M = h, N = d and the contraction over L.  A block owns 64 columns of h
+// by 256 of d and walks the whole of L itself (no split of the
+// contraction, no atomics).  A producer warp brings dy, a and b as
+// (64 rows of L x 64 of h) tiles and x as four (64 x 64 of d) boxes by
+// TMA, 128-byte swizzled, into a 3-stage ring (mbarriers full / empty).
+// The 256 threads of the two consumer warpgroups first turn the stage's
+// dy and a into da and db in place (float32, each rounded once to bf16:
+// the reference's rounding points), so each element's gradient is formed
+// once per block and not once per warpgroup; after a proxy fence and a
+// barrier of the two warpgroups, warpgroup 0 runs m64n256k16 with da^T
+// (read MN-major from shared memory) as A against the x tile (MN-major)
+// into dw1^T's accumulator, warpgroup 1 the same with db^T into dw2^T's.
+// One wgmma group stays in flight, so the next stage's gradients overlap
+// the tensor cores.  The epilogue rounds the accumulator once and writes
+// it transposed through shared memory, so the stores to (d, h) are 16-byte
+// and coalesced.  Persistent: one block per SM walks the tiles, columns of
+// d fastest, so the blocks at work share their dy, a, b tiles in L2.
+// Tails (rows past L, columns past d or h) are zero-filled by TMA (da = db
+// = 0 there) and never stored.
+//
+// What the design was chosen from (tools/kernel_ab.py on an H100 80GB
+// HBM3 at 700 W, Qwen3-14B at L = 4096, medians of 4): the gradients cost
+// ~1 ms of the kernel (a copy that skips them read 2.40 ms against 3.47);
+// stages of 64 rows of L read 3.02 ms against 3.47 for 6 stages of 32,
+// 3.12 for 4 of 48 and 4.51 for 2 of 96; one m64n256 product per
+// warpgroup read as two m64n128 products per warpgroup (3.458 against
+// 3.458); mbar_wait_spin read 3.04 ms against 3.13 with mbar_wait.
 // ---------------------------------------------------------------------------
 
 namespace bwdw {
-constexpr int BM = 128, BN = 64, STAGES = 4;
-constexpr int LDX = BM + 8;   // x chunk: BK rows of BM (d) columns
-constexpr int LDY = BN + 8;   // dy / a / b chunks: BK rows of BN (h)
-constexpr int LDC = BN + 4;
-constexpr int X_TILE = BK * LDX, Y_TILE = BK * LDY;
-constexpr int STAGE = X_TILE + 3 * Y_TILE;
-constexpr int PIPE = STAGES * STAGE * (int)sizeof(bf16);
-constexpr int EPI = BM * LDC * (int)sizeof(float);
-constexpr int SMEM = PIPE > EPI ? PIPE : EPI;
+constexpr int BM = 64;                       // columns of h (rows of dw^T)
+constexpr int BN = 256;                      // columns of d
+constexpr int BKL = 64, STAGES = 3;          // rows of L per stage
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int Y_BYTES = BKL * BM * 2;        // a dy, a or b tile
+constexpr int X_BOX = BKL * 64 * 2;          // one 64-wide box of x
+constexpr int STAGE_BYTES = 3 * Y_BYTES + (BN / 64) * X_BOX;
+static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle alignment");
+constexpr int LDO = BM + 8;                  // output staging rows (bf16)
+constexpr int OUT_BYTES = BN * LDO * 2;
+// the ring, the output staging, 1024 bytes to align the ring, the barriers
+constexpr int SMEM = STAGES * STAGE_BYTES + OUT_BYTES + 1024 + 2 * STAGES * 8;
 }  // namespace bwdw
 
-__global__ void __launch_bounds__(THREADS)
-swiglu_bwd_w_wmma(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                  const bf16* __restrict__ a, const bf16* __restrict__ b,
-                  bf16* __restrict__ dw1, bf16* __restrict__ dw2, int L,
-                  int d, int h) {
-  using namespace nvcuda;
+// Rounds a warpgroup's 64 x 256 accumulator (rows m of h, columns n of
+// d) once and stores it transposed at dw[n0 + n][m0 + m]: 128 columns at
+// a time through the warpgroup's 128 rows of the staging tile, then 16
+// bytes a thread.
+__device__ __forceinline__ void store_dw_t(const float (&acc)[128],
+                                           bf16* out_s, bf16* __restrict__ dw,
+                                           int m0, int n0, int d, int h,
+                                           int cw) {
   using namespace bwdw;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;   // rows of d
-  const int n0 = blockIdx.y * BN;   // columns of h
-  const int nsteps = (L + BK - 1) / BK;
-
-  auto tile = [&](int stage, int which) {   // 0: x, 1-3: dy, a, b
-    return ring + stage * STAGE +
-           (which == 0 ? 0 : X_TILE + (which - 1) * Y_TILE);
-  };
-  auto load_stage = [&](int step, int stage) {
-    const int r0 = step * BK;
-    // x chunk: BK rows x BM/8 pieces, 2 per thread
+  const int t = threadIdx.x % 128, warp = t / 32, lane = t % 32;
+  bf16* rows = out_s + cw * 128 * LDO;
 #pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int piece = tid + c * THREADS;
-      const int row = piece / (BM / 8), col = (piece % (BM / 8)) * 8;
-      const int r = r0 + row, gc = m0 + col;
-      const bool ok = r < L && gc < d;
-      repro::cp_async16(tile(stage, 0) + row * LDX + col,
-                        ok ? x + (size_t)r * d + gc : x, ok);
+  for (int half = 0; half < 2; ++half) {
+    // accumulator value 4 j + 2 i + e: row 16 warp + lane / 4 + 8 i,
+    // column 8 j + 2 (lane % 4) + e
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          rows[(8 * j + 2 * (lane % 4) + e) * LDO + warp * 16 + lane / 4 +
+               8 * i] =
+              __float2bfloat16_rn(acc[4 * (16 * half + j) + 2 * i + e]);
+    named_barrier(2 + cw, 128);
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int p = t + 128 * q;
+      const int row = p / 8, col = (p % 8) * 8;
+      const int gn = n0 + 128 * half + row, gm = m0 + col;
+      if (gn < d && gm < h)
+        *reinterpret_cast<uint4*>(dw + (size_t)gn * h + gm) =
+            *reinterpret_cast<const uint4*>(rows + row * LDO + col);
     }
-    // dy / a / b chunks: BK rows x BN/8 pieces, 1 per thread each
-    const int row = tid / (BN / 8), col = (tid % (BN / 8)) * 8;
-    const int r = r0 + row, gc = n0 + col;
-    const bool ok = r < L && gc < h;
-    const size_t off = (size_t)r * h + gc;
-    const int so = row * LDY + col;
-    repro::cp_async16(tile(stage, 1) + so, ok ? dy + off : dy, ok);
-    repro::cp_async16(tile(stage, 2) + so, ok ? a + off : a, ok);
-    repro::cp_async16(tile(stage, 3) + so, ok ? b + off : b, ok);
-  };
-
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;  // 4 x 2 warps, 32 x 32 each
-  const int wn = (warp % 2) * 32;
-  AccFrag acc1[2][2], acc2[2][2];
-  zero_acc(acc1);
-  zero_acc(acc2);
-
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    repro::cp_async_commit();
+    named_barrier(2 + cw, 128);
   }
-  for (int s = 0; s < nsteps; ++s) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = s + STAGES - 1;
-    if (nxt < nsteps) load_stage(nxt, nxt % STAGES);
-    repro::cp_async_commit();
-    const int st = s % STAGES;
-    bf16* DA = tile(st, 1);   // dy, becomes da
-    bf16* DB = tile(st, 2);   // a, becomes db
-    {  // BK x BN elements: one piece of 8 per thread
-      const int so = (tid / (BN / 8)) * LDY + (tid % (BN / 8)) * 8;
-      grads8_inplace(DA + so, DB + so, tile(st, 3) + so);
+}
+
+__global__ void __launch_bounds__(bwdw::THREADS, 1)
+swiglu_bwd_w_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                   const __grid_constant__ CUtensorMap tm_dy,
+                   const __grid_constant__ CUtensorMap tm_a,
+                   const __grid_constant__ CUtensorMap tm_b,
+                   bf16* __restrict__ dw1, bf16* __restrict__ dw2, int L,
+                   int d, int h) {
+  using namespace bwdw;
+  extern __shared__ unsigned char smem[];
+  // the swizzle is a function of address bits: align the ring to 1024
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  unsigned char* ring_p = smem + (ring - raw);
+  bf16* out_s = reinterpret_cast<bf16*>(ring_p + STAGES * STAGE_BYTES);
+  const uint32_t full = ring + STAGES * STAGE_BYTES + OUT_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+
+  // Ring positions count stages across tiles, so the producer runs ahead
+  // into the next tile while the consumers store the last one.
+  const int n_d = (d + BN - 1) / BN;
+  const int n_tiles = ((h + BM - 1) / BM) * n_d;
+  const int nk = (L + BKL - 1) / BKL;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);   // one arrival per warp
     }
-    __syncthreads();
-    const bf16* X = tile(st, 0);
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // x^T(i, k) = X[k * LDX + i]: the chunk read column-major
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> fa[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(fa[i], X + kk * LDX + wm + i * 16, LDX);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], DA + kk * LDY + wn + j * 16, LDY);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc1[i][j], fa[i], fb[j], acc1[i][j]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(fb[j], DB + kk * LDY + wn + j * 16, LDY);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc2[i][j], fa[i], fb[j], acc2[i][j]);
-    }
+    mbar_fence_init();
   }
-  repro::cp_async_wait<0>();
   __syncthreads();
-  stage_acc(Cs, LDC, acc1, wm, wn);
-  __syncthreads();
-  store_tile<BM, BN>(Cs, LDC, dw1, h, m0, n0, d, h);
-  __syncthreads();
-  stage_acc(Cs, LDC, acc2, wm, wn);
-  __syncthreads();
-  store_tile<BM, BN>(Cs, LDC, dw2, h, m0, n0, d, h);
+
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::);
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+        const int m0 = (tile / n_d) * BM, n0 = (tile % n_d) * BN;
+        for (int ks = 0; ks < nk; ++ks, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES)
+            mbar_wait_spin(empty + 8 * st, (it / STAGES - 1) & 1);
+          const uint32_t bar = full + 8 * st;
+          const uint32_t s0 = ring + st * STAGE_BYTES;
+          const int k0 = ks * BKL;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          tma_load(s0, &tm_dy, m0, k0, bar);
+          tma_load(s0 + Y_BYTES, &tm_a, m0, k0, bar);
+          tma_load(s0 + 2 * Y_BYTES, &tm_b, m0, k0, bar);
+#pragma unroll
+          for (int q = 0; q < BN / 64; ++q)
+            tma_load(s0 + 3 * Y_BYTES + q * X_BOX, &tm_x, n0 + q * 64, k0,
+                     bar);
+        }
+      }
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::);
+  const int cw = wg - 1;                       // consumer warpgroup
+  const int lane = threadIdx.x % 32;
+  // warpgroup 0 accumulates dw1^T = da^T x, warpgroup 1 dw2^T = db^T x
+  bf16* const dw = cw == 0 ? dw1 : dw2;
+  float acc[128];
+  int it = 0;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    const int m0 = (tile / n_d) * BM, n0 = (tile % n_d) * BN;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait_spin(full + 8 * st, (it / STAGES) & 1);
+      unsigned char* sp = ring_p + st * STAGE_BYTES;
+      // dy -> da, a -> db in place (the three tiles share one layout),
+      // 16 bytes of each a thread per step
+      for (int p = (threadIdx.x - 128) * 16; p < Y_BYTES;
+           p += 128 * CONSUMERS * 16)
+        grads8_inplace(reinterpret_cast<bf16*>(sp + p),
+                       reinterpret_cast<bf16*>(sp + Y_BYTES + p),
+                       reinterpret_cast<const bf16*>(sp + 2 * Y_BYTES + p));
+      fence_proxy_async();
+      named_barrier(1, 128 * CONSUMERS);
+      const uint32_t s0 = ring + st * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKL / 16; ++kk)
+        wgmma_m64n256k16_ss<1, 1>(
+            acc, desc_mn_sw128(s0 + cw * Y_BYTES + kk * 2048, Y_BYTES),
+            desc_mn_sw128(s0 + 3 * Y_BYTES + kk * 2048, X_BOX), 1);
+      wgmma_commit();
+      // the previous stage's products are done: its stage is free
+      wgmma_wait<1>();
+      if (ks > 0) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+        __syncwarp();
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    __syncwarp();
+    store_dw_t(acc, out_s, dw, m0, n0, d, h, cw);
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -902,11 +979,29 @@ REPRO_API int repro_fused_swiglu_bwd_w(int dtype, const void* x, const void* dy,
   if (d <= 0 || h <= 0) return 0;
   if (L < 0) return (int)cudaErrorInvalidValue;
   if (vec_ok(dtype, d, h, {x, dy, a, b, dw1, dw2})) {
-    allow_smem(swiglu_bwd_w_wmma, bwdw::SMEM);
-    swiglu_bwd_w_wmma<<<grid2(d, bwdw::BM, h, bwdw::BN), THREADS, bwdw::SMEM,
-                        stream>>>((const bf16*)x, (const bf16*)dy,
-                                  (const bf16*)a, (const bf16*)b, (bf16*)dw1,
-                                  (bf16*)dw2, L, d, h);
+    if (L == 0) {
+      const size_t n = (size_t)d * h * 2;
+      cudaError_t err = cudaMemsetAsync(dw1, 0, n, stream);
+      return (int)(err != cudaSuccess ? err
+                                      : cudaMemsetAsync(dw2, 0, n, stream));
+    }
+    CUtensorMap maps[4];
+    const void* src[4] = {x, dy, a, b};
+    for (int i = 0; i < 4; ++i) {
+      // (L, d) x, else (L, h) activations, in (BKL x 64) boxes
+      const int cols = i == 0 ? d : h;
+      if (!tensor_map_2d(&maps[i], src[i], L, cols, cols, bwdw::BKL, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+    }
+    allow_smem(swiglu_bwd_w_wgmma, bwdw::SMEM);
+    const int n_tiles = ((h + bwdw::BM - 1) / bwdw::BM) *
+                        ((d + bwdw::BN - 1) / bwdw::BN);
+    const int n_sm = sm_count();
+    if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
+    swiglu_bwd_w_wgmma<<<n_tiles < n_sm ? n_tiles : n_sm, bwdw::THREADS,
+                         bwdw::SMEM, stream>>>(
+        maps[0], maps[1], maps[2], maps[3], (bf16*)dw1, (bf16*)dw2, L, d, h);
   } else if (dtype == REPRO_DTYPE_BF16) {
     swiglu_bwd_w_simt<bf16><<<grid2(d, SB, h, SB), 256, 0, stream>>>(
         (const bf16*)x, (const bf16*)dy, (const bf16*)a, (const bf16*)b,

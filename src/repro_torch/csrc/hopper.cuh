@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels
-// (fused_swiglu.cu's bwd_x, fused_moe_fwd.cu, flash_attention.cu):
+// (fused_swiglu.cu's bwd_x and bwd_w, moe_wgmma.cuh's kernels for
+// fused_moe_fwd.cu and gather_gmm.cu, flash_attention.cu):
 // mbarriers, TMA tile loads, ldmatrix, wgmma shared-memory descriptors and
 // the wgmma instructions, and the host-side tensor-map encoder.
 //
@@ -13,7 +14,8 @@
 //   * MN-major (M or N contiguous: the row is 64 values of N, one row per
 //     k): desc_mn_sw128, 8 rows of k every 1024 bytes (SBO) and the next 64
 //     values of N `lbo` bytes on (the next box); a k16 step advances the
-//     start address by 16 rows = 2048 bytes; the instruction's TRANS_B = 1.
+//     start address by 16 rows = 2048 bytes; the instruction's TRANS_B = 1
+//     (TRANS_A = 1 for an A operand read this way).
 // bwd_x keeps its 64-byte swizzle (rows of 32 bf16 of K, desc_k_sw64).
 
 #pragma once
@@ -166,6 +168,18 @@ __device__ __forceinline__ uint64_t desc_mn_sw128(uint32_t saddr,
          ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
 }
 
+// Orders this thread's generic shared-memory writes before later reads
+// of the same bytes by the async proxy (a wgmma operand, a TMA copy).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Barrier `id` (1-15; 0 is __syncthreads) over `count` threads of whole
+// warps.
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -303,10 +317,11 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64],
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// d (64 x 256, float32: this thread's 128 values) (+)= A (64 x 16, K-major
-// in shared memory) x B (16 x 256 in shared memory); TRANS_B = 1 for an
-// MN-major B.  scale_d = 0 overwrites d.
-template <int TRANS_B>
+// d (64 x 256, float32: this thread's 128 values) (+)= A (64 x 16 in
+// shared memory) x B (16 x 256 in shared memory); TRANS_A = 1 for an
+// MN-major A (else K-major), TRANS_B = 1 for an MN-major B.  scale_d = 0
+// overwrites d.
+template <int TRANS_B, int TRANS_A = 0>
 __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
                                                    uint64_t desc_a,
                                                    uint64_t desc_b,
@@ -315,7 +330,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
       "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
-      "%128, %129, p, 1, 1, 0, %131;\n"
+      "%128, %129, p, 1, 1, %132, %131;\n"
       "}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
@@ -333,7 +348,7 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128],
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B), "n"(TRANS_A));
 }
 
 // ---------------------------------------------------------------------------

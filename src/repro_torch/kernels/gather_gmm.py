@@ -12,12 +12,17 @@ multiplies by ``w1ᵀ``, ``w2ᵀ`` and ``w3ᵀ`` without a transposed copy.
 Rows at or past ``offsets[E]`` are exact zeros.
 
 Bound on the card: operations at prefill and in training, bytes (the
-expert weights) at decode.  ``csrc/gather_gmm.cu`` splits the grid over
-the experts that overlap each row tile: a block owns one (row tile, column
-tile, expert) and stores only its expert's rows, so nothing is accumulated
-across blocks.  It gathers the A tile with 16-byte ``cp.async`` copies and
-runs bf16 WMMA with float32 accumulators; float32 inputs and widths that
-are not a multiple of 8 take a plain float32 tiled kernel.
+expert weights) at decode.  ``csrc/gather_gmm.cu`` tiles each expert's
+slot rows by 128 and gives every output tile to one block of a
+persistent, warp-specialized wgmma kernel (``csrc/moe_wgmma.cuh``, shared
+with the fused MoE forward), so nothing is accumulated across blocks and
+two calls give the same bits.  In bf16 with widths that are multiples of
+8: the dual branch gathers its rows by 16-byte ``cp.async`` beside w1 and
+w2 tiles brought by TMA; a single weight over identity rows (the w3
+forward, the backward's transposed products) brings rows and weight by
+TMA, a transposed weight read K-major, wgmma's own layout.  float32,
+other widths and a single weight over gathered rows take a plain float32
+tiled kernel.
 """
 
 from __future__ import annotations

@@ -332,6 +332,59 @@ def test_gather_gmm_save_ab_and_transposed(dev, K, dtype, L, d, h,
     assert t.shape == (S, d)
 
 
+@pytest.mark.parametrize("d,h,lengths,past", [
+    (256, 384, (1, 130, 0, 169), 0),      # an expert of one row; S = 300
+    (328, 520, (0, 200, 0, 77), 23),      # empty experts, rows past total;
+                                          # widths off the 256 / 128 tiles
+    (512, 1000, (0, 0, 300, 0), 0),       # every slot on one expert
+    (1024, 2048, (2, 1, 0, 3, 0, 0, 1, 1), 0)])   # decode: 8 slots
+def test_gather_gmm_wgmma_instantiations(dev, K, d, h, lengths, past):
+    """The three wgmma instantiations of gather-GMM in bf16 (the dual
+    branch over gathered rows with and without ``save_ab`` and over
+    identity rows, the single weight over identity rows, and the
+    transposed weight) at tile edges
+    against the plain version (bf16 tolerance as above); rows at or past
+    offsets[E] exactly 0; a repeated call bit-equal (one block owns each
+    output element, so nothing depends on the order of blocks)."""
+    import torch
+    rng = np.random.default_rng(d + h + past)
+    E = len(lengths)
+    S = sum(lengths) + past
+    L = max(S // 2, 1)
+    x = _t(rng.normal(size=(L, d)), dev, "bfloat16")
+    idx = _t(rng.integers(0, L, size=S).astype(np.int32), dev)
+    off = _t(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32), dev)
+    w1, w2 = (_t(rng.normal(size=(E, d, h)) * d ** -0.5, dev, "bfloat16")
+              for _ in range(2))
+    w3 = _t(rng.normal(size=(E, h, d)) * h ** -0.5, dev, "bfloat16")
+    rows_h = _t(rng.normal(size=(S, h)), dev, "bfloat16")
+    rows_d = _t(rng.normal(size=(S, d)), dev, "bfloat16")
+    G = K.gather_gmm
+    calls = [
+        ("dual + save_ab", (x, idx, off, w1, w2), dict(save_ab=True)),
+        ("dual", (x, idx, off, w1, w2), {}),
+        ("dual over identity rows", (rows_d, None, off, w1, w2), {}),
+        ("w3 forward", (rows_h, None, off, w3), dict(epilogue=False)),
+        ("w3^T", (rows_d, None, off, w3), dict(epilogue=False,
+                                                trans_w=True)),
+        ("w1^T", (rows_h, None, off, w1), dict(epilogue=False,
+                                                trans_w=True))]
+    total = int(off[-1])
+    for name, args, kw in calls:
+        before = G.gather_gmm.launches
+        got = G.gather_gmm(*args, **kw)
+        again = G.gather_gmm(*args, **kw)
+        _sync()
+        assert G.gather_gmm.launches == before + 2, name
+        want = G.gather_gmm_plain(*args, **kw)
+        got, again, want = ((t,) if isinstance(t, torch.Tensor) else t
+                            for t in (got, again, want))
+        for g_, a_, w_ in zip(got, again, want):
+            assert torch.equal(g_, a_), f"{name}: repeated call differs"
+            assert not g_[total:].any(), f"{name}: rows past total"
+            _scale_close(name, g_, w_, "bfloat16")
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("d,h,lengths", [
     (32, 48, (30, 0, 41, 25)),            # empty expert
@@ -655,6 +708,32 @@ def test_fused_swiglu_bwd_x_wgmma(dev, K, L, d, h):
     assert dx.shape == (L, d) and dx.dtype == torch.bfloat16
     _scale_close("dx", dx, FS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2),
                  "bfloat16")
+
+
+@pytest.mark.parametrize("L,d,h", [
+    (4096, 5120, 17408),   # Qwen3-14B training width
+    (300, 5120, 17408),    # L not a multiple of the 32-row stage
+    (256, 5000, 17408),    # d not a multiple of the 256-column tile
+    (128, 512, 17400),     # h not a multiple of the 64-column tile
+    (4, 5120, 17408),      # decode rows: one stage, mostly zero-filled
+    (33, 264, 136)])       # every edge at once, a few tiles
+def test_fused_swiglu_bwd_w_wgmma(dev, K, L, d, h):
+    """The wgmma/TMA ``bwd_w`` at Qwen3-14B's widths and their ragged
+    edges, against its plain version (bf16 tolerance as above)."""
+    import torch
+    rng = np.random.default_rng(L + d + h)
+    x = _t(rng.normal(size=(L, d)), dev, "bfloat16")
+    dy, a, b = (_t(rng.normal(size=(L, h)), dev, "bfloat16")
+                for _ in range(3))
+    FS = K.fused_swiglu
+    before = FS.fused_swiglu_bwd_w.launches
+    dw = FS.fused_swiglu_bwd_w(x, dy, a, b)
+    _sync()
+    assert FS.fused_swiglu_bwd_w.launches == before + 1
+    for name, g_, w_ in zip(("dw1", "dw2"), dw,
+                            FS.fused_swiglu_bwd_w_plain(x, dy, a, b)):
+        assert g_.shape == (d, h) and g_.dtype == torch.bfloat16
+        _scale_close(name, g_, w_, "bfloat16")
 
 
 def test_fused_swiglu_refuses_what_it_does_not_take(dev, K):

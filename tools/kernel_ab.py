@@ -10,7 +10,12 @@ that a row is held to.  Inputs are bf16 from seed 0:
 - ``flash_attention``: B = 2, S = 2048, 32/8 heads of 128 (Mixtral) and
   40/8 (Qwen3-14B), causal, window 4096;
 - ``fused_moe_fwd``: Mixtral-8x7B, 2 x 2048 tokens, d = 4096, h = 14336,
-  top-2 of 8 experts from a random gate.
+  top-2 of 8 experts from a random gate;
+- ``gather_gmm``: the same routing and weights, each instantiation as the
+  training step calls it (the dual branch with ``save_ab``, the w3
+  forward over identity rows, the backward's w3ᵀ and w1ᵀ), and the dual
+  branch at serving's prefill (4 x 512 tokens) and decode (4 tokens);
+- ``fused_swiglu_bwd_w``: Qwen3-14B at ``fused_swiglu_bwd_x``'s shape.
 
     python tools/kernel_ab.py TREE_A TREE_B [--kernels a,b] [--rounds 4]
 
@@ -32,7 +37,8 @@ import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
-KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd")
+KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
+           "gather_gmm", "fused_swiglu_bwd_w")
 TAG = "KERNEL_AB "
 
 
@@ -45,12 +51,15 @@ def cases(name: str, dev):
         return (torch.randn(*shape, generator=gen, device=dev) * scale).to(
             torch.bfloat16)
 
-    if name == "fused_swiglu_bwd_x":
+    if name.startswith("fused_swiglu"):
         from repro_torch.kernels import fused_swiglu as KS
         L, d, h = 4096, 5120, 17408
         x, dy = randn(L, d), randn(L, h)
         w1, w2 = randn(d, h, scale=d ** -0.5), randn(d, h, scale=d ** -0.5)
         _, a, b = KS.fused_swiglu_fwd(x, w1, w2)
+        if name == "fused_swiglu_bwd_w":
+            return [(f"L={L}, d={d}, h={h}",
+                     lambda: KS.fused_swiglu_bwd_w(x, dy, a, b))]
         return [(f"L={L}, d={d}, h={h}",
                  lambda: KS.fused_swiglu_bwd_x(dy, a, b, w1, w2))]
     if name == "flash_attention":
@@ -64,17 +73,44 @@ def cases(name: str, dev):
                                                window=4096))))
         return out
     from repro_torch.core import routing
-    from repro_torch.kernels import fused_moe as FM
     L, d, h, E = 4096, 4096, 14336, 8
     x = randn(L, d)
     w1, w2 = randn(E, d, h, scale=d ** -0.5), randn(E, d, h, scale=d ** -0.5)
     w3 = randn(E, h, d, scale=h ** -0.5)
-    disp = routing.build_dispatch(
-        routing.top_k_gating(x, randn(d, E), 2).topk_experts.contiguous(), E)
-    g_slot = torch.rand(disp.num_slots, generator=gen, device=dev)
-    idx, off = disp.expert_token_indices, disp.expert_token_offsets
-    return [(f"L={L}, S={disp.num_slots}, d={d}, h={h}, E={E}",
-             lambda: FM.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3))]
+    wg = randn(d, E)
+
+    def route(rows):
+        disp = routing.build_dispatch(routing.top_k_gating(
+            rows, wg, 2).topk_experts.contiguous(), E)
+        return disp, disp.expert_token_indices, disp.expert_token_offsets
+
+    disp, idx, off = route(x)
+    S = disp.num_slots
+    if name == "fused_moe_fwd":
+        from repro_torch.kernels import fused_moe as FM
+        g_slot = torch.rand(S, generator=gen, device=dev)
+        return [(f"L={L}, S={S}, d={d}, h={h}, E={E}",
+                 lambda: FM.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3))]
+    from repro_torch.kernels import gather_gmm as KG
+    y_swi, dyg, da = randn(S, h), randn(S, d), randn(S, h, scale=0.05)
+    out = [
+        (f"training dual + save_ab: S={S}, {d}->{h}",
+         lambda: KG.gather_gmm(x, idx, off, w1, w2, save_ab=True)),
+        (f"training w3 forward: S={S}, {h}->{d}",
+         lambda: KG.gather_gmm(y_swi, None, off, w3, epilogue=False)),
+        (f"training w3^T: S={S}, {d}->{h}",
+         lambda: KG.gather_gmm(dyg, None, off, w3, epilogue=False,
+                               trans_w=True)),
+        (f"training w1^T: S={S}, {h}->{d}",
+         lambda: KG.gather_gmm(da, None, off, w1, epilogue=False,
+                               trans_w=True))]
+    for label, n in (("prefill", 2048), ("decode", 4)):
+        xs = x[:n]
+        ds, ids, offs = route(xs)
+        out.append((f"{label} dual: S={ds.num_slots}, {d}->{h}",
+                    lambda xs=xs, ids=ids, offs=offs:
+                    KG.gather_gmm(xs, ids, offs, w1, w2)))
+    return out
 
 
 def child(tree: str, kernels: list[str], reps: int) -> None:
