@@ -478,7 +478,7 @@ def main() -> int:
     topk_tr = TR.top_k_gating(x_tr, moe["wg"], k).topk_experts.contiguous()
     disp_tr = dispatch_case("training", topk_tr, E)
     tr = train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr)
-    gmm_edges(M, dev, rng, randn, errs, moe)
+    gmm_edges(M, dev, errs, moe)
     log(f"parity gmm_dw: max |err| {errs['gmm_dw']:.4g}; flash_attention: "
         f"max |err| {errs['flash_attention']:.4g}; gather_gmm (with save_ab "
         f"and transposed weights): {errs['gather_gmm']:.4g}")
@@ -1206,8 +1206,9 @@ def library_gmm_ms(timer, x, idx, off, w1, w2, trans_w) -> float:
 
 
 def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
-    """Phase 3, training kernels: gather-GMM with ``save_ab`` and with
-    transposed weights, the grouped weight gradient and flash attention at
+    """Phase 3, training kernels: gather-GMM with ``save_ab``, the w3
+    forward over identity rows and with transposed weights, the grouped
+    weight gradient and flash attention at
     the training shapes and at edge cases, each against its plain version;
     the expert layer's autograd Function against autograd through the
     plain versions.  Returns the training-shape tensors for the timing."""
@@ -1227,6 +1228,10 @@ def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
         gmm_close(f"training save_ab {name}", g_, w_)
     y_swi = got[0]
     del want
+    gmm_close("training w3 forward",
+              KG.gather_gmm(y_swi, None, off, moe["w3"], epilogue=False),
+              KG.gather_gmm_plain(y_swi, None, off, moe["w3"],
+                                  epilogue=False))
     dyg = randn(S, d)
     da = randn(S, h, scale=0.05)
     for name, rows_, w in (("w3^T", dyg, moe["w3"]), ("w1^T", da, moe["w1"])):
@@ -1354,7 +1359,7 @@ def layer_function_parity(M, dev, rng):
                 f"{[round(e, 6) for e in errs]} (tolerance {tol})")
 
 
-def gmm_edges(M, dev, rng, randn, errs, moe):
+def gmm_edges(M, dev, errs, moe):
     """Phase 3, gather-GMM's tile edges: each bf16 instantiation (the dual
     branch over gathered rows with and without ``save_ab``, the w3
     forward over identity rows, the backward's transposed w3 and w1)
@@ -1363,8 +1368,15 @@ def gmm_edges(M, dev, rng, randn, errs, moe):
     expert, and widths off the tiles (d = 328, h = 520, with empty
     experts); rows past offsets[E] exactly 0, and a repeated call
     bit-equal (every output element has one block, so no order of
-    blocks shows)."""
+    blocks shows).  Its inputs come from their own generator, so the
+    later phases draw what they drew before these cases were added."""
     KG = M.KG
+    gen = torch.Generator(device=dev).manual_seed(6)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(BF16)
+
     mix = (moe["w1"], moe["w2"], moe["w3"])
     d_, h_ = 328, 520
     cases = (("one-row expert", (1, 130, 0, 169, 0, 0, 0, 0), 20, *mix),
@@ -1378,8 +1390,8 @@ def gmm_edges(M, dev, rng, randn, errs, moe):
         S = sum(lengths) + past
         L = S // 2
         x = randn(L, d)
-        idx = torch.from_numpy(rng.integers(0, L, size=S).astype(np.int32)
-                               ).to(dev)
+        idx = torch.randint(0, L, (S,), generator=gen, device=dev,
+                            dtype=torch.int32)
         off = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int32,
                            device=dev)
         rows_h, rows_d = randn(S, h), randn(S, d)

@@ -520,7 +520,14 @@ swiglu_bwd_x_wgmma(const __grid_constant__ CUtensorMap tm_dy,
 // stages of 64 rows of L read 3.02 ms against 3.47 for 6 stages of 32,
 // 3.12 for 4 of 48 and 4.51 for 2 of 96; one m64n256 product per
 // warpgroup read as two m64n128 products per warpgroup (3.458 against
-// 3.458); mbar_wait_spin read 3.04 ms against 3.13 with mbar_wait.
+// 3.458); mbar_wait_spin read 3.04 ms against 3.13 with mbar_wait.  The
+// register-A alternative (each warpgroup loads dy, a, b with
+// ldmatrix.trans into wgmma's A registers and forms its own gradient, so
+// there is no write-back, proxy fence or 256-thread barrier, but every
+// sigmoid is computed by both warpgroups) read 3.68 ms against 3.02 when
+// each k-step waits for its product; letting one product stay in flight
+// (3.62-3.84 ms) gave wrong columns past the first 64 in ~0.4% of the
+// outputs, from run to run, and also with four fragment buffers.
 // ---------------------------------------------------------------------------
 
 namespace bwdw {

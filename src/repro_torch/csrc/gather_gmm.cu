@@ -19,8 +19,9 @@
 // every slot row belongs to exactly one expert.  So a tile is 128 slot
 // rows of one expert by a column tile, every output element is written by
 // one block (no split of the contraction, no atomics: two runs give the
-// same bits, which the sharded layer's parity relies on), and a last
-// small kernel zeroes the rows at or past offsets[E].
+// same bits, which the sharded layer's parity relies on), and the rows
+// at or past offsets[E], which no tile owns, are zeroed by every block
+// after its last tile, in the same launch.
 //
 // Bound: operations at prefill and in training (S = 8192 slots, d = 4096,
 // h = 14336 is ~1.9 TFLOP for the dual branch against ~1.9 GB of weights)
@@ -60,24 +61,6 @@ __device__ __forceinline__ void expert_range(const int* offs, int E, int m0,
   while (e0 < E && offs[e0 + 1] <= m0) ++e0;
   e1 = e0;
   while (e1 < E && offs[e1] < m1) ++e1;
-}
-
-// Zeroes rows [min(offsets[E], S), S) of up to three (S, n) bf16 outputs
-// (n a multiple of 8), 16 bytes a thread per step.
-__global__ void zero_tail_rows(const int* __restrict__ offsets, int E, int S,
-                               int n, bf16* o0, bf16* o1, bf16* o2) {
-  const int total = min(max(offsets[E], 0), S);
-  const size_t end = (size_t)S * n / 8;
-  const uint4 z = make_uint4(0, 0, 0, 0);
-  for (size_t i = (size_t)total * n / 8 + blockIdx.x * blockDim.x +
-                  threadIdx.x;
-       i < end; i += (size_t)gridDim.x * blockDim.x) {
-    reinterpret_cast<uint4*>(o0)[i] = z;
-    if (o1 != nullptr) {
-      reinterpret_cast<uint4*>(o1)[i] = z;
-      reinterpret_cast<uint4*>(o2)[i] = z;
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -271,12 +254,6 @@ REPRO_API int repro_gather_gmm(int dtype, const void* x, const int* idx,
       kernel<<<grid, down::THREADS, down::SMEM, stream>>>(
           ma, mw1, nullptr, nullptr, offsets, y, S, L, h, E, 0, d);
     }
-    cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return (int)err;
-    const int zero_grid =
-        (int)std::min<size_t>(((size_t)S * (h / 8) + 255) / 256, n_sm);
-    zero_tail_rows<<<zero_grid, 256, 0, stream>>>(
-        offsets, E, S, h, (bf16*)y, (bf16*)a_out, (bf16*)b_out);
   } else if (dtype == REPRO_DTYPE_BF16) {
     launch_simt<bf16>(x, idx, offsets, w1, w2, y, a_out, b_out, S, L, d, h,
                       E, dual, epilogue, trans_w, stream);

@@ -25,6 +25,8 @@
 //        g_slot[s] acc into a float32 y[idx[s]] with float4 reductions
 //        (SCATTER: the fused forward) or stores round(acc) into row s of a
 //        bf16 output (gather-GMM).
+// The rows of a bf16 output at or past offsets[E] belong to no tile: the
+// consumers of every block zero a share of them after their last tile.
 //
 // Included by one source each, inside an anonymous namespace: every
 // including source keeps its own copy of the kernels.
@@ -40,6 +42,30 @@ using namespace repro::hopper;
 using repro::fused::count_row_tiles;
 using repro::fused::find_row_tile;
 using repro::fused::sigmoidf;
+
+// Zeroes rows [min(offsets[E], S), S) of up to three bf16 outputs (o1 and
+// o2 both null or both set), columns [0, n) of rows ld apart (n and ld
+// multiples of 8), 16 bytes a thread per step.  No tile owns these rows;
+// thread t of `threads` in each block of the grid runs this after its
+// last tile, so a call stays one launch.
+__device__ __forceinline__ void zero_tail_rows(
+    const int* __restrict__ offsets, int E, int S, int n, int ld,
+    __nv_bfloat16* o0, __nv_bfloat16* o1, __nv_bfloat16* o2, int t,
+    int threads) {
+  const int total = min(max(offsets[E], 0), S);
+  const int per_row = n / 8;
+  const size_t count = (size_t)(S - total) * per_row;
+  const uint4 z = make_uint4(0, 0, 0, 0);
+  for (size_t i = (size_t)blockIdx.x * threads + t; i < count;
+       i += (size_t)gridDim.x * threads) {
+    const size_t o = (total + i / per_row) * ld + (i % per_row) * 8;
+    *reinterpret_cast<uint4*>(o0 + o) = z;
+    if (o1 != nullptr) {
+      *reinterpret_cast<uint4*>(o1 + o) = z;
+      *reinterpret_cast<uint4*>(o2 + o) = z;
+    }
+  }
+}
 
 // ---------------------------------------------------------------------------
 // up: (x rows, w1, w2) -> y = round(silu(a) b) [, round(a), round(b)]
@@ -60,7 +86,8 @@ constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 // w1, w2: (E, d, h) maps of 64 x BK boxes.  Row s of the tile reads x row
 // idx[s] (s itself when idx is null); ids outside [0, L) read zeros.  y
 // (and a_out, b_out with SAVE_AB) have rows ldc apart; column c of the
-// range [h0, h0 + hw) lands in column c - h0.
+// range [h0, h0 + hw) lands in column c - h0.  Rows at or past offsets[E]
+// are zeroed in columns [0, hw).
 template <bool SAVE_AB>
 __global__ void __launch_bounds__(up::THREADS, 1)
 moe_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
@@ -230,6 +257,9 @@ moe_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
       }
     }
   }
+  zero_tail_rows(offsets, E, S, hw, ldc, y, SAVE_AB ? a_out : nullptr,
+                 SAVE_AB ? b_out : nullptr, threadIdx.x - 128,
+                 128 * CONSUMERS);
 }
 
 // ---------------------------------------------------------------------------
@@ -251,8 +281,8 @@ constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 // (E, n, K') in BK x 256 boxes; the contraction runs over its rows (with
 // TRANS_B its columns) [k_off, k_off + K).  SCATTER: out is the float32
 // (L, n) y, zeroed by the caller, and row s adds into y[idx[s]] with gate
-// g_slot[s]; otherwise out is the bf16 (S, n) output and row s lands in
-// row s.
+// g_slot[s]; otherwise out is the bf16 (S, n) output, row s lands in row
+// s and rows at or past offsets[E] are zeroed.
 template <bool SCATTER, bool TRANS_B>
 __global__ void __launch_bounds__(down::THREADS, 1)
 moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
@@ -400,6 +430,9 @@ moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
       }
     }
   }
+  if (!SCATTER)
+    zero_tail_rows(offsets, E, S, n, n, static_cast<__nv_bfloat16*>(out),
+                   nullptr, nullptr, threadIdx.x - 128, 128 * CONSUMERS);
 }
 
 }  // namespace

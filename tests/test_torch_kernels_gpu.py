@@ -337,7 +337,8 @@ def test_gather_gmm_save_ab_and_transposed(dev, K, dtype, L, d, h,
     (328, 520, (0, 200, 0, 77), 23),      # empty experts, rows past total;
                                           # widths off the 256 / 128 tiles
     (512, 1000, (0, 0, 300, 0), 0),       # every slot on one expert
-    (1024, 2048, (2, 1, 0, 3, 0, 0, 1, 1), 0)])   # decode: 8 slots
+    (1024, 2048, (2, 1, 0, 3, 0, 0, 1, 1), 0),    # decode: 8 slots
+    (256, 384, (0, 0, 0, 0), 300)])       # no routed row: all rows zeroed
 def test_gather_gmm_wgmma_instantiations(dev, K, d, h, lengths, past):
     """The three wgmma instantiations of gather-GMM in bf16 (the dual
     branch over gathered rows with and without ``save_ab`` and over
@@ -712,7 +713,7 @@ def test_fused_swiglu_bwd_x_wgmma(dev, K, L, d, h):
 
 @pytest.mark.parametrize("L,d,h", [
     (4096, 5120, 17408),   # Qwen3-14B training width
-    (300, 5120, 17408),    # L not a multiple of the 32-row stage
+    (300, 5120, 17408),    # L not a multiple of the 64-row stage
     (256, 5000, 17408),    # d not a multiple of the 256-column tile
     (128, 512, 17400),     # h not a multiple of the 64-column tile
     (4, 5120, 17408),      # decode rows: one stage, mostly zero-filled

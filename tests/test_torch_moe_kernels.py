@@ -101,6 +101,54 @@ def test_gather_gmm_single_identity_rows(tp, dtype):
     np.testing.assert_allclose(f32(out), f32(ref), **TOL[dtype])
 
 
+@pytest.mark.parametrize("call", ["dual_save_ab", "w3_forward", "w3_t"])
+@pytest.mark.parametrize("lengths,past", [
+    ((1, 30, 0, 49), 16),                 # an expert of one row
+    ((0, 0, 96, 0), 0),                   # every slot on one expert
+    ((0, 40, 0, 17), 39)],                # empty experts, rows past total
+    ids=["one_row_expert", "one_expert", "empty_experts_rows_past"])
+def test_gather_gmm_edges_match_reference(tp, call, lengths, past):
+    """The tile edges the card kernels are held at, in bf16: the dual
+    branch with ``save_ab`` (y, a, b), the w3 forward over identity rows
+    and the transposed w3 (the reference multiplies by the transposed
+    weight itself), against the reference; rows past offsets[E] exactly
+    0 and a repeated call equal."""
+    rng = np.random.default_rng(sum(lengths) + past)
+    S = sum(lengths) + past
+    off = np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32)
+    x = as_dtype(rng.normal(size=(L, D)), "bfloat16")
+    idx = rng.integers(0, L, size=S).astype(np.int32)
+    w1, w2 = (as_dtype(rng.normal(size=(E, D, H)) * 0.2, "bfloat16")
+              for _ in range(2))
+    w3 = as_dtype(rng.normal(size=(E, H, D)) * 0.2, "bfloat16")
+    rows_h = as_dtype(rng.normal(size=(S, H)), "bfloat16")
+    rows_d = as_dtype(rng.normal(size=(S, D)), "bfloat16")
+    ident = np.arange(S, dtype=np.int32)
+    G = tp.gather_gmm
+    if call == "dual_save_ab":
+        ref = JREF.gather_gmm_ref(*map(jnp.asarray, (x, idx, off, w1, w2)))
+        outs = [G.gather_gmm(*map(to_torch, (x, idx, off, w1, w2)),
+                             save_ab=True) for _ in range(2)]
+    elif call == "w3_forward":
+        ref = (JREF.gather_gmm_ref(*map(jnp.asarray, (rows_h, ident, off,
+                                                      w3))),)
+        outs = [(G.gather_gmm(to_torch(rows_h), None, to_torch(off),
+                              to_torch(w3), epilogue=False),)
+                for _ in range(2)]
+    else:
+        ref = (JREF.gather_gmm_ref(jnp.asarray(rows_d), jnp.asarray(ident),
+                                   jnp.asarray(off),
+                                   jnp.swapaxes(jnp.asarray(w3), 1, 2)),)
+        outs = [(G.gather_gmm(to_torch(rows_d), None, to_torch(off),
+                              to_torch(w3), epilogue=False, trans_w=True),)
+                for _ in range(2)]
+    total = int(off[-1])
+    for got, again, want in zip(*outs, ref):
+        np.testing.assert_allclose(f32(got), f32(want), **TOL["bfloat16"])
+        assert not got[total:].any(), "rows past offsets[E] must be 0"
+        assert bool((got == again).all()), "a repeated call differs"
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_combine(tp, dtype):
     rng = np.random.default_rng(2)
