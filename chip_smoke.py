@@ -20,9 +20,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (the dual branch with and without ``save_ab``, the w3 forward, the
    transposed w3 and w1) at their tile edges (an expert of one row with
    300 slots and rows past the routed total, every slot on one expert,
-   widths off the tiles), each call repeated bit-equal; the fused MoE
-   forward's tile edges (two h-ranges with a ragged last one, an expert
-   of one row, every slot on one expert, d off the 256-wide tile) and
+   widths off the tiles), each call repeated bit-equal; the grouped
+   weight gradient's bf16 kernel at dw1, dw2 and dw3 of the training
+   shape, in ``ep_a2a``'s layout (rows past offsets[E], NaN there, that
+   must contribute nothing) and at widths that leave partial TMA boxes,
+   each call repeated bit-equal; the fused MoE pair's tile edges (two
+   forward h-ranges and three backward ones with ragged last ones, an
+   expert of one row, every slot on one expert, d off the 256-wide tile,
+   slots past offsets[E] in ``routing.slice_dispatch``'s layout), the
+   backward's dgates and weight gradients bit-equal across calls, and
    flash attention at Qwen3-14B's 40/8 heads (with a window and a
    softcap) and at S=300; the
    expert layer's autograd Functions (``blaze_pallas``, ``moe_ffn_blaze``
@@ -479,6 +485,7 @@ def main() -> int:
     disp_tr = dispatch_case("training", topk_tr, E)
     tr = train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr)
     gmm_edges(M, dev, errs, moe)
+    dw_edges(M, dev, errs, tr, disp_tr)
     log(f"parity gmm_dw: max |err| {errs['gmm_dw']:.4g}; flash_attention: "
         f"max |err| {errs['flash_attention']:.4g}; gather_gmm (with save_ab "
         f"and transposed weights): {errs['gather_gmm']:.4g}")
@@ -1242,7 +1249,9 @@ def train_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr):
                                       trans_w=True))
 
     def dw_case(name, lhs, dout, offsets):
-        got = KW.gmm_dw(lhs, dout, offsets)
+        got, again = (KW.gmm_dw(lhs, dout, offsets) for _ in range(2))
+        check(torch.equal(got, again),
+              f"gmm_dw {name}: a repeated call differs")
         want = KW.gmm_dw_plain(lhs, dout, offsets)
         if lhs.dtype == BF16:
             e = require_close(f"gmm_dw {name}", got, want, GMM_RTOL, GMM_ATOL)
@@ -1421,6 +1430,65 @@ def gmm_edges(M, dev, errs, moe):
             f"trailing rows 0")
 
 
+def dw_edges(M, dev, errs, tr, disp_tr):
+    """Phase 3, the grouped weight gradient's bf16 kernel at what the
+    paths give it beyond dw1 and dw3: dw2 at the training shape (x rows
+    against db); ``ep_a2a``'s layout, whose rows past offsets[E] (the pad
+    and overflow rows of the trash group, here NaN) must contribute
+    nothing; widths that leave partial TMA boxes (d = 328, h = 520) with
+    empty experts, one expert holding every row, and rows past offsets[E].
+    Each against its plain version (GMM_RTOL, GMM_ATOL), empty experts
+    exactly 0, a repeated call bit-equal.  Inputs come from their own
+    generator, so later phases draw what they drew before."""
+    KW, TR = M.KW, M.TR
+    gen = torch.Generator(device=dev).manual_seed(7)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=gen, device=dev)
+                * scale).to(BF16)
+
+    def case(name, lhs, dout, off):
+        got, again = (KW.gmm_dw(lhs, dout, off) for _ in range(2))
+        want = KW.gmm_dw_plain(lhs, dout, off)
+        errs["gmm_dw"] = max(errs["gmm_dw"], require_close(
+            f"gmm_dw {name}", got, want, GMM_RTOL, GMM_ATOL))
+        check(torch.equal(got, again),
+              f"gmm_dw {name}: a repeated call differs")
+        for ex, n in enumerate((off[1:] - off[:-1]).tolist()):
+            check(n > 0 or not bool(got[ex].any()),
+                  f"gmm_dw {name}: empty expert {ex} not zero")
+
+    S, h = disp_tr.num_slots, tr["da"].shape[1]
+    case(f"training dw2: S={S}", tr["xg"], randn(S, h, scale=0.05),
+         disp_tr.expert_token_offsets)
+    # ep_a2a: received k = 1 slots against 2 local experts, built over 3
+    # groups (the last collects pads and overflow) and sliced to the real
+    # range, so the trash rows lie past offsets[E]
+    n, E_loc = 3000, 2
+    ids = torch.randint(0, 4, (n, 1), generator=gen, device=dev,
+                        dtype=torch.int32).clamp_(max=E_loc)
+    loc = TR.slice_dispatch(TR.build_dispatch(ids, E_loc + 1), 0, E_loc)
+    off = loc.expert_token_offsets
+    total = int(off[-1])
+    lhs, dout = randn(n, 4096), randn(n, h, scale=0.05)
+    lhs[total:], dout[total:] = float("nan"), float("nan")
+    case(f"ep_a2a layout: {total} of {n} rows routed, trash rows NaN",
+         lhs, dout, off)
+    for name, lengths, past in (("empty experts", (0, 200, 0, 77), 23),
+                                ("one expert", (0, 0, 300, 0), 0)):
+        offs = torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int32,
+                            device=dev)
+        n_ = sum(lengths) + past
+        lhs, dout = randn(n_, 328), randn(n_, 520)
+        lhs[sum(lengths):] = float("nan")
+        case(f"d=328, h=520, {name}, groups {lengths}, {past} rows past "
+             f"offsets[E]", lhs, dout, offs)
+    log(f"parity gmm_dw edges: dw2 at S={S}, the ep_a2a layout ({total} of "
+        f"{n} rows routed, NaN past offsets[E]), d=328 x h=520 with empty "
+        f"experts and with one expert: within tolerance, empty experts 0, "
+        f"repeated calls bit-equal")
+
+
 def ragged_edges(M, dev):
     """``ragged`` (``torch._grouped_mm``) at Mixtral's widths with empty
     groups and rows past the group total, in bf16 (the launchers' dtype)
@@ -1480,19 +1548,36 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
     """Phase 3, the fused MoE pair: forward and backward against their
     plain versions at the training shape (real top-2 routing from the
     gate), at decode, with an empty expert and a slot count that is not a
-    multiple of the row tile, and in float32 at a small shape.  Returns
-    the training- and decode-shape inputs for the timing."""
+    multiple of the row tile, in float32 at a small shape, at the tile
+    edges of both directions' h-ranges, and with slots past offsets[E]
+    (``routing.slice_dispatch``'s layout, inputs from their own
+    generator).  In bf16 the backward runs twice: dgates and dw1-3 must
+    be bit-equal (one writer per element), and dgates past offsets[E]
+    exactly 0.  Returns the training- and decode-shape inputs for the
+    timing."""
     KFM = M.KFM
     E, k = moe["w1"].shape[0], 2
     w = (moe["w1"], moe["w2"], moe["w3"])
 
-    def case(name, x, disp, g_slot, ws):
+    def case(name, x, disp, g_slot, ws, dy=None):
         idx, off = disp.expert_token_indices, disp.expert_token_offsets
-        dy = randn(*x.shape, dtype=x.dtype)
+        if dy is None:
+            dy = randn(*x.shape, dtype=x.dtype)
         got = [KFM.fused_moe_fwd(x, g_slot, idx, off, *ws)]
         want = [KFM.fused_moe_fwd_plain(x, g_slot, idx, off, *ws)]
         got += KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws)
         want += KFM.fused_moe_bwd_plain(x, dy, g_slot, idx, off, *ws)
+        if x.dtype == BF16:
+            # one writer per element of dgates and dw1-3 (dx sums by atomics)
+            again = KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws)
+            for out, g_, a_ in zip(("dgates", "dw1", "dw2", "dw3"), got[2:],
+                                   again[1:]):
+                check(torch.equal(g_, a_),
+                      f"fused_moe {name} {out}: a repeated call differs")
+            del again
+            total = int(off[-1])
+            check(not bool(got[2][total:].any()),
+                  f"fused_moe {name}: dgates past offsets[E] not zero")
         rel = []
         for i, (out, g_, w_) in enumerate(zip(
                 ("y", "dx", "dgates", "dw1", "dw2", "dw3"), got, want)):
@@ -1509,8 +1594,12 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
         for ex, n in enumerate(lens):
             check(n > 0 or not any(bool(t[ex].any()) for t in got[3:]),
                   f"fused_moe {name}: empty expert {ex} has weight grads")
+        h_ = ws[0].shape[2]
+        plan = [w_ for _, w_ in KFM.h_ranges(
+            h_, KFM.bwd_pass_width(idx.shape[0], h_))]
         log(f"parity fused_moe {name}: max |err| / scale (y, dx, dgates, "
-            f"dw1, dw2, dw3) {rel}")
+            f"dw1, dw2, dw3) {rel}; backward h-ranges {plan}"
+            + ("; repeated backward bit-equal" if x.dtype == BF16 else ""))
         return dy
 
     g_tr = slot_gates(M, x_tr, moe["wg"], disp_tr, k)
@@ -1566,7 +1655,24 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
             check([w for _, w in KFM.h_ranges(
                 h_, KFM.pass_width(disp_.num_slots, h_))] == [2048, 552],
                   "two-pass case: the plan is not two ranges of 2048, 552")
+            check([w for _, w in KFM.h_ranges(
+                h_, KFM.bwd_pass_width(disp_.num_slots, h_))]
+                  == [1280, 1280, 40],
+                  "two-pass case: the backward's plan is not 1280, 1280, 40")
         case(name, x_, disp_, torch.rand(disp_.num_slots, device=dev), ws_)
+    # ep's layout at full width (routing.slice_dispatch): experts 2 and 3 of
+    # the training routing's first 1024 tokens, their slots first, every
+    # other slot past offsets[E]; inputs from their own generator
+    gen = torch.Generator(device=dev).manual_seed(8)
+    x_s = x_tr[:1024].contiguous()
+    d_full = M.TR.build_dispatch(M.TR.top_k_gating(
+        x_s, moe["wg"], k).topk_experts.contiguous(), E)
+    loc = M.TR.slice_dispatch(d_full, 2, count=2)
+    g_loc = torch.rand(loc.num_slots, generator=gen, device=dev)
+    case(f"slots past offsets[E] (experts 2-3 of {E}, "
+         f"{int(loc.expert_token_offsets[-1])} of {loc.num_slots} slots)",
+         x_s, loc, g_loc, tuple(w_[2:4].contiguous() for w_ in w),
+         dy=torch.randn(x_s.shape, generator=gen, device=dev).to(BF16))
     return {"x": x_tr, "dy": dy_tr, "g": g_tr, "disp": disp_tr, "x_dec": x_dec, "g_dec": g_dec,
             "disp_dec": disp_dec}
 

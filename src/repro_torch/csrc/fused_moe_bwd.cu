@@ -10,383 +10,360 @@
 //     da = dyu g b silu'(a),  db = dyu g silu(a)
 //     dx[idx[s]] += da w1[e]^T + db w2[e]^T
 //     dw1[e] += xt^T da, dw2[e] += xt^T db, dw3[e] += (g y_swi)^T dyt
-// All five outputs are float32 and zeroed by the wrapper.  Nothing of size
-// (S, h) or (S, d) is written: not the gathered rows, a, b, y_swi, dyu,
-// da or db.
+// All five outputs are float32.  Slots at or past offsets[E] get dgates 0
+// and contribute nothing; experts with no rows get zero weight gradients.
 //
 // The TPU kernel zeroes dx at its first grid step, carries dx across the
 // sequential h axis in scratch, accumulates dgates across a tile's items
 // and the weight gradients across an expert's consecutive items, and
 // scatters through one-hot matmuls: all of it relies on a grid that runs in
-// order.  Here a block owns one row tile of one expert (up to BM slot rows)
-// and one h-chunk of BH columns, in one launch:
-//   1. over d in BK-deep steps: a, b and dyu for its rows and chunk (three
-//      products, rows of x and dy gathered by 16-byte cp.async copies);
-//   2. the elementwise terms in float32 through a staging tile; da, db and
-//      g y_swi rounded to bf16 into shared memory (the tensor-core
-//      operands; the plain version keeps them in float32, which the
-//      tolerance covers); the chunk's share of dgates per row;
-//   3. over the d-tiles (BN wide), with x, dy, w1 and w2 tiles
-//      double-buffered: dx (BM x BN), dw1 and dw2 (BN x BH) and dw3
-//      (BH x BN) for this tile.
-// Every cross-block sum is a float32 atomic reduction (4 floats per
-// instruction; fused_moe.cuh:red_fragment) into the zeroed float32
-// outputs: dx over h-chunks and a token's k slots, dgates over h-chunks,
-// dw1/dw2/dw3 over the row tiles of one expert.  An expert with no rows
-// has no tile, so its weight gradients stay zero.  The sum order varies
-// from run to run.
+// order.  A Hopper grid has no order.  Here the bf16 call walks h in ranges
+// of width hc (kernels/fused_moe.py:bwd_pass_width: the widest multiple of
+// 128 whose three bf16 (S, hc) workspace chunks fit a fixed 64 MiB), as the
+// forward does, and runs four kernels per range:
+//   1. moe_bwd_up_wgmma (this file), tiles of 128 slot rows of one expert
+//      by 128 columns of the range, on `up`'s tiling (moe_wgmma.cuh):
+//      first dyu = dyt w3[e]^T over d, then the dual a, b product, both
+//      with the gathered rows (16-byte cp.async copies into the layout of
+//      a swizzled TMA box) and the weight tiles (TMA; the range's w3 rows
+//      are wgmma's K-major B, so no copy) read by wgmma from shared
+//      memory; dyu, rounded to bf16, waits in the da chunk.  The float32
+//      epilogue forms y_swi, da, db and g y_swi and writes them, each
+//      rounded to bf16, into the three chunks (the tensor-core operands of
+//      the next kernels; the plain version keeps da and db in float32,
+//      which the tolerance covers), and the tile's share of dgates per row
+//      into a float32 partial of its 128 columns;
+//   2. moe_dw_wgmma<GATHER, DUAL> (moe_wgmma.cuh): dw1 and dw2 for the
+//      range's columns from the gathered x rows against the da and db
+//      chunks, one block per output tile walking the expert's rows;
+//   3. moe_dw_wgmma<GATHER, TRANS_OUT>: dw3's rows of the range, as
+//      dw3^T = dyt^T (g y_swi) from the gathered dy rows against the g y_swi
+//      chunk, stored transposed, so that the gathered operand is the
+//      128-wide A;
+//   4. moe_down_wgmma<SCATTER, TRANS_B> (moe_wgmma.cuh) with two products:
+//      dx[idx[s]] += da w1[e][:, range]^T + db w2[e][:, range]^T, w1 and
+//      w2 read K-major where they lie.
+// and a last kernel sums each slot's dgates partials over the column tiles
+// in a fixed order.  The ranges write disjoint column (dw1, dw2) or row
+// (dw3) blocks, so the weight gradients and dgates are never summed across
+// blocks or launches: a repeated call gives the same bits.  dx alone sums
+// across ranges and a token's k slots with float32 reductions (float4,
+// into the zeroed dx), whose order varies from run to run; the tolerance
+// against the plain version covers it.  A call is 4 ceil(h / hc) + 1
+// kernel launches (49 at Mixtral's training shape, 5 at decode).
+//
+// Measured on an H100 80GB HBM3 at 700 W at Mixtral's training shape
+// (tools/fused_moe_ranges.py, tools/kernel_ab.py; PERF.md): dw3 from a
+// gathered 256-wide B read 3.31 ms a call against 2.09 with the gathered
+// operand as A and the output transposed; kernel 1 with its rows read
+// from registers (ldmatrix, as `up`) read 7.06 ms against 5.97 from shared
+// memory; a range width of 2048 (a 96 MiB workspace) read 17.06 ms against
+// 17.40 for 1280 (60 MiB), 2% apart, so the workspace stays at 64 MiB.
 //
 // Bound: operations (16 S d h: 2 recomputed GEMMs, dyu, 3 weight
-// gradients, 2 for dx; 7.7 TFLOP at S = 8192, d = 4096, h = 14336).
-// Design: bf16 WMMA (16x16x16, float32 accumulate), 8 warps; one block per
-// SM (about 174 KB of shared memory).  float32 inputs, and d or h not a
-// multiple of 8, take a plain float32-FMA kernel with the same
-// decomposition, which keeps da and db in float32 as the reference does.
+// gradients, 2 for dx; 7.7 TFLOP at S = 8192, d = 4096, h = 14336) in
+// training, bytes at decode (the touched experts' weights read and the
+// three float32 weight gradients written).  float32 inputs, and d or h
+// not a multiple of 8, take a plain float32-FMA kernel with a block per
+// (32-row tile, 32-wide h-chunk), which keeps da and db in float32 as the
+// reference does and sums every output across blocks with float32
+// reductions into zeroed outputs (bwd_simt_kernel).
+
+#include <algorithm>
 
 #include "fused_moe.cuh"
+#include "hopper.cuh"
+#include "moe_wgmma.cuh"
 
 namespace {
 
-using namespace repro::fused;
+using namespace repro::hopper;
+using repro::fused::load_rows;
+using repro::fused::locate_tile;
+using repro::fused::max_row_tiles;
+using repro::fused::red_add;
+using repro::fused::round_bf16;
+using repro::fused::SBH;
+using repro::fused::SBK;
+using repro::fused::SBM;
 using bf16 = __nv_bfloat16;
 
-constexpr int STAGES = 3;
-// phase 1 stage: x rows, dy rows (BM x BK), w1, w2 (BK x BH), w3 rows of
-// the chunk (BH x BK, read as a column-major w3^T)
-constexpr int X1 = BM * LDK;
-constexpr int W1 = BK * LDH;
-constexpr int W3T = BH * LDK;
-constexpr int ST1_EL = 2 * X1 + 2 * W1 + W3T;
-constexpr int RING_BYTES = STAGES * ST1_EL * (int)sizeof(bf16);
-constexpr int CS_BYTES = 3 * BM * LDC * (int)sizeof(float);
-// phase 3 buffer: x and dy tiles (BM x BN), w1 and w2 tiles (BN x BH)
-constexpr int X3 = BM * LDN;
-constexpr int W13 = BN * LDH;
-constexpr int BUF3_EL = 2 * X3 + 2 * W13;
-constexpr int P3_BYTES = 2 * BUF3_EL * (int)sizeof(bf16);
-constexpr int R_BYTES = RING_BYTES > CS_BYTES
-                            ? (RING_BYTES > P3_BYTES ? RING_BYTES : P3_BYTES)
-                            : (CS_BYTES > P3_BYTES ? CS_BYTES : P3_BYTES);
-constexpr int OPS_BYTES = 3 * BM * LDH * (int)sizeof(bf16);  // da, db, g y_swi
-constexpr int STG_BYTES = (THREADS / 32) * 16 * LDW * (int)sizeof(float);
-constexpr int SMEM_BYTES = R_BYTES + OPS_BYTES + STG_BYTES;
+// ---------------------------------------------------------------------------
+// 1. (x, dy rows, w1, w2, w3) -> da, db, g y_swi chunks and dgates partials
+// ---------------------------------------------------------------------------
 
-using namespace nvcuda;
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragAc = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragBc = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
+// 128 slot rows of one expert by 128 columns of the range per tile, up's
+// (moe_wgmma.cuh) tiling and barrier scheme with both operands read by
+// wgmma from shared memory: a stage holds two 64 x BK weight tiles and the
+// tile's 128 gathered rows, 16-byte cp.async copies written in the layout
+// of a 128-byte-swizzled TMA box (wgmma's K-major A, as `down` reads its
+// rows); in the first phase the stage holds the range's w3 rows (BK x 128,
+// K-major, in w1's place) and the dy rows.  w1, w2: (E, d, h) maps of
+// 64 x BK boxes; w3: an (E, h, d) map of BK x 128 boxes.  Chunks da, db,
+// yg have rows ldc apart; column c of the range [h0, h0 + hw) lands in
+// column c - h0.  part: (ceil(h / 128), S) float32; row s of the
+// 128-column tile of h starting at h0 + c0 gets sum over its columns of
+// y_swi dyu.
+namespace bup {
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int W_BOX = BK * 64 * 2;           // one 64-wide box of w1 or w2
+constexpr int W_BYTES = BK * BN * 2;
+constexpr int X_BYTES = BM * BK * 2;         // the gathered rows
+constexpr int STAGE_BYTES = 2 * W_BYTES + X_BYTES;
+static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle alignment");
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+}  // namespace bup
 
-__global__ void __launch_bounds__(THREADS)
-bwd_wmma_kernel(const bf16* __restrict__ x, const bf16* __restrict__ dy,
-                const float* __restrict__ g_slot, const int* __restrict__ idx,
-                const int* __restrict__ offsets, const bf16* __restrict__ w1,
-                const bf16* __restrict__ w2, const bf16* __restrict__ w3,
-                float* __restrict__ dx, float* __restrict__ dg,
-                float* __restrict__ dw1, float* __restrict__ dw2,
-                float* __restrict__ dw3, int S, int L, int d, int h, int E) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ int info[3];
-  __shared__ int tok_s[BM];
-  __shared__ float g_s[BM];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  float* Cs = reinterpret_cast<float*>(smem);
-  bf16* Da = reinterpret_cast<bf16*>(smem + R_BYTES);
-  bf16* Db = Da + BM * LDH;
-  bf16* Yg = Db + BM * LDH;
-  float* stg = reinterpret_cast<float*>(smem + R_BYTES + OPS_BYTES);
+__global__ void __launch_bounds__(bup::THREADS, 1)
+moe_bwd_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
+                 const __grid_constant__ CUtensorMap tm_w2,
+                 const __grid_constant__ CUtensorMap tm_w3,
+                 const bf16* __restrict__ x, const bf16* __restrict__ dy,
+                 const float* __restrict__ g_slot,
+                 const int* __restrict__ idx, const int* __restrict__ offsets,
+                 bf16* __restrict__ da, bf16* __restrict__ db,
+                 bf16* __restrict__ yg, float* __restrict__ part, int S,
+                 int L, int d, int E, int h0, int hw, int ldc) {
+  using namespace bup;
+  extern __shared__ unsigned char smem[];
+  const uint32_t ring = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;
+  const uint32_t empty = full + STAGES * 8;
 
-  locate_tile(offsets, E, S, BM, info);
-  const int e = info[0];
-  if (e < 0) return;  // uniform over the block
-  const int r0 = info[1], r1 = info[2];
-  const int j0 = blockIdx.y * BH;
-  const int tid = threadIdx.x;
-  load_rows(idx, g_slot, r0, r1, L, BM, tok_s, g_s);
-  __syncthreads();
-  const bf16* w1e = w1 + (size_t)e * d * h;
-  const bf16* w2e = w2 + (size_t)e * d * h;
-  const bf16* w3e = w3 + (size_t)e * h * d;
+  const int n_rt = count_row_tiles(offsets, E, S, BM);
+  const int n_tiles = n_rt * ((hw + BN - 1) / BN);
+  const int nk = (d + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;  // 4 x 2 warps, 32 x 32 of a BM x 64 tile
-  const int wn = (warp % 2) * 32;
-
-  // ---- 1. a, b, dyu over d ------------------------------------------------
-  const int wr = tid / (BH / 8), wc = (tid % (BH / 8)) * 8;   // w1 / w2
-  const int tr = tid / (BK / 8), tc = (tid % (BK / 8)) * 8;   // w3 rows
-  auto load1 = [&](int step, int stage) {
-    const int k0 = step * BK;
-    bf16* X = ring + stage * ST1_EL;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int piece = tid + c * THREADS;
-      const int r = piece / (BK / 8), col = (piece % (BK / 8)) * 8;
-      const int t = tok_s[r];
-      const bool ok = t >= 0 && k0 + col < d;
-      const size_t off = (size_t)t * d + k0 + col;
-      repro::cp_async16(X + r * LDK + col, ok ? x + off : x, ok);
-      repro::cp_async16(X + X1 + r * LDK + col, ok ? dy + off : dy, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // 128 gathering threads (cp.async) and the TMA's expect_tx
+      mbar_init(full + 8 * s, 128 + 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);   // one arrival per warp
     }
-    bool ok = k0 + wr < d && j0 + wc < h;
-    size_t off = (size_t)(k0 + wr) * h + j0 + wc;
-    repro::cp_async16(X + 2 * X1 + wr * LDH + wc, ok ? w1e + off : w1e, ok);
-    repro::cp_async16(X + 2 * X1 + W1 + wr * LDH + wc, ok ? w2e + off : w2e,
-                      ok);
-    ok = j0 + tr < h && k0 + tc < d;
-    off = (size_t)(j0 + tr) * d + k0 + tc;
-    repro::cp_async16(X + 2 * X1 + 2 * W1 + tr * LDK + tc,
-                      ok ? w3e + off : w3e, ok);
-  };
-  {
-    AccFrag acc_a[2][2], acc_b[2][2], acc_u[2][2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fill_fragment(acc_a[i][j], 0.f);
-        wmma::fill_fragment(acc_b[i][j], 0.f);
-        wmma::fill_fragment(acc_u[i][j], 0.f);
-      }
-    const int nsteps = (d + BK - 1) / BK;
-#pragma unroll
-    for (int s = 0; s < STAGES - 1; ++s) {
-      if (s < nsteps) load1(s, s);
-      repro::cp_async_commit();
-    }
-    for (int s = 0; s < nsteps; ++s) {
-      repro::cp_async_wait<STAGES - 2>();
-      __syncthreads();
-      const int nxt = s + STAGES - 1;
-      if (nxt < nsteps) load1(nxt, nxt % STAGES);
-      repro::cp_async_commit();
-      const bf16* X = ring + (s % STAGES) * ST1_EL;
-      const bf16* DY = X + X1;
-      const bf16* B1 = X + 2 * X1;
-      const bf16* B2 = B1 + W1;
-      const bf16* B3 = B2 + W1;
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        FragA a[2];
-        FragB b[2];
-        FragBc bt[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], X + (wm + i * 16) * LDK + kk, LDK);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], B1 + kk * LDH + wn + j * 16, LDH);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc_a[i][j], a[i], b[j], acc_a[i][j]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], B2 + kk * LDH + wn + j * 16, LDH);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc_b[i][j], a[i], b[j], acc_b[i][j]);
-        // dyu = dyt w3^T: element (k, j) of the operand is w3[e][j][k],
-        // the chunk's w3 rows read column-major.
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], DY + (wm + i * 16) * LDK + kk, LDK);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(bt[j], B3 + (wn + j * 16) * LDK + kk, LDK);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc_u[i][j], a[i], bt[j], acc_u[i][j]);
-      }
-    }
-    repro::cp_async_wait<0>();
-    __syncthreads();  // the staging tiles reuse the ring
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int o = (wm + i * 16) * LDC + wn + j * 16;
-        wmma::store_matrix_sync(Cs + o, acc_a[i][j], LDC, wmma::mem_row_major);
-        wmma::store_matrix_sync(Cs + BM * LDC + o, acc_b[i][j], LDC,
-                                wmma::mem_row_major);
-        wmma::store_matrix_sync(Cs + 2 * BM * LDC + o, acc_u[i][j], LDC,
-                                wmma::mem_row_major);
-      }
+    mbar_fence_init();
   }
   __syncthreads();
 
-  // ---- 2. elementwise terms and dgates -------------------------------------
-  // Thread t takes row t / 2, columns (t % 2) * 32 .. + 32.
-  {
-    const int r = tid / 2, c0 = (tid % 2) * (BH / 2);
-    const float g = g_s[r];
-    float dgp = 0.f;
-    for (int c = c0; c < c0 + BH / 2; ++c) {
-      const float av = Cs[r * LDC + c];
-      const float bv = Cs[BM * LDC + r * LDC + c];
-      const float u = round_bf16(Cs[2 * BM * LDC + r * LDC + c]);
-      const float sg = sigmoidf(av);
-      const float sa = av * sg;
-      const float ys = round_bf16(sa * bv);
-      dgp += ys * u;
-      const float dys = u * g;
-      Da[r * LDH + c] = __float2bfloat16_rn(dys * bv * (sg * (1.f + av * (1.f - sg))));
-      Db[r * LDH + c] = __float2bfloat16_rn(dys * sa);
-      Yg[r * LDH + c] = __float2bfloat16_rn(ys * g);
-    }
-    dgp += __shfl_xor_sync(0xffffffffu, dgp, 1);
-    if ((tid & 1) == 0 && tok_s[r] >= 0) red_add(dg + r0 + r, dgp);
-  }
-  __syncthreads();  // the phase-3 buffers reuse the staging tiles
-
-  // ---- 3. dx, dw1, dw2, dw3 over the d-tiles --------------------------------
-  auto load3 = [&](int nt, int buf) {
-    const int n0 = nt * BN;
-    bf16* X = ring + buf * BUF3_EL;
+  if (wg == 0) {
+    // producer warpgroup: thread t copies 16-byte piece t % 8 of rows
+    // t / 8 + 16 c (eight lanes read a row's 128 bytes); thread 0 also
+    // brings the weight tiles.  2 nk steps a tile: the dy rows and w3
+    // first, then the x rows and w1, w2.
+    const int t = threadIdx.x, piece = t % 8;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int e, r0, r1;
+      find_row_tile(offsets, E, S, BM, tile % n_rt, e, r0, r1);
+      const int n0 = h0 + (tile / n_rt) * BN;
+      int tok[BM / 16];
 #pragma unroll
-    for (int c = 0; c < 4; ++c) {  // BM x BN / 8 = 1024 pieces each
-      const int piece = tid + c * THREADS;
-      const int r = piece / (BN / 8), col = (piece % (BN / 8)) * 8;
-      const int t = tok_s[r];
-      const bool ok = t >= 0 && n0 + col < d;
-      const size_t off = (size_t)t * d + n0 + col;
-      repro::cp_async16(X + r * LDN + col, ok ? x + off : x, ok);
-      repro::cp_async16(X + X3 + r * LDN + col, ok ? dy + off : dy, ok);
-    }
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {  // BN x BH / 8 = 512 pieces each
-      const int piece = tid + c * THREADS;
-      const int n = piece / (BH / 8), col = (piece % (BH / 8)) * 8;
-      const bool ok = n0 + n < d && j0 + col < h;
-      const size_t off = (size_t)(n0 + n) * h + j0 + col;
-      repro::cp_async16(X + 2 * X3 + n * LDH + col, ok ? w1e + off : w1e, ok);
-      repro::cp_async16(X + 2 * X3 + W13 + n * LDH + col,
-                        ok ? w2e + off : w2e, ok);
-    }
-  };
-  float* wstg = stg + warp * 16 * LDW;
-  // weight-gradient tiles are 64 x 64: warp w takes rows (w / 2) * 16 and
-  // columns (w % 2) * 32 of each
-  const int gm = (warp / 2) * 16, gn = (warp % 2) * 32;
-  float* dw1e = dw1 + (size_t)e * d * h;
-  float* dw2e = dw2 + (size_t)e * d * h;
-  float* dw3e = dw3 + (size_t)e * h * d;
-  const int ntiles = (d + BN - 1) / BN;
-  load3(0, 0);
-  repro::cp_async_commit();
-  for (int nt = 0; nt < ntiles; ++nt) {
-    repro::cp_async_wait<0>();
-    __syncthreads();
-    if (nt + 1 < ntiles) load3(nt + 1, (nt + 1) & 1);
-    repro::cp_async_commit();
-    const int n0 = nt * BN;
-    const bf16* X = ring + (nt & 1) * BUF3_EL;
-    const bf16* DY = X + X3;
-    const bf16* W1t = X + 2 * X3;  // (n, j): w1[e][n0 + n][j0 + j]
-    const bf16* W2t = W1t + W13;
-
-    // dx (BM x BN) = da w1^T + db w2^T: operand (j, n) = W1t[n][j], read
-    // column-major.
-    {
-      AccFrag acc[2][2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-#pragma unroll
-      for (int kk = 0; kk < BH; kk += 16) {
-        FragA a[2];
-        FragBc b[2];
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], Da + (wm + i * 16) * LDH + kk, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], W1t + (wn + j * 16) * LDH + kk, LDH);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          wmma::load_matrix_sync(a[i], Db + (wm + i * 16) * LDH + kk, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], W2t + (wn + j * 16) * LDH + kk, LDH);
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+      for (int c = 0; c < BM / 16; ++c) {
+        const int row = r0 + t / 8 + 16 * c;
+        const int id = row < r1 ? idx[row] : -1;
+        tok[c] = id >= L ? -1 : id;
       }
+      for (int step = 0; step < 2 * nk; ++step, ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
+        const uint32_t s0 = ring + st * STAGE_BYTES;
+        const uint32_t bar = full + 8 * st;
+        const bool first = step < nk;
+        const int k0 = (first ? step : step - nk) * BK;
+        if (t == 0) {
+          if (first) {
+            mbar_expect_tx(bar, W_BYTES);
+            tma_load(s0, &tm_w3, k0, n0, e, bar);
+          } else {
+            mbar_expect_tx(bar, 2 * W_BYTES);
+#pragma unroll
+            for (int q = 0; q < BN / 64; ++q) {
+              tma_load(s0 + q * W_BOX, &tm_w1, n0 + q * 64, k0, e, bar);
+              tma_load(s0 + W_BYTES + q * W_BOX, &tm_w2, n0 + q * 64, k0, e,
+                       bar);
+            }
+          }
+        }
+        const bf16* src = first ? dy : x;
+        const int kc = k0 + piece * 8;
+#pragma unroll
+        for (int c = 0; c < BM / 16; ++c) {
+          const int r = t / 8 + 16 * c, id = tok[c];
+          const bool ok = id >= 0 && kc < d;
+          cp_async16_s(s0 + 2 * W_BYTES + r * 128 + ((piece ^ (r & 7)) * 16),
+                       ok ? src + (size_t)id * d + kc : src, ok);
+        }
+        mbar_arrive_cp_async(bar);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const uint32_t a_off = 2 * W_BYTES + cw * 64 * 128;  // this warpgroup's rows
+  float acc_a[64], acc_b[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc_a[i] = acc_b[i] = 0.f;
+  int it = 0;
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int e, r0, r1;
+    find_row_tile(offsets, E, S, BM, tile % n_rt, e, r0, r1);
+    const int c0 = (tile / n_rt) * BN;         // first column in the range
+    if (r0 + cw * 64 >= r1) {
+      // rows wholly past the tile (uniform in the warpgroup): no
+      // products, but the ring's stages are released
+      for (int step = 0; step < 2 * nk; ++step, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(full + 8 * st, (it / STAGES) & 1);
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+        __syncwarp();
+      }
+      continue;
+    }
+    const int row = r0 + cw * 64 + warp * 16 + lane / 4;
+    const int col0 = c0 + 2 * (lane % 4);
+
+    // dyu = dyt w3^T into acc_a: w3's range rows are the K-major B
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      // the rows were copied by cp.async (generic proxy) and are read by
+      // wgmma (async proxy)
+      fence_proxy_async();
+      const uint32_t s0 = ring + st * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n128k16_ss<0>(acc_a, desc_k_sw128(s0 + a_off + kk * 32),
+                               desc_k_sw128(s0 + kk * 32), ks > 0 || kk > 0);
+      wgmma_commit();
+      // the previous step's products are done: its stage is free
+      wgmma_wait<1>();
+      if (ks > 0) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+        __syncwarp();
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) reg_fence(acc_a[i]);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    __syncwarp();
+    // round(dyu), parked in the da chunk until this thread's epilogue
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= hw) continue;                 // hw is a multiple of 8
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        const int rb = wm + i * 16;
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          red_fragment(
-              acc[i][j], wstg, dx,
-              [&](int rr) -> long {
-                const int t = tok_s[rb + rr];
-                return t >= 0 ? (long)t * d : -1;
-              },
-              [](int) { return 1.f; }, n0 + wn + j * 16, d);
+        const int rr = row + 8 * i;
+        if (rr < r1)
+          *reinterpret_cast<uint32_t*>(da + (size_t)rr * ldc + col) =
+              pack_bf16(acc_a[4 * j + 2 * i], acc_a[4 * j + 2 * i + 1]);
       }
     }
-    // dw1, dw2 (BN x BH) = xt^T da, xt^T db: operand (n, r) = X[r][n], read
-    // column-major; dw3 (BH x BN) = (g y_swi)^T dyt likewise.
-    {
-      AccFrag a1[2], a2[2], a3[2];
+
+    // a = xt w1, b = xt w2
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      fence_proxy_async();
+      const uint32_t s0 = ring + st * STAGE_BYTES;
+      wgmma_fence();
 #pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        wmma::fill_fragment(a1[j], 0.f);
-        wmma::fill_fragment(a2[j], 0.f);
-        wmma::fill_fragment(a3[j], 0.f);
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t desc_x = desc_k_sw128(s0 + a_off + kk * 32);
+        const int acc = ks > 0 || kk > 0;
+        wgmma_m64n128k16_ss<1>(acc_a, desc_x,
+                               desc_mn_sw128(s0 + kk * 2048, W_BOX), acc);
+        wgmma_m64n128k16_ss<1>(
+            acc_b, desc_x, desc_mn_sw128(s0 + W_BYTES + kk * 2048, W_BOX),
+            acc);
       }
-#pragma unroll 2
-      for (int kk = 0; kk < BM; kk += 16) {
-        FragAc at;
-        FragB b[2];
-        wmma::load_matrix_sync(at, X + kk * LDN + gm, LDN);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Da + kk * LDH + gn + j * 16, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(a1[j], at, b[j], a1[j]);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], Db + kk * LDH + gn + j * 16, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(a2[j], at, b[j], a2[j]);
-        wmma::load_matrix_sync(at, Yg + kk * LDH + gm, LDH);
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::load_matrix_sync(b[j], DY + kk * LDN + gn + j * 16, LDN);
-#pragma unroll
-        for (int j = 0; j < 2; ++j) wmma::mma_sync(a3[j], at, b[j], a3[j]);
-      }
-      auto n_row = [&](int rr) -> long {
-        const int n = n0 + gm + rr;
-        return n < d ? (long)n * h : -1;
-      };
-      auto j_row = [&](int rr) -> long {
-        const int j = j0 + gm + rr;
-        return j < h ? (long)j * d : -1;
-      };
-      auto one = [](int) { return 1.f; };
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        red_fragment(a1[j], wstg, dw1e, n_row, one, j0 + gn + j * 16, h);
-        red_fragment(a2[j], wstg, dw2e, n_row, one, j0 + gn + j * 16, h);
-        red_fragment(a3[j], wstg, dw3e, j_row, one, n0 + gn + j * 16, d);
+      wgmma_commit();
+      wgmma_wait<1>();
+      if (ks > 0) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+        __syncwarp();
       }
     }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      reg_fence(acc_a[i]);
+      reg_fence(acc_b[i]);
+    }
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    __syncwarp();
+
+    // epilogue in float32: da = dyu g b silu'(a), db = dyu g silu(a),
+    // g y_swi, each rounded once; y_swi dyu summed per row
+    float g[2], dgp[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      g[i] = row + 8 * i < r1 ? g_slot[row + 8 * i] : 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int col = col0 + 8 * j;
+      if (col >= hw) continue;
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int rr = row + 8 * i;
+        if (rr >= r1) continue;
+        const size_t o = (size_t)rr * ldc + col;
+        const __nv_bfloat162 u2 = *reinterpret_cast<const __nv_bfloat162*>(
+            da + o);
+        const float u[2] = {__low2float(u2), __high2float(u2)};
+        float vda[2], vdb[2], vyg[2];
+#pragma unroll
+        for (int q = 0; q < 2; ++q) {
+          const float av = acc_a[4 * j + 2 * i + q];
+          const float bv = acc_b[4 * j + 2 * i + q];
+          const float sg = repro::fused::sigmoidf(av);
+          const float sa = av * sg;
+          const float ys = round_bf16(sa * bv);
+          dgp[i] += ys * u[q];
+          const float dys = u[q] * g[i];
+          vda[q] = dys * bv * (sg * (1.f + av * (1.f - sg)));
+          vdb[q] = dys * sa;
+          vyg[q] = ys * g[i];
+        }
+        *reinterpret_cast<uint32_t*>(da + o) = pack_bf16(vda[0], vda[1]);
+        *reinterpret_cast<uint32_t*>(db + o) = pack_bf16(vdb[0], vdb[1]);
+        *reinterpret_cast<uint32_t*>(yg + o) = pack_bf16(vyg[0], vyg[1]);
+      }
+    }
+    // the four lanes of a row hold its 128 columns: a fixed tree
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      dgp[i] += __shfl_xor_sync(0xffffffffu, dgp[i], 1);
+      dgp[i] += __shfl_xor_sync(0xffffffffu, dgp[i], 2);
+    }
+    if (lane % 4 == 0) {
+      float* p = part + (size_t)((h0 + c0) / BN) * S;
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (row + 8 * i < r1) p[row + 8 * i] = dgp[i];
+    }
+  }
+}
+
+// dg[s] = sum over the column tiles of part[ct][s], in order, for the slots
+// of an expert ([min(offsets[0], S), min(offsets[E], S))); 0 elsewhere.
+__global__ void sum_dgates(const float* __restrict__ part,
+                           const int* __restrict__ offsets, int S, int E,
+                           int n_ct, float* __restrict__ dg) {
+  const int lo = min(max(offsets[0], 0), S);
+  const int hi = min(max(offsets[E], lo), S);
+  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < S;
+       s += gridDim.x * blockDim.x) {
+    float v = 0.f;
+    if (s >= lo && s < hi)
+      for (int ct = 0; ct < n_ct; ++ct) v += part[(size_t)ct * S + s];
+    dg[s] = v;
   }
 }
 
@@ -538,28 +515,118 @@ bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 
 // x, dy: (L, d); g_slot: (S,) float32; idx: (S,) int32; offsets: (E+1,)
 // int32; w1, w2: (E, d, h); w3: (E, h, d), all of x's dtype.  Outputs, all
-// float32 and zeroed by the caller: dx (L, d), dg (S,), dw1, dw2 (E, d, h),
-// dw3 (E, h, d).
+// float32: dx (L, d), zeroed by the caller; dg (S,), dw1, dw2 (E, d, h),
+// dw3 (E, h, d).  With a workspace (bf16, d and h multiples of 8, 16-byte
+// aligned pointers: the caller checks): ws holds three bf16 (S, hc) chunks,
+// hc a multiple of 128 (kernels/fused_moe.py:bwd_pass_width), and part a
+// float32 (ceil(h / 128), S); every output but dx is written whole.
+// Without one (ws null: float32, or widths or pointers the tensor-core path
+// does not take), every output must be zeroed by the caller.
 REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
                                   const float* g_slot, const int* idx,
                                   const int* offsets, const void* w1,
                                   const void* w2, const void* w3, float* dx,
                                   float* dg, float* dw1, float* dw2,
-                                  float* dw3, int S, int L, int d, int h,
-                                  int E, cudaStream_t stream) {
+                                  float* dw3, void* ws, float* part, int hc,
+                                  int S, int L, int d, int h, int E,
+                                  cudaStream_t stream) {
   if (E < 1 || d <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   if (S <= 0 || L <= 0) return 0;
-  if (dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
-      repro::aligned16(x) && repro::aligned16(dy) && repro::aligned16(w1) &&
-      repro::aligned16(w2) && repro::aligned16(w3)) {
-    cudaFuncSetAttribute(bwd_wmma_kernel,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         SMEM_BYTES);
-    dim3 grid(max_row_tiles(S, E, BM), (h + BH - 1) / BH);
-    bwd_wmma_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-        (const bf16*)x, (const bf16*)dy, g_slot, idx, offsets,
-        (const bf16*)w1, (const bf16*)w2, (const bf16*)w3, dx, dg, dw1, dw2,
-        dw3, S, L, d, h, E);
+  const bool fast = dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
+                    repro::aligned16(x) && repro::aligned16(dy) &&
+                    repro::aligned16(w1) && repro::aligned16(w2) &&
+                    repro::aligned16(w3);
+  if (ws != nullptr) {
+    if (!fast || part == nullptr || !repro::aligned16(ws) || hc <= 0 ||
+        hc % bup::BN != 0)
+      return (int)cudaErrorInvalidValue;
+    const int n_sm = sm_count();
+    if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
+    // weights: w1, w2 (E, d, h) read MN-major by the first kernel and
+    // K-major (TRANS_B) by dx; w3 (E, h, d) read K-major by the first
+    CUtensorMap m1, m2, m3, m1t, m2t;
+    const cuuint64_t dw_[3] = {(cuuint64_t)h, (cuuint64_t)d, (cuuint64_t)E};
+    const cuuint64_t sw[2] = {(cuuint64_t)h * 2, (cuuint64_t)d * h * 2};
+    const cuuint32_t bw[3] = {64, (cuuint32_t)bup::BK, 1};
+    const cuuint32_t bt[3] = {(cuuint32_t)down::BK, (cuuint32_t)down::BN, 1};
+    const cuuint64_t d3[3] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)E};
+    const cuuint64_t s3[2] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2};
+    const cuuint32_t b3[3] = {(cuuint32_t)bup::BK, (cuuint32_t)bup::BN, 1};
+    const auto sw128 = CU_TENSOR_MAP_SWIZZLE_128B;
+    if (!tensor_map(&m1, w1, 3, dw_, sw, bw, sw128) ||
+        !tensor_map(&m2, w2, 3, dw_, sw, bw, sw128) ||
+        !tensor_map(&m1t, w1, 3, dw_, sw, bt, sw128) ||
+        !tensor_map(&m2t, w2, 3, dw_, sw, bt, sw128) ||
+        !tensor_map(&m3, w3, 3, d3, s3, b3, sw128))
+      return (int)cudaErrorInvalidValue;
+    auto k_dw12 = moe_dw_wgmma<true, true, false, float>;
+    auto k_dw3 = moe_dw_wgmma<true, false, true, float>;
+    auto k_dx = moe_down_wgmma<true, true>;
+    allow_smem(moe_bwd_up_wgmma, bup::SMEM);
+    allow_smem(k_dw12, wgrad::SMEM);
+    allow_smem(k_dw3, wgrad::SMEM);
+    allow_smem(k_dx, down::SMEM);
+    bf16* da = static_cast<bf16*>(ws);
+    bf16* db = da + (size_t)S * hc;
+    bf16* yg = db + (size_t)S * hc;
+    const int row_tiles = max_row_tiles(S, E, bup::BM);
+    const int grid_dx =
+        std::min(row_tiles * ((d + down::BN - 1) / down::BN), n_sm);
+    const int d_tiles = (d + wgrad::BM - 1) / wgrad::BM;
+    for (int h0 = 0; h0 < h; h0 += hc) {
+      const int hw = std::min(hc, h - h0);
+      // the chunks as (S, hw) matrices, rows hc apart: 64 x 64 boxes for
+      // the weight gradients, 64 x 128 for dx's A
+      CUtensorMap mda, mdb, myg, mda_x, mdb_x;
+      if (!tensor_map_2d(&mda, da, S, hw, hc, wgrad::BK, 64, sw128) ||
+          !tensor_map_2d(&mdb, db, S, hw, hc, wgrad::BK, 64, sw128) ||
+          !tensor_map_2d(&myg, yg, S, hw, hc, wgrad::BK, 64, sw128) ||
+          !tensor_map_2d(&mda_x, da, S, hw, hc, down::BM, 64, sw128) ||
+          !tensor_map_2d(&mdb_x, db, S, hw, hc, down::BM, 64, sw128))
+        return (int)cudaErrorInvalidValue;
+      const int grid_up =
+          std::min(row_tiles * ((hw + bup::BN - 1) / bup::BN), n_sm);
+      moe_bwd_up_wgmma<<<grid_up, bup::THREADS, bup::SMEM, stream>>>(
+          m1, m2, m3, (const bf16*)x, (const bf16*)dy, g_slot, idx, offsets,
+          da, db, yg, part, S, L, d, E, h0, hw, hc);
+      // the range's outputs for the TMA stores, float32: dw1, dw2 as
+      // (E, d, hw) matrices of rows h apart from column h0, in 32 x 64
+      // boxes; dw3 as (E, hw, d) from row h0, in 32 x 128 boxes
+      CUtensorMap mo1, mo2, mo3;
+      const cuuint64_t d12[3] = {(cuuint64_t)hw, (cuuint64_t)d,
+                                 (cuuint64_t)E};
+      const cuuint64_t s12[2] = {(cuuint64_t)h * 4, (cuuint64_t)d * h * 4};
+      const cuuint32_t b12[3] = {32, 64, 1};
+      const cuuint64_t do3[3] = {(cuuint64_t)d, (cuuint64_t)hw,
+                                 (cuuint64_t)E};
+      const cuuint64_t so3[2] = {(cuuint64_t)d * 4, (cuuint64_t)h * d * 4};
+      const cuuint32_t bo3[3] = {32, 128, 1};
+      const auto f32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+      if (!tensor_map(&mo1, dw1 + h0, 3, d12, s12, b12, sw128, f32) ||
+          !tensor_map(&mo2, dw2 + h0, 3, d12, s12, b12, sw128, f32) ||
+          !tensor_map(&mo3, dw3 + (size_t)h0 * d, 3, do3, so3, bo3, sw128,
+                      f32))
+        return (int)cudaErrorInvalidValue;
+      const int t12 = E * d_tiles * ((hw + 127) / 128);
+      k_dw12<<<std::min(t12, n_sm), wgrad::THREADS, wgrad::SMEM, stream>>>(
+          mda, mda, mdb, mo1, mo2, (const bf16*)x, d, da, db, hc, idx,
+          offsets, S, L, d, hw, E);
+      // dw3 as the transpose of (dy rows)^T (g y_swi)
+      const int t3 = E * d_tiles * ((hw + wgrad::BN - 1) / wgrad::BN);
+      k_dw3<<<std::min(t3, n_sm), wgrad::THREADS, wgrad::SMEM, stream>>>(
+          myg, myg, myg, mo3, mo3, (const bf16*)dy, d, yg, yg, hc, idx,
+          offsets, S, L, d, hw, E);
+      k_dx<<<grid_dx, down::THREADS, down::SMEM, stream>>>(
+          mda_x, m1t, mdb_x, m2t, idx, nullptr, offsets, dx, S, L, d, E, h0,
+          hw, 1);
+      const cudaError_t err = cudaGetLastError();
+      if (err != cudaSuccess) return (int)err;
+    }
+    const int n_ct = (h + bup::BN - 1) / bup::BN;
+    sum_dgates<<<std::min((S + 255) / 256, 4 * n_sm), 256, 0, stream>>>(
+        part, offsets, S, E, n_ct, dg);
+  } else if (fast) {
+    return (int)cudaErrorInvalidValue;
   } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {
     dim3 grid(max_row_tiles(S, E, SBM), (h + SBH - 1) / SBH);
     if (dtype == REPRO_DTYPE_BF16)

@@ -220,7 +220,8 @@ REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
       if (err != cudaSuccess) return (int)err;
       moe_down_wgmma<true, false>
           <<<grid_b, down::THREADS, down::SMEM, stream>>>(
-              mc, m3, idx, g_slot, offsets, y, S, L, d, E, h0, hw);
+              mc, m3, mc, m3, idx, g_slot, offsets, y, S, L, d, E, h0, hw,
+              0);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }

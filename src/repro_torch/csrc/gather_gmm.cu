@@ -252,7 +252,8 @@ REPRO_API int repro_gather_gmm(int dtype, const void* x, const int* idx,
                             : moe_down_wgmma<false, false>;
       allow_smem(kernel, down::SMEM);
       kernel<<<grid, down::THREADS, down::SMEM, stream>>>(
-          ma, mw1, nullptr, nullptr, offsets, y, S, L, h, E, 0, d);
+          ma, mw1, ma, mw1, nullptr, nullptr, offsets, y, S, L, h, E, 0, d,
+          0);
     }
   } else if (dtype == REPRO_DTYPE_BF16) {
     launch_simt<bf16>(x, idx, offsets, w1, w2, y, a_out, b_out, S, L, d, h,

@@ -5,160 +5,48 @@
 // rows [offsets[e], offsets[e+1]) and gets
 //     dw[e] = lhs[rows_e]^T @ dout[rows_e]                    (d, h)
 // summed in float32 and stored once in lhs's dtype.  Experts with no rows
-// get exact zeros.
+// get exact zeros; rows at or past offsets[E] contribute nothing.
 //
 // The TPU kernel walks row tiles in grid order and accumulates an expert's
 // (1, d, h) block across consecutive grid steps.  A Hopper grid has no
 // order, so nothing is accumulated across blocks and there are no atomics:
-// each block owns one (d tile, h tile, expert) output tile and walks that
-// expert's whole row range itself, BK rows per step, rows past the range
-// zero-filled.  The lhs chunk (BK rows x BM columns of d) sits in shared
-// memory as it lies in memory and is read as a column-major WMMA matrix_a,
-// which is its transpose without a copy; the dout chunk is a row-major
-// matrix_b.  The float32 accumulators cover the whole range and are
-// stored once: the same single rounding as the reference.
+// each output tile has one block, which walks that expert's whole row
+// range itself, and a repeated call gives the same bits.  The bf16 path is
+// moe_wgmma.cuh's moe_dw_wgmma (shared with the fused MoE backward's three
+// weight gradients), persistent and warp-specialized: 128 x 256 output
+// tiles, a producer warpgroup filling a 3-stage ring of 64 slot rows of
+// lhs and dout by TMA (the last, partial step of an expert by cp.async
+// with the rows past its end zero-filled, so they are never read), two
+// consumer warpgroups running m64n256k16 with both operands MN-major from
+// shared memory: a lhs box is its transpose as wgmma reads it, so no copy
+// is made.  The float32 accumulators cover the whole row range and are
+// rounded once, as the reference does, then leave by TMA stores that
+// overlap the next tile.  Tiles run along the shorter side of dw first.
+// No split of the contraction: at the training shape (S = 8192 slots,
+// E = 8, d = 4096, h = 14336) a call has 14,336 tiles for 132 SMs, and an
+// expert's tiles take its whole row range.
+//
+// Measured on an H100 80GB HBM3 at 700 W (tools/kernel_ab.py, dw1 / dw3 at
+// the training shape, PERF.md): A from shared memory 1.82 / 1.86 ms
+// against 2.06 / 2.10 ms with A loaded into registers by ldmatrix.trans
+// (waiting for each step's products before reloading them); the TMA-store
+// epilogue 1.43 / 1.70 against 1.81 / 1.87 ms with stores from the
+// registers (with no stores at all, 1.20 / 1.25 ms); the cp.async partial
+// step cost 2% against loading it whole by TMA.
 //
 // Bound: operations (2 S d h: ~0.96 TFLOP for one dW1 at S = 8192 slots,
-// d = 4096, h = 14336, against ~0.6 GB of operands).  Design: bf16 tensor
-// cores through WMMA (16x16x16, float32 accumulate) on 128 x 64 output
-// tiles, 8 warps of 32 x 32, fed by a four-stage cp.async ring of 16-byte
-// copies, as the gather-GMM kernel.  wgmma, TMA and split-K for experts
-// with many rows are later work.  float32 inputs, and d or h not a multiple
-// of 8, take a plain float32-FMA tiled kernel with scalar, masked loads.
+// d = 4096, h = 14336, against ~0.6 GB of operands).  float32 inputs, and
+// d or h not a multiple of 8 (or unaligned pointers), take a plain
+// float32-FMA tiled kernel with scalar, masked loads.
 
-#include <mma.h>
+#include <algorithm>
 
 #include "common.cuh"
+#include "moe_wgmma.cuh"
 
 namespace {
 
 using bf16 = __nv_bfloat16;
-
-constexpr int BM = 128, BN = 64, BK = 32;
-constexpr int STAGES = 4;
-constexpr int LDA = BM + 8;  // lhs chunk: BK rows of BM d-columns
-constexpr int LDB = BN + 8;  // dout chunk: BK rows of BN h-columns
-constexpr int LDC = BN + 4;  // float32 epilogue staging
-constexpr int THREADS = 256;
-constexpr int A_STAGE = BK * LDA;
-constexpr int B_STAGE = BK * LDB;
-constexpr int PIPE_BYTES = STAGES * (A_STAGE + B_STAGE) * (int)sizeof(bf16);
-constexpr int EPI_BYTES = BM * LDC * (int)sizeof(float);
-constexpr int SMEM_BYTES = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
-
-__global__ void __launch_bounds__(THREADS)
-dw_wmma_kernel(const bf16* __restrict__ lhs, const bf16* __restrict__ dout,
-               const int* __restrict__ offsets, bf16* __restrict__ dw, int S,
-               int d, int h) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* Bs = As + STAGES * A_STAGE;
-  float* Cs = reinterpret_cast<float*>(smem);
-
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;  // d offset
-  const int n0 = blockIdx.y * BN;  // h offset
-  const int e = blockIdx.z;
-  const int lo = min(offsets[e], S);
-  const int hi = max(lo, min(offsets[e + 1], S));
-  const int nsteps = (hi - lo + BK - 1) / BK;
-
-  // Load assignment: lhs chunk = BK rows x BM/8 16-byte pieces (2 per
-  // thread); dout chunk = BK rows x BN/8 pieces (1 per thread).
-  int a_row[2], a_col[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const int piece = tid + c * THREADS;
-    a_row[c] = piece / (BM / 8);
-    a_col[c] = (piece % (BM / 8)) * 8;
-  }
-  const int b_row = tid / (BN / 8);
-  const int b_col = (tid % (BN / 8)) * 8;
-
-  auto load_stage = [&](int step, int stage) {
-    const int r0 = lo + step * BK;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int r = r0 + a_row[c];
-      const int col = m0 + a_col[c];
-      const bool ok = r < hi && col < d;
-      repro::cp_async16(As + stage * A_STAGE + a_row[c] * LDA + a_col[c],
-                        ok ? lhs + (size_t)r * d + col : lhs, ok);
-    }
-    const int r = r0 + b_row;
-    const int col = n0 + b_col;
-    const bool ok = r < hi && col < h;
-    repro::cp_async16(Bs + stage * B_STAGE + b_row * LDB + b_col,
-                      ok ? dout + (size_t)r * h + col : dout, ok);
-  };
-
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;  // 4 x 2 warps, 32 x 32 each
-  const int wn = (warp % 2) * 32;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  // Ring of STAGES chunks, as in gather_gmm.cu: at step s the wait leaves
-  // the newest STAGES - 2 groups in flight, so step s's chunk has landed,
-  // and the barrier frees the stage that the next load reuses.
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    repro::cp_async_commit();
-  }
-  for (int s = 0; s < nsteps; ++s) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = s + STAGES - 1;
-    if (nxt < nsteps) load_stage(nxt, nxt % STAGES);
-    repro::cp_async_commit();
-    const bf16* A = As + (s % STAGES) * A_STAGE;
-    const bf16* B = Bs + (s % STAGES) * B_STAGE;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      // A(i, k) = lhs[k][i]: the chunk read column-major is lhs^T.
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], A + kk * LDA + wm + i * 16, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B + kk * LDB + wn + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-    }
-  }
-  repro::cp_async_wait<0>();
-  __syncthreads();  // the epilogue reuses the ring's shared memory
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(Cs + (wm + i * 16) * LDC + wn + j * 16,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  __syncthreads();
-  bf16* out = dw + (size_t)e * d * h;
-  for (int c = tid; c < BM * (BN / 8); c += THREADS) {
-    const int r = c / (BN / 8);
-    const int cc = (c % (BN / 8)) * 8;
-    const int gr = m0 + r, gc = n0 + cc;
-    if (gr >= d || gc >= h) continue;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = __float2bfloat16_rn(Cs[r * LDC + cc + u]);
-    *reinterpret_cast<uint4*>(out + (size_t)gr * h + gc) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
 
 // General path (float32 or bf16, any d and h): float32 FMA on 64 x 64
 // output tiles, SBK rows per step, each thread a 4 x 4 sub-tile.
@@ -237,13 +125,33 @@ REPRO_API int repro_gmm_dw(int dtype, const void* lhs, const void* dout,
   if (dtype == REPRO_DTYPE_BF16) {
     const bool vec = d % 8 == 0 && h % 8 == 0 && repro::aligned16(lhs) &&
                      repro::aligned16(dout) && repro::aligned16(dw);
-    if (vec) {
-      cudaFuncSetAttribute(dw_wmma_kernel,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           SMEM_BYTES);
-      dim3 grid((d + BM - 1) / BM, (h + BN - 1) / BN, E);
-      dw_wmma_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-          (const bf16*)lhs, (const bf16*)dout, offsets, (bf16*)dw, S, d, h);
+    if (vec && S > 0) {
+      using namespace repro::hopper;
+      const int n_sm = sm_count();
+      if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
+      // lhs and dout rows in 64 x 64 boxes; dw as (E, d, h) in 64 x 64
+      // boxes for the TMA store
+      CUtensorMap ma, mb, mo;
+      const cuuint64_t dims[3] = {(cuuint64_t)h, (cuuint64_t)d,
+                                  (cuuint64_t)E};
+      const cuuint64_t strides[2] = {(cuuint64_t)h * 2,
+                                     (cuuint64_t)d * h * 2};
+      const cuuint32_t box[3] = {64, 64, 1};
+      if (!tensor_map_2d(&ma, lhs, S, d, d, wgrad::BK, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B) ||
+          !tensor_map_2d(&mb, dout, S, h, h, wgrad::BK, 64,
+                         CU_TENSOR_MAP_SWIZZLE_128B) ||
+          !tensor_map(&mo, dw, 3, dims, strides, box,
+                      CU_TENSOR_MAP_SWIZZLE_128B))
+        return (int)cudaErrorInvalidValue;
+      auto kernel = moe_dw_wgmma<false, false, false, bf16>;
+      allow_smem(kernel, wgrad::SMEM);
+      const int tiles = E * ((d + wgrad::BM - 1) / wgrad::BM) *
+                        ((h + wgrad::BN - 1) / wgrad::BN);
+      kernel<<<std::min(tiles, n_sm), wgrad::THREADS, wgrad::SMEM,
+               stream>>>(ma, mb, mb, mo, mo, (const bf16*)lhs, d,
+                         (const bf16*)dout, (const bf16*)dout, h, nullptr,
+                         offsets, S, S, d, h, E);
     } else {
       launch_simt<bf16>(lhs, dout, offsets, dw, S, d, h, E, stream);
     }

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the port's wgmma + TMA kernels
 // (fused_swiglu.cu's bwd_x and bwd_w, moe_wgmma.cuh's kernels for
-// fused_moe_fwd.cu and gather_gmm.cu, flash_attention.cu):
-// mbarriers, TMA tile loads, ldmatrix, wgmma shared-memory descriptors and
-// the wgmma instructions, and the host-side tensor-map encoder.
+// fused_moe_fwd.cu, fused_moe_bwd.cu, gather_gmm.cu and gmm_dw.cu,
+// flash_attention.cu): mbarriers, TMA tile loads, cp.async and ldmatrix,
+// wgmma shared-memory descriptors and the wgmma instructions, and the
+// host-side tensor-map encoder.
 //
 // Layouts.  A TMA box whose inner extent is 64 bf16 (128 bytes), loaded with
 // the 128-byte swizzle, lands as rows of 128 bytes whose 16-byte pieces are
@@ -135,6 +136,41 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3), "r"(bar)
       : "memory");
+}
+
+// TMA store: the box at shared address src to coordinates (c0 innermost,
+// c1, c2) of a tensor map, in the bulk async-group of this thread; elements
+// outside the tensor are not written.
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3}], [%4];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until at most N of this thread's bulk groups are still reading
+// their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Waits until at most N of this thread's bulk groups are incomplete.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// 16-byte global -> shared copy to a shared-memory address; pred false
+// zero-fills the 16 bytes and reads nothing.
+__device__ __forceinline__ void cp_async16_s(uint32_t dst, const void* src,
+                                             bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -377,16 +413,18 @@ inline EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A bf16 tensor of `rank` dimensions (dims innermost first, strides in
-// bytes of dimensions 1.. ) read in boxes of `box`; out-of-bounds
-// elements read as zeros.
-inline bool tensor_map(CUtensorMap* map, const void* ptr, int rank,
-                       const cuuint64_t* dims, const cuuint64_t* strides,
-                       const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+// A bf16 (or `type`) tensor of `rank` dimensions (dims innermost first,
+// strides in bytes of dimensions 1.. ) read or written in boxes of `box`;
+// out-of-bounds elements read as zeros and are not written.
+inline bool tensor_map(
+    CUtensorMap* map, const void* ptr, int rank, const cuuint64_t* dims,
+    const cuuint64_t* strides, const cuuint32_t* box,
+    CUtensorMapSwizzle swizzle,
+    CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
+  return encode(map, type, rank,
                 const_cast<void*>(ptr), dims, strides, box, unit,
                 CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_128B,

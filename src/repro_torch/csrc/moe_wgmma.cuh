@@ -1,13 +1,14 @@
-// The two Hopper GEMM kernels over per-expert row tiles that the fused MoE
-// forward (fused_moe_fwd.cu) and gather-GMM (gather_gmm.cu) share.  Both
-// are persistent (one block per SM walks the tiles, row tiles fastest, so
-// the blocks at work share their weight tiles in L2) and warp-specialized:
-// a producer keeps a 4-stage ring of shared memory full (mbarriers full /
-// empty), two consumer warpgroups of 64 rows each run wgmma into float32
-// accumulators.  A tile is 128 slot rows of one expert (fused_moe.cuh:
-// find_row_tile); rows past the expert's end are computed and never
-// stored, columns past the output's width are zero-filled by TMA and
-// skipped, the tail of the contraction reads zeros.
+// The Hopper GEMM kernels over per-expert slot rows that the fused MoE
+// forward and backward (fused_moe_fwd.cu, fused_moe_bwd.cu), gather-GMM
+// (gather_gmm.cu) and the grouped weight gradient (gmm_dw.cu) share.  All
+// are persistent (one block per SM walks the tiles) and warp-specialized:
+// a producer keeps a ring of shared memory full (mbarriers full / empty),
+// two consumer warpgroups of 64 rows each run wgmma into float32
+// accumulators.  In up and down a tile is 128 slot rows of one expert
+// (fused_moe.cuh: find_row_tile), row tiles fastest, so the blocks at work
+// share their weight tiles in L2; rows past the expert's end are computed
+// and never stored, columns past the output's width are zero-filled by TMA
+// and skipped, the tail of the contraction reads zeros.
 //
 //   up   (moe_up_wgmma)   y = round(silu(x w1) (x w2)) on 128 x 128 tiles
 //        of (slot rows, columns h0 + [0, hw)): a producer warpgroup gathers
@@ -17,16 +18,33 @@
 //        wgmma's register-A layout and run m64n128k16 against w1 and w2
 //        (MN-major in shared memory) into the a and b accumulators; the
 //        epilogue stores y and, with SAVE_AB, round(a) and round(b).
-//   down (moe_down_wgmma) acc = A w on 128 x 256 tiles of (slot rows,
-//        columns of n): rows of A (contiguous in slot order) and weight
-//        tiles arrive by TMA; m64n256k16 from shared memory, the weight
-//        MN-major (stored (E, K, n)) or with TRANS_B K-major (stored
-//        (E, n, K), wgmma's own B layout); the epilogue either adds
-//        g_slot[s] acc into a float32 y[idx[s]] with float4 reductions
-//        (SCATTER: the fused forward) or stores round(acc) into row s of a
-//        bf16 output (gather-GMM).
-// The rows of a bf16 output at or past offsets[E] belong to no tile: the
-// consumers of every block zero a share of them after their last tile.
+//   down (moe_down_wgmma) acc = A w (+ A2 w2) on 128 x 256 tiles of
+//        (slot rows, columns of n): rows of A (contiguous in slot order)
+//        and weight tiles arrive by TMA; m64n256k16 from shared memory, the
+//        weight MN-major (stored (E, K, n)) or with TRANS_B K-major (stored
+//        (E, n, K), wgmma's own B layout); a second product (A2, w2), when
+//        asked for, runs on in the same accumulator (the fused backward's
+//        dx = da w1^T + db w2^T); the epilogue either adds g_slot[s] acc
+//        (acc alone without gates) into a float32 y[idx[s]] with float4
+//        reductions (SCATTER: the fused forward and backward) or stores
+//        round(acc) into row s of a bf16 output (gather-GMM).
+//   The rows of a bf16 output of up or down at or past offsets[E] belong
+//   to no tile: the consumers of every block zero a share of them after
+//   their last tile.
+//   dw   (moe_dw_wgmma)   dw[e] = A[rows_e]^T B[rows_e], the grouped weight
+//        gradient, on 128 x 256 tiles of one expert's output (with DUAL,
+//        128 columns of each of two outputs that share A; with TRANS_OUT
+//        stored transposed); the block walks the expert's whole row range,
+//        so nothing is summed across blocks.  Both operands are
+//        row-contiguous in slot order, so the contraction runs over rows
+//        and both are wgmma's MN-major operands straight from the
+//        128-byte-swizzled TMA boxes, 3 stages of 64 rows; a gathered A
+//        (rows idx[s] of x or dy, the fused backward) and the last, partial
+//        step of an expert are copied by cp.async into the same swizzled
+//        layout, rows past the expert's end zero-filled in both operands.
+//        The epilogue stages each warpgroup's tile in shared memory in the
+//        output's box layout and one thread writes it with TMA stores that
+//        run on under the next tile's products.
 //
 // Included by one source each, inside an anonymous namespace: every
 // including source keeps its own copy of the kernels.
@@ -279,17 +297,21 @@ constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
 // tm_a: the (S, K') rows of A, (BM x 64) boxes; the contraction runs over
 // its columns [0, K).  tm_w: (E, K', n) in 64 x BK boxes, or with TRANS_B
 // (E, n, K') in BK x 256 boxes; the contraction runs over its rows (with
-// TRANS_B its columns) [k_off, k_off + K).  SCATTER: out is the float32
-// (L, n) y, zeroed by the caller, and row s adds into y[idx[s]] with gate
-// g_slot[s]; otherwise out is the bf16 (S, n) output, row s lands in row
-// s and rows at or past offsets[E] are zeroed.
+// TRANS_B its columns) [k_off, k_off + K).  With two != 0 the product of
+// tm_a2 and tm_w2 (laid out as tm_a and tm_w) is added over the same
+// ranges; otherwise they are not read.  SCATTER: out is the float32 (L, n)
+// y, zeroed by the caller, and row s adds into y[idx[s]] with gate
+// g_slot[s] (1 when g_slot is null); otherwise out is the bf16 (S, n)
+// output, row s lands in row s and rows at or past offsets[E] are zeroed.
 template <bool SCATTER, bool TRANS_B>
 __global__ void __launch_bounds__(down::THREADS, 1)
 moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
                const __grid_constant__ CUtensorMap tm_w,
+               const __grid_constant__ CUtensorMap tm_a2,
+               const __grid_constant__ CUtensorMap tm_w2,
                const int* __restrict__ idx, const float* __restrict__ g_slot,
                const int* __restrict__ offsets, void* __restrict__ out,
-               int S, int L, int n, int E, int k_off, int K) {
+               int S, int L, int n, int E, int k_off, int K, int two) {
   using namespace down;
   extern __shared__ unsigned char smem[];
   const uint32_t ring = (smem_u32(smem) + 1023u) & ~1023u;
@@ -298,7 +320,8 @@ moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
 
   const int n_rt = count_row_tiles(offsets, E, S, BM);
   const int n_tiles = n_rt * ((n + BN - 1) / BN);
-  const int nk = (K + BK - 1) / BK;
+  const int nk1 = (K + BK - 1) / BK;           // steps of one product
+  const int nk = two ? 2 * nk1 : nk1;
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
@@ -323,15 +346,18 @@ moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
           if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
           const uint32_t s0 = ring + st * STAGE_BYTES;
           const uint32_t bar = full + 8 * st;
-          const int k0 = ks * BK;
+          const bool second = ks >= nk1;
+          const int k0 = (second ? ks - nk1 : ks) * BK;
+          const CUtensorMap* ma = second ? &tm_a2 : &tm_a;
+          const CUtensorMap* mw = second ? &tm_w2 : &tm_w;
           mbar_expect_tx(bar, STAGE_BYTES);
-          tma_load(s0, &tm_a, k0, r0, bar);
+          tma_load(s0, ma, k0, r0, bar);
           if (TRANS_B) {
-            tma_load(s0 + A_BYTES, &tm_w, k_off + k0, n0, e, bar);
+            tma_load(s0 + A_BYTES, mw, k_off + k0, n0, e, bar);
           } else {
 #pragma unroll
             for (int q = 0; q < BN / 64; ++q)
-              tma_load(s0 + A_BYTES + q * B_BOX, &tm_w, n0 + q * 64,
+              tma_load(s0 + A_BYTES + q * B_BOX, mw, n0 + q * 64,
                        k_off + k0, e, bar);
           }
         }
@@ -393,7 +419,7 @@ moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
       const int s = r0 + cw * 64 + my_row;
       int t = s < r1 ? idx[s] : -1;
       if (t >= L) t = -1;
-      const float g = t >= 0 ? g_slot[s] : 0.f;
+      const float g = t < 0 ? 0.f : g_slot != nullptr ? g_slot[s] : 1.f;
       float* yrow = y + (size_t)(t < 0 ? 0 : t) * n + n0 + my_col;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
@@ -433,6 +459,304 @@ moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
   if (!SCATTER)
     zero_tail_rows(offsets, E, S, n, n, static_cast<__nv_bfloat16*>(out),
                    nullptr, nullptr, threadIdx.x - 128, 128 * CONSUMERS);
+}
+
+// ---------------------------------------------------------------------------
+// dw: (A rows, B rows) -> dw[e] = A[rows_e]^T B[rows_e], the grouped weight
+// gradient
+// ---------------------------------------------------------------------------
+
+namespace wgrad {
+constexpr int BM = 128;                      // rows of dw: 64 a warpgroup
+constexpr int BN = 256;                      // columns of dw (DUAL: 2 x 128)
+constexpr int BK = 64, STAGES = 3;           // slot rows per stage
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int BOX = BK * 64 * 2;             // one 64-wide box of BK rows
+constexpr int A_BYTES = (BM / 64) * BOX;
+constexpr int B_BYTES = (BN / 64) * BOX;
+constexpr int STAGE_BYTES = A_BYTES + B_BYTES;
+static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle alignment");
+static_assert(BM == 128 && BN == 256, "operands are copied as pairs of boxes");
+// each consumer warpgroup's output staging for the TMA store: its 64 x 256
+// tile in bf16, or one half of it in float32
+constexpr int STG_BYTES = 32 * 1024;
+constexpr int SMEM =
+    STAGES * STAGE_BYTES + CONSUMERS * STG_BYTES + 1024 + 2 * STAGES * 8;
+}  // namespace wgrad
+
+// Copies BK rows of a bf16 operand into two 64-column boxes at dst in the
+// layout a TMA box with the 128-byte swizzle gives: rows of 128 bytes,
+// 16-byte piece p of row r at position p ^ (r % 8).  Row r is slot
+// k0 + r; it reads source row idx[k0 + r] (k0 + r itself when idx is
+// null) at columns col0 + 64 q + [0, 64) into box q.  Slots at or past hi,
+// token ids outside [0, L) and columns at or past ncols read zeros.
+// Thread t of the producer warpgroup copies piece t % 8 of rows
+// t / 8 + 16 c (eight lanes read a row's 128 bytes).
+__device__ __forceinline__ void load_rows_sw128(
+    uint32_t dst, const __nv_bfloat16* __restrict__ src, int ld, int col0,
+    int ncols, const int* __restrict__ idx, int k0, int hi, int L, int t) {
+  const int piece = t % 8;
+#pragma unroll
+  for (int c = 0; c < wgrad::BK / 16; ++c) {
+    const int r = t / 8 + 16 * c;
+    const int s = k0 + r;
+    int row = s < hi ? (idx != nullptr ? idx[s] : s) : -1;
+    if (idx != nullptr && row >= L) row = -1;
+    const uint32_t at = dst + r * 128 + ((piece ^ (r & 7)) * 16);
+#pragma unroll
+    for (int q = 0; q < 2; ++q) {
+      const int col = col0 + 64 * q + 8 * piece;
+      const bool ok = row >= 0 && col < ncols;
+      cp_async16_s(at + q * wgrad::BOX,
+                   ok ? src + (size_t)row * ld + col : src, ok);
+    }
+  }
+}
+
+__device__ __forceinline__ void st_shared_pair(uint32_t at, float a,
+                                               float b) {
+  asm volatile("st.shared.v2.f32 [%0], {%1, %2};\n" ::"r"(at), "f"(a),
+               "f"(b)
+               : "memory");
+}
+__device__ __forceinline__ void st_shared_f32(uint32_t at, float a) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(at), "f"(a) : "memory");
+}
+__device__ __forceinline__ void st_shared_u32(uint32_t at, uint32_t a) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at), "r"(a) : "memory");
+}
+
+// Expert e owns slot rows [min(offsets[e], S), min(offsets[e+1], S)); its
+// output is the M x N matrix e of the 3-D (E, M, N) tensor map tm_o0 (DUAL:
+// and of tm_o1, N columns each; TRANS_OUT: the N x M matrix e of an
+// (E, N, M) map).  The output maps have boxes of 128 bytes by 64 rows
+// (TRANS_OUT: by 128 rows) with the 128-byte swizzle, of OutT.  A is (S, M)
+// rows lda apart (a_src), B is (S, N) rows ldb apart (b0_src; DUAL: b1_src
+// for out1).  tm_a, tm_b0, tm_b1 are the same matrices as 64 x BK TMA
+// boxes with the 128-byte swizzle (tm_a is not read with GATHER; tm_b1 =
+// tm_b0 and b1_src = b0_src without DUAL).  With GATHER, row s of A is row
+// idx[s] of a_src (ids outside [0, L) read zeros).  Every output element
+// is written once: tiles of an expert with no rows store zeros.  M and N
+// are multiples of 8; the row strides give 16-byte aligned rows.
+template <bool GATHER, bool DUAL, bool TRANS_OUT, typename OutT>
+__global__ void __launch_bounds__(wgrad::THREADS, 1)
+moe_dw_wgmma(const __grid_constant__ CUtensorMap tm_a,
+             const __grid_constant__ CUtensorMap tm_b0,
+             const __grid_constant__ CUtensorMap tm_b1,
+             const __grid_constant__ CUtensorMap tm_o0,
+             const __grid_constant__ CUtensorMap tm_o1,
+             const __nv_bfloat16* __restrict__ a_src, int lda,
+             const __nv_bfloat16* __restrict__ b0_src,
+             const __nv_bfloat16* __restrict__ b1_src, int ldb,
+             const int* __restrict__ idx, const int* __restrict__ offsets,
+             int S, int L, int M, int N, int E) {
+  using namespace wgrad;
+  constexpr int BNO = DUAL ? BN / 2 : BN;      // columns of each output
+  constexpr int EB = sizeof(OutT);
+  constexpr int BOX_COLS = 128 / EB;           // output box: 128-byte rows
+  constexpr int CH_COLS = STG_BYTES / (64 * EB);  // columns staged at once
+  static_assert(!TRANS_OUT || (EB == 4 && !DUAL), "float32 transposes");
+  extern __shared__ unsigned char smem[];
+  const uint32_t ring = (smem_u32(smem) + 1023u) & ~1023u;
+  const uint32_t stage_out = ring + STAGES * STAGE_BYTES;
+  const uint32_t full = stage_out + CONSUMERS * STG_BYTES;
+  const uint32_t empty = full + STAGES * 8;
+
+  const int n_mt = (M + BM - 1) / BM, n_nt = (N + BNO - 1) / BNO;
+  const int per_e = n_mt * n_nt;
+  const int n_tiles = per_e * E;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      // 128 producer threads (cp.async) and thread 0's TMA or arrival
+      mbar_init(full + 8 * s, 128 + 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);   // one arrival per warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  // tile t: expert t / per_e; within an expert the tiles of the shorter
+  // side of dw first, so the blocks at work read all of the smaller operand
+  // (which stays in L2) and a few column blocks of the larger one, and
+  // each column block of the larger is read once
+  const bool m_fast = n_mt <= n_nt;
+  auto locate = [&](int tile, int& e, int& m0, int& n0, int& lo, int& hi) {
+    e = tile / per_e;
+    const int r = tile % per_e;
+    m0 = (m_fast ? r % n_mt : r / n_nt) * BM;
+    n0 = (m_fast ? r / n_mt : r % n_nt) * BNO;
+    lo = min(offsets[e], S);
+    hi = max(lo, min(offsets[e + 1], S));
+  };
+
+  if (wg == 0) {
+    // producer warpgroup: thread 0 brings the TMA boxes of whole steps;
+    // every thread copies its share of a gathered A, and of both operands
+    // in the last step of an expert whose rows end inside it
+    const int t = threadIdx.x;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      int e, m0, n0, lo, hi;
+      locate(tile, e, m0, n0, lo, hi);
+      const int nk = (hi - lo + BK - 1) / BK;
+      for (int ks = 0; ks < nk; ++ks, ++it) {
+        const int st = it % STAGES;
+        if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
+        const uint32_t s0 = ring + st * STAGE_BYTES;
+        const uint32_t bar = full + 8 * st;
+        const int k0 = lo + ks * BK;
+        const bool part = k0 + BK > hi;
+        const bool tma_a = !GATHER && !part;
+        const bool tma_b = !part;
+        if (t == 0) {
+          const int tx = (tma_a ? A_BYTES : 0) + (tma_b ? B_BYTES : 0);
+          if (tx > 0) {
+            mbar_expect_tx(bar, tx);
+            if (tma_a) {
+#pragma unroll
+              for (int q = 0; q < BM / 64; ++q)
+                tma_load(s0 + q * BOX, &tm_a, m0 + 64 * q, k0, bar);
+            }
+            if (tma_b) {
+#pragma unroll
+              for (int q = 0; q < BN / 64; ++q) {
+                const int half = q / 2;
+                tma_load(s0 + A_BYTES + q * BOX, half ? &tm_b1 : &tm_b0,
+                         n0 + (DUAL ? 0 : 128 * half) + 64 * (q % 2), k0,
+                         bar);
+              }
+            }
+          } else {
+            mbar_arrive(bar);
+          }
+        }
+        if (!tma_a)
+          load_rows_sw128(s0, a_src, lda, m0, M, GATHER ? idx : nullptr,
+                          k0, hi, L, t);
+        if (!tma_b) {
+          load_rows_sw128(s0 + A_BYTES, b0_src, ldb, n0, N, nullptr, k0, hi,
+                          L, t);
+          load_rows_sw128(s0 + A_BYTES + 2 * BOX, b1_src, ldb,
+                          n0 + (DUAL ? 0 : 128), N, nullptr, k0, hi, L, t);
+        }
+        mbar_arrive_cp_async(bar);
+      }
+    }
+    return;
+  }
+
+  const int cw = wg - 1;                       // consumer warpgroup
+  const int wt = threadIdx.x % 128;            // thread in the warpgroup
+  const int warp = wt / 32, lane = wt % 32;
+  const uint32_t stg = stage_out + cw * STG_BYTES;
+  float acc[128];
+  int it = 0;
+  bool stored = false;                         // a TMA store may read stg
+
+  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    int e, m0, n0, lo, hi;
+    locate(tile, e, m0, n0, lo, hi);
+    const int nk = (hi - lo + BK - 1) / BK;
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    for (int ks = 0; ks < nk; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      // a stage filled by cp.async (generic proxy) is read by wgmma
+      // (async proxy)
+      fence_proxy_async();
+      const uint32_t s0 = ring + st * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n256k16_ss<1, 1>(
+            acc, desc_mn_sw128(s0 + cw * BOX + kk * 2048, BOX),
+            desc_mn_sw128(s0 + A_BYTES + kk * 2048, BOX), 1);
+      wgmma_commit();
+      // the previous step's products are done: its stage is free
+      wgmma_wait<1>();
+      if (ks > 0) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+        __syncwarp();
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+    if (nk > 0) {
+      if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+      __syncwarp();
+    }
+
+    // Epilogue: the warpgroup's 64 x 256 accumulator goes, CH_COLS columns
+    // at a time, into its staging tile in the output box layout, and one
+    // thread writes it out with TMA stores that run on while the next
+    // tile's products start.  Accumulator value 4 j + 2 i + e: row
+    // 16 warp + lane / 4 + 8 i, column 8 j + 2 (lane % 4) + e.
+    const int r0 = warp * 16 + lane / 4;
+#pragma unroll
+    for (int ch = 0; ch < BN / CH_COLS; ++ch) {
+      if (stored) {
+        // the previous store has read the staging tile
+        if (wt == 0) bulk_wait_read<0>();
+        named_barrier(1 + cw, 128);
+      }
+#pragma unroll
+      for (int jj = 0; jj < CH_COLS / 8; ++jj) {
+        const int j = ch * (CH_COLS / 8) + jj;
+        const int cc = 8 * jj + 2 * (lane % 4);  // column in the chunk
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = r0 + 8 * i;
+          const float v0 = acc[4 * j + 2 * i], v1 = acc[4 * j + 2 * i + 1];
+          if (TRANS_OUT) {
+            // staging row cc (n), column r (m): boxes of BOX_COLS m
+            const uint32_t box = stg + (r / BOX_COLS) * (CH_COLS * 128);
+            const int byte = (r % BOX_COLS) * EB;
+#pragma unroll
+            for (int q = 0; q < 2; ++q) {
+              const int n = cc + q;
+              st_shared_f32(box + n * 128 + (((byte / 16) ^ (n & 7)) * 16) +
+                                byte % 16,
+                            q ? v1 : v0);
+            }
+          } else {
+            const uint32_t box = stg + (cc / BOX_COLS) * (64 * 128);
+            const int byte = (cc % BOX_COLS) * EB;
+            const uint32_t at =
+                box + r * 128 + (((byte / 16) ^ (r & 7)) * 16) + byte % 16;
+            if (EB == 4)
+              st_shared_pair(at, v0, v1);
+            else
+              st_shared_u32(at, pack_bf16(v0, v1));
+          }
+        }
+      }
+      fence_proxy_async();
+      named_barrier(1 + cw, 128);
+      if (wt == 0) {
+        if (TRANS_OUT) {
+#pragma unroll
+          for (int b = 0; b < 64 / BOX_COLS; ++b)
+            tma_store(&tm_o0, stg + b * (CH_COLS * 128),
+                      m0 + 64 * cw + b * BOX_COLS, n0 + ch * CH_COLS, e);
+        } else {
+#pragma unroll
+          for (int b = 0; b < CH_COLS / BOX_COLS; ++b) {
+            const int a = ch * CH_COLS + b * BOX_COLS;  // accumulator column
+            tma_store(DUAL && a >= BNO ? &tm_o1 : &tm_o0,
+                      stg + b * (64 * 128), n0 + (DUAL ? a % BNO : a),
+                      m0 + 64 * cw, e);
+          }
+        }
+        bulk_commit();
+      }
+      stored = true;
+    }
+  }
+  if (wt == 0) bulk_wait<0>();
 }
 
 }  // namespace

@@ -6,7 +6,8 @@ Replace ``repro/kernels/gather_gmm.py:fused_moe_fwd`` and
 gather of token rows, both first-layer GEMMs, SiLU·gate, the second GEMM
 and the gated scatter-combine; the backward replays the gather and
 recomputes a, b and SiLU.  Neither direction writes an ``(S, h)`` or
-``(S, d)`` buffer (S = L·k slots) to device memory.
+``(S, d)`` buffer (S = L·k slots) whole: both walk h in ranges and keep a
+bounded workspace of the range's columns.
 
 The bf16 forward walks h in ranges of width ``hc`` (:func:`pass_width`):
 per range one kernel writes the rounded ``y_swi`` of those columns into a
@@ -15,19 +16,32 @@ fixed bound on the workspace whatever S; ``tools/fused_moe_ranges.py``
 times the forward per width), and a second adds the chunk's gated
 products into y.  A call is 2·⌈h/hc⌉ kernel launches (14 at Mixtral's
 training shape, 2 at decode) and counts once in
-``fused_moe_fwd.launches``.  The backward is one launch.
+``fused_moe_fwd.launches``.
+
+The bf16 backward walks h in ranges of width :func:`bwd_pass_width`:
+three bf16 ``(S, hc)`` chunks (``da``, ``db`` and ``g·y_swi`` of the
+range, each rounded once) within :data:`BWD_CHUNK_CAP_BYTES` (64 MiB),
+and a float32 ``(⌈h/128⌉, S)`` buffer of dgates partials.  Per range four
+kernels: the recomputed a, b and dyu with the elementwise terms, the dw1
+and dw2 columns of the range, dw3's rows of the range, and dx; then one
+sum of the dgates partials (:func:`fused_moe_bwd_passes_plain` is the
+same decomposition in plain PyTorch).  A call is 4·⌈h/hc⌉ + 1 kernel
+launches (49 at Mixtral's training shape, 5 at decode) and counts once
+in ``fused_moe_bwd.launches``.
 
 Rounding points (the reference's, kept by the plain versions): ``y_swi``
 is rounded to the I/O dtype before the second GEMM and in the backward;
 ``dyu`` is rounded to the I/O dtype; everything else is float32, and the
-outputs are float32 (the caller casts).
+outputs are float32 (the caller casts).  The bf16 backward also rounds
+``da``, ``db`` and ``g·y_swi`` to bf16, the tensor cores' operands.
 
 Bound on the card: operations (6·S·d·h forward, 16·S·d·h backward) in
-training, the touched experts' weight bytes at decode.  ``csrc/
-fused_moe_fwd.cu`` (wgmma + TMA, the two kernels per range) and ``csrc/
-fused_moe_bwd.cu`` (a block per row tile of one expert and h-chunk) sum
-across blocks with float32 atomics into zeroed outputs; see the sources
-for the designs.
+training, the touched experts' weight bytes at decode (and the backward's
+float32 weight gradients).  ``csrc/fused_moe_fwd.cu`` and
+``csrc/fused_moe_bwd.cu`` (wgmma + TMA, the kernels of
+``csrc/moe_wgmma.cuh``) sum dx and y across blocks with float32 atomics
+into zeroed outputs; the backward's weight gradients and dgates have one
+writer per element.  See the sources for the designs.
 """
 
 from __future__ import annotations
@@ -51,14 +65,35 @@ def pass_width(S: int, h: int) -> int:
     :data:`CHUNK_CAP_BYTES`, and no wider than h rounded up to the tile
     (one range).  Never below one tile: above 131,072 slots the chunk is
     ``S · H_TILE`` values."""
-    hc = CHUNK_CAP_BYTES // (max(S, 1) * 2) // H_TILE * H_TILE
+    return _width(CHUNK_CAP_BYTES, 2, S, h)
+
+
+def _width(cap: int, slot_bytes: int, S: int, h: int) -> int:
+    """The largest multiple of :data:`H_TILE` whose ``slot_bytes`` per
+    slot and column fit ``cap`` at S slots, no wider than h rounded up to
+    the tile, never below one tile."""
+    hc = cap // (max(S, 1) * slot_bytes) // H_TILE * H_TILE
     return min(max(hc, H_TILE), -(-h // H_TILE) * H_TILE)
 
 
+#: Bytes the bf16 backward's three ``(S, hc)`` chunks (da, db, g·y_swi)
+#: may take together.
+BWD_CHUNK_CAP_BYTES = 64 * 2 ** 20
+
+
+def bwd_pass_width(S: int, h: int) -> int:
+    """Width ``hc`` of the backward's h-ranges: the largest multiple of
+    :data:`H_TILE` whose three bf16 ``(S, hc)`` chunks fit
+    :data:`BWD_CHUNK_CAP_BYTES`, no wider than h rounded up to the tile,
+    never below one tile (1280 at S = 8192: 60 MiB)."""
+    return _width(BWD_CHUNK_CAP_BYTES, 6, S, h)
+
+
 def h_ranges(h: int, hc: int) -> list[tuple[int, int]]:
-    """The forward's h-ranges ``(h0, width)`` for a range width ``hc``
-    (:func:`pass_width`): consecutive, covering ``[0, h)``, each ``hc``
-    wide but the last, as ``csrc/fused_moe_fwd.cu`` walks them."""
+    """The h-ranges ``(h0, width)`` for a range width ``hc``
+    (:func:`pass_width`, :func:`bwd_pass_width`): consecutive, covering
+    ``[0, h)``, each ``hc`` wide but the last, as ``csrc/fused_moe_fwd.cu``
+    and ``csrc/fused_moe_bwd.cu`` walk them."""
     return [(h0, min(hc, h - h0)) for h0 in range(0, h, hc)]
 
 
@@ -146,6 +181,45 @@ def fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3):
     return dx, dg, dw1, dw2, dw3
 
 
+def fused_moe_bwd_passes_plain(x, dy, g_slot, idx, offsets, w1, w2, w3, *,
+                               hc: int):
+    """The bf16 backward's decomposition in plain PyTorch: for each h-range
+    of :func:`h_ranges`, da, db and g·y_swi of the range rounded to x's
+    dtype (the kernels' tensor-core operands), then the range's columns of
+    dw1 and dw2, its rows of dw3, its products added into dx and its
+    dgates partial; the partials summed in range order.  The same function
+    as :func:`fused_moe_bwd_plain` with the float32 sums over h split at
+    the range boundaries."""
+    S, h = idx.shape[0], w1.shape[2]
+    f32 = dict(dtype=torch.float32, device=x.device)
+    dx = torch.zeros(x.shape, **f32)
+    dg = torch.zeros(S, **f32)
+    dw1 = torch.zeros(w1.shape, **f32)
+    dw2 = torch.zeros(w2.shape, **f32)
+    dw3 = torch.zeros(w3.shape, **f32)
+    experts = [(e, lo, hi, idx[lo:hi].long())
+               for e, lo, hi in _expert_rows(offsets, S)]
+    for h0, width in h_ranges(h, hc):
+        cols = slice(h0, h0 + width)
+        for e, lo, hi, rows in experts:
+            xe, dye = x[rows].float(), dy[rows].float()
+            a = xe @ w1[e][:, cols].float()
+            b = xe @ w2[e][:, cols].float()
+            sa = _silu(a)
+            y_swi = _round(sa * b, x.dtype)
+            dyu = _round(dye @ w3[e][cols].float().T, x.dtype)
+            g = g_slot[lo:hi, None]
+            da = _round(dyu * g * b * _dsilu(a), x.dtype)
+            db = _round(dyu * g * sa, x.dtype)
+            dg[lo:hi] += (y_swi * dyu).sum(-1)
+            dw1[e][:, cols] = xe.T @ da
+            dw2[e][:, cols] = xe.T @ db
+            dw3[e][cols] = _round(y_swi * g, x.dtype).T @ dye
+            dx.index_add_(0, rows, da @ w1[e][:, cols].float().T
+                          + db @ w2[e][:, cols].float().T)
+    return dx, dg, dw1, dw2, dw3
+
+
 def _check(x, g_slot, idx, offsets, w1, w2, w3, dy=None):
     """Checks of what the kernels take; returns (S, L, d, h, E)."""
     dt = x.dtype
@@ -213,22 +287,36 @@ def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
                   w2: torch.Tensor, w3: torch.Tensor):
     """Backward of :func:`fused_moe_fwd`; ``dy`` (L, d) in ``x.dtype``.
     Returns ``(dx (L, d), dgates_slot (S,), dw1, dw2, dw3)``, all float32.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (counted in ``fused_moe_bwd.launches``)."""
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernels
+    (counted once per call in ``fused_moe_bwd.launches``).  In bf16 with d
+    and h multiples of 8 the call allocates a bf16 ``(3, S, hc)`` workspace
+    within :data:`BWD_CHUNK_CAP_BYTES` (:func:`bwd_pass_width`) and a float32
+    ``(⌈h/128⌉, S)`` one besides the outputs."""
     if not x.is_cuda:
         return fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3, dy=dy)
     f32 = dict(dtype=torch.float32, device=x.device)
+    fast = (x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0
+            and S > 0 and all(t.data_ptr() % 16 == 0
+                              for t in (x, dy, w1, w2, w3)))
+    new = torch.empty if fast else torch.zeros
     dx = torch.zeros(L, d, **f32)
-    dg = torch.zeros(S, **f32)
-    dw1 = torch.zeros(E, d, h, **f32)
-    dw2 = torch.zeros(E, d, h, **f32)
-    dw3 = torch.zeros(E, h, d, **f32)
+    dg = new(S, **f32)
+    dw1, dw2 = new(E, d, h, **f32), new(E, d, h, **f32)
+    dw3 = new(E, h, d, **f32)
+    ws = part = None
+    hc = 0
+    if fast:
+        hc = bwd_pass_width(S, h)
+        ws = torch.empty(3, S, hc, dtype=x.dtype, device=x.device)
+        part = torch.empty(-(-h // H_TILE), S, **f32)
     code = _lib.lib().repro_fused_moe_bwd(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
         g_slot.data_ptr(), idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(),
         w2.data_ptr(), w3.data_ptr(), dx.data_ptr(), dg.data_ptr(),
-        dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), S, L, d, h, E,
+        dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if part is None else part.data_ptr(), hc, S, L, d, h, E,
         _lib.stream_ptr(x))
     _lib.check("repro_fused_moe_bwd", code)
     fused_moe_bwd.launches += 1

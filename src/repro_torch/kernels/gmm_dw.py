@@ -7,15 +7,19 @@ rows ``[offsets[e], offsets[e+1])``:
     dw[e] = lhs[rows_e]^T @ dout[rows_e]        (E, d, h)
 
 summed in float32 and cast once to ``lhs.dtype``; experts with no rows get
-exact zeros.  In the training step's backward it gives ``dw1``, ``dw2``
-(``lhs`` = the re-gathered input, ``dout`` = ``da`` / ``db``) and ``dw3``
-(``lhs`` = the gated ``y_swi``, ``dout`` = the slot gradients).
+exact zeros, and rows at or past ``offsets[E]`` (the pad and overflow
+rows of an expert-parallel rank's layout) contribute nothing.  In the
+training step's backward it gives ``dw1``, ``dw2`` (``lhs`` = the
+re-gathered input, ``dout`` = ``da`` / ``db``) and ``dw3`` (``lhs`` = the
+gated ``y_swi``, ``dout`` = the slot gradients).
 
 Bound on the card: operations (2·S·d·h; at S = 8192 slots, d = 4096,
 h = 14336 it is ~0.96 TFLOP against ~0.6 GB of inputs and outputs).
-``csrc/gmm_dw.cu`` gives each block one (d-tile, h-tile, expert) output
-tile and walks the expert's row range inside the block, so nothing is
-accumulated across blocks; see the source for the design.
+``csrc/gmm_dw.cu`` runs the bf16 case on ``csrc/moe_wgmma.cuh``'s
+``moe_dw_wgmma`` (wgmma + TMA, persistent; shared with the fused MoE
+backward): each output tile has one block, which walks the expert's row
+range itself, so nothing is accumulated across blocks and a repeated
+call gives the same bits; see the sources for the design.
 """
 
 from __future__ import annotations

@@ -4,11 +4,11 @@ The plain versions of ``fused_moe_fwd`` / ``fused_moe_bwd`` (what a CPU
 tensor takes, and the yardstick the CUDA kernels are held to on the card)
 against the reference's Pallas kernels in interpret mode, on the same
 inputs: an expert left empty, and a slot count that is not a multiple of
-the reference's row tile.  The bf16 kernel's h-range plan (pure Python:
-ranges that cover h in multiples of the tile, a chunk within its cap, one
-range at decode) and its pass decomposition, in plain PyTorch, against the
-same reference kernel.  Then the ``MoEBlazeFused`` autograd Function
-against ``jax.vjp`` of the reference's ``moe_ffn_blaze_fused``.
+the reference's row tile.  The bf16 kernels' h-range plans (pure Python:
+ranges that cover h in multiples of the tile, a workspace within its cap,
+one range at decode) and their pass decompositions, in plain PyTorch,
+against the same reference kernels.  Then the ``MoEBlazeFused`` autograd
+Function against ``jax.vjp`` of the reference's ``moe_ffn_blaze_fused``.
 
 Tolerances: float32 1e-5 relative over 1e-5 of each output's scale (the
 same products, summed in another order); bfloat16 one bf16 step (2^-7) of
@@ -155,6 +155,58 @@ def test_pass_decomposition_matches_reference_kernel(tp, L, empty, bl,
         hc=FM.H_TILE)
     assert got.dtype == tp.torch.float32
     np.testing.assert_allclose(f32(got), want, **_tol(dtype, want))
+
+
+def test_bwd_pass_width_keeps_the_workspace_within_its_cap(tp):
+    """The backward's three bf16 (S, hc) chunks stay within their cap for
+    every slot count from 1 to 65,536 at Mixtral's and Qwen3-14B's expert
+    widths; Mixtral's training shape (S = 8192) takes 12 ranges of 1280."""
+    from repro_torch.kernels import fused_moe as FM
+    cap = FM.BWD_CHUNK_CAP_BYTES
+    assert cap == 64 * 2 ** 20
+    for h in (14336, 17408):
+        widths = [FM.bwd_pass_width(S, h) for S in range(1, 65537)]
+        assert all(3 * S * hc * 2 <= cap for S, hc in enumerate(widths, 1))
+        assert all(hc % FM.H_TILE == 0 for hc in widths)
+    hc = FM.bwd_pass_width(8192, 14336)
+    assert hc == 1280 and len(FM.h_ranges(14336, hc)) == 12
+
+
+@pytest.mark.parametrize("h", [14336, 17408, 200])
+@pytest.mark.parametrize("S", [1, 4, 8, 64, 256])
+def test_bwd_one_range_at_decode(tp, S, h):
+    from repro_torch.kernels import fused_moe as FM
+    assert FM.h_ranges(h, FM.bwd_pass_width(S, h)) == [(0, h)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L,empty,bl", CASES)
+def test_bwd_pass_decomposition_matches_reference_kernel(tp, L, empty, bl,
+                                                         dtype):
+    """The bf16 backward's passes (per h-range: da, db and g y_swi rounded
+    to the I/O dtype, the range's weight-gradient blocks, its dx products
+    and its dgates partial), in plain PyTorch, against the reference's
+    fused backward in interpret mode, at h not a multiple of the range
+    width.  bf16: the reference keeps da, db and g y_swi in float32, so
+    the rounding of the tensor-core operands stays within one bf16 step of
+    each output's scale (the tolerance of the other bf16 comparisons)."""
+    from repro_torch.kernels import fused_moe as FM
+    x, w1, w2, w3, topk, gates, dy = _inputs(L, dtype, empty, h=H_RAGGED)
+    g_slot, idx, off = _slot_inputs(topk, gates)
+    j_args = [jnp.asarray(a) for a in (g_slot, idx, off, w1, w2, w3)]
+    wants = j_bwd(jnp.asarray(x), jnp.asarray(dy), *j_args, bl=bl)
+    gots = FM.fused_moe_bwd_passes_plain(
+        to_torch(x), to_torch(dy),
+        *(to_torch(a) for a in (g_slot, idx, off, w1, w2, w3)),
+        hc=FM.H_TILE)
+    for name, g, w in zip(("dx", "dgates", "dw1", "dw2", "dw3"), gots,
+                          wants):
+        w = f32(w)
+        assert g.dtype == tp.torch.float32 and g.shape == w.shape, name
+        np.testing.assert_allclose(f32(g), w, **_tol(dtype, w), err_msg=name)
+    if empty is not None:
+        for g in gots[2:]:
+            assert not g[empty].any(), "the empty expert's dw must be zero"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -410,6 +410,73 @@ def test_gmm_dw_kernel(dev, K, dtype, d, h, lengths):
             assert not got[e].any()
 
 
+@pytest.mark.parametrize("d,h,lengths,past", [
+    (328, 520, (0, 200, 0, 77), 23),      # partial TMA boxes, empty experts
+    (256, 384, (0, 0, 300, 0), 0),        # every row on one expert
+    (64, 64, (1, 0, 63, 65), 5),          # one row; rows on a step boundary
+    (4096, 256, (1000, 700), 300)])       # ep_a2a: a trash group past E
+def test_gmm_dw_wgmma_edges(dev, K, d, h, lengths, past):
+    """The bf16 kernel (moe_dw_wgmma): rows past offsets[E] hold NaN and
+    contribute nothing, empty experts are exactly 0, a repeated call is
+    bit-equal (one block per output tile), against the plain version."""
+    import torch
+    rng = np.random.default_rng(d + h + past)
+    S = sum(lengths) + past
+    lhs = _t(rng.normal(size=(S, d)), dev, "bfloat16")
+    dout = _t(rng.normal(size=(S, h)), dev, "bfloat16")
+    lhs[sum(lengths):] = float("nan")
+    dout[sum(lengths):] = float("nan")
+    off = _t(np.concatenate([[0], np.cumsum(lengths)]).astype(np.int32), dev)
+    W = K.gmm_dw
+    got, again = W.gmm_dw(lhs, dout, off), W.gmm_dw(lhs, dout, off)
+    want = W.gmm_dw_plain(lhs, dout, off)
+    _sync()
+    assert torch.equal(got, again)
+    assert bool(torch.isfinite(got.float()).all())
+    _close(got, want, "bfloat16")
+    for e, n in enumerate(lengths):
+        if n == 0:
+            assert not got[e].any()
+
+
+@pytest.mark.parametrize("L,E,d,h,experts,lo,count", [
+    (4, 8, 512, 256, None, 0, 8),                # decode: 8 slots
+    (300, 8, 136, 72, (1, 2, 6), 0, 8),          # 5 empty experts
+    # S = 8192 slots: backward h-ranges of 1280, 1280 and a ragged 40
+    pytest.param(4096, 4, 256, 2600, None, 0, 4, id="three-ranges-ragged"),
+    # routing.slice_dispatch's layout: 2 of 8 experts, the other slots
+    # past offsets[E]
+    pytest.param(100, 8, 128, 96, (0, 1, 2, 4, 5, 6, 7), 2, 2,
+                 id="sliced-dead-slots")])
+def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
+    """The bf16 backward (moe_bwd_up_wgmma, moe_dw_wgmma's gathered
+    instantiations, moe_down_wgmma with two products, the dgates sum):
+    dgates and dw1-3 bit-equal across calls (one writer per element),
+    dgates past offsets[E] and empty experts' gradients exactly 0, every
+    output against the plain version."""
+    import torch
+    F = K.fused_moe
+    x, dy, g, disp, ws = _fused_inputs(dev, "bfloat16", L, E, d, h,
+                                       experts, seed=L + h)
+    if (lo, count) != (0, E):
+        disp = K.routing.slice_dispatch(disp, lo, count=count)
+        ws = tuple(w[lo:lo + count].contiguous() for w in ws)
+    idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    got = F.fused_moe_bwd(x, dy, g, idx, off, *ws)
+    again = F.fused_moe_bwd(x, dy, g, idx, off, *ws)
+    want = F.fused_moe_bwd_plain(x, dy, g, idx, off, *ws)
+    _sync()
+    for name, g_, a_, w_ in zip(("dx", "dgates", "dw1", "dw2", "dw3"), got,
+                                again, want):
+        if name != "dx":
+            assert torch.equal(g_, a_), name
+        _scale_close(name, g_, w_, "bfloat16")
+    assert not got[1][int(off[-1]):].any()
+    for e, n in enumerate(disp.expert_lengths.tolist()):
+        if n == 0:
+            assert not any(t[e].any() for t in got[2:]), e
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,Hkv,Dh,causal,window,cap", [
     (256, 4, 4, 64, True, 0, 0.0),

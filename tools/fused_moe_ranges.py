@@ -1,18 +1,22 @@
-"""Times the bf16 fused MoE forward at Mixtral-8x7B's training shape for
-several h-range widths.
+"""Times the bf16 fused MoE forward or backward at Mixtral-8x7B's training
+shape for several h-range widths.
 
 ``kernels/fused_moe.py:pass_width`` picks the width ``hc`` of the ranges
 the forward walks: the widest whose bf16 ``(S, hc)`` chunk fits 32 MiB
-(2048 at S = 8192).  A wider range means fewer passes, so fewer float32
-reductions into y, and a larger chunk.  This script calls the kernel's C
-entry with each width given, on the same inputs as ``chip_smoke.py``'s
-training shape (2 x 2048 tokens of Mixtral-8x7B's width, top-2 of 8
-experts from a random gate, seed 0), and reports for each width the
-call's median time (``chip_smoke.Timer``: L2 flushed before each run),
-the device time of the two kernels per call from ``torch.profiler``, and
-the largest error against the plain version relative to its scale.
+(2048 at S = 8192); ``bwd_pass_width`` picks the backward's, whose three
+bf16 ``(S, hc)`` chunks (da, db, g·y_swi) fit 64 MiB (1280 at S = 8192).
+A wider range means fewer passes, so fewer float32 reductions into the
+scattered output (y or dx) and fewer launches, and a larger workspace.
+This script calls the kernel's C entry with each width given, on the same
+inputs as ``chip_smoke.py``'s training shape (2 x 2048 tokens of
+Mixtral-8x7B's width, top-2 of 8 experts from a random gate, seed 0), and
+reports for each width the call's median time (``chip_smoke.Timer``: L2
+flushed before each run), the device time of each kernel per call from
+``torch.profiler``, and the largest error against the plain version
+relative to its scale (for the backward, over its five outputs).
 
-    python tools/fused_moe_ranges.py [--widths 512,1024,2048,3584,14336]
+    python tools/fused_moe_ranges.py [--direction fwd|bwd]
+                                     [--widths 512,1024,2048,3584,14336]
 
 The last line of the output is a JSON list of the readings.  Needs one
 CUDA card.
@@ -30,8 +34,13 @@ ROOT = Path(__file__).resolve().parents[1]
 L, D, H, E, K = 4096, 4096, 14336, 8, 2
 
 
+KERNELS = ("moe_up_wgmma", "moe_down_wgmma", "moe_bwd_up_wgmma",
+           "moe_dw_wgmma", "sum_dgates")
+
+
 def kernel_ms(fn, calls: int = 3) -> dict[str, float]:
-    """Device ms per call of the forward's two kernels."""
+    """Device ms per call of each of the call's kernels (by name, template
+    arguments included)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -40,16 +49,21 @@ def kernel_ms(fn, calls: int = 3) -> dict[str, float]:
         torch.cuda.synchronize()
     out = {}
     for ev in prof.key_averages():
-        for name in ("moe_up_wgmma", "moe_down_wgmma"):
-            if name in ev.key:
-                out[name] = ev.device_time_total / 1e3 / calls
+        if any(name in ev.key for name in KERNELS):
+            out[ev.key] = ev.device_time_total / 1e3 / calls
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--widths", default="512,1024,2048,3584,14336")
+    ap.add_argument("--direction", choices=("fwd", "bwd"), default="fwd")
+    ap.add_argument("--widths", default=None,
+                    help="default 512,1024,2048,3584,14336 forward, "
+                         "640,1024,1280,2048,2688 backward")
     args = ap.parse_args()
+    widths = args.widths or ("512,1024,2048,3584,14336"
+                             if args.direction == "fwd"
+                             else "640,1024,1280,2048,2688")
     sys.path[:0] = [str(ROOT / "src"), str(ROOT)]
     import torch
 
@@ -81,35 +95,56 @@ def main() -> int:
     idx, off = disp.expert_token_indices, disp.expert_token_offsets
     S = disp.num_slots
     g_slot = torch.rand(S, generator=gen, device=dev)
-    want = FM.fused_moe_fwd_plain(x, g_slot, idx, off, w1, w2, w3)
-    scale = float(want.abs().max())
     timer = Timer(dev)
-    y = torch.empty(L, D, dtype=torch.float32, device=dev)
     lib = _lib.lib()
+    code = _lib.DTYPE_CODE[x.dtype]
+    stream = _lib.stream_ptr(x)
+    f32 = dict(dtype=torch.float32, device=dev)
+    if args.direction == "fwd":
+        want = [FM.fused_moe_fwd_plain(x, g_slot, idx, off, w1, w2, w3)]
+        outs = [torch.empty(L, D, **f32)]
+        planned, n_chunks = FM.pass_width(S, H), 1
+    else:
+        dy = randn(L, D)
+        want = FM.fused_moe_bwd_plain(x, dy, g_slot, idx, off, w1, w2, w3)
+        outs = [torch.empty_like(t) for t in want]
+        part = torch.empty(-(-H // FM.H_TILE), S, **f32)
+        planned, n_chunks = FM.bwd_pass_width(S, H), 3
     readings = []
-    for hc in (int(w) for w in args.widths.split(",")):
-        chunk = torch.empty(S, hc, dtype=torch.bfloat16, device=dev)
+    for hc in (int(w) for w in widths.split(",")):
+        chunk = torch.empty(n_chunks, S, hc, dtype=torch.bfloat16,
+                            device=dev)
 
         def run():
-            y.zero_()
-            _lib.check("repro_fused_moe_fwd", lib.repro_fused_moe_fwd(
-                _lib.DTYPE_CODE[x.dtype], x.data_ptr(), g_slot.data_ptr(),
-                idx.data_ptr(), off.data_ptr(), w1.data_ptr(),
-                w2.data_ptr(), w3.data_ptr(), y.data_ptr(),
-                chunk.data_ptr(), hc, S, L, D, H, E, _lib.stream_ptr(x)))
+            outs[0].zero_()
+            if args.direction == "fwd":
+                rc = lib.repro_fused_moe_fwd(
+                    code, x.data_ptr(), g_slot.data_ptr(), idx.data_ptr(),
+                    off.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+                    w3.data_ptr(), outs[0].data_ptr(), chunk.data_ptr(), hc,
+                    S, L, D, H, E, stream)
+            else:
+                rc = lib.repro_fused_moe_bwd(
+                    code, x.data_ptr(), dy.data_ptr(), g_slot.data_ptr(),
+                    idx.data_ptr(), off.data_ptr(), w1.data_ptr(),
+                    w2.data_ptr(), w3.data_ptr(),
+                    *(t.data_ptr() for t in outs), chunk.data_ptr(),
+                    part.data_ptr(), hc, S, L, D, H, E, stream)
+            _lib.check(f"repro_fused_moe_{args.direction}", rc)
 
         run()
         torch.cuda.synchronize()
-        err = float((y - want).abs().max()) / scale
+        err = max(float((o - w).abs().max()) / float(w.abs().max())
+                  for o, w in zip(outs, want))
         rec = {"hc": hc, "passes": len(FM.h_ranges(H, hc)),
-               "chunk_mib": S * hc * 2 / 2 ** 20,
-               "planned": hc == FM.pass_width(S, H),
-               "ms": timer(run), **kernel_ms(run),
-               "max_err_over_scale": err}
+               "chunk_mib": n_chunks * S * hc * 2 / 2 ** 20,
+               "planned": hc == planned, "ms": timer(run),
+               "kernels_ms": kernel_ms(run), "max_err_over_scale": err}
         print(json.dumps(rec), flush=True)
         readings.append(rec)
         del chunk
-    print(json.dumps({"card": card, "S": S, "readings": readings}))
+    print(json.dumps({"card": card, "S": S, "direction": args.direction,
+                      "readings": readings}))
     return 0
 
 

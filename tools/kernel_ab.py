@@ -15,7 +15,11 @@ that a row is held to.  Inputs are bf16 from seed 0:
   training step calls it (the dual branch with ``save_ab``, the w3
   forward over identity rows, the backward's w3ᵀ and w1ᵀ), and the dual
   branch at serving's prefill (4 x 512 tokens) and decode (4 tokens);
-- ``fused_swiglu_bwd_w``: Qwen3-14B at ``fused_swiglu_bwd_x``'s shape.
+- ``fused_swiglu_bwd_w``: Qwen3-14B at ``fused_swiglu_bwd_x``'s shape;
+- ``fused_moe_bwd``: ``fused_moe_fwd``'s routing and weights, at the
+  training shape and at decode (4 tokens, 8 slots);
+- ``gmm_dw``: the same routing, dw1 (gathered x rows against a (S, h) da)
+  and dw3 (a (S, h) g·y_swi against the gathered dy rows).
 
     python tools/kernel_ab.py TREE_A TREE_B [--kernels a,b] [--rounds 4]
 
@@ -38,7 +42,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
-           "gather_gmm", "fused_swiglu_bwd_w")
+           "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw")
 TAG = "KERNEL_AB "
 
 
@@ -91,6 +95,27 @@ def cases(name: str, dev):
         g_slot = torch.rand(S, generator=gen, device=dev)
         return [(f"L={L}, S={S}, d={d}, h={h}, E={E}",
                  lambda: FM.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3))]
+    if name == "fused_moe_bwd":
+        from repro_torch.kernels import fused_moe as FM
+        dy = randn(L, d)
+        out = []
+        for label, n in (("training", L), ("decode", 4)):
+            ds, ids, offs = (disp, idx, off) if n == L else route(x[:n])
+            g_slot = torch.rand(ds.num_slots, generator=gen, device=dev)
+            out.append((f"{label}: L={n}, S={ds.num_slots}, d={d}, h={h}",
+                        lambda n=n, g_slot=g_slot, ids=ids, offs=offs:
+                        FM.fused_moe_bwd(x[:n], dy[:n], g_slot, ids, offs,
+                                         w1, w2, w3)))
+        return out
+    if name == "gmm_dw":
+        from repro_torch.kernels import gmm_dw as KW
+        xg = x[idx.long()]
+        dyg = randn(L, d)[idx.long()]
+        da, yg = randn(S, h, scale=0.05), randn(S, h)
+        return [(f"training dw1: S={S}, {d}x{h} per expert, E={E}",
+                 lambda: KW.gmm_dw(xg, da, off)),
+                (f"training dw3: S={S}, {h}x{d} per expert, E={E}",
+                 lambda: KW.gmm_dw(yg, dyg, off))]
     from repro_torch.kernels import gather_gmm as KG
     y_swi, dyg, da = randn(S, h), randn(S, d), randn(S, h, scale=0.05)
     out = [
