@@ -27,7 +27,7 @@
 //      with the gathered rows (16-byte cp.async copies into the layout of
 //      a swizzled TMA box) and the weight tiles (TMA; the range's w3 rows
 //      are wgmma's K-major B, so no copy) read by wgmma from shared
-//      memory; dyu, rounded to bf16, waits in the da chunk.  The float32
+//      memory; dyu, rounded to bf16, waits in shared memory.  The float32
 //      epilogue forms y_swi, da, db and g y_swi and writes them, each
 //      rounded to bf16, into the three chunks (the tensor-core operands of
 //      the next kernels; the plain version keeps da and db in float32,
@@ -112,7 +112,11 @@ constexpr int W_BYTES = BK * BN * 2;
 constexpr int X_BYTES = BM * BK * 2;         // the gathered rows
 constexpr int STAGE_BYTES = 2 * W_BYTES + X_BYTES;
 static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle alignment");
-constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8;
+// each consumer warpgroup's rounded dyu (64 rows x BN, bf16) until its
+// epilogue
+constexpr int U_BYTES = 64 * BN * 2;
+constexpr int SMEM =
+    STAGES * STAGE_BYTES + CONSUMERS * U_BYTES + 1024 + 2 * STAGES * 8;
 }  // namespace bup
 
 __global__ void __launch_bounds__(bup::THREADS, 1)
@@ -128,7 +132,8 @@ moe_bwd_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
   using namespace bup;
   extern __shared__ unsigned char smem[];
   const uint32_t ring = (smem_u32(smem) + 1023u) & ~1023u;
-  const uint32_t full = ring + STAGES * STAGE_BYTES;
+  const uint32_t ubuf = ring + STAGES * STAGE_BYTES;
+  const uint32_t full = ubuf + CONSUMERS * U_BYTES;
   const uint32_t empty = full + STAGES * 8;
 
   const int n_rt = count_row_tiles(offsets, E, S, BM);
@@ -203,6 +208,15 @@ moe_bwd_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
   const int cw = wg - 1;
   const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
   const uint32_t a_off = 2 * W_BYTES + cw * 64 * 128;  // this warpgroup's rows
+  // this thread's pair of dyu columns 8 j + 2 (lane % 4) of its row
+  // warp * 16 + lane / 4 + 8 i in the warpgroup's dyu buffer: rows of 256
+  // bytes, 16-byte piece j at j ^ (row % 8), so a warp's stores and loads
+  // fall in distinct banks
+  auto u_at = [&](int i, int j) -> uint32_t {
+    const int r = warp * 16 + lane / 4 + 8 * i;
+    return ubuf + cw * U_BYTES + r * 256 + ((j ^ (r & 7)) * 16) +
+           4 * (lane % 4);
+  };
   float acc_a[64], acc_b[64];
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc_a[i] = acc_b[i] = 0.f;
@@ -252,19 +266,13 @@ moe_bwd_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
     for (int i = 0; i < 64; ++i) reg_fence(acc_a[i]);
     if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
     __syncwarp();
-    // round(dyu), parked in the da chunk until this thread's epilogue
+    // round(dyu) into shared memory until this thread's epilogue reads it
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
-      const int col = col0 + 8 * j;
-      if (col >= hw) continue;                 // hw is a multiple of 8
+    for (int j = 0; j < 16; ++j)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int rr = row + 8 * i;
-        if (rr < r1)
-          *reinterpret_cast<uint32_t*>(da + (size_t)rr * ldc + col) =
-              pack_bf16(acc_a[4 * j + 2 * i], acc_a[4 * j + 2 * i + 1]);
-      }
-    }
+      for (int i = 0; i < 2; ++i)
+        st_shared_u32(u_at(i, j), pack_bf16(acc_a[4 * j + 2 * i],
+                                            acc_a[4 * j + 2 * i + 1]));
 
     // a = xt w1, b = xt w2
     for (int ks = 0; ks < nk; ++ks, ++it) {
@@ -314,9 +322,9 @@ moe_bwd_up_wgmma(const __grid_constant__ CUtensorMap tm_w1,
         const int rr = row + 8 * i;
         if (rr >= r1) continue;
         const size_t o = (size_t)rr * ldc + col;
-        const __nv_bfloat162 u2 = *reinterpret_cast<const __nv_bfloat162*>(
-            da + o);
-        const float u[2] = {__low2float(u2), __high2float(u2)};
+        const uint32_t u2 = ld_shared_u32(u_at(i, j));
+        const float u[2] = {__uint_as_float(u2 << 16),
+                            __uint_as_float(u2 & 0xffff0000u)};
         float vda[2], vdb[2], vyg[2];
 #pragma unroll
         for (int q = 0; q < 2; ++q) {

@@ -525,6 +525,11 @@ __device__ __forceinline__ void st_shared_f32(uint32_t at, float a) {
 __device__ __forceinline__ void st_shared_u32(uint32_t at, uint32_t a) {
   asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(at), "r"(a) : "memory");
 }
+__device__ __forceinline__ uint32_t ld_shared_u32(uint32_t at) {
+  uint32_t v;
+  asm volatile("ld.shared.u32 %0, [%1];\n" : "=r"(v) : "r"(at) : "memory");
+  return v;
+}
 
 // Expert e owns slot rows [min(offsets[e], S), min(offsets[e+1], S)); its
 // output is the M x N matrix e of the 3-D (E, M, N) tensor map tm_o0 (DUAL:
