@@ -112,9 +112,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 14. Qwen3-14B parity — with Mixtral's state freed, the dense model's
    kernels against their plain versions on the card in bf16 at its widths
    (d=5120, FFN width 17408, 40/8 heads of 128): the fused-SwiGLU forward,
-   bwd_x and bwd_w at the training (L=4096) and decode (L=4) shapes, at a
-   ragged L=300, with h or d not a multiple of the tile, with widths not
-   a multiple of 8 and in float32; the ``swiglu`` autograd Function against
+   bwd_x and bwd_w at the training (L=4096) and decode (L=4 and L=1: the
+   forward's split plan) shapes, at L=64, 65 and 129 (a consumer
+   warpgroup without rows, with one row, a second row tile of one row), at
+   d=0, at a ragged L=300, with h or d not a multiple of the tile, with
+   widths not a multiple of 8 and in float32, each forward repeated
+   bit-equal; the ``swiglu`` autograd Function against
    autograd through the plain versions; the paged-attention kernel over
    bf16 and over int8 pages at the GQA group of 5 (a window, a softcap,
    position 0, a dead page table, split boundaries, a 2048-page table);
@@ -279,10 +282,11 @@ def require_close(name, got, want, rtol, atol) -> float:
     err = (got.float() - want.float()).abs()
     lim = atol + rtol * want.float().abs()
     bad = int((err > lim).sum())
+    worst = float(err.max()) if err.numel() else 0.0
     check(bad == 0, f"{name}: {bad} elements outside tolerance "
-                    f"(max |err| {float(err.max()):.4g})")
+                    f"(max |err| {worst:.4g})")
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
-    return float(err.max()) if err.numel() else 0.0
+    return worst
 
 
 def card_line() -> str:
@@ -995,12 +999,16 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
     names = ("fused_swiglu_fwd",) * 3 + ("fused_swiglu_bwd_x",) + \
         ("fused_swiglu_bwd_w",) * 2
 
-    def case(name, L, w1_, w2_):
+    def case(name, L, w1_, w2_, draw=randn):
         dt = w1_.dtype
-        x = randn(L, w1_.shape[0], dtype=dt)
-        dy = randn(L, w1_.shape[1], dtype=dt)
+        x = draw(L, w1_.shape[0], dtype=dt)
+        dy = draw(L, w1_.shape[1], dtype=dt)
         got = list(KS.fused_swiglu_fwd(x, w1_, w2_))
         want = list(KS.fused_swiglu_fwd_plain(x, w1_, w2_))
+        # the forward's split plan sums its pieces in a fixed order
+        check(all(torch.equal(g_, r_) for g_, r_ in zip(
+            got, KS.fused_swiglu_fwd(x, w1_, w2_))),
+            f"fused_swiglu {name}: repeated forward not bit-equal")
         a, b = got[1], got[2]
         got.append(KS.fused_swiglu_bwd_x(dy, a, b, w1_, w2_))
         want.append(KS.fused_swiglu_bwd_x_plain(dy, a, b, w1_, w2_))
@@ -1009,7 +1017,7 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
         rel = []
         for key, out, g_, w_ in zip(names, ("y", "a", "b", "dx", "dw1",
                                             "dw2"), got, want):
-            scale = float(w_.float().abs().max())
+            scale = float(w_.float().abs().max()) if w_.numel() else 0.0
             if dt == BF16:
                 rt, at = 0.0, FUSED_SCALE_STEP * scale + GMM_ATOL
             else:
@@ -1022,6 +1030,19 @@ def qwen_kernel_parity(M, dev, rng, randn, errs, cfg) -> dict:
 
     case(f"training L=4096, d={d}, h={h}", 4096, w1, w2)
     case("decode L=4", 4, w1, w2)
+    # the small-L cases draw from their own generator, so later phases'
+    # inputs match the runs before these cases were added
+    g_small = np.random.default_rng(5)
+
+    def draw(*shape, dtype=BF16):
+        return torch.from_numpy(g_small.standard_normal(shape).astype(
+            np.float32)).to(w1.device, dtype)
+
+    case("decode L=1", 1, w1, w2, draw)
+    case("L=64: the second warpgroup without rows", 64, w1, w2, draw)
+    case("L=65: one row for it", 65, w1, w2, draw)
+    case("L=129: a second row tile of one row", 129, w1, w2, draw)
+    case("d=0: no contraction", 4, w1[:0], w2[:0], draw)
     case("ragged L=300", 300, w1, w2)
     h_odd = h - 24        # a multiple of 8, not of the 64-wide tile
     case(f"L=300, h={h_odd}", 300, w1[:, :h_odd].contiguous(),

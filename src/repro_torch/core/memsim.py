@@ -4,7 +4,7 @@ A copy of the three helpers of ``repro/core/memsim.py`` that the
 distributed MoE path needs: the per-destination slot capacity of one
 exchange hop and the row counts of the flat and the two-hop buffers.  The
 rest of the reference's memory simulator (the per-device peak model and
-the budget fit) is not ported (ROADMAP queue A6).
+the budget fit) is not ported (ROADMAP.md §A item 2).
 """
 
 from __future__ import annotations

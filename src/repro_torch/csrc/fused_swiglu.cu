@@ -14,14 +14,18 @@
 //
 // The TPU kernels zero float32 scratch at the first step of an innermost
 // contraction axis (d, h or L) and carry it across grid steps that run in
-// order.  A Hopper grid runs in no order, so here every block owns one
-// output tile and loops over the whole contraction itself, with the
-// accumulators in registers: no sum crosses blocks, so there are no atomics.
+// order.  A Hopper grid runs in no order, so here a block owns an output
+// tile and loops over the contraction itself, with the accumulators in
+// registers; only the forward's split plan (few tiles: decode) cuts a
+// tile's contraction across blocks, and sums the pieces in a fixed order.
 //
-//   fwd:   block = (128 rows x 64 columns of h) of a and b; each x tile is
-//          staged in shared memory once and feeds both products (the single
-//          read of x that is the §5.2 fusion); the epilogue runs from the
-//          float32 accumulators.
+//   fwd:   persistent and warp-specialized: TMA brings 128 x 64 boxes of x
+//          and 64 x 128 tiles of w1 and w2 into a 4-stage ring; two
+//          consumer warpgroups run m64n256k16 with x (A) and w1 | w2 (B,
+//          side by side) both from shared memory into one float32
+//          accumulator per warpgroup, so each x box feeds both products
+//          (the single read of x that is the §5.2 fusion); the epilogue
+//          runs from the float32 accumulators.
 //   bwd_x: block = (128 rows x 256 columns of d) of dx, warp-specialized
 //          for Hopper: a producer warp streams dy, a, b and w1, w2 tiles by
 //          TMA into a 4-stage ring; two consumer warpgroups form da and db
@@ -38,16 +42,15 @@
 //
 // Bound: operations at training and prefill (4 L d h each: 1.46 TFLOP at
 // L = 4096, d = 5120, h = 17408) and bytes at decode (L = 4 slots read
-// 356.5 MB of w1 | w2).  Design: fwd is bf16 WMMA (16x16x16, float32
-// accumulate) fed by a ring of 16-byte cp.async copies; bwd_x (m64n256k16,
-// A from registers) and bwd_w (m64n128k16, A from shared memory) are wgmma
-// fed by TMA.
+// 356.5 MB of w1 | w2).  Design: all three are wgmma fed by TMA: fwd
+// (m64n256k16, A from shared memory, 128 x (128 + 128) tiles, a split plan
+// that spreads the weight stream evenly over the SMs when the tiles leave
+// a partial last wave), bwd_x (m64n256k16, A from registers) and bwd_w
+// (m64n256k16, A from shared memory).
 // Any L, d and h: tails are bounds-checked (rows past L and columns past d
 // or h are zero-filled on load and never stored).  float32, and bf16 widths
 // that are not a multiple of 8 (or unaligned pointers), take a plain
 // float32-FMA tiled kernel with scalar, masked loads.
-
-#include <mma.h>
 
 #include <initializer_list>
 
@@ -58,11 +61,6 @@ namespace {
 using namespace repro::hopper;
 
 using bf16 = __nv_bfloat16;
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16,
-                                       16, float>;
-
-constexpr int THREADS = 256;
-constexpr int BK = 32;   // contraction depth of one pipeline step
 
 // sigmoid in float32.  The tensor-core path rounds every result to bf16,
 // so it takes the fast exponential and division; the float32 path keeps
@@ -102,193 +100,326 @@ __device__ __forceinline__ void grads8_inplace(bf16* dy, bf16* a,
   *reinterpret_cast<uint4*>(a) = *reinterpret_cast<const uint4*>(va);
 }
 
-// Stores a BM x BN float32 staging tile (row stride ldc) to out (row
-// stride ld) as bf16, 8 elements (16 bytes) per thread per step; rows at
-// or past nrows and columns at or past ncols are skipped.
-template <int BM, int BN>
-__device__ __forceinline__ void store_tile(const float* Cs, int ldc, bf16* out,
-                                           int ld, int m0, int n0, int nrows,
-                                           int ncols) {
-  for (int c = threadIdx.x; c < BM * (BN / 8); c += THREADS) {
-    const int r = c / (BN / 8);
-    const int cc = (c % (BN / 8)) * 8;
-    const int gr = m0 + r, gc = n0 + cc;
-    if (gr >= nrows || gc >= ncols) continue;
-    __align__(16) bf16 v[8];
-#pragma unroll
-    for (int u = 0; u < 8; ++u) v[u] = __float2bfloat16_rn(Cs[r * ldc + cc + u]);
-    *reinterpret_cast<uint4*>(out + (size_t)gr * ld + gc) =
-        *reinterpret_cast<const uint4*>(v);
-  }
-}
-
-// Writes a warp's MI x NI accumulator fragments at (wm, wn) of a float32
-// staging tile.
-template <int MI, int NI>
-__device__ __forceinline__ void stage_acc(float* Cs, int ldc,
-                                          AccFrag (&acc)[MI][NI], int wm,
-                                          int wn) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j)
-      nvcuda::wmma::store_matrix_sync(Cs + (wm + i * 16) * ldc + wn + j * 16,
-                                      acc[i][j], ldc,
-                                      nvcuda::wmma::mem_row_major);
-}
-
-template <int MI, int NI>
-__device__ __forceinline__ void zero_acc(AccFrag (&acc)[MI][NI]) {
-#pragma unroll
-  for (int i = 0; i < MI; ++i)
-#pragma unroll
-    for (int j = 0; j < NI; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.f);
-}
-
 // ---------------------------------------------------------------------------
-// forward, tensor cores: (x, w1, w2) -> (y, a, b)
+// forward, Hopper tensor cores: (x, w1, w2) -> (y, a, b)
+//
+// a = x w1 and b = x w2 with M = L, N = h, K = d.  w1 and w2 are (d, h)
+// row-major, so as the B operand (N = h contiguous) they are MN-major: TMA
+// copies two 64-wide boxes of each, 128-byte swizzled, and the four boxes
+// of a stage lie side by side, so one m64n256k16 wgmma reads w1's 128
+// columns and then w2's as one 256-wide B and runs both products into one
+// float32 accumulator (a in columns 0-127, b in 128-255).  x arrives as a
+// 128 x 64 box, K-major with the same swizzle, and is wgmma's A straight
+// from shared memory (each warpgroup reads its 64 rows).  One producer
+// thread keeps a ring of STAGES stages full (mbarriers full / empty); two
+// consumer warpgroups, 64 rows each, issue the stage's four k16 products,
+// keep one stage's group in flight and release the stage before it.  The
+// epilogue rounds a, b and y = silu(a) b from the float32 accumulator and
+// stores rows below L and columns below h.  A warpgroup whose rows all lie
+// at or past L (L <= 64) skips its products and only releases the stages.
+//
+// Persistent: one block per SM, taking whole tiles blockIdx.x,
+// + gridDim.x, ... (rows of L fastest, so the blocks at work share their
+// w1 / w2 boxes in L2 and walk the same rows of them together).  At
+// decode (L <= 16) the tile count can leave a partial last wave: L = 4
+// and h = 17408 give 136 tiles for 132 SMs, and with 4 SMs streaming a
+// second tile alone a call read 0.1688 ms against 0.1449 split as below
+// (tools/kernel_ab.py, H100 80GB HBM3 at 700 W).  There the whole waves
+// run as before and the (tile, k-step) pairs of the partial one are
+// shared evenly by `tail` blocks (stream-K; fwd_plan keeps a tile to 8
+// pieces): tail block b takes [b T / tail, (b + 1) T / tail) of those T
+// pairs, in tile order.  A block whose share covers a whole tile stores it
+// as above; a piece of a tile writes its float32 rows to a workspace slot
+// and counts itself on the tile's counter (one per warpgroup); the last to
+// arrive sums the slots in k order -- the same order whichever block is
+// last, so two runs give the same bits -- stores the tile and resets the
+// counter to 0 for the next call.
 // ---------------------------------------------------------------------------
 
 namespace fwd {
-constexpr int BM = 128, BN = 64, STAGES = 4;
-constexpr int LDA = BK + 8;   // x tile: BM rows of BK
-constexpr int LDB = BN + 8;   // weight tile: BK rows of BN
-constexpr int LDC = BN + 4;
-constexpr int A_STAGE = BM * LDA, B_STAGE = BK * LDB;
-constexpr int PIPE = STAGES * (A_STAGE + 2 * B_STAGE) * (int)sizeof(bf16);
-constexpr int EPI = BM * LDC * (int)sizeof(float);
-constexpr int SMEM = PIPE > EPI ? PIPE : EPI;
+constexpr int BM = 128, BN = 128, BK = 64, STAGES = 4;
+constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1);
+constexpr int X_BYTES = BM * BK * 2;          // x: one 128 x 64 box
+constexpr int W_BOX = BK * 64 * 2;            // one 64-wide box of w1 or w2
+constexpr int W_BYTES = (BN / 64) * W_BOX;    // w1's (or w2's) BK x BN tile
+constexpr int STAGE_BYTES = X_BYTES + 2 * W_BYTES;
+static_assert(STAGE_BYTES % 1024 == 0, "stages keep the swizzle alignment");
+constexpr int WS_COLS = 2 * BN;               // a workspace row: a, then b
+// the ring, 1024 bytes to align it, the full and empty barriers, a flag
+// per consumer warpgroup
+constexpr int SMEM = STAGES * STAGE_BYTES + 1024 + 2 * STAGES * 8 + 16;
 }  // namespace fwd
 
-// SPARSE (L <= BM, decode): a 16-row fragment at or past L holds only
-// zero-filled rows, so its products are skipped; the test costs a dense
-// tile, so dense launches compile without it.
-template <bool SPARSE>
-__global__ void __launch_bounds__(THREADS)
-swiglu_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-                const bf16* __restrict__ w2, bf16* __restrict__ y,
-                bf16* __restrict__ a_out, bf16* __restrict__ b_out, int L,
-                int d, int h) {
-  using namespace nvcuda;
+// The (tile, k-step range) items of one block, as described above: tiles
+// [0, n_dp) whole, in turn, then its share of the pairs past n_dp.
+struct FwdWork {
+  int nk, n_dp, t_dp;
+  long long pos, end;
+
+  __device__ FwdWork(int n_tiles, int nk_, int tail) : nk(nk_) {
+    n_dp = tail ? n_tiles - n_tiles % gridDim.x : n_tiles;
+    t_dp = blockIdx.x;
+    const long long T = (long long)(n_tiles - n_dp) * nk;
+    const int b = blockIdx.x < tail ? blockIdx.x : tail;
+    pos = T * b / (tail ? tail : 1);
+    end = T * (blockIdx.x < tail ? b + 1 : b) / (tail ? tail : 1);
+  }
+
+  __device__ bool next(int& t, int& kb, int& ke) {
+    if (t_dp < n_dp) {
+      t = t_dp;
+      kb = 0;
+      ke = nk;
+      t_dp += gridDim.x;
+      return true;
+    }
+    if (pos >= end) return false;
+    const int r = (int)(pos / nk);
+    const long long r0 = (long long)r * nk;
+    t = n_dp + r;
+    kb = (int)(pos - r0);
+    ke = (int)((end < r0 + nk ? end : r0 + nk) - r0);
+    pos = r0 + ke;
+    return true;
+  }
+};
+
+// The tail block of G whose share of T pairs holds pair i.
+__device__ __forceinline__ int fwd_owner(long long i, long long T, int G) {
+  return (int)(((i + 1) * G - 1) / T);
+}
+
+// Stores two columns of one row: y = silu(a) b, a and b, each rounded
+// once from float32.
+__device__ __forceinline__ void store_fwd2(bf16* __restrict__ y,
+                                           bf16* __restrict__ a_out,
+                                           bf16* __restrict__ b_out, size_t o,
+                                           float a0, float a1, float b0,
+                                           float b1) {
+  *reinterpret_cast<uint32_t*>(y + o) = pack_bf16(
+      (a0 * sigmoid_<true>(a0)) * b0, (a1 * sigmoid_<true>(a1)) * b1);
+  *reinterpret_cast<uint32_t*>(a_out + o) = pack_bf16(a0, a1);
+  *reinterpret_cast<uint32_t*>(b_out + o) = pack_bf16(b0, b1);
+}
+
+// tm_x: (L, d) in 128 x 64 boxes; tm_w1, tm_w2: (d, h) in 64 x 64 boxes;
+// all 128-byte swizzled.  With tail != 0: ws holds 2 tail slots of ws_rows
+// (= min(L, BM)) rows of WS_COLS floats; counts holds 2 ints per tile past
+// the last whole wave, zero at launch and zero again at exit.  TAIL
+// instantiates the split: its sums of the pieces take registers that
+// spill, so the other launches run without its code.
+template <bool TAIL>
+__global__ void __launch_bounds__(fwd::THREADS, 1)
+swiglu_fwd_wgmma(const __grid_constant__ CUtensorMap tm_x,
+                 const __grid_constant__ CUtensorMap tm_w1,
+                 const __grid_constant__ CUtensorMap tm_w2,
+                 bf16* __restrict__ y, bf16* __restrict__ a_out,
+                 bf16* __restrict__ b_out, float* __restrict__ ws,
+                 int* __restrict__ counts, int ws_rows, int L, int d, int h,
+                 int tail) {
   using namespace fwd;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  bf16* B1s = As + STAGES * A_STAGE;
-  bf16* B2s = B1s + STAGES * B_STAGE;
-  float* Cs = reinterpret_cast<float*>(smem);
+  extern __shared__ unsigned char smem[];
+  // the swizzle is a function of address bits: align the ring to 1024
+  const uint32_t raw = smem_u32(smem);
+  const uint32_t ring = (raw + 1023u) & ~1023u;
+  const uint32_t full = ring + STAGES * STAGE_BYTES;   // STAGES barriers
+  const uint32_t empty = full + STAGES * 8;            // STAGES barriers
+  volatile int* last = reinterpret_cast<volatile int*>(
+      smem + (empty + STAGES * 8 - raw));
 
-  const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int nsteps = (d + BK - 1) / BK;
+  const int n_rt = (L + BM - 1) / BM;
+  const int n_tiles = n_rt * ((h + BN - 1) / BN);
+  const int nk = (d + BK - 1) / BK;
+  const int wg = threadIdx.x / 128;
 
-  // x tile: BM rows x BK/8 16-byte pieces (2 per thread); weight tiles:
-  // BK rows x BN/8 pieces (1 per thread per weight).
-  auto load_stage = [&](int step, int stage) {
-    const int k0 = step * BK;
-#pragma unroll
-    for (int c = 0; c < 2; ++c) {
-      const int piece = tid + c * THREADS;
-      const int row = piece / (BK / 8), col = (piece % (BK / 8)) * 8;
-      const int r = m0 + row, kc = k0 + col;
-      const bool ok = r < L && kc < d;
-      repro::cp_async16(As + stage * A_STAGE + row * LDA + col,
-                        ok ? x + (size_t)r * d + kc : x, ok);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS * 4);   // one arrival per warp
     }
-    const int brow = tid / (BN / 8), bcol = (tid % (BN / 8)) * 8;
-    const int kr = k0 + brow, col = n0 + bcol;
-    const bool ok = kr < d && col < h;
-    const size_t off = (size_t)kr * h + col;
-    repro::cp_async16(B1s + stage * B_STAGE + brow * LDB + bcol,
-                      ok ? w1 + off : w1, ok);
-    repro::cp_async16(B2s + stage * B_STAGE + brow * LDB + bcol,
-                      ok ? w2 + off : w2, ok);
-  };
-
-  const int warp = tid / 32;
-  const int wm = (warp / 2) * 32;  // 4 x 2 warps, 32 x 32 each
-  const int wn = (warp % 2) * 32;
-  int ni = 2;
-  if (SPARSE) {
-    // warp-uniform: the row fragments [0, ni) hold rows below L
-    ni = 0;
-    for (int i = 0; i < 2; ++i)
-      if (m0 + wm + i * 16 < L) ni = i + 1;
+    mbar_fence_init();
   }
-  AccFrag acc1[2][2], acc2[2][2];
-  zero_acc(acc1);
-  zero_acc(acc2);
+  __syncthreads();
 
-  // Ring of STAGES tiles (as in gather_gmm.cu): at step s the wait leaves
-  // the newest STAGES - 2 groups in flight, so step s's tile has landed;
-  // the barrier frees the stage that the next load reuses.
+  if (wg == 0) {
+    // producer: one thread keeps the ring full
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::);
+    if (threadIdx.x == 0) {
+      FwdWork work(n_tiles, nk, tail);
+      int it = 0, t, kb, ke;
+      while (work.next(t, kb, ke)) {
+        const int m0 = (t % n_rt) * BM, n0 = (t / n_rt) * BN;
+        for (int ks = kb; ks < ke; ++ks, ++it) {
+          const int st = it % STAGES;
+          if (it >= STAGES) mbar_wait(empty + 8 * st, (it / STAGES - 1) & 1);
+          const uint32_t bar = full + 8 * st;
+          const uint32_t s0 = ring + st * STAGE_BYTES;
+          const int k0 = ks * BK;
+          mbar_expect_tx(bar, STAGE_BYTES);
+          tma_load(s0, &tm_x, k0, m0, bar);
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nsteps) load_stage(s, s);
-    repro::cp_async_commit();
-  }
-  for (int s = 0; s < nsteps; ++s) {
-    repro::cp_async_wait<STAGES - 2>();
-    __syncthreads();
-    const int nxt = s + STAGES - 1;
-    if (nxt < nsteps) load_stage(nxt, nxt % STAGES);
-    repro::cp_async_commit();
-    const bf16* A = As + (s % STAGES) * A_STAGE;
-    const bf16* B1 = B1s + (s % STAGES) * B_STAGE;
-    const bf16* B2 = B2s + (s % STAGES) * B_STAGE;
-    if (ni == 0) continue;
-#pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[2];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (i < ni)
-          wmma::load_matrix_sync(a[i], A + (wm + i * 16) * LDA + kk, LDA);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B1 + kk * LDB + wn + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (i < ni)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc1[i][j], a[i], b[j], acc1[i][j]);
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::load_matrix_sync(b[j], B2 + kk * LDB + wn + j * 16, LDB);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        if (i < ni)
-#pragma unroll
-          for (int j = 0; j < 2; ++j)
-            wmma::mma_sync(acc2[i][j], a[i], b[j], acc2[i][j]);
-    }
-  }
-  repro::cp_async_wait<0>();
-  __syncthreads();  // the epilogue reuses the ring's shared memory
-
-  // a and b, each rounded once; then y = silu(a) b from the float32
-  // accumulators (both share one fragment layout), rounded once.
-  stage_acc(Cs, LDC, acc1, wm, wn);
-  __syncthreads();
-  store_tile<BM, BN>(Cs, LDC, a_out, h, m0, n0, L, h);
-  __syncthreads();
-  stage_acc(Cs, LDC, acc2, wm, wn);
-  __syncthreads();
-  store_tile<BM, BN>(Cs, LDC, b_out, h, m0, n0, L, h);
-  __syncthreads();
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      for (int t = 0; t < acc1[i][j].num_elements; ++t) {
-        const float av = acc1[i][j].x[t];
-        acc1[i][j].x[t] = (av * sigmoid_<true>(av)) * acc2[i][j].x[t];
+          for (int q = 0; q < BN / 64; ++q) {
+            tma_load(s0 + X_BYTES + q * W_BOX, &tm_w1, n0 + 64 * q, k0, bar);
+            tma_load(s0 + X_BYTES + W_BYTES + q * W_BOX, &tm_w2, n0 + 64 * q,
+                     k0, bar);
+          }
+        }
       }
-  stage_acc(Cs, LDC, acc1, wm, wn);
-  __syncthreads();
-  store_tile<BM, BN>(Cs, LDC, y, h, m0, n0, L, h);
+    }
+    return;
+  }
+
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::);
+  const int cw = wg - 1;                       // consumer warpgroup
+  const int wt = threadIdx.x % 128, warp = wt / 32, lane = wt % 32;
+  const int lr = cw * 64 + warp * 16 + lane / 4;   // tile row of value i = 0
+  const int lc = 2 * (lane % 4);                   // tile column, j = e = 0
+  float acc[128];
+  FwdWork work(n_tiles, nk, tail);
+  const long long T = (long long)(n_tiles - work.n_dp) * nk;
+  int it = 0, t, kb, ke;
+
+  while (work.next(t, kb, ke)) {
+    const int m0 = (t % n_rt) * BM, n0 = (t / n_rt) * BN;
+    if (m0 + cw * 64 >= L) {
+      // rows wholly past L (uniform in the warpgroup): no products, but
+      // the ring's stages are released
+      for (int ks = kb; ks < ke; ++ks, ++it) {
+        const int st = it % STAGES;
+        mbar_wait(full + 8 * st, (it / STAGES) & 1);
+        if (lane == 0) mbar_arrive(empty + 8 * st);
+        __syncwarp();
+      }
+      continue;
+    }
+    for (int ks = kb; ks < ke; ++ks, ++it) {
+      const int st = it % STAGES;
+      mbar_wait(full + 8 * st, (it / STAGES) & 1);
+      const uint32_t s0 = ring + st * STAGE_BYTES;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        wgmma_m64n256k16_ss<1>(
+            acc, desc_k_sw128(s0 + cw * 64 * 128 + kk * 32),
+            desc_mn_sw128(s0 + X_BYTES + kk * 2048, W_BOX),
+            ks > kb || kk > 0);
+      wgmma_commit();
+      // the previous stage's products are done: its stage is free
+      wgmma_wait<1>();
+      if (ks > kb) {
+        if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+        __syncwarp();
+      }
+    }
+    wgmma_wait<0>();
+#pragma unroll
+    for (int i = 0; i < 128; ++i) reg_fence(acc[i]);
+    if (lane == 0) mbar_arrive(empty + 8 * ((it - 1) % STAGES));
+    __syncwarp();
+
+    if (!TAIL || (kb == 0 && ke == nk)) {
+      // accumulator value 4 j + 2 i + e: tile row lr + 8 i, column
+      // lc + 8 j + e (a for j < 16, b 128 columns on)
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        const int col = n0 + lc + 8 * j;
+        if (col >= h) continue;                // h is a multiple of 8
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int r = m0 + lr + 8 * i;
+          if (r < L)
+            store_fwd2(y, a_out, b_out, (size_t)r * h + col,
+                       acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1],
+                       acc[64 + 4 * j + 2 * i], acc[64 + 4 * j + 2 * i + 1]);
+        }
+      }
+      continue;
+    }
+
+    // A piece of a split tile: its rows below L into this block's slot
+    // (slot 0 for the first tile of the block's share, 1 for its last).
+    const long long tk = (long long)(t - work.n_dp) * nk;
+    const int first = fwd_owner(tk, T, tail);
+    const int nseg = fwd_owner(tk + nk - 1, T, tail) - first + 1;
+    auto slot = [&](int blk) {
+      const int which = T * blk / tail >= tk ? 0 : 1;
+      return ws + (size_t)(2 * blk + which) * ws_rows * WS_COLS;
+    };
+    float* mine = slot(blockIdx.x);
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        if (m0 + lr + 8 * i < L)
+          *reinterpret_cast<float2*>(mine + (lr + 8 * i) * WS_COLS + lc +
+                                     8 * j) =
+              make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+    __threadfence();
+    named_barrier(1 + cw, 128);
+    if (wt == 0) {
+      int* count = counts + 2 * (t - work.n_dp) + cw;
+      const int done = atomicAdd(count, 1) == nseg - 1;
+      if (done) *count = 0;
+      last[cw] = done;
+    }
+    named_barrier(1 + cw, 128);
+    if (!last[cw]) continue;
+    __threadfence();
+    // The last piece to arrive sums every piece's rows in k order: two
+    // columns of a row a thread, the warpgroup's threads along the row
+    // (coalesced), two such pairs at a time with a batch of pieces' loads
+    // issued before their sums.  The loads land in the accumulator's
+    // registers (its values are in the workspace), so the sums take no
+    // registers of their own.
+    constexpr int NB = 8;                        // pieces a batch
+    const int n_pairs = min(64, L - m0 - cw * 64) * (BN / 2);
+    for (int e0 = wt; e0 < n_pairs; e0 += 2 * 128) {
+      float2 sa[2], sb[2];
+      for (int s0 = 0; s0 < nseg; s0 += NB) {
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int e = e0 + 128 * u;
+          const int off =
+              (cw * 64 + e / (BN / 2)) * WS_COLS + 2 * (e % (BN / 2));
+#pragma unroll
+          for (int q = 0; q < NB; ++q)
+            if (e < n_pairs && s0 + q < nseg) {
+              const float* p = slot(first + s0 + q) + off;
+              const float2 va = __ldcg(reinterpret_cast<const float2*>(p));
+              const float2 vb =
+                  __ldcg(reinterpret_cast<const float2*>(p + BN));
+              acc[32 * u + 4 * q] = va.x;
+              acc[32 * u + 4 * q + 1] = va.y;
+              acc[32 * u + 4 * q + 2] = vb.x;
+              acc[32 * u + 4 * q + 3] = vb.y;
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < 2; ++u)
+#pragma unroll
+          for (int q = 0; q < NB; ++q)
+            if (e0 + 128 * u < n_pairs && s0 + q < nseg) {
+              const int v = 32 * u + 4 * q;
+              if (s0 + q == 0) {
+                sa[u] = make_float2(acc[v], acc[v + 1]);
+                sb[u] = make_float2(acc[v + 2], acc[v + 3]);
+              } else {
+                sa[u].x += acc[v], sa[u].y += acc[v + 1];
+                sb[u].x += acc[v + 2], sb[u].y += acc[v + 3];
+              }
+            }
+      }
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int e = e0 + 128 * u;
+        const int r = m0 + cw * 64 + e / (BN / 2);
+        const int col = n0 + 2 * (e % (BN / 2));
+        if (e < n_pairs && col < h)
+          store_fwd2(y, a_out, b_out, (size_t)r * h + col, sa[u].x, sa[u].y,
+                     sb[u].x, sb[u].y);
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -316,7 +447,7 @@ swiglu_fwd_wmma(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
 namespace bwdx {
 constexpr int BM = 128, BN = 256, STAGES = 4;
-static_assert(BK == 32, "the 64-byte swizzle holds rows of 32 bf16");
+constexpr int BK = 32;   // the 64-byte swizzle holds rows of 32 bf16
 constexpr int CONSUMERS = 2;                       // warpgroups of 64 rows
 constexpr int THREADS = 128 * (CONSUMERS + 1);
 constexpr int A_BYTES = BM * BK * 2;               // a dy, a or b tile
@@ -909,20 +1040,43 @@ dim3 grid2(int rows, int bm, int cols, int bn) {
 
 }  // namespace
 
-// x: (L, d); w1, w2: (d, h); y, a, b: (L, h); all of one dtype.
+// x: (L, d); w1, w2: (d, h); y, a, b: (L, h); all of one dtype.  The bf16
+// kernel runs on `grid` blocks (at most one per SM); with tail != 0 the
+// tiles past the last whole wave are shared by `tail` of them as
+// swiglu_fwd_wgmma describes, and only then are ws (2 tail min(L, 128) 256
+// floats) and counts (2 ints per tile of the partial wave, zero) read.
 REPRO_API int repro_fused_swiglu_fwd(int dtype, const void* x, const void* w1,
                                      const void* w2, void* y, void* a, void* b,
-                                     int L, int d, int h,
+                                     void* ws, void* counts, int L, int d,
+                                     int h, int grid, int tail,
                                      cudaStream_t stream) {
   if (L <= 0 || h <= 0) return 0;
   if (d < 0) return (int)cudaErrorInvalidValue;
   if (vec_ok(dtype, d, h, {x, w1, w2, y, a, b})) {
-    const dim3 grid = grid2(L, fwd::BM, h, fwd::BN);
-    auto kernel = L <= fwd::BM ? swiglu_fwd_wmma<true> : swiglu_fwd_wmma<false>;
+    if (d == 0) {
+      // no contraction: zeros, and no tensor map over an empty x
+      const size_t n = (size_t)L * h * 2;
+      cudaError_t err = cudaMemsetAsync(y, 0, n, stream);
+      if (err == cudaSuccess) err = cudaMemsetAsync(a, 0, n, stream);
+      if (err == cudaSuccess) err = cudaMemsetAsync(b, 0, n, stream);
+      return (int)err;
+    }
+    if (grid <= 0 || tail < 0 || tail > grid ||
+        (tail && (ws == nullptr || counts == nullptr)))
+      return (int)cudaErrorInvalidValue;
+    CUtensorMap mx, mw1, mw2;
+    if (!tensor_map_2d(&mx, x, L, d, d, fwd::BM, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map_2d(&mw1, w1, d, h, h, fwd::BK, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B) ||
+        !tensor_map_2d(&mw2, w2, d, h, h, fwd::BK, 64,
+                       CU_TENSOR_MAP_SWIZZLE_128B))
+      return (int)cudaErrorInvalidValue;
+    auto kernel = tail ? swiglu_fwd_wgmma<true> : swiglu_fwd_wgmma<false>;
     allow_smem(kernel, fwd::SMEM);
-    kernel<<<grid, THREADS, fwd::SMEM, stream>>>(
-        (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)a,
-        (bf16*)b, L, d, h);
+    kernel<<<grid, fwd::THREADS, fwd::SMEM, stream>>>(
+        mx, mw1, mw2, (bf16*)y, (bf16*)a, (bf16*)b, (float*)ws,
+        (int*)counts, L < fwd::BM ? L : fwd::BM, L, d, h, tail);
   } else if (dtype == REPRO_DTYPE_BF16) {
     swiglu_fwd_simt<bf16><<<grid2(L, SB, h, SB), 256, 0, stream>>>(
         (const bf16*)x, (const bf16*)w1, (const bf16*)w2, (bf16*)y, (bf16*)a,
@@ -951,7 +1105,7 @@ REPRO_API int repro_fused_swiglu_bwd_x(int dtype, const void* dy, const void* a,
     for (int i = 0; i < 5; ++i) {
       const bool act = i < 3;   // (L, h) activations, else (d, h) weights
       if (!tensor_map_2d(&maps[i], src[i], act ? L : d, h, h,
-                         act ? bwdx::BM : bwdx::BN, BK,
+                         act ? bwdx::BM : bwdx::BN, bwdx::BK,
                          CU_TENSOR_MAP_SWIZZLE_64B))
         return (int)cudaErrorInvalidValue;
     }

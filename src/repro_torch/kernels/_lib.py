@@ -50,7 +50,8 @@ SIGNATURES = {
                             I, P],
     "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
                             I, I, I, I, I, I, P],
-    "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, I, I, I, P],
+    "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I,
+                               P],
     "repro_fused_swiglu_bwd_x": [I, P, P, P, P, P, P, I, I, I, P],
     "repro_fused_swiglu_bwd_w": [I, P, P, P, P, P, P, I, I, I, P],
     "repro_paged_attention_int8": [I, P, P, P, P, P, P, P, P, P, P, I, I, I,

@@ -5,9 +5,11 @@ Replaces ``repro/kernels/combine.py:combine`` (kernel ``_combine_kernel``).
 order ``i = 0..k-1``, cast to ``p.dtype``.
 
 Bound on the card: bytes (k partial rows read and one row written per
-token).  ``csrc/combine.cu`` runs one block per token with threads across
-``d``; it rounds each product and sum as the plain version does, so the two
-agree bit for bit.
+token).  ``csrc/combine.cu`` gives each token a warp, doubled while the
+tokens fill less than half of the card (4 warps at Mixtral's prefill, a
+block at decode), holds its slot ids and gates in registers and issues all
+k rows' 16-byte loads before the sum; it rounds each product and sum as the
+plain version does, so the two agree bit for bit.
 """
 
 from __future__ import annotations

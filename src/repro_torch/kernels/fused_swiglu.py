@@ -17,14 +17,18 @@ rounds bwd_x's two products to bf16 before summing them; the Pallas
 kernel, and so the port, sums them in float32).
 
 Bound on the card: operations at prefill and in training (4 L d h each),
-bytes at decode (the weights).  ``csrc/fused_swiglu.cu`` gives every
-block one output tile and walks the contraction inside the block (the
-TPU carries float32 scratch across an ordered grid axis); see the source
-for the tiling.  ``bwd_x`` in bf16 is a Hopper kernel: TMA streams dy, a,
-b and the weights into a ring of shared memory, and two consumer
-warpgroups form da and db in registers and feed them to ``wgmma``; it
-allocates nothing beyond dx.  Any L, d and h; float32 and widths that are
-not a multiple of 8 take a plain float32-FMA tiled kernel.
+bytes at decode (the weights).  ``csrc/fused_swiglu.cu`` runs the three
+in bf16 as Hopper kernels, TMA feeding ``wgmma``, each block walking the
+contraction itself (the TPU carries float32 scratch across an ordered grid
+axis); see the source for the tiling.  The forward is persistent and
+warp-specialized, x and w1 | w2 both read by ``wgmma`` from shared memory;
+at decode (L <= 16), when its 128 x 128 tiles leave a partial last wave
+(136 tiles for 132 SMs at Qwen3-14B's width), :func:`fwd_plan` has the
+partial wave's contraction split over several SMs, and the pieces are
+summed in a fixed order (two runs give the same bits).  ``bwd_x`` forms
+da and db in registers and ``bwd_w`` in shared memory; neither allocates
+beyond its outputs.  Any L, d and h; float32 and widths that are not a
+multiple of 8 take a plain float32-FMA tiled kernel.
 """
 
 from __future__ import annotations
@@ -91,6 +95,55 @@ def _shape_check(cond: bool, what: str) -> None:
         raise ValueError(f"fused SwiGLU: bad shapes, {what}")
 
 
+FWD_BM, FWD_BN, FWD_BK = 128, 128, 64   # the bf16 forward's tile and step
+FWD_SPLIT_MAX = 8                        # pieces of a split tile, at most
+FWD_SPLIT_ROWS = 16                      # rows of x up to which it splits
+
+
+def fwd_plan(L: int, d: int, h: int, n_sm: int) -> tuple[int, int]:
+    """``(grid, tail)`` of the bf16 forward kernel: one persistent block
+    per SM, fewer when there is less work.  At decode (L <=
+    ``FWD_SPLIT_ROWS``), when the 128 x 128 tiles leave a partial last
+    wave, the whole waves run as they are and ``tail`` blocks share the
+    partial wave's (tile, k-step) pairs evenly, each tile in at most
+    ``FWD_SPLIT_MAX`` pieces (stream-K); ``tail`` is 0 otherwise.  At
+    Qwen3-14B's widths on an H100 80GB HBM3 at 700 W (``tools/kernel_ab.py``
+    against a copy that never splits) a call took 0.1449 and 0.1557 ms at
+    L = 4 and 16 against 0.1688 and 0.1716 with whole tiles only; at
+    L = 64 summing the pieces cost more than the split saved."""
+    tiles = -(-L // FWD_BM) * -(-h // FWD_BN)
+    nk = -(-d // FWD_BK)
+    if tiles == 0 or nk == 0:
+        return 0, 0
+    rest = tiles % n_sm
+    if L > FWD_SPLIT_ROWS or nk < 2 or rest == 0:
+        return min(n_sm, tiles), 0
+    tail = min(n_sm, rest * min(nk, FWD_SPLIT_MAX))
+    return (n_sm if tiles > n_sm else tail), tail
+
+
+_SM_COUNT: dict = {}
+_SPLIT_COUNTS: dict = {}
+
+
+def _sm_count(device: torch.device) -> int:
+    if device not in _SM_COUNT:
+        _SM_COUNT[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    return _SM_COUNT[device]
+
+
+def _split_counts(device: torch.device, n_sm: int) -> torch.Tensor:
+    """The split plan's counters on ``device``: 2 ints for each tile of a
+    partial wave (fewer than ``n_sm``), zero, made once (the kernel leaves
+    them zero); the port launches on one stream, so calls never share
+    them."""
+    if device not in _SPLIT_COUNTS:
+        _SPLIT_COUNTS[device] = torch.zeros(2 * n_sm, dtype=torch.int32,
+                                            device=device)
+    return _SPLIT_COUNTS[device]
+
+
 def fused_swiglu_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
     """x: (L, d); w1, w2: (d, h).  Returns ``(y, a, b)``, each (L, h) in
     ``x.dtype``.  A CPU tensor takes the plain version; a CUDA tensor
@@ -105,10 +158,19 @@ def fused_swiglu_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
                  f"w2 {tuple(w2.shape)}")
     y = torch.empty(L, h, dtype=x.dtype, device=x.device)
     a, b = torch.empty_like(y), torch.empty_like(y)
+    n_sm = _sm_count(x.device)
+    grid, tail = fwd_plan(L, d, h, n_sm)
+    ws = counts = None
+    if tail and x.dtype == torch.bfloat16:
+        ws = torch.empty(2 * tail * L * 2 * FWD_BN, dtype=torch.float32,
+                         device=x.device)
+        counts = _split_counts(x.device, n_sm)
     code = _lib.lib().repro_fused_swiglu_fwd(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        y.data_ptr(), a.data_ptr(), b.data_ptr(), L, d, h,
-        _lib.stream_ptr(x))
+        y.data_ptr(), a.data_ptr(), b.data_ptr(),
+        None if ws is None else ws.data_ptr(),
+        None if counts is None else counts.data_ptr(), L, d, h, grid,
+        tail if ws is not None else 0, _lib.stream_ptr(x))
     _lib.check("repro_fused_swiglu_fwd", code)
     fused_swiglu_fwd.launches += 1
     return y, a, b

@@ -89,7 +89,7 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg, *, is_local: bool,
         raise NotImplementedError(
             "attention_sublayer with a KVCache (decode_attention) is not "
             "ported; serving decodes through paged_attention_sublayer "
-            "(ROADMAP queue A3)")
+            "(ROADMAP.md §A item 5: attention)")
     B, S, _ = x.shape
     window = cfg.sliding_window if is_local else 0
     q, k, v, _ = project_qkv(x, p, cfg, positions)

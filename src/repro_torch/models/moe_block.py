@@ -72,8 +72,8 @@ def check_supported(cfg) -> None:
     if cfg.moe_impl not in MOE_IMPLS:
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r} is not ported; the port runs "
-            f"{MOE_IMPLS} (ROADMAP queue A2: the megablocks / dense expert "
-            "layers)")
+            f"{MOE_IMPLS} (ROADMAP.md §A item 1: the megablocks / dense "
+            "expert layers)")
     if cfg.moe_parallel not in MOE_PARALLEL_MODES:
         raise ValueError(f"unknown moe_parallel {cfg.moe_parallel!r}; "
                          f"known: {MOE_PARALLEL_MODES}")
@@ -107,7 +107,7 @@ def resolve_moe_parallel(cfg, mesh) -> str:
         raise NotImplementedError(
             "moe_parallel='auto' under a mesh ranks the modes with the "
             "reference's roofline cost model, whose constants are a TPU's; "
-            "it is not ported (ROADMAP queue A8: the cost model with the "
+            "it is not ported (ROADMAP.md §A item 8: the cost model with the "
             "card's constants).  Force one of 'ep', 'ep_a2a', "
             "'ep_a2a_hier', 'tp'.")
     n_model = mesh.shape.get("model", 1)

@@ -47,13 +47,14 @@ def check_supported(cfg) -> None:
     if bad:
         raise NotImplementedError(
             f"block kinds {bad} are not ported; the port runs "
-            f"{KINDS} (ROADMAP queue A)")
+            f"{KINDS} (ROADMAP.md §A item 6: more architectures)")
     if cfg.input_kind != "tokens":
         raise NotImplementedError("the port takes token inputs only")
     if cfg.remat_policy != "none":
         raise NotImplementedError(
             f"remat_policy={cfg.remat_policy!r}: checkpoint plans are not "
-            "ported (ROADMAP queue A4); the port runs remat_policy='none'")
+            "ported (ROADMAP.md §A item 2); the port runs "
+            "remat_policy='none'")
     if (set(cfg.block_pattern) & set(DENSE_KINDS)
             and cfg.ffn_act not in FFN_ACTS):
         raise NotImplementedError(

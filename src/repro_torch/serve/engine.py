@@ -86,7 +86,7 @@ class ServeEngine:
         if mesh is not None:
             raise NotImplementedError(
                 "serving over a mesh is not ported; the engine runs on one "
-                "card (ROADMAP queue A7: ServeEngine(mesh=...))")
+                "card (ROADMAP.md §A item 7: ServeEngine(mesh=...))")
         self.device = resolve_device(device)
         self.backend = GB.resolve(gmm_backend, config=cfg.gmm_backend)
         cfg = cfg.replace(gmm_backend=self.backend.name)
@@ -96,11 +96,11 @@ class ServeEngine:
         if not greedy:
             raise NotImplementedError(
                 "temperature sampling is not ported yet; the port decodes "
-                "greedily (ROADMAP queue A, serving)")
+                "greedily (ROADMAP.md §A item 4: serving)")
         if prefix_cache:
             raise NotImplementedError(
                 "prefix sharing with copy-on-write pages is not ported yet "
-                "(ROADMAP queue A, serving)")
+                "(ROADMAP.md §A item 4: serving)")
         T.check_supported(cfg)
         if cfg.is_moe:
             check_moe(cfg)
@@ -153,7 +153,8 @@ class ServeEngine:
         if request.gmm_backend is not None:
             raise NotImplementedError(
                 "a per-request gmm_backend is not ported; the engine serves "
-                f"with its own ({self.backend.name}) (ROADMAP queue A5)")
+                f"with its own ({self.backend.name}) (ROADMAP.md §A item 4: "
+                "serving)")
         if request.max_new_tokens < 1:
             raise ValueError(
                 f"max_new_tokens must be >= 1, got {request.max_new_tokens} "

@@ -80,7 +80,7 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None):
     if tcfg.num_microbatches > 1:
         raise NotImplementedError(
             "num_microbatches > 1 (gradient accumulation) is not ported "
-            "(ROADMAP queue A1)")
+            "(ROADMAP.md §A item 3: training)")
     mode, shard_group = "single", None
     if mesh is not None:
         # an invalid (mode, mesh) pairing raises here, at construction

@@ -123,3 +123,26 @@ def test_swiglu_function_saves_a_and_b_not_y(tp):
         tp.ops.swiglu(tx, tw1, tw2)
     assert sorted(shapes) == sorted([(64, 128), (128, 256), (128, 256),
                                      (64, 256), (64, 256)])
+
+
+@pytest.mark.parametrize("L,d,h,grid,tail", [
+    (1, 5120, 17408, 132, 32),    # Qwen3-14B decode: 136 tiles, 132 SMs
+    (4, 5120, 17408, 132, 32),    # 4 tiles past the wave, 8 pieces each
+    (16, 5120, 17408, 132, 32),
+    (17, 5120, 17408, 132, 0),    # past decode: no split
+    (4, 5120, 4096, 132, 132),    # 32 tiles: all split, 4 pieces or so
+    (4, 512, 1000, 64, 64),       # 8 tiles of 8 k-steps: 8 pieces each
+    (4, 64, 17408, 132, 0),       # one k-step: nothing to split
+    (64, 5120, 17408, 132, 0),
+    (128, 5120, 16896, 132, 0),   # exactly one wave of 132 tiles
+    (2048, 5120, 17408, 132, 0),  # prefill
+    (4096, 5120, 17408, 132, 0),  # training
+    (4, 0, 17408, 0, 0)])         # no contraction: nothing to launch
+def test_fwd_plan_splits_only_a_partial_wave_at_decode(tp, L, d, h, grid,
+                                                      tail):
+    """The bf16 forward runs one persistent block per SM (fewer when
+    there is less work); at decode (L <= 16) the tiles of a partial last
+    wave are shared by ``tail`` blocks, each tile in at most
+    ``FWD_SPLIT_MAX`` pieces."""
+    from repro_torch.kernels import fused_swiglu as FS
+    assert FS.fwd_plan(L, d, h, 132) == (grid, tail)

@@ -213,12 +213,21 @@ def test_gather_gmm_kernel(dev, K, dtype, L, d, h, lengths):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("L,E,k,d", [(48, 4, 2, 32), (2048, 8, 2, 4096),
-                                     (5, 8, 1, 100)])
-def test_combine_kernel(dev, K, dtype, L, E, k, d):
+@pytest.mark.parametrize("L,E,k,d,off", [
+    (48, 4, 2, 32, 0), (2048, 8, 2, 4096, 0), (5, 8, 1, 100, 0),
+    (2048, 8, 1, 4096, 0),     # k = 1
+    (300, 8, 8, 4096, 0),      # k = 8: every expert
+    (4, 8, 8, 4096, 0),        # decode rows, k = 8
+    (37, 8, 2, 4100, 0),       # d not a multiple of the 16-byte piece
+    (64, 8, 2, 4096, 1)])      # p's base one element off 16-byte alignment
+def test_combine_kernel(dev, K, dtype, L, E, k, d, off):
+    """Bit-equal to the plain version, one launch a call, on the 16-byte
+    path and on the element-wise one (d = 4100, a misaligned p)."""
     rng = np.random.default_rng(L)
     td = K.routing.build_dispatch(_t(_topk(L, E, k, seed=L), dev), E)
-    p = _t(rng.normal(size=(L * k, d)), dev, dtype)
+    flat = _t(rng.normal(size=(off + L * k * d)), dev, dtype)
+    p = flat[off:].view(L * k, d)
+    assert (p.data_ptr() % 16 != 0) == (off != 0)
     g = _t(rng.uniform(size=(L, k)), dev, dtype)
     before = K.combine.combine.launches
     got = K.combine.combine(p, td.token_index_map, g)
@@ -717,12 +726,18 @@ def _scale_close(name, got, want, dtype):
     (4, 512, 1000),      # decode rows; h not a multiple of the tile
     (300, 320, 520),     # ragged rows and d
     (37, 100, 140),      # widths not a multiple of 8 (general path)
-    (0, 64, 128)])       # no rows: zero weight gradients
+    (0, 64, 128),        # no rows: zero weight gradients
+    (1, 5120, 17408),    # Qwen3-14B decode rows: the split plan
+    (4, 5120, 17408),
+    (64, 5120, 17408),   # the second consumer warpgroup without rows
+    (65, 5120, 17408),   # one row for it
+    (129, 5120, 17408),  # a second row tile of one row
+    (4, 0, 128)])        # no contraction: zeros
 def test_fused_swiglu_kernels(dev, K, dtype, L, d, h):
     import torch
     rng = np.random.default_rng(L + d + h)
     x = _t(rng.normal(size=(L, d)), dev, dtype)
-    w1, w2 = (_t(rng.normal(size=(d, h)) * d ** -0.5, dev, dtype)
+    w1, w2 = (_t(rng.normal(size=(d, h)) * max(d, 1) ** -0.5, dev, dtype)
               for _ in range(2))
     dy = _t(rng.normal(size=(L, h)), dev, dtype)
     FS = K.fused_swiglu
@@ -734,6 +749,10 @@ def test_fused_swiglu_kernels(dev, K, dtype, L, d, h):
     for name, g_, w_ in zip(("y", "a", "b"), got, want):
         assert g_.dtype == x.dtype and g_.shape == (L, h)
         _scale_close(name, g_, w_, dtype)
+    # the split plan sums its pieces in a fixed order: a second call gives
+    # the same bits
+    for g_, again in zip(got, FS.fused_swiglu_fwd(x, w1, w2)):
+        assert torch.equal(g_, again)
     _, a, b = got
     dx = FS.fused_swiglu_bwd_x(dy, a, b, w1, w2)
     _scale_close("dx", dx, FS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2),
@@ -749,7 +768,7 @@ def test_fused_swiglu_kernels(dev, K, dtype, L, d, h):
     after = [f.launches for f in (FS.fused_swiglu_fwd,
                                   FS.fused_swiglu_bwd_x,
                                   FS.fused_swiglu_bwd_w)]
-    assert after == [n + 1 for n in before]
+    assert after == [before[0] + 2, before[1] + 1, before[2] + 1]
     assert bool(torch.isfinite(dx.float()).all())
 
 

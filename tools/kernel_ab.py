@@ -7,6 +7,11 @@ that a row is held to.  Inputs are bf16 from seed 0:
 
 - ``fused_swiglu_bwd_x``: Qwen3-14B, L = 4096, d = 5120, h = 17408 (a
   and b from the checkout's own ``fused_swiglu_fwd``);
+- ``fused_swiglu_fwd``: Qwen3-14B's widths at training (L = 4096),
+  prefill (L = 2048) and decode (L = 4, and L = 16 and 64 on either side
+  of the split plan's limit);
+- ``combine``: Mixtral-8x7B's width (d = 4096), top-2 of 8 experts from a
+  random gate, at prefill (L = 2048, S = 4096) and decode (L = 4, S = 8);
 - ``flash_attention``: B = 2, S = 2048, 32/8 heads of 128 (Mixtral) and
   40/8 (Qwen3-14B), causal, window 4096;
 - ``fused_moe_fwd``: Mixtral-8x7B, 2 x 2048 tokens, d = 4096, h = 14336,
@@ -42,7 +47,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
-           "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw")
+           "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw",
+           "fused_swiglu_fwd", "combine")
 TAG = "KERNEL_AB "
 
 
@@ -60,6 +66,12 @@ def cases(name: str, dev):
         L, d, h = 4096, 5120, 17408
         x, dy = randn(L, d), randn(L, h)
         w1, w2 = randn(d, h, scale=d ** -0.5), randn(d, h, scale=d ** -0.5)
+        if name == "fused_swiglu_fwd":
+            return [(f"{label}: L={n}, d={d}, h={h}",
+                     lambda n=n: KS.fused_swiglu_fwd(x[:n], w1, w2))
+                    for label, n in (("training", L), ("prefill", 2048),
+                                     ("decode", 4), ("decode", 16),
+                                     ("decode", 64))]
         _, a, b = KS.fused_swiglu_fwd(x, w1, w2)
         if name == "fused_swiglu_bwd_w":
             return [(f"L={L}, d={d}, h={h}",
@@ -78,6 +90,18 @@ def cases(name: str, dev):
         return out
     from repro_torch.core import routing
     L, d, h, E = 4096, 4096, 14336, 8
+    if name == "combine":
+        from repro_torch.kernels import combine as KC
+        wg = randn(d, E)
+        out = []
+        for label, n in (("prefill", 2048), ("decode", 4)):
+            tim = routing.build_dispatch(routing.top_k_gating(
+                randn(n, d), wg, 2).topk_experts.contiguous(),
+                E).token_index_map
+            p, g = randn(2 * n, d), randn(n, 2)
+            out.append((f"{label}: L={n}, S={2 * n}, d={d}, k=2",
+                        lambda p=p, tim=tim, g=g: KC.combine(p, tim, g)))
+        return out
     x = randn(L, d)
     w1, w2 = randn(E, d, h, scale=d ** -0.5), randn(E, d, h, scale=d ** -0.5)
     w3 = randn(E, h, d, scale=h ** -0.5)
