@@ -13,6 +13,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bf16 at the serving and training shapes (Mixtral-8x7B: d=4096, 32/8
    heads of 128, E=8, top-2, expert width 14336; training 2 x 2048 tokens,
    8192 slots), plus edge cases: empty experts, all slots on one expert,
+   the dispatch build at every shape of ``DISPATCH_SHAPES`` (decode to the
+   paper's Table-1 sizes and both sides of its one-launch limit; each
+   build called twice and held bit-equal both times),
    slot counts that are not a multiple of the tile, position 0 and a dead
    page table, windows shorter than the sequence, positions on and across
    the boundaries of paged attention's splits and a window that starts
@@ -43,13 +46,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and the host's launch time hidden behind a device sleep) at
    the prefill, decode and training shapes (gather-GMM at each of the
    training step's instantiations: the dual branch with ``save_ab``, the
-   w3 forward, the backward's w3ᵀ and w1ᵀ), beside its plain version, its
-   bound (the larger of bytes / 3.35 TB/s and operations / 989 TFLOP/s,
-   from this run's inputs) and PyTorch calls that compute the same
-   function, where there are (``torch._grouped_mm`` over pre-gathered
-   rows, ``scaled_dot_product_attention``; for the fused pair the sum of
-   its products as grouped_mm calls, a composition), timed only; flash
-   attention at both models' training shapes (32/8 and 40/8 heads);
+   w3 forward, the backward's w3ᵀ and w1ᵀ; the dispatch build at every
+   shape of ``DISPATCH_SHAPES``), beside its plain version, its bound (the
+   largest of bytes / 3.35 TB/s, operations / 989 TFLOP/s, both from this
+   run's inputs, and the launch floor: an empty kernel timed as the
+   kernels are, once for each kernel launch a call needs) and PyTorch
+   calls that compute the same function, where there are
+   (``torch._grouped_mm`` over pre-gathered rows,
+   ``scaled_dot_product_attention``; for the fused pair the sum of its
+   products as grouped_mm calls, for the dispatch build the sort-based
+   build, compositions), timed only; flash attention at both models'
+   training shapes (32/8 and 40/8 heads);
 5. end to end — Mixtral-8x7B at full width with the depth cut to 2 layers
    (random bf16 weights from seed 0; 32 layers would not fit one 80 GB
    card), served by the port's engine: 4 slots, capacity 1024, 16-token
@@ -220,6 +227,20 @@ LAYER_MESH_TOL = (5e-2, 5e-2)
 # load-balance loss estimated per rank's chunk -> 1e-3 relative (the
 # readings are ~1e-5 for the loss and ~1e-4 for the grad norm).
 MR_WIDTHS, MR_TOKENS, MR_STEP_RTOL = (1024, 3584), 1024, 1e-3
+# The dispatch build's shapes (label, L, k, E), held bit-equal in phase 3
+# and timed in phase 4: Mixtral's decode, prefill and training, ep_a2a's
+# pack on one rank (2 groups: rank 0 and the trash group),
+# qwen3_moe_30b_a3b's training width, the paper's Table-1 confs 2 and 3
+# (32 x 2048 tokens; src/repro/configs/paper_tables.py:11-12), the widest
+# expert count the kernel takes, and both sides of its one-launch limit
+# (kernels/dispatch.py:N_ONE, 16384 slots).
+DISPATCH_SHAPES = (
+    ("decode", 4, 2, 8), ("prefill", 2048, 2, 8), ("training", 4096, 2, 8),
+    ("ep_a2a pack, one rank", 8192, 1, 2),
+    ("qwen3_moe_30b_a3b training", 4096, 8, 128),
+    ("paper_conf2", 65536, 2, 8), ("paper_conf3", 65536, 4, 16),
+    ("widest", 8192, 8, 256), ("n = N_ONE", 8192, 2, 8),
+    ("n = N_ONE + 1", 16385, 1, 8))
 
 
 def log(msg: str) -> None:
@@ -272,10 +293,20 @@ def split_boundaries(KP, dev, Hkv: int, pps: int, ps: int):
                               dtype=torch.int32, device=dev)
 
 
-def bound_ms(nbytes: float, ops: float) -> tuple[float, str]:
-    tb = nbytes / HBM_BYTES_PER_S * 1e3
-    to = ops / BF16_OPS_PER_S * 1e3
-    return (tb, "bytes") if tb >= to else (to, "operations")
+def bound_ms(nbytes: float, ops: float,
+             launch_ms: float = 0.0) -> tuple[float, str]:
+    """The least time for the work: the largest of its bytes over the
+    memory rate, its operations over the bf16 peak and ``launch_ms`` (the
+    launch floor times the launches the kernel needs)."""
+    return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
+               (ops / BF16_OPS_PER_S * 1e3, "operations"),
+               (launch_ms, "launch"), key=lambda t: t[0])
+
+
+def random_topk(L: int, k: int, E: int, gen) -> torch.Tensor:
+    """(L, k) int32 top-k of uniform scores: k distinct experts a row."""
+    return (torch.rand(L, E, generator=gen, device=gen.device).argsort(1)
+            [:, :k].to(torch.int32).contiguous())
 
 
 def require_close(name, got, want, rtol, atol) -> float:
@@ -384,11 +415,12 @@ def main() -> int:
                              "paged_attention_int8", "gather_rows")}
 
     def dispatch_case(name, topk, n_exp):
-        got = KD.build_dispatch(topk, n_exp)
         want = TR.build_dispatch(topk, n_exp)
-        for f in TR.Dispatch._fields:
-            check(torch.equal(getattr(got, f), getattr(want, f)),
-                  f"dispatch {name}: {f} differs")
+        for call in ("", ", repeated"):
+            got = KD.build_dispatch(topk, n_exp)
+            for f in TR.Dispatch._fields:
+                check(torch.equal(getattr(got, f), getattr(want, f)),
+                      f"dispatch {name}{call}: {f} differs")
         return got
 
     disp_pre = dispatch_case("prefill", topk_pre, E)
@@ -400,7 +432,20 @@ def main() -> int:
                                            device=dev), E)
     dispatch_case("ragged", topk_pre[:37].contiguous(), E)
     log("parity build_dispatch: bit-equal (prefill, decode, empty experts, "
-        "one expert, 37 tokens)")
+        "one expert, 37 tokens), each call repeated bit-equal")
+    # the shapes of DISPATCH_SHAPES, from their own generator so that later
+    # phases draw what they drew before
+    disp_gen = torch.Generator(device=dev).manual_seed(7)
+    disp_topk = {}
+    for label, L_, k_, E_ in DISPATCH_SHAPES:
+        disp_topk[label] = random_topk(L_, k_, E_, disp_gen)
+        dispatch_case(label, disp_topk[label], E_)
+        plan = KD.dispatch_plan(L_ * k_, E_)
+        log(f"parity build_dispatch [{label}: L={L_}, k={k_}, E={E_}, "
+            f"n={L_ * k_}]: bit-equal, repeated bit-equal; {plan['path']} "
+            f"path, {plan['launches']} kernel launch(es), grid "
+            f"{plan['grid']} x {plan['threads']} threads, "
+            f"{plan['smem']} B shared memory")
 
     def gmm_case(name, x, disp_or_off, w1, w2=None, idx=None, epilogue=True):
         off = disp_or_off
@@ -501,21 +546,43 @@ def main() -> int:
     timer = Timer(dev)
     rows = {}
 
-    def entry(ms, plain_ms, nbytes, ops, library_ms=None, shape=""):
-        b, by = bound_ms(nbytes, ops)
+    # The launch floor: an empty kernel timed as every kernel is (L2
+    # flushed, the host hidden behind the sleep), counted once for each
+    # kernel launch a call needs.
+    floor_ms = timer(lambda: _lib.noop(dev), reps=20)
+    log(f"launch floor: {floor_ms:.4f} ms (an empty kernel, timed as every "
+        "kernel below)")
+
+    def entry(ms, plain_ms, nbytes, ops, library_ms=None, shape="",
+              launches=1):
+        b, by = bound_ms(nbytes, ops, launches * floor_ms)
         return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": b, "bound_by": by, "library_ms": library_ms}
+                "bound_ms": b, "bound_by": by, "library_ms": library_ms,
+                "kernel_launches": launches}
 
-    def disp_entry(topk, shape):
-        n = topk.numel()
-        nbytes = 4 * (n + E + (E + 1) + 2 * n)
-        return entry(timer(lambda: KD.build_dispatch(topk, E)),
-                     timer(lambda: TR.build_dispatch(topk, E)),
-                     nbytes, 0, None, shape)
+    def disp_entry(label, topk, n_exp):
+        L_, k_ = topk.shape
+        n = L_ * k_
+        nbytes = 4 * (n + n_exp + (n_exp + 1) + 2 * n)
+        return entry(timer(lambda: KD.build_dispatch(topk, n_exp)),
+                     timer(lambda: TR.build_dispatch(topk, n_exp)),
+                     nbytes, 0,
+                     timer(lambda: TR.build_dispatch_sort(topk, n_exp)),
+                     f"{label}: L={L_}, k={k_}, E={n_exp}, n={n} (library: "
+                     "sort-based build, composition)",
+                     launches=KD.dispatch_plan(n, n_exp)["launches"])
 
+    # Mixtral's own routing at prefill, decode and training; the rest of
+    # DISPATCH_SHAPES from phase 3's draws
+    mixtral_topk = {"prefill": topk_pre, "decode": topk_dec,
+                    "training": topk_tr}
+    n_exp = {label: E_ for label, _, _, E_ in DISPATCH_SHAPES}
+    labels = list(mixtral_topk) + [lb for lb in n_exp
+                                   if lb not in mixtral_topk]
     rows["build_dispatch"] = [
-        disp_entry(topk_pre, f"prefill: L={L_pre}, k={k}, E={E}"),
-        disp_entry(topk_dec, f"decode: L={L_dec}, k={k}, E={E}")]
+        disp_entry(lb, mixtral_topk.get(lb, disp_topk.get(lb)), n_exp[lb])
+        for lb in labels]
+    del disp_topk
 
     def gmm_entry(x, disp, w1, w2, idx, shape, plain_reps, save_ab=False,
                   trans_w=False):
@@ -608,7 +675,7 @@ def main() -> int:
                                                window=window)),
         nbytes, ops, lib_ms,
         f"decode: B=4, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, page {ps}, "
-        f"positions {pos.tolist()}")]
+        f"positions {pos.tolist()}", launches=2)]   # split walk + merge
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
@@ -830,6 +897,13 @@ def main() -> int:
         rec = {k_: v for k_, v in rec.items() if k_ != "by_kernel_ms"}
         log(f"train-record [{tag}]: "
             f"{json.dumps(dict(rec, crosscheck=xc))}")
+    # every main-path build is at most N_ONE slots: one kernel launch a call
+    log("build_dispatch calls a step (one kernel launch each): " + ", ".join(
+        f"{tag} {rec['launches_per_step']['build_dispatch']:g}"
+        for tag, rec in (("blaze_pallas", train),
+                         ("blaze+pallas_fused", train_fused),
+                         ("ep_a2a", train_a2a)))
+        + f"; a warm Mixtral serving run {launches['build_dispatch']}")
     log(f"card: {card}; total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
@@ -1215,7 +1289,7 @@ def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
         timer(lambda: torch.nn.functional.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask[:, None, None, :], enable_gqa=True)),
         f"decode: B={B}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, int8 pages of {ps}, "
-        f"positions {pos.tolist()}"))
+        f"positions {pos.tolist()}", launches=2))   # split walk + merge
     return rows
 
 
@@ -1787,13 +1861,18 @@ def fused_kernel_timing(M, timer, entry, fz, moe):
         meta = S * 8 + (E + 1) * 4
         plain_reps = 3 if label == "training" else 5
         shape = f"{label}: L={L}, S={S}, d={d}, h={h}, E={E}"
+        # kernel launches a call: 2 an h-range forward, 4 a range and the
+        # dgates sum backward
+        n_fwd = len(KFM.h_ranges(h, KFM.pass_width(S, h)))
+        n_bwd = len(KFM.h_ranges(h, KFM.bwd_pass_width(S, h)))
         rows["fused_moe_fwd"].append(entry(
             timer(lambda: KFM.fused_moe_fwd(x, g, idx, off, w1, w2, w3)),
             timer(lambda: KFM.fused_moe_fwd_plain(x, g, idx, off, w1, w2,
                                                   w3), warm=1,
                   reps=plain_reps),
             L * d * EB + meta + wbytes + L * d * 4, 6.0 * n * d * h,
-            timer(lib_fwd), shape + " (library: 2 grouped_mm, composition)"))
+            timer(lib_fwd), shape + " (library: 2 grouped_mm, composition)",
+            launches=2 * n_fwd))
         rows["fused_moe_bwd"].append(entry(
             timer(lambda: KFM.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3)),
             timer(lambda: KFM.fused_moe_bwd_plain(x, dy, g, idx, off, w1,
@@ -1801,7 +1880,8 @@ def fused_kernel_timing(M, timer, entry, fz, moe):
                   reps=plain_reps),
             2 * L * d * EB + meta + wbytes + L * d * 4 + S * 4
             + 3 * E * d * h * 4, 16.0 * n * d * h,
-            timer(lib_bwd), shape + " (library: 6 grouped_mm, composition)"))
+            timer(lib_bwd), shape + " (library: 6 grouped_mm, composition)",
+            launches=4 * n_bwd + 1))
         del xg, dyg, ab, y_swi, dadb, da, db
     return rows
 

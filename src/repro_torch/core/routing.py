@@ -13,7 +13,8 @@ The four index structures (paper §4.1), as in ``repro/core/routing.py``:
 
 :func:`build_dispatch` here is the plain PyTorch rendering of the sort-free
 build; ``kernels/dispatch.py`` holds the CUDA kernel that produces the same
-integers bit for bit.
+integers bit for bit.  :func:`build_dispatch_sort` is the sort-based build
+the paper compares against (§4.2), with the same integers.
 """
 
 from __future__ import annotations
@@ -94,6 +95,32 @@ def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
         expert_token_indices=eti.to(i32),
         expert_token_offsets=offsets.to(i32),
         token_expert_indices=flat.to(i32),
+        token_index_map=dest.reshape(L, k).to(i32),
+        expert_lengths=lengths.to(i32),
+    )
+
+
+def build_dispatch_sort(topk_experts: torch.Tensor,
+                        num_experts: int) -> Dispatch:
+    """Sort-based build (paper §4.2's strawman), as the reference's
+    ``build_dispatch_sort``: a stable sort of the slots by expert id, then
+    index recovery by a scatter.  The same integers as
+    :func:`build_dispatch`; plain PyTorch, several calls on the card."""
+    L, k = topk_experts.shape
+    n = L * k
+    dev = topk_experts.device
+    flat = topk_experts.reshape(n).to(torch.int32)
+    order = torch.sort(flat, stable=True).indices
+    slots = torch.arange(n, device=dev)
+    dest = torch.empty(n, dtype=torch.long, device=dev)
+    dest[order] = slots
+    lengths = torch.bincount(flat, minlength=num_experts)[:num_experts]
+    offsets = torch.cat([lengths.new_zeros(1), torch.cumsum(lengths, 0)])
+    i32 = torch.int32
+    return Dispatch(
+        expert_token_indices=(order // k).to(i32),
+        expert_token_offsets=offsets.to(i32),
+        token_expert_indices=flat,
         token_index_map=dest.reshape(L, k).to(i32),
         expert_lengths=lengths.to(i32),
     )

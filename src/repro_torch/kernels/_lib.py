@@ -38,7 +38,8 @@ F = ctypes.c_float
 
 # C signature of every entry point: (argtypes), all return int.
 SIGNATURES = {
-    "repro_dispatch_build": [P, I, I, I, P, P, P, P, P, P, P],
+    "repro_dispatch_build": [P, I, I, I, I, P, P, P, P, P, P],
+    "repro_noop": [P],
     "repro_gather_gmm": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                          P],
     "repro_gmm_dw": [I, P, P, P, P, I, I, I, I, P],
@@ -148,6 +149,13 @@ def lib() -> ctypes.CDLL:
 def check(name: str, code: int) -> None:
     if code != 0:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
+
+
+def noop(device) -> None:
+    """Launch an empty kernel on ``device``'s current stream: the launch
+    floor that ``chip_smoke.py`` counts in every kernel's bound."""
+    check("repro_noop", lib().repro_noop(
+        torch.cuda.current_stream(device).cuda_stream))
 
 
 def stream_ptr(t: torch.Tensor) -> int:

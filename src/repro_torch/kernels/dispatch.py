@@ -2,12 +2,22 @@
 
 Replaces ``repro/kernels/dispatch.py:build_dispatch_pallas`` (kernels
 ``_count_kernel`` and ``_route_kernel``).  The kernel
-(``csrc/dispatch.cu``) runs the paper's three atomic-free steps (per-block
-counts, one scan, per-block ranks in slot order) instead of the TPU's
-counter carried across in-order grid steps, and returns integers
-bit-identical to the plain :func:`repro_torch.core.routing.build_dispatch`.
+(``csrc/dispatch.cu``) follows the paper's GPU pipeline instead of the
+TPU's counter carried across in-order grid steps: per-warp expert counts by
+ballots over contiguous runs of slots, shared-memory scans over warps and
+experts, and a second walk that routes each slot.  It
+returns integers bit-identical to the plain
+:func:`repro_torch.core.routing.build_dispatch`.
 
-Bound: launch latency; the call moves a few KB of int32.
+:func:`dispatch_plan` picks the launches: up to :data:`N_ONE` slots one
+launch (decode, prefill and training): one block up to
+:data:`ONE_TILE_MIN` slots, else a thread-block cluster of at most
+:data:`CLUSTER` blocks that exchange their counts through distributed
+shared memory; past it, tiles of :data:`TILE` slots in two launches
+(per-tile counts, then the build, launched as its programmatic dependent).
+
+Bound: the launch (one, or two past N_ONE); the call moves 12 bytes a
+slot.
 """
 
 from __future__ import annotations
@@ -18,14 +28,56 @@ from repro_torch.core.routing import Dispatch, build_dispatch as build_dispatch_
 from repro_torch.kernels import _lib
 
 MAX_EXPERTS = 256
-CHUNK = 256   # slots per block (csrc/dispatch.cu)
+#: Most slots the one-launch build takes: one cluster of :data:`CLUSTER`
+#: blocks.
+N_ONE = 16384
+#: Blocks of the one-launch build (a thread-block cluster; 8 is the
+#: portable maximum).
+CLUSTER = 8
+#: Fewest slots a block of the one-launch build takes, unless all fit fewer.
+ONE_TILE_MIN = 512
+#: Slots a block takes past N_ONE.
+TILE = 1024
+#: Shared memory a block may opt into on the H100 (227 KB).
+SMEM_LIMIT = 232448
+
+
+def _warps(tile: int) -> int:
+    return min(32, max(1, -(-tile // 32)))
+
+
+def _ceil32(x: int) -> int:
+    return -(-x // 32) * 32
+
+
+def dispatch_plan(n: int, num_experts: int, tile: int | None = None) -> dict:
+    """How ``csrc/dispatch.cu`` builds ``n`` slots over ``num_experts``:
+    ``path`` ("one": one launch of one cluster of ``grid`` blocks; "two":
+    per-tile counts, then the build), ``tile`` (slots a block takes; given
+    or chosen: up to :data:`N_ONE` slots spread over the cluster, no fewer
+    than :data:`ONE_TILE_MIN` a block; past it :data:`TILE`), ``grid``
+    (blocks a launch), ``threads`` (a block), ``launches``, ``scratch``
+    (int32 elements of per-tile counts) and ``smem`` (bytes of shared
+    memory a block; the source's ``smem_bytes``)."""
+    E = num_experts
+    if tile is None:
+        tile = (max(32, _ceil32(-(-n // CLUSTER)), min(_ceil32(n),
+                                                        ONE_TILE_MIN))
+                if n <= N_ONE else TILE)
+    grid = max(1, -(-n // tile))
+    one = grid <= CLUSTER
+    W = _warps(tile)
+    return {"path": "one" if one else "two", "tile": tile, "grid": grid,
+            "threads": 32 * W, "launches": 1 if one else 2,
+            "scratch": 0 if one else E * grid,
+            "smem": 4 * (-(-tile // 4) * 4 + W * E + 4 * E + 1)}
 
 
 def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
     """(L, k) int32 top-k expert ids -> :class:`Dispatch`.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (and counts the launch in ``build_dispatch.launches``)."""
+    kernel (and counts the call in ``build_dispatch.launches``)."""
     if not topk_experts.is_cuda:
         return build_dispatch_plain(topk_experts, num_experts)
     if num_experts > MAX_EXPERTS:
@@ -33,24 +85,28 @@ def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
                          f"experts, got {num_experts}")
     _lib.require(topk_experts, "topk_experts", dtype=torch.int32, ndim=2)
     L, k = topk_experts.shape
+    disp = _launch(topk_experts, num_experts,
+                   dispatch_plan(L * k, num_experts))
+    build_dispatch.launches += 1
+    return disp
+
+
+def _launch(topk_experts: torch.Tensor, E: int, plan: dict) -> Dispatch:
+    """The kernel's call at ``plan``'s tile (``tools/kernel_ab.py``
+    sweeps other tiles through it)."""
+    L, k = topk_experts.shape
     n = L * k
-    E = num_experts
-    dev = topk_experts.device
-    nb = -(-n // CHUNK)
-    i32 = dict(dtype=torch.int32, device=dev)
-    block_counts = torch.empty(max(nb, 1) * E, **i32)
-    block_base = torch.empty(max(nb, 1) * E, **i32)
+    i32 = dict(dtype=torch.int32, device=topk_experts.device)
+    counts = torch.empty(plan["scratch"], **i32)
     lengths = torch.empty(E, **i32)
     offsets = torch.empty(E + 1, **i32)
     tim = torch.empty(n, **i32)
     eti = torch.empty(n, **i32)
-    lib = _lib.lib()
-    code = lib.repro_dispatch_build(
-        topk_experts.data_ptr(), n, k, E, block_counts.data_ptr(),
-        block_base.data_ptr(), lengths.data_ptr(), offsets.data_ptr(),
-        tim.data_ptr(), eti.data_ptr(), _lib.stream_ptr(topk_experts))
+    code = _lib.lib().repro_dispatch_build(
+        topk_experts.data_ptr(), n, k, E, plan["tile"], counts.data_ptr(),
+        lengths.data_ptr(), offsets.data_ptr(), tim.data_ptr(),
+        eti.data_ptr(), _lib.stream_ptr(topk_experts))
     _lib.check("repro_dispatch_build", code)
-    build_dispatch.launches += 1
     return Dispatch(
         expert_token_indices=eti,
         expert_token_offsets=offsets,
@@ -62,4 +118,4 @@ def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
 
 build_dispatch.launches = 0
 
-__all__ = ["build_dispatch", "build_dispatch_plain"]
+__all__ = ["build_dispatch", "build_dispatch_plain", "dispatch_plan"]

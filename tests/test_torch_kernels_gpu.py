@@ -86,6 +86,11 @@ def _close(got, want, dtype):
                                want.float().cpu().numpy(), **TOL[dtype])
 
 
+def _equal(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and bool(torch.equal(a, b))
+
+
 def _topk(L, E, k, seed, experts=None):
     rng = np.random.default_rng(seed)
     pool = np.arange(E) if experts is None else np.asarray(experts)
@@ -100,19 +105,49 @@ def _one_row_topk(L, E):
     return topk
 
 
+# The main path's shapes (L, E, k): decode, prefill, training, ep_a2a's
+# pack on one rank, qwen3_moe_30b_a3b's training width, the paper's Table-1
+# confs 2 and 3 (32 x 2048 tokens), the widest expert count, and both sides
+# of the one-launch limit N_ONE (16384 slots).
+PATH_SHAPES = [(4, 8, 2), (2048, 8, 2), (4096, 8, 2), (8192, 2, 1),
+               (4096, 128, 8), (65536, 8, 2), (65536, 16, 4), (8192, 256, 8),
+               (8192, 8, 2), (16385, 8, 1)]
+
+
+def _topk_fast(L, E, k, seed):
+    """(L, k) distinct expert ids per row, vectorized for large L."""
+    rng = np.random.default_rng(seed)
+    return np.argsort(rng.random((L, E)), axis=1)[:, :k].astype(np.int32)
+
+
 @pytest.mark.parametrize("L,E,k,experts", [
     (1, 4, 1, None), (37, 4, 2, None), (300, 8, 2, [1, 5]),
     (129, 8, 2, [0, 3]), (50, 8, 1, [7]), (2048, 8, 2, None),
-    (700, 256, 4, None)])
+    (700, 256, 4, None)] + [(L, E, k, "fast") for L, E, k in PATH_SHAPES])
 def test_dispatch_kernel(dev, K, L, E, k, experts):
-    topk = _t(_topk(L, E, k, seed=L + E, experts=experts), dev)
-    before = K.dispatch.build_dispatch.launches
-    got = K.dispatch.build_dispatch(topk, E)
+    """Bit-equal to the plain build, twice (a second call gives the same
+    integers), one wrapper launch a call."""
+    ids = (_topk_fast(L, E, k, seed=L + E) if experts == "fast"
+           else _topk(L, E, k, seed=L + E, experts=experts))
+    topk = _t(ids, dev)
     want = K.routing.build_dispatch(topk, E)
+    for _ in range(2):
+        before = K.dispatch.build_dispatch.launches
+        got = K.dispatch.build_dispatch(topk, E)
+        _sync()
+        assert K.dispatch.build_dispatch.launches == before + 1
+        for name in K.routing.Dispatch._fields:
+            assert _equal(getattr(got, name), getattr(want, name)), name
+
+
+def test_dispatch_kernel_empty(dev, K):
+    """n = 0: zero lengths and offsets, empty maps, one launch."""
+    topk = _t(np.zeros((0, 2), np.int32), dev)
+    got = K.dispatch.build_dispatch(topk, 8)
     _sync()
-    assert K.dispatch.build_dispatch.launches == before + 1
+    want = K.routing.build_dispatch(topk, 8)
     for name in K.routing.Dispatch._fields:
-        assert (getattr(got, name) == getattr(want, name)).all(), name
+        assert _equal(getattr(got, name), getattr(want, name)), name
 
 
 def test_dispatch_kernel_refuses_too_many_experts(dev, K):
@@ -903,7 +938,9 @@ def _row_ids(N, L, pad_share, seed):
     ("float32", 33, 4100, 70, 0.3),         # width not a multiple of 4
     ("bfloat16", 40, 4100, 70, 0.3),        # 8200-byte rows: element copy
     ("bfloat16", 9, 5, 31, 0.2),
-    ("float32", 7, 64, 1, 1.0)])            # one pad row
+    ("float32", 7, 64, 1, 1.0),             # one pad row
+    ("bfloat16", 300, 4096, 17, 0.3),       # a block with idle warps
+    ("bfloat16", 50, 2048, 48, 1.0)])       # every row a pad
 def test_gather_rows_kernel(dev, K, dtype, L, d, N, pad_share):
     import torch
     src = torch.randn(L, d, device=dev).to(getattr(torch, dtype))

@@ -1,7 +1,12 @@
 """Port parity: top-k gating and the dispatch build.
 
 The dispatch integers must be bit-identical to the reference's sort-free
-build and to its Pallas kernel (interpret mode).  Gating is compared at
+build and to its Pallas kernel (interpret mode); the ported sort-based
+build to the reference's sort-based and sort-free builds.  The kernel's
+launch plan (``kernels/dispatch.py:dispatch_plan``) is held to its
+contract: one launch (one cluster) up to ``N_ONE`` slots, two past it,
+tiles and scratch for every slot, shared memory within the card's opt-in
+limit.  Gating is compared at
 float32 rounding; the chosen experts must be equal.  ``slice_dispatch``
 must give the reference's integers for every expert range, and the
 sliced gather-GMM and combine, summed over a partition of the experts
@@ -70,6 +75,45 @@ def test_dispatch_bit_identical(tp, L, E, k, experts):
             t = getattr(got, name)
             assert t.dtype == tp.torch.int32, name
             np.testing.assert_array_equal(t.numpy(), want, err_msg=name)
+
+
+@pytest.mark.parametrize("L,E,k,experts", CASES + [(300, 16, 4, None)])
+def test_dispatch_sort_matches_reference(tp, L, E, k, experts):
+    topk = _topk(L, E, k, seed=L * E + k, experts=experts)
+    ref_sort = R.build_dispatch_sort(jnp.asarray(topk), E)
+    ref = R.build_dispatch(jnp.asarray(topk), E)
+    got = tp.routing.build_dispatch_sort(to_torch(topk), E)
+    for name in R.Dispatch._fields:
+        t = getattr(got, name)
+        assert t.dtype == tp.torch.int32, name
+        for want in (ref_sort, ref):
+            np.testing.assert_array_equal(
+                t.numpy(), np.asarray(getattr(want, name)), err_msg=name)
+
+
+@pytest.mark.parametrize("E", [1, 256])
+@pytest.mark.parametrize("n", [0, 1, 8, "N_ONE", "N_ONE+1", 262144])
+def test_dispatch_plan(tp, n, E):
+    D = tp.dispatch
+    n = {"N_ONE": D.N_ONE, "N_ONE+1": D.N_ONE + 1}.get(n, n)
+    plan = D.dispatch_plan(n, E)
+    assert D.N_ONE >= 16384
+    assert plan["launches"] <= 2
+    if n <= D.N_ONE:
+        assert (plan["path"], plan["launches"]) == ("one", 1)
+        assert plan["grid"] <= D.CLUSTER and plan["scratch"] == 0
+    else:
+        assert (plan["path"], plan["launches"]) == ("two", 2)
+        assert plan["scratch"] == E * plan["grid"]     # counts of every tile
+    # the tiles cover the slots, and none is empty past the first
+    assert plan["tile"] >= 32 and plan["grid"] == max(1, -(-n // plan["tile"]))
+    assert 32 <= plan["threads"] <= 1024 and plan["threads"] % 32 == 0
+    # a warp's run of 32-slot pieces covers the tile
+    W = plan["threads"] // 32
+    assert W * 32 * -(-plan["tile"] // (32 * W)) >= plan["tile"]
+    # ids, per-warp count rows, totals, bases and offsets fit the opt-in
+    assert plan["smem"] >= 4 * (plan["tile"] + W * E + 4 * E + 1)
+    assert plan["smem"] <= D.SMEM_LIMIT == 227 * 1024
 
 
 SLICE_CASES = [(37, 4, 2, None), (100, 8, 2, None), (129, 8, 2, [0, 3]),

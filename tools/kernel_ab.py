@@ -24,7 +24,21 @@ that a row is held to.  Inputs are bf16 from seed 0:
 - ``fused_moe_bwd``: ``fused_moe_fwd``'s routing and weights, at the
   training shape and at decode (4 tokens, 8 slots);
 - ``gmm_dw``: the same routing, dw1 (gathered x rows against a (S, h) da)
-  and dw3 (a (S, h) g·y_swi against the gathered dy rows).
+  and dw3 (a (S, h) g·y_swi against the gathered dy rows);
+- ``build_dispatch``: ``chip_smoke.DISPATCH_SHAPES`` (decode to the
+  paper's Table-1 sizes, both sides of the one-launch limit), top-k of
+  uniform random scores;
+- ``dispatch_tiles``: the same shapes past 2048 slots through the
+  kernel at tiles of 256-8192 slots (one launch of one cluster up to 8
+  tiles, two launches past it) and, where a block's shared memory holds
+  them, all slots in one block: the choice of ``kernels/dispatch.py``'s
+  ``N_ONE``, ``ONE_TILE_MIN`` and ``TILE`` (one checkout that has
+  ``dispatch_plan(n, E, tile)``);
+- ``gather_rows``: ``ep_a2a``'s send buffers at Mixtral's width (d =
+  4096, bf16): one rank's (2 x 2048 tokens, N = 8192 rows) and one rank's
+  of four (a 1024-token chunk packed by destination at capacity 2.0,
+  about half the rows pads), each beside ``index_select`` on the clamped
+  ids (which leaves the pads unzeroed) in the same process.
 
     python tools/kernel_ab.py TREE_A TREE_B [--kernels a,b] [--rounds 4]
 
@@ -48,7 +62,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
            "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw",
-           "fused_swiglu_fwd", "combine")
+           "fused_swiglu_fwd", "combine", "build_dispatch", "dispatch_tiles",
+           "gather_rows")
 TAG = "KERNEL_AB "
 
 
@@ -87,6 +102,59 @@ def cases(name: str, dev):
             out.append((f"B=2, S=2048, {H}/8 heads of 128", (
                 lambda q=q: KF.flash_attention(q, k, v, causal=True,
                                                window=4096))))
+        return out
+    if name == "build_dispatch":
+        from chip_smoke import DISPATCH_SHAPES, random_topk
+        from repro_torch.kernels import dispatch as KD
+        out = []
+        for label, L, k, E in DISPATCH_SHAPES:
+            topk = random_topk(L, k, E, gen)
+            out.append((f"{label}: L={L}, k={k}, E={E}, n={L * k}",
+                        lambda topk=topk, E=E: KD.build_dispatch(topk, E)))
+        return out
+    if name == "dispatch_tiles":
+        from chip_smoke import DISPATCH_SHAPES, random_topk
+        from repro_torch.kernels import dispatch as KD
+        out = []
+        for label, L, k, E in DISPATCH_SHAPES:
+            n = L * k
+            if n <= 2048:
+                continue
+            topk = random_topk(L, k, E, gen)
+            for tile in sorted({256, 512, 1024, 2048, 4096, 8192, n}):
+                plan = KD.dispatch_plan(n, E, tile)
+                if tile > n or plan["smem"] > KD.SMEM_LIMIT:
+                    continue
+                out.append((f"{label}: n={n}, E={E}, tile {tile} ("
+                            f"path {plan['path']}, grid {plan['grid']})",
+                            lambda topk=topk, E=E, plan=plan:
+                            KD._launch(topk, E, plan)))
+        return out
+    if name == "gather_rows":
+        from types import SimpleNamespace
+
+        from repro_torch.core.memsim import _a2a_capacity
+        from repro_torch.kernels import gather_rows as KR
+        from repro_torch.models.moe_block import _a2a_pack
+        d, k, E, n, Lc = 4096, 2, 8, 4, 1024
+        src1 = randn(4096, d)
+        ids1 = (torch.arange(8192, device=dev) // k).to(torch.int32)
+        from chip_smoke import random_topk
+        dest = (random_topk(Lc, k, E, gen) // (E // n)).reshape(-1)
+        C = _a2a_capacity(SimpleNamespace(moe_a2a_capacity=2.0), Lc * k, n)
+        src_of_slot, slot_ok, *_ = _a2a_pack(dest, n, C)
+        ids4 = torch.where(slot_ok, src_of_slot // k, -1).to(torch.int32)
+        src4 = randn(Lc, d)
+        out = []
+        for label, src, ids in (
+                (f"n=1 send buffer: L=4096, N={ids1.numel()}", src1, ids1),
+                (f"n=4 rank send buffer: Lc={Lc}, C={C}, N={ids4.numel()}",
+                 src4, ids4)):
+            lib_ids = ids.clamp_min(0)
+            out += [(label, lambda src=src, ids=ids: KR.gather_rows(src, ids)),
+                    (label + ", index_select",
+                     lambda src=src, ids=lib_ids: torch.index_select(
+                         src, 0, ids))]
         return out
     from repro_torch.core import routing
     L, d, h, E = 4096, 4096, 14336, 8
