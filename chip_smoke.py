@@ -49,8 +49,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    w3 forward, the backward's w3ᵀ and w1ᵀ; the dispatch build at every
    shape of ``DISPATCH_SHAPES``), beside its plain version, its bound (the
    largest of bytes / 3.35 TB/s, operations / 989 TFLOP/s, both from this
-   run's inputs, and the launch floor: an empty kernel timed as the
-   kernels are, once for each kernel launch a call needs) and PyTorch
+   run's inputs, and the launch floor: empty kernels launched as a call
+   of the kernel launches its kernels, one, several back to back or a
+   programmatic-dependent pair, timed as the kernels are; no kernel may
+   read under its bound) and PyTorch
    calls that compute the same function, where there are
    (``torch._grouped_mm`` over pre-gathered rows,
    ``scaled_dot_product_attention``; for the fused pair the sum of its
@@ -297,7 +299,8 @@ def bound_ms(nbytes: float, ops: float,
              launch_ms: float = 0.0) -> tuple[float, str]:
     """The least time for the work: the largest of its bytes over the
     memory rate, its operations over the bf16 peak and ``launch_ms`` (the
-    launch floor times the launches the kernel needs)."""
+    time of empty kernels launched as a call of the kernel launches its
+    own)."""
     return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
                (ops / BF16_OPS_PER_S * 1e3, "operations"),
                (launch_ms, "launch"), key=lambda t: t[0])
@@ -546,31 +549,43 @@ def main() -> int:
     timer = Timer(dev)
     rows = {}
 
-    # The launch floor: an empty kernel timed as every kernel is (L2
-    # flushed, the host hidden behind the sleep), counted once for each
-    # kernel launch a call needs.
-    floor_ms = timer(lambda: _lib.noop(dev), reps=20)
-    log(f"launch floor: {floor_ms:.4f} ms (an empty kernel, timed as every "
-        "kernel below)")
+    # Launch floors: empty kernels launched in the pattern a call of the
+    # kernel needs (one; n back to back; a pair, the second the first's
+    # programmatic dependent), timed as every kernel is (L2 flushed, the
+    # host hidden behind the sleep).
+    floors = {}
+
+    def launch_floor(launches, dependent):
+        key = (launches, dependent and launches > 1)
+        if key not in floors:
+            floors[key] = timer(lambda: _lib.noop(dev, *key), reps=20)
+            log(f"launch floor [{launches} launch(es)"
+                f"{', dependent' if key[1] else ''}]: {floors[key]:.4f} ms "
+                "(empty kernels, timed as every kernel)")
+        return floors[key]
 
     def entry(ms, plain_ms, nbytes, ops, library_ms=None, shape="",
-              launches=1):
-        b, by = bound_ms(nbytes, ops, launches * floor_ms)
+              launches=1, dependent=False):
+        b, by = bound_ms(nbytes, ops, launch_floor(launches, dependent))
         return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b, "bound_by": by, "library_ms": library_ms,
                 "kernel_launches": launches}
+
+    launch_floor(1, False)
 
     def disp_entry(label, topk, n_exp):
         L_, k_ = topk.shape
         n = L_ * k_
         nbytes = 4 * (n + n_exp + (n_exp + 1) + 2 * n)
+        plan = KD.dispatch_plan(n, n_exp)
         return entry(timer(lambda: KD.build_dispatch(topk, n_exp)),
                      timer(lambda: TR.build_dispatch(topk, n_exp)),
                      nbytes, 0,
                      timer(lambda: TR.build_dispatch_sort(topk, n_exp)),
                      f"{label}: L={L_}, k={k_}, E={n_exp}, n={n} (library: "
                      "sort-based build, composition)",
-                     launches=KD.dispatch_plan(n, n_exp)["launches"])
+                     launches=plan["launches"],
+                     dependent=plan["path"] == "two")
 
     # Mixtral's own routing at prefill, decode and training; the rest of
     # DISPATCH_SHAPES from phase 3's draws
@@ -675,7 +690,8 @@ def main() -> int:
                                                window=window)),
         nbytes, ops, lib_ms,
         f"decode: B=4, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, page {ps}, "
-        f"positions {pos.tolist()}", launches=2)]   # split walk + merge
+        f"positions {pos.tolist()}", launches=2,   # split walk + merge
+        dependent=True)]
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
@@ -868,6 +884,10 @@ def main() -> int:
         else:
             phase = train_fused if name.startswith("fused_moe") else train
             n_train, n_serve = phase["launches"][name], launches[name]
+        for r in rows[name]:
+            check(r["ms"] >= r["bound_ms"],
+                  f"{name} [{r['shape']}] reads {r['ms']:.4f} ms, under its "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_train or n_serve,
@@ -1289,7 +1309,8 @@ def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
         timer(lambda: torch.nn.functional.scaled_dot_product_attention(
             qd, kd, vd, attn_mask=mask[:, None, None, :], enable_gqa=True)),
         f"decode: B={B}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, int8 pages of {ps}, "
-        f"positions {pos.tolist()}", launches=2))   # split walk + merge
+        f"positions {pos.tolist()}", launches=2,   # split walk + merge
+        dependent=True))
     return rows
 
 

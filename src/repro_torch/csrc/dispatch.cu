@@ -45,7 +45,8 @@
 //
 // Bound: 12 bytes a slot plus 8 an expert (ids read, tim and eti written,
 // lengths and offsets), ~0.1 MB at n = 8192, so the bound is the launch:
-// one at n <= N_ONE, two past it.
+// one at n <= N_ONE, past it a pair, the second the first's programmatic
+// dependent (repro_noop times both).
 
 #include "common.cuh"
 
@@ -55,7 +56,9 @@ constexpr int MAX_E = 256;
 constexpr int MAX_WARPS = 32;
 constexpr int MAX_CLUSTER = 8;  // blocks of the one-launch build (portable)
 constexpr unsigned FULL = 0xffffffffu;
-constexpr size_t SMEM_LIMIT = 232448;  // 227 KB, the opt-in maximum
+// the plan's tiles need at most ~45 KB (2048 slots, 256 experts), within
+// the default a launch gets without opting in
+constexpr size_t SMEM_DEFAULT = 48 * 1024;
 
 __host__ __device__ inline int warps_for(int tile) {
   const int pieces = (tile + 31) / 32;
@@ -331,14 +334,15 @@ build_kernel(const int* __restrict__ topk, int n, int k, int kshift, int E,
   if (CLUSTER && T > 1) cluster_wait();
 }
 
-__global__ void noop_kernel() {}
-
-template <typename K>
-cudaError_t allow_smem(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)SMEM_LIMIT);
+// An empty kernel.  DEPENDENT: it lets its programmatic dependent start at
+// once and waits for its own predecessor, as count_kernel and
+// build_kernel<false> do.
+template <bool DEPENDENT>
+__global__ void noop_kernel() {
+  if (DEPENDENT) {
+    asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+    asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  }
 }
 
 }  // namespace
@@ -355,7 +359,7 @@ REPRO_API int repro_dispatch_build(const int* topk, int n, int k, int E,
   if (E < 1 || E > MAX_E || k < 1 || n < 0 || tile < 32)
     return (int)cudaErrorInvalidValue;
   const size_t smem = smem_bytes(tile, E);
-  if (smem > SMEM_LIMIT) return (int)cudaErrorInvalidValue;
+  if (smem > SMEM_DEFAULT) return (int)cudaErrorInvalidValue;
   const int T = n > tile ? (n + tile - 1) / tile : 1;
   const int kshift = (k & (k - 1)) == 0 ? __builtin_ctz(k) : -1;
   cudaLaunchConfig_t cfg = {};
@@ -366,10 +370,7 @@ REPRO_API int repro_dispatch_build(const int* topk, int n, int k, int E,
   cudaLaunchAttribute attr[1];
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  cudaError_t err;
   if (T <= MAX_CLUSTER) {
-    err = allow_smem(build_kernel<true>, smem);
-    if (err != cudaSuccess) return (int)err;
     // one block needs no cluster (a cluster launch read ~3 us slower)
     attr[0].id = cudaLaunchAttributeClusterDimension;
     attr[0].val.clusterDim.x = T;
@@ -380,12 +381,9 @@ REPRO_API int repro_dispatch_build(const int* topk, int n, int k, int E,
                                    kshift, E, tile, T, (const int*)nullptr,
                                    lengths, offsets, tim, eti);
   }
-  err = allow_smem(count_kernel, smem);
-  if (err == cudaSuccess) err = allow_smem(build_kernel<false>, smem);
-  if (err != cudaSuccess) return (int)err;
   count_kernel<<<T, cfg.blockDim, smem, stream>>>(topk, n, E, tile, T,
                                                   counts);
-  err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // the build starts while the counts are written: it stages and counts its
   // tile, then waits for them (griddepcontrol.wait)
@@ -396,9 +394,30 @@ REPRO_API int repro_dispatch_build(const int* topk, int n, int k, int E,
                                  lengths, offsets, tim, eti);
 }
 
-// An empty kernel: chip_smoke.py times it as the launch floor of every
-// kernel's bound.
-REPRO_API int repro_noop(cudaStream_t stream) {
-  noop_kernel<<<1, 32, 0, stream>>>();
+// `launches` empty kernels back to back, each after the first launched as
+// its predecessor's programmatic dependent if `dependent`: chip_smoke.py
+// times them as the launch floor of a kernel that needs as many launches
+// (in the same pattern) in its bound.
+REPRO_API int repro_noop(int launches, int dependent, cudaStream_t stream) {
+  if (launches < 1) return (int)cudaErrorInvalidValue;
+  if (!dependent) {
+    for (int i = 0; i < launches; ++i)
+      noop_kernel<false><<<1, 32, 0, stream>>>();
+    return (int)cudaGetLastError();
+  }
+  noop_kernel<true><<<1, 32, 0, stream>>>();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(1);
+  cfg.blockDim = dim3(32);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  for (int i = 1; i < launches; ++i) {
+    const cudaError_t err = cudaLaunchKernelEx(&cfg, noop_kernel<true>);
+    if (err != cudaSuccess) return (int)err;
+  }
   return (int)cudaGetLastError();
 }

@@ -39,7 +39,7 @@ F = ctypes.c_float
 # C signature of every entry point: (argtypes), all return int.
 SIGNATURES = {
     "repro_dispatch_build": [P, I, I, I, I, P, P, P, P, P, P],
-    "repro_noop": [P],
+    "repro_noop": [I, I, P],
     "repro_gather_gmm": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                          P],
     "repro_gmm_dw": [I, P, P, P, P, I, I, I, I, P],
@@ -151,10 +151,13 @@ def check(name: str, code: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {code} at launch")
 
 
-def noop(device) -> None:
-    """Launch an empty kernel on ``device``'s current stream: the launch
-    floor that ``chip_smoke.py`` counts in every kernel's bound."""
+def noop(device, launches: int = 1, dependent: bool = False) -> None:
+    """Launch ``launches`` empty kernels on ``device``'s current stream,
+    each after the first as its predecessor's programmatic dependent if
+    ``dependent``: the launch floor that ``chip_smoke.py`` counts in the
+    bound of a kernel launched in that pattern."""
     check("repro_noop", lib().repro_noop(
+        launches, int(dependent),
         torch.cuda.current_stream(device).cuda_stream))
 
 

@@ -16,8 +16,8 @@ launch (decode, prefill and training): one block up to
 shared memory; past it, tiles of :data:`TILE` slots in two launches
 (per-tile counts, then the build, launched as its programmatic dependent).
 
-Bound: the launch (one, or two past N_ONE); the call moves 12 bytes a
-slot.
+Bound: the launch (one, or a programmatic-dependent pair past N_ONE);
+the call moves 12 bytes a slot.
 """
 
 from __future__ import annotations
@@ -38,8 +38,9 @@ CLUSTER = 8
 ONE_TILE_MIN = 512
 #: Slots a block takes past N_ONE.
 TILE = 1024
-#: Shared memory a block may opt into on the H100 (227 KB).
-SMEM_LIMIT = 232448
+#: Shared memory a launch gets without opting in (48 KB); every plan's
+#: tile fits it (the source refuses more).
+SMEM_DEFAULT = 48 * 1024
 
 
 def _warps(tile: int) -> int:
@@ -50,20 +51,18 @@ def _ceil32(x: int) -> int:
     return -(-x // 32) * 32
 
 
-def dispatch_plan(n: int, num_experts: int, tile: int | None = None) -> dict:
+def dispatch_plan(n: int, num_experts: int) -> dict:
     """How ``csrc/dispatch.cu`` builds ``n`` slots over ``num_experts``:
     ``path`` ("one": one launch of one cluster of ``grid`` blocks; "two":
-    per-tile counts, then the build), ``tile`` (slots a block takes; given
-    or chosen: up to :data:`N_ONE` slots spread over the cluster, no fewer
-    than :data:`ONE_TILE_MIN` a block; past it :data:`TILE`), ``grid``
-    (blocks a launch), ``threads`` (a block), ``launches``, ``scratch``
-    (int32 elements of per-tile counts) and ``smem`` (bytes of shared
-    memory a block; the source's ``smem_bytes``)."""
+    per-tile counts, then the build), ``tile`` (slots a block takes: up to
+    :data:`N_ONE` slots spread over the cluster, no fewer than
+    :data:`ONE_TILE_MIN` a block; past it :data:`TILE`), ``grid`` (blocks
+    a launch), ``threads`` (a block), ``launches``, ``scratch`` (int32
+    elements of per-tile counts) and ``smem`` (bytes of shared memory a
+    block; the source's ``smem_bytes``)."""
     E = num_experts
-    if tile is None:
-        tile = (max(32, _ceil32(-(-n // CLUSTER)), min(_ceil32(n),
-                                                        ONE_TILE_MIN))
-                if n <= N_ONE else TILE)
+    tile = (max(32, _ceil32(-(-n // CLUSTER)), min(_ceil32(n), ONE_TILE_MIN))
+            if n <= N_ONE else TILE)
     grid = max(1, -(-n // tile))
     one = grid <= CLUSTER
     W = _warps(tile)
@@ -80,22 +79,14 @@ def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
     kernel (and counts the call in ``build_dispatch.launches``)."""
     if not topk_experts.is_cuda:
         return build_dispatch_plain(topk_experts, num_experts)
-    if num_experts > MAX_EXPERTS:
+    E = num_experts
+    if E > MAX_EXPERTS:
         raise ValueError(f"the dispatch kernel takes at most {MAX_EXPERTS} "
-                         f"experts, got {num_experts}")
+                         f"experts, got {E}")
     _lib.require(topk_experts, "topk_experts", dtype=torch.int32, ndim=2)
     L, k = topk_experts.shape
-    disp = _launch(topk_experts, num_experts,
-                   dispatch_plan(L * k, num_experts))
-    build_dispatch.launches += 1
-    return disp
-
-
-def _launch(topk_experts: torch.Tensor, E: int, plan: dict) -> Dispatch:
-    """The kernel's call at ``plan``'s tile (``tools/kernel_ab.py``
-    sweeps other tiles through it)."""
-    L, k = topk_experts.shape
     n = L * k
+    plan = dispatch_plan(n, E)
     i32 = dict(dtype=torch.int32, device=topk_experts.device)
     counts = torch.empty(plan["scratch"], **i32)
     lengths = torch.empty(E, **i32)
@@ -107,6 +98,7 @@ def _launch(topk_experts: torch.Tensor, E: int, plan: dict) -> Dispatch:
         lengths.data_ptr(), offsets.data_ptr(), tim.data_ptr(),
         eti.data_ptr(), _lib.stream_ptr(topk_experts))
     _lib.check("repro_dispatch_build", code)
+    build_dispatch.launches += 1
     return Dispatch(
         expert_token_indices=eti,
         expert_token_offsets=offsets,

@@ -111,9 +111,10 @@ def test_dispatch_plan(tp, n, E):
     # a warp's run of 32-slot pieces covers the tile
     W = plan["threads"] // 32
     assert W * 32 * -(-plan["tile"] // (32 * W)) >= plan["tile"]
-    # ids, per-warp count rows, totals, bases and offsets fit the opt-in
+    # ids, per-warp count rows, totals, bases and offsets fit the 48 KB a
+    # launch gets without opting in (well within the card's 227 KB)
     assert plan["smem"] >= 4 * (plan["tile"] + W * E + 4 * E + 1)
-    assert plan["smem"] <= D.SMEM_LIMIT == 227 * 1024
+    assert plan["smem"] <= D.SMEM_DEFAULT == 48 * 1024
 
 
 SLICE_CASES = [(37, 4, 2, None), (100, 8, 2, None), (129, 8, 2, [0, 3]),

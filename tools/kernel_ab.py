@@ -28,12 +28,6 @@ that a row is held to.  Inputs are bf16 from seed 0:
 - ``build_dispatch``: ``chip_smoke.DISPATCH_SHAPES`` (decode to the
   paper's Table-1 sizes, both sides of the one-launch limit), top-k of
   uniform random scores;
-- ``dispatch_tiles``: the same shapes past 2048 slots through the
-  kernel at tiles of 256-8192 slots (one launch of one cluster up to 8
-  tiles, two launches past it) and, where a block's shared memory holds
-  them, all slots in one block: the choice of ``kernels/dispatch.py``'s
-  ``N_ONE``, ``ONE_TILE_MIN`` and ``TILE`` (one checkout that has
-  ``dispatch_plan(n, E, tile)``);
 - ``gather_rows``: ``ep_a2a``'s send buffers at Mixtral's width (d =
   4096, bf16): one rank's (2 x 2048 tokens, N = 8192 rows) and one rank's
   of four (a 1024-token chunk packed by destination at capacity 2.0,
@@ -62,8 +56,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
            "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw",
-           "fused_swiglu_fwd", "combine", "build_dispatch", "dispatch_tiles",
-           "gather_rows")
+           "fused_swiglu_fwd", "combine", "build_dispatch", "gather_rows")
 TAG = "KERNEL_AB "
 
 
@@ -111,24 +104,6 @@ def cases(name: str, dev):
             topk = random_topk(L, k, E, gen)
             out.append((f"{label}: L={L}, k={k}, E={E}, n={L * k}",
                         lambda topk=topk, E=E: KD.build_dispatch(topk, E)))
-        return out
-    if name == "dispatch_tiles":
-        from chip_smoke import DISPATCH_SHAPES, random_topk
-        from repro_torch.kernels import dispatch as KD
-        out = []
-        for label, L, k, E in DISPATCH_SHAPES:
-            n = L * k
-            if n <= 2048:
-                continue
-            topk = random_topk(L, k, E, gen)
-            for tile in sorted({256, 512, 1024, 2048, 4096, 8192, n}):
-                plan = KD.dispatch_plan(n, E, tile)
-                if tile > n or plan["smem"] > KD.SMEM_LIMIT:
-                    continue
-                out.append((f"{label}: n={n}, E={E}, tile {tile} ("
-                            f"path {plan['path']}, grid {plan['grid']})",
-                            lambda topk=topk, E=E, plan=plan:
-                            KD._launch(topk, E, plan)))
         return out
     if name == "gather_rows":
         from types import SimpleNamespace
