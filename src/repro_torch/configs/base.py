@@ -2,9 +2,9 @@
 
 A copy of the reference package's ``ModelConfig`` with the same field names
 and defaults, so that a reference config converts field for field:
-``ModelConfig(**dataclasses.asdict(reference_cfg))``.  Only the fields'
-values are shared; the reference's checkpoint-plan properties
-are not ported and are left out.  :class:`TrainConfig` is the reference's
+``ModelConfig(**dataclasses.asdict(reference_cfg))``.  The properties
+``checkpoint_plan`` and ``resolved_save_yswi`` read the plan through the
+port's ``core/checkpoint.py``.  :class:`TrainConfig` is the reference's
 training config without its checkpoint-saving fields.
 """
 
@@ -82,6 +82,20 @@ class ModelConfig:
     @property
     def is_moe(self) -> bool:
         return self.num_experts > 0
+
+    @property
+    def checkpoint_plan(self):
+        """The resolved :class:`repro_torch.core.checkpoint.CheckpointPlan`
+        behind ``remat_policy`` (name or spec)."""
+        from repro_torch.core.checkpoint import resolve_plan
+        return resolve_plan(config=self.remat_policy).plan
+
+    @property
+    def resolved_save_yswi(self) -> bool:
+        """The plan's FFN_YSWI decision in the MoE scope (the
+        ``save_yswi`` alias when the plan leaves it open)."""
+        from repro_torch.core.checkpoint import moe_residual_mode
+        return moe_residual_mode(self) == "ab_yswi"
 
     @property
     def pattern_period(self) -> int:

@@ -8,12 +8,16 @@ kernel when ``cfg.use_pallas`` is set (``flash_attention_fused``) and the
 plain chunked computation otherwise (the reference computes it in plain
 JAX then); decode attention goes through the paged attention kernel.
 Weights are cast to the activations' dtype on use, as in the reference.
+The q projection and the output projection are the producers of the
+checkpoint tags ``QKV`` and ``ATTN_OUT`` (``core/checkpoint.py:tagged``),
+as the reference tags them.
 """
 
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core.checkpoint import ATTN_OUT, QKV, tagged
 from repro_torch.kernels.flash_attention import (flash_attention_fused,
                                                  flash_attention_plain)
 from repro_torch.models.common import rms_norm, rope
@@ -27,7 +31,10 @@ def project_qkv(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
     B, S, _ = x.shape
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
     dt = x.dtype
-    q = (x @ p["wq"].to(dt)).reshape(B, S, H, dh)
+    wq = p["wq"].to(dt)
+    with tagged(QKV):
+        q = x @ wq
+    q = q.reshape(B, S, H, dh)
     k = (x @ p["wk"].to(dt)).reshape(B, S, Hkv, dh)
     v = (x @ p["wv"].to(dt)).reshape(B, S, Hkv, dh)
     if cfg.qk_norm:
@@ -65,7 +72,13 @@ def paged_attention_sublayer(x: torch.Tensor, p: dict, cfg, *,
         PC.write_decode(pages, k, v, page_table, positions)
         o = PC.paged_attention(q, pages, page_table, positions,
                                window=window, cap=cfg.attn_softcap)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return _out_proj(o.reshape(B, S, -1), p)
+
+
+def _out_proj(o: torch.Tensor, p: dict) -> torch.Tensor:
+    wo = p["wo"].to(o.dtype)
+    with tagged(ATTN_OUT):
+        return o @ wo
 
 
 def _full_attention(q, k, v, cfg, *, causal: bool, window: int):
@@ -89,9 +102,9 @@ def attention_sublayer(x: torch.Tensor, p: dict, cfg, *, is_local: bool,
         raise NotImplementedError(
             "attention_sublayer with a KVCache (decode_attention) is not "
             "ported; serving decodes through paged_attention_sublayer "
-            "(ROADMAP.md §A item 5: attention)")
+            "(ROADMAP.md §A item 4: attention)")
     B, S, _ = x.shape
     window = cfg.sliding_window if is_local else 0
     q, k, v, _ = project_qkv(x, p, cfg, positions)
     o = _full_attention(q, k, v, cfg, causal=cfg.causal, window=window)
-    return o.reshape(B, S, -1) @ p["wo"].to(x.dtype)
+    return _out_proj(o.reshape(B, S, -1), p)

@@ -2,11 +2,17 @@
 distributed over a :class:`~repro_torch.launch.mesh.Mesh`.
 
 Mirrors ``repro/models/moe_block.py``.  On one device (``mesh=None``),
-``moe_local`` runs ``moe_impl="blaze_pallas"`` (the kernel-composed expert
-layer with its Algorithm-1 backward) or ``moe_impl="blaze"``
-(``core/moe_layer.py`` over the resolved grouped-GEMM backend): top-k
-gating on float32 logits, the kernel dispatch build, the expert layer, and
-the auxiliary load-balance and router z losses.
+``moe_local`` runs top-k gating on float32 logits, the kernel dispatch
+build, the expert layer of ``cfg.moe_impl``, and the auxiliary
+load-balance and router z losses.  The expert layers: ``"blaze"``
+(``core/moe_layer.py`` over the resolved grouped-GEMM backend, with the
+residual set of the checkpoint plan, ``core/checkpoint.moe_residual_mode``),
+``"blaze_pallas"`` (the kernel-composed layer with its Algorithm-1
+backward and a fixed residual set; a plan whose moe-scoped decisions ask
+for another set raises), and the paper's baselines of
+``core/baseline.py``: ``"megablocks"`` (the materialized routed buffer,
+plain autograd) and ``"dense"`` (the masked dense oracle).  The router's
+top-k weights are the producer of the checkpoint tag ``MOE_GATES``.
 
 Under a mesh each rank runs the reference's ``shard_map`` body on its own
 slab (``x`` holds this rank's batch rows, ``p`` its slice of the expert
@@ -56,12 +62,15 @@ import torch.nn.functional as F
 from repro_torch.core import collectives as C
 from repro_torch.core import gmm_backend as GB
 from repro_torch.core import routing
+from repro_torch.core.baseline import moe_ffn_dense, moe_ffn_megablocks
+from repro_torch.core.checkpoint import (MOE_GATES, moe_residual_mode,
+                                         tagged)
 from repro_torch.core.memsim import _a2a_capacity
 from repro_torch.core.moe_layer import moe_ffn_blaze
 from repro_torch.kernels.dispatch import build_dispatch
 from repro_torch.kernels.ops import gather_rows, moe_ffn_blaze_pallas
 
-MOE_IMPLS = ("blaze", "blaze_pallas")
+MOE_IMPLS = ("blaze", "blaze_pallas", "megablocks", "dense")
 FFN_ACTS = ("swiglu", "silu", "relu", "gelu")
 MOE_PARALLEL_MODES = ("auto", "ep", "ep_a2a", "ep_a2a_hier", "tp")
 _EP_MODES = ("ep", "ep_a2a", "ep_a2a_hier")
@@ -72,22 +81,19 @@ def check_supported(cfg) -> None:
     if cfg.moe_impl not in MOE_IMPLS:
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r} is not ported; the port runs "
-            f"{MOE_IMPLS} (ROADMAP.md §A item 1: the megablocks / dense "
-            "expert layers)")
+            f"{MOE_IMPLS} (the reference's 'proxy_gmm' is a cost-model "
+            "stand-in of its dry run, ROADMAP.md §A item 6)")
     if cfg.moe_parallel not in MOE_PARALLEL_MODES:
         raise ValueError(f"unknown moe_parallel {cfg.moe_parallel!r}; "
                          f"known: {MOE_PARALLEL_MODES}")
-    acts = FFN_ACTS if cfg.moe_impl == "blaze" else ("swiglu",)
+    acts = FFN_ACTS if cfg.moe_impl != "blaze_pallas" else ("swiglu",)
     if cfg.ffn_act not in acts:
         raise NotImplementedError(
             f"ffn_act={cfg.ffn_act!r}: moe_impl={cfg.moe_impl!r} takes "
             f"{acts}")
-    if cfg.moe_impl == "blaze":
+    if cfg.moe_impl in ("blaze", "megablocks"):
         GB.resolve(config=cfg.gmm_backend)  # raises for an unavailable one
-    # The residual set follows the checkpoint plan in the reference
-    # (``moe_residual_mode``); the port has no plans yet and
-    # ``transformer.check_supported`` refuses every ``remat_policy`` but
-    # "none", whose mode is set by ``save_yswi``.
+    moe_residual_mode(cfg)  # raises for a plan that splits A from B
 
 
 def resolve_moe_parallel(cfg, mesh) -> str:
@@ -107,7 +113,7 @@ def resolve_moe_parallel(cfg, mesh) -> str:
         raise NotImplementedError(
             "moe_parallel='auto' under a mesh ranks the modes with the "
             "reference's roofline cost model, whose constants are a TPU's; "
-            "it is not ported (ROADMAP.md §A item 8: the cost model with the "
+            "it is not ported (ROADMAP.md §A item 7: the cost model with the "
             "card's constants).  Force one of 'ep', 'ep_a2a', "
             "'ep_a2a_hier', 'tp'.")
     n_model = mesh.shape.get("model", 1)
@@ -140,49 +146,83 @@ def _aux_of(g: routing.GatingOut, cfg) -> torch.Tensor:
             + cfg.z_loss_weight * routing.router_z_loss(g.logits))
 
 
-def _expert_ffn(xf, gates, disp, p, cfg, rb):
-    """``moe_ffn_blaze`` over a whole or sliced dispatch, with the expert
-    weights cast to the activations' dtype."""
-    dt = xf.dtype
+def _weights(p: dict, dt):
+    """The expert weights w1, w3, w2 (None without one) cast to the
+    activations' dtype."""
     w2 = p["w2"].to(dt) if "w2" in p else None
-    return moe_ffn_blaze(xf, gates, disp, p["w1"].to(dt), p["w3"].to(dt),
-                         w2, activation=cfg.ffn_act,
-                         residuals="ab_yswi" if cfg.save_yswi else "ab",
-                         backend=rb)
+    return p["w1"].to(dt), p["w3"].to(dt), w2
+
+
+def _gates(g: routing.GatingOut, dt) -> torch.Tensor:
+    with tagged(MOE_GATES):
+        return g.topk_weights.to(dt)
+
+
+def _blaze(xf, gates, disp, p, cfg, rb):
+    """``moe_ffn_blaze`` with the plan's residual set."""
+    w1, w3, w2 = _weights(p, xf.dtype)
+    return moe_ffn_blaze(xf, gates, disp, w1, w3, w2,
+                         activation=cfg.ffn_act,
+                         residuals=moe_residual_mode(cfg), backend=rb)
+
+
+def _moe_dispatch(xf, p, cfg, g, disp, rb, *, sliced: bool = False):
+    """The Dispatch-driven expert compute over a whole or sliced dispatch:
+    the tagged gates and the layer of ``cfg.moe_impl``.  Under a sliced
+    dispatch ``blaze_pallas`` and ``dense`` fall through to
+    ``moe_ffn_blaze``, as in the reference (the kernel composition is a
+    single-device path; the dense oracle has no dispatch to slice)."""
+    gates = _gates(g, xf.dtype)
+    if cfg.moe_impl == "megablocks":
+        w1, w3, w2 = _weights(p, xf.dtype)
+        return moe_ffn_megablocks(xf, gates, disp, w1, w3, w2,
+                                  activation=cfg.ffn_act, backend=rb)
+    if cfg.moe_impl == "blaze_pallas" and not sliced:
+        # The kernel composition has a fixed residual set; a plan whose
+        # moe-scoped decisions ask for another one fails here.
+        mode = moe_residual_mode(cfg)
+        if mode != ("ab_yswi" if cfg.save_yswi else "ab"):
+            raise ValueError(
+                f"moe_impl='blaze_pallas' cannot honor the checkpoint "
+                f"plan's moe-scoped residual mode {mode!r} (the kernel "
+                "composition keeps a fixed residual set); use "
+                "moe_impl='blaze' or drop the moe-scoped overrides")
+        w1, w3, w2 = _weights(p, xf.dtype)
+        return moe_ffn_blaze_pallas(xf, gates, disp, w1, w3, w2)
+    return _blaze(xf, gates, disp, p, cfg, rb)
 
 
 def moe_local(xf: torch.Tensor, p: dict, cfg, backend=None):
     """(L, d) token slab -> ((L, d), aux loss).  ``backend`` enters the
     grouped-GEMM precedence chain at the call-site slot, ``cfg.gmm_backend``
-    at the config slot (``moe_impl="blaze"`` only).  Also the ``tp`` body,
-    on this rank's hidden shard of the expert weights."""
+    at the config slot (``blaze`` and ``megablocks``).  Also the ``tp``
+    body, on this rank's hidden shard of the expert weights."""
     check_supported(cfg)
     dt = xf.dtype
     g = routing.top_k_gating(xf, p["wg"].to(dt), cfg.top_k)
+    if cfg.moe_impl == "dense":
+        w1, w3, w2 = _weights(p, dt)
+        y = moe_ffn_dense(xf, g.router_probs, g.topk_experts,
+                          g.topk_weights.to(dt), w1, w3, w2,
+                          activation=cfg.ffn_act)
+        return y, _aux_of(g, cfg)
     disp = build_dispatch(g.topk_experts.contiguous(), cfg.num_experts)
-    gates = g.topk_weights.to(dt)
-    if cfg.moe_impl == "blaze_pallas":
-        w2 = p["w2"].to(dt) if "w2" in p else None
-        y = moe_ffn_blaze_pallas(xf, gates, disp, p["w1"].to(dt),
-                                 p["w3"].to(dt), w2)
-    else:
-        y = _expert_ffn(xf, gates, disp, p, cfg,
-                        GB.resolve(backend, config=cfg.gmm_backend))
-    return y, _aux_of(g, cfg)
+    rb = (None if cfg.moe_impl == "blaze_pallas"
+          else GB.resolve(backend, config=cfg.gmm_backend))
+    return _moe_dispatch(xf, p, cfg, g, disp, rb), _aux_of(g, cfg)
 
 
 def _moe_ep(xf, p, cfg, n_exp: int, idx: int, rb):
     """Expert-parallel body: this rank owns experts ``[idx * E_loc, (idx +
     1) * E_loc)``.  Gating and the dispatch build run on the whole slab;
-    the sliced dispatch runs the same ``moe_ffn_blaze`` (under
-    ``blaze_pallas`` too, as in the reference: the kernel composition is a
-    single-device path)."""
+    the sliced dispatch runs ``_moe_dispatch`` (``moe_ffn_blaze`` under
+    ``blaze_pallas`` and ``dense`` too, as in the reference)."""
     E, k = cfg.num_experts, cfg.top_k
     E_loc = E // max(n_exp, 1)
     g = routing.top_k_gating(xf, p["wg"].to(xf.dtype), k)
     disp = build_dispatch(g.topk_experts.contiguous(), E)
     loc = routing.slice_dispatch(disp, idx * E_loc, count=E_loc)
-    y = _expert_ffn(xf, g.topk_weights.to(xf.dtype), loc, p, cfg, rb)
+    y = _moe_dispatch(xf, p, cfg, g, loc, rb, sliced=True)
     return y, _aux_of(g, cfg)
 
 
@@ -261,7 +301,7 @@ def _local_expert_ffn(rx, rg, re, E_loc: int, p: dict, cfg, rb):
     full = build_dispatch(re.to(torch.int32).reshape(-1, 1).contiguous(),
                           E_loc + 1)
     loc = routing.slice_dispatch(full, 0, E_loc)
-    return _expert_ffn(rx, rg[:, None], loc, p, cfg, rb)
+    return _blaze(rx, rg[:, None], loc, p, cfg, rb)
 
 
 def _exchange_meta(sent, vals, n: int, cap: int, group):
@@ -295,7 +335,7 @@ def _moe_ep_a2a(xf, p, cfg, mesh, rb):
     idx = mesh.axis_index("model")
     xc = xf[idx * Lc:(idx + 1) * Lc]
     g = routing.top_k_gating(xc, p["wg"].to(xc.dtype), k)
-    gates = g.topk_weights.to(xc.dtype)
+    gates = _gates(g, xc.dtype)
     dest_rank = torch.div(g.topk_experts, E_loc,
                           rounding_mode="floor").reshape(-1)
     Cap = _a2a_capacity(cfg, Lc * k, n)
@@ -358,7 +398,7 @@ def _moe_ep_a2a_hier(xf, p, cfg, mesh, rb):
     gdev = mesh.flat_index(("node", "model"))
     xc = xf[gdev * Lc:(gdev + 1) * Lc]
     g = routing.top_k_gating(xc, p["wg"].to(xc.dtype), k)
-    gates = g.topk_weights.to(xc.dtype)
+    gates = _gates(g, xc.dtype)
     eg = g.topk_experts.reshape(-1).to(torch.int32)      # global expert ids
     # hop 1: align rows with their destination lane, inside the node
     dest_lane = torch.div(eg, E_loc, rounding_mode="floor") % nl

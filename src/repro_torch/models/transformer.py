@@ -12,6 +12,14 @@ reference scans over stacked groups; ``params["layers"]`` is a list with
 one dict per layer (see ``repro_torch.interop``).  Weights are cast to
 ``cfg.dtype`` on use, as in the reference (a no-op for serving weights,
 which are stored cast).  The KV pools are updated in place.
+
+The training forward applies the checkpoint plan of ``cfg.remat_policy``
+as the reference's ``forward`` does (``core/checkpoint.plan_policies``):
+each group of ``cfg.pattern_period`` layers runs in one checkpoint region
+(``group``), or each sublayer in its own (``per_kind``), or none
+(``full``).  The default ``"none"`` keeps only each region's input and
+recomputes the rest in the backward.  A forward without autograd
+(``torch.no_grad``) and the serving entry points run unwrapped.
 """
 
 from __future__ import annotations
@@ -20,6 +28,7 @@ from functools import partial
 
 import torch
 
+from repro_torch.core import checkpoint as CK
 from repro_torch.core.collectives import all_reduce_
 from repro_torch.models.attention import (attention_sublayer,
                                           paged_attention_sublayer)
@@ -47,14 +56,10 @@ def check_supported(cfg) -> None:
     if bad:
         raise NotImplementedError(
             f"block kinds {bad} are not ported; the port runs "
-            f"{KINDS} (ROADMAP.md §A item 6: more architectures)")
+            f"{KINDS} (ROADMAP.md §A item 5: more architectures)")
     if cfg.input_kind != "tokens":
         raise NotImplementedError("the port takes token inputs only")
-    if cfg.remat_policy != "none":
-        raise NotImplementedError(
-            f"remat_policy={cfg.remat_policy!r}: checkpoint plans are not "
-            "ported (ROADMAP.md §A item 2); the port runs "
-            "remat_policy='none'")
+    CK.resolve_plan(config=cfg.remat_policy)  # raises for a bad spec
     if (set(cfg.block_pattern) & set(DENSE_KINDS)
             and cfg.ffn_act not in FFN_ACTS):
         raise NotImplementedError(
@@ -137,17 +142,49 @@ def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
     x = _embed(params, batch["tokens"], cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     attend = partial(attention_sublayer, positions=positions)
+    sub = partial(_apply_sublayer, cfg=cfg, attend=attend, mesh=mesh,
+                  dp_axes=dp_axes)
+    mode, payload = CK.plan_policies(
+        CK.resolve_plan(config=cfg.remat_policy).plan, cfg.block_pattern)
+    if not torch.is_grad_enabled():
+        mode = "full"
+    if mode == "per_kind":
+        sub = partial(_checkpointed, sub, payload)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     overflow = torch.zeros((), dtype=torch.float32, device=x.device)
-    for p, kind in zip(params["layers"], layer_kinds(cfg)):
-        x, a, o = _apply_sublayer(x, p, kind, cfg, attend, mesh=mesh,
-                                  dp_axes=dp_axes)
+    P = cfg.pattern_period
+    for g in range(cfg.num_groups):
+        group = partial(_apply_group, sub=sub,
+                        layers=params["layers"][g * P:(g + 1) * P],
+                        kinds=cfg.block_pattern)
+        if mode == "group":
+            x, a, o = CK.checkpoint(group, x, policy=payload)
+        else:
+            x, a, o = group(x)
         aux = aux + a
         overflow = overflow + o
     logits = _logits(params, x, cfg)
     if with_stats:
         return logits, aux, {"moe_overflow": overflow}
     return logits, aux
+
+
+def _apply_group(x, *, sub, layers, kinds):
+    """One pattern group: its sublayers in order, their auxiliary losses
+    and overflow shares summed."""
+    aux = overflow = 0.0
+    for p, kind in zip(layers, kinds):
+        x, a, o = sub(x, p, kind)
+        aux = aux + a
+        overflow = overflow + o
+    return x, aux, overflow
+
+
+def _checkpointed(sub, policies, x, p, kind):
+    """``sub`` in a checkpoint region of its own, with its kind's policy
+    (the ``per_kind`` application)."""
+    return CK.checkpoint(partial(sub, p=p, kind=kind), x,
+                         policy=policies[kind])
 
 
 def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data")):

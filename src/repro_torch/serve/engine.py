@@ -19,7 +19,11 @@ Mirrors the synchronous path of ``repro/serve/engine.py``
 The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once at
 construction (engine argument > active ``use_backend`` scope >
 ``cfg.gmm_backend`` > ``REPRO_GMM_BACKEND`` > auto) and held in
-``self.backend``; ``generate`` runs inside ``use_backend`` of it.
+``self.backend``; ``generate`` runs inside ``use_backend`` of it.  The
+checkpoint plan (engine argument ``remat_policy`` > ``cfg.remat_policy``)
+is resolved and validated at construction as well, and held in
+``self.remat_plan``: decode runs no backward, so the plan is provenance and
+config hygiene, as in the reference.
 
 ``kv_dtype="int8"`` stores the pools quantized with ``serve/kv_quant``'s
 symmetric per-(position, head) scheme (the int8 paged-attention kernel
@@ -41,6 +45,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from repro_torch.core import checkpoint as CK
 from repro_torch.core import gmm_backend as GB
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
@@ -82,25 +87,30 @@ class ServeEngine:
                  capacity: int = 512, page_size: int = 16,
                  num_pages: int | None = None, kv_dtype: str | None = None,
                  greedy: bool = True, prefix_cache: bool = False,
-                 gmm_backend: str | None = None, device=None, mesh=None):
+                 gmm_backend: str | None = None, remat_policy=None,
+                 device=None, mesh=None):
         if mesh is not None:
             raise NotImplementedError(
                 "serving over a mesh is not ported; the engine runs on one "
-                "card (ROADMAP.md §A item 7: ServeEngine(mesh=...))")
+                "card (ROADMAP.md §A item 6: ServeEngine(mesh=...))")
         self.device = resolve_device(device)
         self.backend = GB.resolve(gmm_backend, config=cfg.gmm_backend)
-        cfg = cfg.replace(gmm_backend=self.backend.name)
+        # an unparseable spec raises here, never mid-generate
+        self.remat_plan = CK.resolve_plan(remat_policy,
+                                          config=cfg.remat_policy)
+        cfg = cfg.replace(gmm_backend=self.backend.name,
+                          remat_policy=self.remat_plan.spec)
         if kv_dtype not in (None, "model", "int8"):
             raise ValueError(f"kv_dtype must be None|'model'|'int8', "
                              f"got {kv_dtype!r}")
         if not greedy:
             raise NotImplementedError(
                 "temperature sampling is not ported yet; the port decodes "
-                "greedily (ROADMAP.md §A item 4: serving)")
+                "greedily (ROADMAP.md §A item 3: serving)")
         if prefix_cache:
             raise NotImplementedError(
                 "prefix sharing with copy-on-write pages is not ported yet "
-                "(ROADMAP.md §A item 4: serving)")
+                "(ROADMAP.md §A item 3: serving)")
         T.check_supported(cfg)
         if cfg.is_moe:
             check_moe(cfg)
@@ -153,7 +163,7 @@ class ServeEngine:
         if request.gmm_backend is not None:
             raise NotImplementedError(
                 "a per-request gmm_backend is not ported; the engine serves "
-                f"with its own ({self.backend.name}) (ROADMAP.md §A item 4: "
+                f"with its own ({self.backend.name}) (ROADMAP.md §A item 3: "
                 "serving)")
         if request.max_new_tokens < 1:
             raise ValueError(

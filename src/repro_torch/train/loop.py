@@ -1,11 +1,11 @@
 """Training step and loop.
 
-Mirrors ``repro/train/loop.py``: ``make_train_step`` (without the
-simulated peak and the budget fit) and ``train`` (without checkpoint
-saving).  A step is value-and-grad of ``train_loss``, global-norm
-clipping, the cosine schedule and AdamW.  PyTorch runs eagerly, so there
-is nothing to compile; the step updates the parameters and the optimizer
-state in place and returns them.
+Mirrors ``repro/train/loop.py``: ``make_train_step`` (with the
+checkpoint-plan resolution, the budget fit and the simulated peak) and
+``train`` (without checkpoint saving).  A step is value-and-grad of
+``train_loss``, global-norm clipping, the cosine schedule and AdamW.
+PyTorch runs eagerly, so there is nothing to compile; the step updates the
+parameters and the optimizer state in place and returns them.
 
 Under a :class:`~repro_torch.launch.mesh.Mesh` every rank runs the step
 on its own batch rows (``sharding.batch_specs``) and its own parameters
@@ -20,7 +20,10 @@ The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once per step
 function, as in the reference: call-site argument > active
 ``use_backend`` scope > ``tcfg.gmm_backend`` > ``cfg.gmm_backend`` >
 ``REPRO_GMM_BACKEND`` > auto; each step runs inside ``use_backend`` of
-that name.
+that name.  The checkpoint plan follows the same discipline: call-site
+``remat_policy`` > ``cfg.remat_policy`` > ``"none"``, or, with
+``hbm_budget``, ``CheckpointPlan.fit`` over the simulated peaks of
+``core/memsim.py``.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ import torch
 from torch.profiler import record_function
 
 from repro_torch import sharding as SH
+from repro_torch.core import checkpoint as CK
 from repro_torch.core import gmm_backend as GB
+from repro_torch.core import memsim
 from repro_torch.core.collectives import all_reduce_
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_batch_iterator
@@ -58,7 +63,20 @@ def _config_backend(cfg, tcfg) -> str:
     return cfg.gmm_backend
 
 
-def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None):
+def _dp_shards(mesh) -> int:
+    """Data-parallel shard count of a mesh (activations are split over
+    these axes, so per-device residuals divide by it)."""
+    if mesh is None:
+        return 1
+    n = 1
+    for a in ("pod", "data"):
+        if a in mesh.axis_names:
+            n *= mesh.shape[a]
+    return max(n, 1)
+
+
+def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
+                    remat_policy=None, hbm_budget=None):
     """Returns ``step_fn(params, opt_state, batch) -> (params, opt_state,
     metrics)``.  ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy
     arrays or tensors; ``params`` is the port's parameter tree of float32
@@ -68,19 +86,25 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None):
     float ``lr``.  The resolved grouped-GEMM backend is
     ``step_fn.resolved_backend``.
 
+    The checkpoint plan is ``remat_policy`` (a name, spec or plan) over
+    ``cfg.remat_policy`` over the default, as ``step_fn.resolved_plan``
+    (a ``ResolvedPlan``).  ``hbm_budget`` (bytes per device) picks the
+    plan by ``CheckpointPlan.fit`` instead (``remat_policy`` becomes the
+    preferred candidate), at the live set of one device: the global batch
+    divided by the mesh's data-parallel shards.  ``step_fn.peak_sim_bytes``
+    is the simulated per-device step peak under the resolved plan
+    (``core/memsim.py``, ``base="train"``).
+
     With a ``mesh``, ``batch`` is the global batch (each rank takes its
     rows) and ``params`` this rank's
     ``sharding.local_params(whole, mesh, step_fn.moe_parallel)``."""
     dev = resolve_device(device)
     resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
     cfg = cfg.replace(gmm_backend=resolved.name)
-    T.check_supported(cfg)
-    if cfg.is_moe:
-        check_moe(cfg)
     if tcfg.num_microbatches > 1:
         raise NotImplementedError(
             "num_microbatches > 1 (gradient accumulation) is not ported "
-            "(ROADMAP.md §A item 3: training)")
+            "(ROADMAP.md §A item 2: training)")
     mode, shard_group = "single", None
     if mesh is not None:
         # an invalid (mode, mesh) pairing raises here, at construction
@@ -88,6 +112,20 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None):
             mode = resolve_moe_parallel(cfg, mesh)
         ax = SH.shard_axes(mesh, mode)
         shard_group = mesh.group(ax) if ax else None
+    b_live = max(tcfg.batch_size // _dp_shards(mesh), 1)
+    if hbm_budget is not None:
+        prefer = (CK.get_plan(remat_policy) if remat_policy is not None
+                  else None)
+        resolved_plan = CK.CheckpointPlan.fit(
+            cfg, b_live * tcfg.seq_len, hbm_budget, batch=b_live,
+            prefer=prefer, **_sim_mesh(cfg, mesh, mode)).resolved
+    else:
+        resolved_plan = CK.resolve_plan(remat_policy,
+                                        config=cfg.remat_policy)
+    cfg = cfg.replace(remat_policy=resolved_plan.spec)
+    T.check_supported(cfg)
+    if cfg.is_moe:
+        check_moe(cfg)
 
     def _step(params, opt_state: AdamWState, batch):
         leaves = tree_leaves(params)
@@ -134,9 +172,24 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None):
 
     step_fn.device = dev
     step_fn.resolved_backend = resolved
+    step_fn.resolved_plan = resolved_plan
+    step_fn.peak_sim_bytes = memsim.simulate_peak(
+        cfg, b_live * tcfg.seq_len, batch=b_live, plan=resolved_plan.plan,
+        base="train", **_sim_mesh(cfg, mesh, mode))
     step_fn.moe_parallel = mode
     step_fn.mesh = mesh
     return step_fn
+
+
+def _sim_mesh(cfg, mesh, mode: str) -> dict:
+    """The simulator's distribution arguments for the resolved MoE mode
+    (``mode=None`` lets it pick ``single`` on one device, as the
+    reference's dense configs do)."""
+    if mesh is None:
+        return {"mode": "single" if cfg.is_moe else None}
+    return {"mode": mode if cfg.is_moe else None,
+            "n_model": max(mesh.shape.get("model", 1), 1),
+            "n_node": max(mesh.shape.get("node", 1), 1)}
 
 
 def train(cfg, tcfg, *, device=None, params=None, log=print,
@@ -146,9 +199,11 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     ``tcfg.seed`` as float32 masters; without ``batch_iterator`` the
     batches come from the synthetic pipeline seeded with ``tcfg.seed``.
     Every step's metrics are read back as floats (which waits for the
-    device), with ``step_s`` the step's host time; ``step_hook(step,
-    metrics)`` sees each of them, and ``history`` keeps every
-    ``log_every``-th step and the last, with the step's ``gmm_backend``.
+    device), with ``step_s`` the step's host time, ``remat_plan`` (the
+    canonical spec of the step's checkpoint plan) and ``peak_sim_bytes``
+    (its simulated per-device peak); ``step_hook(step, metrics)`` sees each
+    of them, and ``history`` keeps every ``log_every``-th step and the
+    last, with the step's ``gmm_backend``.
 
     With a ``mesh`` every rank draws the same whole parameters (or takes
     ``params``, the whole tree) and keeps its
@@ -173,6 +228,8 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         m = {k: float(v) for k, v in metrics.items()}
         m["step_s"] = time.perf_counter() - ts
+        m["remat_plan"] = step_fn.resolved_plan.spec
+        m["peak_sim_bytes"] = step_fn.peak_sim_bytes
         if step_hook is not None:
             step_hook(step, m)
         if step % tcfg.log_every == 0 or step == tcfg.total_steps - 1:

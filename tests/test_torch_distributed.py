@@ -28,7 +28,11 @@ losses off, where the sharded step must give the single-device numbers up
 to float32 sums in other orders: loss and grad norm 1e-5 relative, the
 AdamW first moments (a tenth of the clipped gradients) 1e-4 relative over
 a floor of 1e-4 times each leaf's scale, as ``tests/test_torch_train.py``
-holds the gradients.  The validation errors need no ranks.
+holds the gradients.  These steps run the configs' default checkpoint
+plan, ``"none"``, so every rank reruns its exchanges in the backward's
+recompute; one more ``ep_a2a`` step under ``"paper"`` (the tagged
+projections kept, the rest recomputed) is held to the same gradients.
+The validation errors need no ranks.
 
 The JAX oracles run in this process; the ranks get numpy arrays.  Each
 mesh is one spawn that runs all of its cases.
@@ -194,6 +198,11 @@ def flat22(tmp_path_factory, jtrain):
                 "kind": "train", "cfg": dataclasses.asdict(cfg),
                 "tcfg": TCFG, "params": jtrain["params"],
                 "batch": jtrain["batch"]}
+    cfg = torch_config(TRAIN_CFGS["train_noaux"]).replace(
+        moe_parallel="ep_a2a", remat_policy="paper")
+    cases["train_noaux/ep_a2a/paper"] = {
+        "kind": "train", "cfg": dataclasses.asdict(cfg), "tcfg": TCFG,
+        "params": jtrain["params"], "batch": jtrain["batch"]}
     return _spawn(tmp_path_factory.mktemp("mesh22"), (2, 2),
                   ("data", "model"), cases)
 
@@ -306,7 +315,7 @@ def test_sharded_train_step_matches_reference(tp, flat22, jtrain, mode):
     _same_metrics(flat22, f"train/{mode}")
 
 
-@pytest.mark.parametrize("mode", TRAIN_MODES)
+@pytest.mark.parametrize("mode", TRAIN_MODES + ("ep_a2a/paper",))
 def test_sharded_train_step_gradients_match_reference(tp, flat22, jtrain,
                                                       mode):
     ref = jtrain["train_noaux"]
@@ -319,6 +328,8 @@ def test_sharded_train_step_gradients_match_reference(tp, flat22, jtrain,
 
     for r, res in enumerate(flat22):
         got = res[f"train_noaux/{mode}"]
+        assert got["plan"] == ("paper" if mode.endswith("/paper")
+                               else "none")
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
                                        rtol=1e-5, err_msg=f"{k} rank {r}")

@@ -595,6 +595,53 @@ def test_moe_layer_function_matches_plain_autograd(dev, K):
             atol=1e-4 * float(np.abs(w_).max()), err_msg=name)
 
 
+@pytest.mark.parametrize("spec", ["none", "paper"])
+def test_blaze_pallas_layer_in_a_checkpoint_region(dev, K, spec):
+    """The ``blaze_pallas`` MoE sublayer (bf16, E=8, top-2, widths 256 ->
+    512) in a checkpoint region of ``spec``'s policy against the same
+    sublayer unwrapped: the output and every gradient bit-equal (every
+    kernel on the path is deterministic and the recompute reruns them on
+    the same inputs), and the forward's kernels launched once more for
+    the recompute (dispatch, two gather-GMMs, combine)."""
+    import torch
+
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.core import checkpoint as CK
+    from repro_torch.models.moe_block import moe_sublayer
+    cfg = ModelConfig(name="t", arch_type="moe", d_model=256,
+                      num_experts=8, top_k=2, moe_d_ff=512,
+                      block_pattern=("attn_moe",), moe_impl="blaze_pallas",
+                      remat_policy=spec)
+    _, policy = CK.plan_policies(cfg.checkpoint_plan, cfg.block_pattern)
+    rng = np.random.default_rng(11)
+    make = lambda *shape, s=1.0: _t(rng.normal(size=shape) * s, dev,
+                                    "float32").requires_grad_()
+    p = {"wg": make(256, 8, s=0.1), "w1": make(8, 256, 512, s=0.05),
+         "w2": make(8, 256, 512, s=0.05), "w3": make(8, 512, 256, s=0.05)}
+    x = _t(rng.normal(size=(4, 128, 256)), dev, "bfloat16").requires_grad_()
+    dy = _t(rng.normal(size=(4, 128, 256)), dev, "bfloat16")
+    ins = (x,) + tuple(p.values())
+    names = ("dispatch", "gather_gmm", "combine", "gmm_dw")
+    mods = (K.dispatch.build_dispatch, K.gather_gmm.gather_gmm,
+            K.combine.combine, K.gmm_dw.gmm_dw)
+    out, launches = {}, {}
+    for wrap in (False, True):
+        before = [m.launches for m in mods]
+        if wrap:
+            y, _ = CK.checkpoint(lambda x_: moe_sublayer(x_, p, cfg), x,
+                                 policy=policy)
+        else:
+            y, _ = moe_sublayer(x, p, cfg)
+        out[wrap] = [y] + list(torch.autograd.grad(y, ins, dy))
+        _sync()
+        launches[wrap] = [m.launches - b for m, b in zip(mods, before)]
+    assert launches[False] == [1, 5, 1, 3], launches
+    assert launches[True] == [2, 7, 2, 3], launches
+    for name, a, b in zip(("y", "dx", "dwg", "dw1", "dw2", "dw3"),
+                          out[True], out[False]):
+        assert _equal(a, b), name
+
+
 def test_flash_attention_function_backward(dev, K):
     """dq, dk, dv of the differentiable wrapper equal autograd through the
     plain attention (the wrapper's backward recomputes through it)."""

@@ -150,11 +150,11 @@ def test_engine_refuses_unported_options(tp, params):
     for kw in (dict(greedy=False), dict(prefix_cache=True)):
         with pytest.raises(NotImplementedError):
             ServeEngine(TCFG, params[1], device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="moe_impl"):
-        ServeEngine(TCFG.replace(moe_impl="megablocks"), params[1],
+    with pytest.raises(NotImplementedError, match="block kinds"):
+        ServeEngine(TCFG.replace(block_pattern=("mlstm",)), params[1],
                     device="cpu")
     eng = ServeEngine(TCFG, params[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="§A item 4"):
+    with pytest.raises(NotImplementedError, match="§A item 3"):
         eng.generate([tp.engine.Request(prompt=np.arange(3, 6,
                                                          dtype=np.int32),
                                         gmm_backend="segment")])
@@ -175,18 +175,22 @@ def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
         launch_train.main(["--arch", "mixtral-8x7b", "--reduced",
                            "--steps", "1"])
     assert make_train_step(cfg, tcfg, device="cpu").device.type == "cpu"
+    step = make_train_step(cfg.replace(remat_policy="paper"), tcfg, "cpu")
+    assert (step.resolved_plan.spec, step.resolved_plan.source) == \
+        ("paper", "config")
+    assert step.peak_sim_bytes > 0
     with pytest.raises(NotImplementedError, match="§A item 2"):
-        make_train_step(cfg.replace(remat_policy="paper"), tcfg, "cpu")
-    with pytest.raises(NotImplementedError, match="§A item 3"):
         make_train_step(cfg, tcfg.replace(num_microbatches=2), "cpu")
 
 
 def test_port_imports_no_jax_and_no_reference():
     """``import repro_torch``, CPU engine runs (Mixtral; Qwen3-14B over
     bf16 and over int8 pages) and CPU training steps (``blaze_pallas``,
-    ``blaze`` on ``pallas_fused``, the dense Qwen3-14B, and ``ep_a2a`` on
-    ``pallas`` over a one-rank mesh) leave JAX and the reference package
-    out of ``sys.modules``."""
+    ``blaze`` on ``pallas_fused`` under the default plan and under
+    ``paper``, the dense Qwen3-14B, and ``ep_a2a`` on ``pallas`` over a
+    one-rank mesh), with the checkpoint plans, the simulator, the
+    baselines, the Table-1 configs and ``compat`` imported, leave JAX and
+    the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
@@ -200,6 +204,8 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.kernels.gmm_dw, repro_torch.data.pipeline\n"
         "import repro_torch.sharding, repro_torch.core.collectives\n"
         "import repro_torch.core.memsim, repro_torch.kernels.gather_rows\n"
+        "import repro_torch.core.checkpoint, repro_torch.core.baseline\n"
+        "import repro_torch.configs.paper_tables, repro_torch.compat\n"
         "from repro_torch.launch.mesh import init_distributed, "
         "make_debug_mesh\n"
         "cfg = get_config('mixtral-8x7b').reduced().replace("
@@ -219,6 +225,10 @@ def test_port_imports_no_jax_and_no_reference():
         "seq_len=32), device='cpu', log=lambda _: None)\n"
         "assert h[0]['gmm_backend'] == 'pallas_fused'\n"
         "assert np.isfinite(h[0]['loss'])\n"
+        "_, _, h = train(fcfg.replace(remat_policy='paper'), TrainConfig("
+        "total_steps=1, batch_size=1, seq_len=32), device='cpu', "
+        "log=lambda _: None)\n"
+        "assert h[0]['remat_plan'] == 'paper' and np.isfinite(h[0]['loss'])\n"
         "init_distributed('cpu')\n"
         "_, _, h = train(fcfg.replace(gmm_backend='pallas', moe_parallel="
         "'ep_a2a'), TrainConfig(total_steps=1, batch_size=1, seq_len=32), "

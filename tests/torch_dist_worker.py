@@ -99,7 +99,7 @@ def train_case(mesh, case: dict) -> dict:
                              _np)
     return {"metrics": {k: float(v) for k, v in m.items()},
             "params": gather(local), "mu": gather(mu),
-            "mode": step.moe_parallel}
+            "mode": step.moe_parallel, "plan": step.resolved_plan.spec}
 
 
 CASES = {"layer": layer_case, "train": train_case}
