@@ -175,7 +175,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    above the inputs, forward+backward time, the megablocks / blaze ratios
    beside the paper's claims (printed, not gated); blaze saves fewer
    bytes than megablocks and x < ab < ab_yswi at every conf, and blaze's
-   y and dx agree with megablocks' at ``paper_conf1``.
+   y and dx agree with megablocks' at ``paper_conf1``;
+22. Qwen3-30B-A3B parity — the kernels of its paths at its shapes (128
+   experts, top-8, d=2048, expert width 768; 32/4 heads of 128, a GQA
+   group of 8), bf16, against their plain versions: the dispatch build
+   at the training (2 x 2048 tokens, 32,768 slots: past the one-launch
+   limit) and decode (4 tokens, 32 slots, most experts empty) routing,
+   gather-GMM's instantiations there (the dual branch with ``save_ab``,
+   the w3 forward, the transposed w3 and w1), the grouped weight gradient
+   (dw1, dw3), the fused pair (two forward h-ranges at training), the
+   combine at k = 8, flash attention at 32/4 heads, paged attention over
+   bf16 and int8 pages (decode, position 0 and a dead table, the split
+   boundaries); every call whose outputs have one writer each repeated
+   bit-equal;
+23. Qwen3-30B-A3B timing — those kernels at those shapes, as phase 4;
+24. Qwen3-30B-A3B serving at full width and full depth (48 layers, random
+   bf16 weights from seed 0, ``use_pallas=True``, the kernel composition
+   ``blaze_pallas``), as phase 16: bf16 pages cold, warm (the dispatch
+   build, gather-GMM, the combine, flash and paged attention must be
+   launched) and traced with identical tokens, then int8 pages (first
+   tokens equal; KV bytes per cached token 98,304 / 49,920);
+25. Qwen3-30B-A3B CPU cross-check — phase 6 on a 2-layer cut;
+26. Qwen3-30B-A3B training — full width, depth cut from 48 to 4 layers, as
+   phase 7 on ``blaze_pallas`` and as phase 8 on ``blaze`` over
+   ``pallas_fused`` (each kernel's launches a step exact under
+   ``"none"``), then phase 9's CPU cross-check on the reduced config;
+27. gradient accumulation — Mixtral-8x7B, 2 layers, 2 x 2048 tokens: the
+   step with two microbatches against the step with one, same weights and
+   batch (loss and ce within ``MB_LOSS_RTOL``, grad norm within
+   ``MB_NORM_RTOL``; the expert kernels launched twice as often);
+28. 8 x 2048 tokens with four microbatches (the live set one 2 x 2048
+   microbatch; at one microbatch this batch ran out of the card): a cold
+   and a warm step, the state held between steps, the peak and the
+   simulated peak;
+29. a training checkpoint on the card — a reduced width of Qwen3-30B-A3B
+   trained 2 steps, saved, restored (masters and AdamW state bit-equal)
+   and restored into the serving layout, whose engine's greedy tokens
+   must equal those of an engine over the in-memory masters cast alike.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -190,6 +226,7 @@ import statistics
 import subprocess
 import sys
 import time
+from functools import partial
 from pathlib import Path
 from types import SimpleNamespace
 
@@ -259,6 +296,14 @@ LAYER_MESH_TOL = (5e-2, 5e-2)
 # load-balance loss estimated per rank's chunk -> 1e-3 relative (the
 # readings are ~1e-5 for the loss and ~1e-4 for the grad norm).
 MR_WIDTHS, MR_TOKENS, MR_STEP_RTOL = (1024, 3584), 1024, 1e-3
+# Gradient accumulation on the card (phase 27): M = 2 against M = 1 on one
+# 2 x 2048 batch in bf16 compute.  Each token's routing, attention and
+# expert rows are computed alike, but the cross entropy's mean and every
+# weight gradient sum in other groupings (each microbatch's bf16 grouped
+# weight gradient rounds once before the float32 sum), and the
+# load-balance loss is estimated per microbatch (~1e-4 of a ~0.01 term):
+# loss and ce 1e-4 relative, the grad norm 1e-2.
+MB_LOSS_RTOL, MB_NORM_RTOL = 1e-4, 1e-2
 # The dispatch build's shapes (label, L, k, E), held bit-equal in phase 3
 # and timed in phase 4: Mixtral's decode, prefill and training, ep_a2a's
 # pack on one rank (2 groups: rank 0 and the trash group),
@@ -398,9 +443,13 @@ def main() -> int:
     from repro_torch.models import moe_block as MB
     M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR, KFM=KFM,
                         ML=ML, KS=KS, KP=KP, KQ=KQ, SE=SE, T=T, K=K, SH=SH,
-                        CL=CL, MS=MS, KR=KR, MESH=MESH, MB=MB)
+                        CL=CL, MS=MS, KR=KR, MESH=MESH, MB=MB, KD=KD)
 
     t_start = time.perf_counter()
+
+    def mark(phase: str) -> None:
+        log(f"[phase {phase} starts at {time.perf_counter() - t_start:.1f} s]")
+
     dev = resolve_device("cuda")
     torch.manual_seed(0)
 
@@ -439,6 +488,7 @@ def main() -> int:
     topk_pre = TR.top_k_gating(x_pre, moe["wg"], k).topk_experts.contiguous()
     topk_dec = TR.top_k_gating(x_dec, moe["wg"], k).topk_experts.contiguous()
 
+    mark("3")
     # -- 3. parity ----------------------------------------------------------
     errs = {n: 0.0 for n in ("build_dispatch", "gather_gmm", "combine",
                              "paged_attention", "gmm_dw",
@@ -575,6 +625,7 @@ def main() -> int:
                              x_dec, disp_dec)
     residual_bytes(M, moe, x_tr, disp_tr)
 
+    mark("4")
     # -- 4. timing ----------------------------------------------------------
     timer = Timer(dev)
     rows = {}
@@ -629,106 +680,56 @@ def main() -> int:
         for lb in labels]
     del disp_topk
 
-    def gmm_entry(x, disp, w1, w2, idx, shape, plain_reps, save_ab=False,
-                  trans_w=False):
-        off = disp.expert_token_offsets
-        S = disp.num_slots
-        lens = disp.expert_lengths.tolist()
-        live = sum(1 for n in lens if n)
-        nw = 2 if w2 is not None else 1
-        d_in, h_out = ((w1.shape[2], w1.shape[1]) if trans_w
-                       else (w1.shape[1], w1.shape[2]))
-        x_rows = x.shape[0]
-        n_out = 3 if save_ab else 1
-        nbytes = (x_rows * d_in * EB + (S * 4 if idx is not None else 0)
-                  + (E + 1) * 4 + live * d_in * h_out * EB * nw
-                  + n_out * S * h_out * EB)
-        ops = 2.0 * sum(lens) * d_in * h_out * nw
-        kw = dict(save_ab=save_ab, trans_w=trans_w)
-        lib_ms = library_gmm_ms(timer, x, idx, off, w1, w2, trans_w)
-        return entry(
-            timer(lambda: KG.gather_gmm(x, idx, off, w1, w2, **kw)),
-            timer(lambda: KG.gather_gmm_plain(x, idx, off, w1, w2, **kw),
-                  warm=1 if plain_reps < 3 else 2, reps=plain_reps),
-            nbytes, ops, lib_ms, shape)
-
     S_tr = disp_tr.num_slots
+    gmm = partial(gmm_row, M, timer, entry)
     rows["gather_gmm"] = [
-        gmm_entry(x_tr, disp_tr, moe["w1"], moe["w2"],
-                  disp_tr.expert_token_indices,
-                  f"training dual w1/w2 + save_ab: S={S_tr}, d={d}, h={h}",
-                  plain_reps=1, save_ab=True),
-        gmm_entry(tr["y_swi"], disp_tr, moe["w3"], None, None,
-                  f"training w3 forward: S={S_tr}, {h}->{d}", plain_reps=1),
-        gmm_entry(tr["dyg"], disp_tr, moe["w3"], None, None,
-                  f"training w3^T: S={S_tr}, {d}->{h}", plain_reps=1,
-                  trans_w=True),
-        gmm_entry(tr["da"], disp_tr, moe["w1"], None, None,
-                  f"training w1^T: S={S_tr}, {h}->{d}", plain_reps=1,
-                  trans_w=True),
-        gmm_entry(x_pre, disp_pre, moe["w1"], moe["w2"],
-                  disp_pre.expert_token_indices,
-                  f"prefill dual w1/w2: S={disp_pre.num_slots}, d={d}, "
-                  f"h={h}", plain_reps=1),
-        gmm_entry(y_pre, disp_pre, moe["w3"], None, None,
-                  f"prefill w3: S={disp_pre.num_slots}, h={h}, d={d}",
-                  plain_reps=1),
-        gmm_entry(x_dec, disp_dec, moe["w1"], moe["w2"],
-                  disp_dec.expert_token_indices,
-                  f"decode dual w1/w2: S={disp_dec.num_slots}, d={d}, "
-                  f"h={h}", plain_reps=5),
-        gmm_entry(y_dec, disp_dec, moe["w3"], None, None,
-                  f"decode w3: S={disp_dec.num_slots}, h={h}, d={d}",
-                  plain_reps=5)]
-
-    def comb_entry(p, disp, g, L, shape):
-        tim = disp.token_index_map
-        nbytes = p.numel() * EB + L * k * (4 + EB) + L * d * EB
-        return entry(timer(lambda: KC.combine(p, tim, g)),
-                     timer(lambda: KC.combine_plain(p, tim, g)),
-                     nbytes, 2.0 * L * k * d, None, shape)
+        gmm(x_tr, disp_tr, moe["w1"], moe["w2"], disp_tr.expert_token_indices,
+            f"training dual w1/w2 + save_ab: S={S_tr}, d={d}, h={h}",
+            plain_reps=1, save_ab=True),
+        gmm(tr["y_swi"], disp_tr, moe["w3"], None, None,
+            f"training w3 forward: S={S_tr}, {h}->{d}", plain_reps=1),
+        gmm(tr["dyg"], disp_tr, moe["w3"], None, None,
+            f"training w3^T: S={S_tr}, {d}->{h}", plain_reps=1,
+            trans_w=True),
+        gmm(tr["da"], disp_tr, moe["w1"], None, None,
+            f"training w1^T: S={S_tr}, {h}->{d}", plain_reps=1,
+            trans_w=True),
+        gmm(x_pre, disp_pre, moe["w1"], moe["w2"],
+            disp_pre.expert_token_indices,
+            f"prefill dual w1/w2: S={disp_pre.num_slots}, d={d}, h={h}",
+            plain_reps=1),
+        gmm(y_pre, disp_pre, moe["w3"], None, None,
+            f"prefill w3: S={disp_pre.num_slots}, h={h}, d={d}",
+            plain_reps=1),
+        gmm(x_dec, disp_dec, moe["w1"], moe["w2"],
+            disp_dec.expert_token_indices,
+            f"decode dual w1/w2: S={disp_dec.num_slots}, d={d}, h={h}",
+            plain_reps=5),
+        gmm(y_dec, disp_dec, moe["w3"], None, None,
+            f"decode w3: S={disp_dec.num_slots}, h={h}, d={d}",
+            plain_reps=5)]
 
     rows["combine"] = [
-        comb_entry(p_pre, disp_pre, g_pre, L_pre,
-                   f"prefill: S={disp_pre.num_slots}, L={L_pre}, d={d}"),
-        comb_entry(p_dec, disp_dec, g_dec, L_dec,
-                   f"decode: S={disp_dec.num_slots}, L={L_dec}, d={d}")]
+        combine_row(M, timer, entry, p_pre, disp_pre, g_pre,
+                    f"prefill: S={disp_pre.num_slots}, L={L_pre}, d={d}"),
+        combine_row(M, timer, entry, p_dec, disp_dec, g_dec,
+                    f"decode: S={disp_dec.num_slots}, L={L_dec}, d={d}")]
 
-    rows.update(train_kernel_timing(M, timer, entry, tr, disp_tr, E))
+    rows.update(train_kernel_timing(M, timer, entry, tr, disp_tr))
     rows.update(fused_kernel_timing(M, timer, entry, fz, moe))
 
-    window = cfg.sliding_window
-    live_tokens = [min(int(p_) + 1, window) for p_ in pos.tolist()]
-    nbytes = (q_dec.numel() * EB * 2 + sum(live_tokens) * Hkv * Dh * EB * 2
-              + sum(-(-(n) // ps) for n in live_tokens) * 4 + 4 * 4)
-    ops = 4.0 * sum(live_tokens) * Hq * Dh
-    # library yardstick: scaled_dot_product_attention over K/V gathered to
-    # a dense (B, Hkv, T, Dh) view beforehand (the gather is not timed)
-    T_all = pps * ps
-    kd = kp[table.long()].reshape(4, T_all, Hkv, Dh).transpose(1, 2)
-    vd = vp[table.long()].reshape(4, T_all, Hkv, Dh).transpose(1, 2)
-    t_ids = torch.arange(T_all, device=dev)
-    mask = ((t_ids[None, :] <= pos[:, None].long())
-            & (t_ids[None, :] > pos[:, None].long() - window))
-    qd = q_dec.transpose(1, 2)
-    lib_ms = timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-        qd, kd, vd, attn_mask=mask[:, None, None, :], enable_gqa=True))
-    rows["paged_attention"] = [entry(
-        timer(lambda: KP.paged_attention(q_dec, kp, vp, table, pos,
-                                         window=window)),
-        timer(lambda: KP.paged_attention_plain(q_dec, kp, vp, table, pos,
-                                               window=window)),
-        nbytes, ops, lib_ms,
+    rows["paged_attention"] = [paged_row(
+        M, timer, entry, q_dec, (kp, vp), table, pos, cfg.sliding_window,
         f"decode: B=4, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, page {ps}, "
-        f"positions {pos.tolist()}", launches=2,   # split walk + merge
-        dependent=True)]
+        f"positions {pos.tolist()}")]
     for name, rs in rows.items():
         for r in rs:
             log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), library {r['library_ms']}")
-    del kd, vd, y_pre, p_pre, tr, fz
+    del y_pre, p_pre, tr, fz
 
+    mark("5")
     # -- 5. end to end ------------------------------------------------------
     prompt_lens = (37, 129, 300, 511, 64)
     prompts = [rng.integers(3, cfg.vocab_size, size=n).astype(np.int32)
@@ -737,10 +738,12 @@ def main() -> int:
         "build_dispatch", "gather_gmm", "combine", "paged_attention"), "")
     launches = mix["launches"]
 
+    mark("6")
     # -- 6. CPU cross-check -------------------------------------------------
     prompt = rng.integers(3, cfg.vocab_size, size=24).astype(np.int32)
     cpu_prefill_crosscheck(T, cfg, params, prompt, dev)
 
+    mark("7")
     # -- 7. training ----------------------------------------------------------
     # The training step holds ~65 GB; free the serving weights and what
     # holds them first.
@@ -762,6 +765,7 @@ def main() -> int:
             "gmm_dw": 3 * n})
     torch.cuda.empty_cache()
 
+    mark("8")
     # -- 8. training, the reference's default layer on the fused pair ---------
     # (the previous phase's parameters and moments are freed with it)
     cfg_fused = get_config("mixtral-8x7b").replace(
@@ -773,21 +777,25 @@ def main() -> int:
             "fused_moe_fwd": 2 * n, "fused_moe_bwd": n})
     torch.cuda.empty_cache()
 
+    mark("9")
     # -- 9. CPU training cross-checks -------------------------------------------
     xcheck = cpu_train_crosscheck(dev, moe_impl="blaze_pallas")
     xcheck_fused = cpu_train_crosscheck(dev, gmm_backend="pallas_fused")
     torch.cuda.empty_cache()
 
+    mark("10")
     # -- 10. the row gather (the ep_a2a send buffer) ------------------------------
     rows["gather_rows"] = gather_rows_checks(M, dev, rng, timer, entry, randn,
                                              errs, dispatch_case, topk_tr)
     torch.cuda.empty_cache()
 
+    mark("11")
     # -- 11. the MoE layer on a one-rank NCCL mesh, full width -----------------
     mesh1 = one_rank_mesh(M, dev)
     layer1 = layer_mesh_parity(M, dev, mesh1)
     torch.cuda.empty_cache()
 
+    mark("12")
     # -- 12. training, ep_a2a on the one-rank mesh --------------------------------
     cfg_a2a = get_config("mixtral-8x7b").replace(
         num_layers=2, gmm_backend="pallas", moe_parallel="ep_a2a",
@@ -807,14 +815,17 @@ def main() -> int:
     del mesh1
     torch.cuda.empty_cache()
 
+    mark("13")
     # -- 13. several ranks on the one card ---------------------------------------
     multi = multi_rank_phase(M, dev)
     torch.cuda.empty_cache()
 
+    mark("14")
     # -- 14. Qwen3-14B parity ---------------------------------------------------
     qcfg = get_config("qwen3-14b").replace(use_pallas=True)
     qz = qwen_kernel_parity(M, dev, rng, randn, errs, qcfg)
 
+    mark("15")
     # -- 15. Qwen3-14B timing ---------------------------------------------------
     rows.update(qwen_kernel_timing(M, timer, entry, qz, randn))
     for name in ("fused_swiglu_fwd", "fused_swiglu_bwd_x",
@@ -825,6 +836,7 @@ def main() -> int:
                 f"({r['bound_by']}), library {r['library_ms']}")
     del qz
 
+    mark("16")
     # -- 16. Qwen3-14B serving, 40 layers, bf16 then int8 pages ----------------
     gen = torch.Generator(device=dev).manual_seed(0)
     qparams = init_params(qcfg, gen, dev)
@@ -856,6 +868,7 @@ def main() -> int:
           and qserve8["kv_bytes_per_token"] == 83200,
           "KV bytes per token are not 163,840 (bf16) and 83,200 (int8)")
 
+    mark("17")
     # -- 17. Qwen3-14B CPU cross-check, 2-layer cut ------------------------------
     qprompt = rng.integers(3, qcfg.vocab_size, size=24).astype(np.int32)
     qx = cpu_prefill_crosscheck(T, qcfg.replace(num_layers=2),
@@ -864,6 +877,7 @@ def main() -> int:
     del qparams
     torch.cuda.empty_cache()
 
+    mark("18")
     # -- 18. Qwen3-14B training, 4 layers --------------------------------------
     cfg_qtrain = get_config("qwen3-14b").replace(num_layers=4,
                                                  use_pallas=True)
@@ -875,6 +889,7 @@ def main() -> int:
             "fused_swiglu_bwd_x": nq, "fused_swiglu_bwd_w": nq})
     torch.cuda.empty_cache()
 
+    mark("19")
     # -- 19. Qwen3-14B CPU training cross-check ----------------------------------
     # One element of a leaf may step apart: in the reduced Qwen3-14B a
     # 256-wide norm scale has an element whose gradient is ~1.7e-5 of its
@@ -885,13 +900,100 @@ def main() -> int:
     xcheck_q = cpu_train_crosscheck(dev, arch="qwen3-14b", far_floor=1)
     torch.cuda.empty_cache()
 
+    mark("20")
     # -- 20. the plan sweep ------------------------------------------------------
     sweep = plan_sweep_phase(dev, K)
     torch.cuda.empty_cache()
     sweep["dense"] = dense_plan_held(dev)
 
+    mark("21")
     # -- 21. the paper's comparison at the Table-1 sizes -------------------------
     paper = paper_table_phase(dev)
+    torch.cuda.empty_cache()
+
+    mark("22-23")
+    # -- 22-23. Qwen3-30B-A3B's kernels at its shapes ---------------------------
+    m_cfg = get_config("qwen3-moe-30b-a3b").replace(
+        use_pallas=True, moe_impl="blaze_pallas")
+    for name, rs in moe30_kernels(M, dev, timer, entry, errs, m_cfg).items():
+        rows[name].extend(rs)
+    torch.cuda.empty_cache()
+
+    mark("24")
+    # -- 24. Qwen3-30B-A3B serving, 48 layers, bf16 then int8 pages ---------------
+    # the kernel composition (blaze_pallas), as phase 5 serves Mixtral: the
+    # config's own "blaze" layer would resolve its grouped GEMMs to the
+    # library ("auto" -> ragged)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    mparams = init_params(m_cfg, gen, dev)
+    torch.cuda.synchronize()
+    m_weight_bytes = sum(t.numel() * t.element_size()
+                         for t in _leaves(mparams))
+    log(f"weights: {m_cfg.name} full width and full depth, "
+        f"{m_cfg.num_layers} layers, {m_weight_bytes / 1e9:.2f} GB bf16 "
+        f"({m_weight_bytes / 2 ** 30:.3f} GiB, "
+        f"{m_weight_bytes / 2 / 1e9:.3f} B parameters); allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    mprompts = [rng.integers(3, m_cfg.vocab_size, size=n).astype(np.int32)
+                for n in prompt_lens]
+    mserve = serving_phase(M, m_cfg, mparams, mprompts, dev, (
+        "build_dispatch", "gather_gmm", "combine", "flash_attention",
+        "paged_attention"), " [qwen3-moe-30b-a3b bf16 pages]")
+    mserve8 = serving_phase(M, m_cfg, mparams, mprompts, dev, (
+        "build_dispatch", "gather_gmm", "combine", "flash_attention",
+        "paged_attention_int8"), " [qwen3-moe-30b-a3b int8 pages]",
+        kv_dtype="int8", traced=False)
+    first_equal = all(a[0] == b[0] for a, b in zip(mserve["tokens"],
+                                                   mserve8["tokens"]))
+    log(f"int8 vs bf16 pages [qwen3-moe-30b-a3b]: first tokens equal "
+        f"{first_equal}; KV bytes per cached token bf16 "
+        f"{mserve['kv_bytes_per_token']} / int8 "
+        f"{mserve8['kv_bytes_per_token']}")
+    check(first_equal, "int8 pages changed a first token [qwen3-moe-30b-a3b]")
+    check(mserve["kv_bytes_per_token"] == 98304
+          and mserve8["kv_bytes_per_token"] == 49920,
+          "KV bytes per token are not 98,304 (bf16) and 49,920 (int8)")
+
+    mark("25")
+    # -- 25. Qwen3-30B-A3B CPU cross-check, 2-layer cut ---------------------------
+    mprompt = rng.integers(3, m_cfg.vocab_size, size=24).astype(np.int32)
+    mx = cpu_prefill_crosscheck(T, m_cfg.replace(num_layers=2),
+                                dict(mparams, layers=mparams["layers"][:2]),
+                                mprompt, dev, allow_near_tie=True)
+    del mparams
+    torch.cuda.empty_cache()
+
+    mark("26")
+    # -- 26. Qwen3-30B-A3B training, 4 layers ----------------------------------
+    cfg_mtrain = get_config("qwen3-moe-30b-a3b").replace(
+        num_layers=4, moe_impl="blaze_pallas", use_pallas=True)
+    nm = cfg_mtrain.num_layers
+    mtrain = training_phase(cfg_mtrain, dev, K, (
+        "build_dispatch", "gather_gmm", "combine", "gmm_dw",
+        "flash_attention"), "qwen3-moe-30b-a3b blaze_pallas", per_step={
+            "flash_attention": 2 * nm, "build_dispatch": 2 * nm,
+            "gather_gmm": (2 * 2 + 3) * nm, "combine": 2 * nm,
+            "gmm_dw": 3 * nm})
+    torch.cuda.empty_cache()
+    mtrain_fused = training_phase(cfg_mtrain.replace(
+        moe_impl="blaze", gmm_backend="pallas_fused"), dev, K, (
+        "build_dispatch", "fused_moe_fwd", "fused_moe_bwd",
+        "flash_attention"), "qwen3-moe-30b-a3b blaze+pallas_fused",
+        per_step={"flash_attention": 2 * nm, "build_dispatch": 2 * nm,
+                  "fused_moe_fwd": 2 * nm, "fused_moe_bwd": nm})
+    torch.cuda.empty_cache()
+    xcheck_m = cpu_train_crosscheck(dev, arch="qwen3-moe-30b-a3b",
+                                    moe_impl="blaze_pallas")
+    torch.cuda.empty_cache()
+
+    mark("27-28")
+    # -- 27-28. gradient accumulation (Mixtral-8x7B) ---------------------------
+    micro = microbatch_phase(dev, K)
+    torch.cuda.empty_cache()
+
+    mark("29")
+    # -- 29. a training checkpoint served on the card ---------------------------
+    ckpt = checkpoint_phase(M, dev)
     torch.cuda.empty_cache()
 
     # -- report ---------------------------------------------------------------
@@ -945,10 +1047,15 @@ def main() -> int:
             check(r["ms"] >= r["bound_ms"],
                   f"{name} [{r['shape']}] reads {r['ms']:.4f} ms, under its "
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        # the Qwen3-30B-A3B paths' launches, beside
+        m_phase = mtrain_fused if name.startswith("fused_moe") else mtrain
+        m_serve = mserve8 if name == "paged_attention_int8" else mserve
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": n_train or n_serve,
             "launches_train": n_train, "launches_serve": n_serve,
+            "launches_qwen3_moe_train": m_phase["launches"].get(name, 0),
+            "launches_qwen3_moe_serve": m_serve["launches"].get(name, 0),
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -959,23 +1066,35 @@ def main() -> int:
                              (" [qwen3-14b bf16 pages]", qserve,
                               q_weight_bytes),
                              (" [qwen3-14b int8 pages]", qserve8,
-                              q_weight_bytes)):
+                              q_weight_bytes),
+                             (" [qwen3-moe-30b-a3b bf16 pages]", mserve,
+                              m_weight_bytes),
+                             (" [qwen3-moe-30b-a3b int8 pages]", mserve8,
+                              m_weight_bytes)):
         rec = {k_: v for k_, v in rec.items()
                if k_ not in ("tokens", "launches")}
         log(f"e2e-record{tag}: "
             f"{json.dumps(dict(rec, weight_bytes=nbytes))}")
     log(f"cpu cross-check [qwen3-14b, 2-layer cut]: {json.dumps(qx)}")
+    log(f"cpu cross-check [qwen3-moe-30b-a3b, 2-layer cut]: "
+        f"{json.dumps(mx)}")
     log(f"layer-record [one-rank mesh]: {json.dumps(layer1)}")
     log(f"multi-rank-record: {json.dumps(multi)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
                          ("blaze+pallas_fused", train_fused, xcheck_fused),
                          ("ep_a2a", train_a2a, None),
-                         ("qwen3-14b", qtrain, xcheck_q)):
+                         ("qwen3-14b", qtrain, xcheck_q),
+                         ("qwen3-moe-30b-a3b blaze_pallas", mtrain,
+                          xcheck_m),
+                         ("qwen3-moe-30b-a3b blaze+pallas_fused",
+                          mtrain_fused, None)):
         rec = {k_: v for k_, v in rec.items() if k_ != "by_kernel_ms"}
         log(f"train-record [{tag}]: "
             f"{json.dumps(dict(rec, crosscheck=xc))}")
     log(f"plan-sweep-record: {json.dumps(sweep)}")
     log(f"paper-table-record: {json.dumps(paper)}")
+    log(f"microbatch-record: {json.dumps(micro)}")
+    log(f"checkpoint-record: {json.dumps(ckpt)}")
     # every main-path build is at most N_ONE slots: one kernel launch a call
     log("build_dispatch calls a step (one kernel launch each): " + ", ".join(
         f"{tag} {rec['launches_per_step']['build_dispatch']:g}"
@@ -992,13 +1111,14 @@ def main() -> int:
 
 
 def serving_phase(M, cfg, params, prompts, dev, required, tag,
-                  kv_dtype=None) -> dict:
-    """Phases 5 and 16: ``prompts`` (16 new tokens each) served by the
+                  kv_dtype=None, traced=True) -> dict:
+    """Phases 5, 16 and 24: ``prompts`` (16 new tokens each) served by the
     port's engine on 4 slots (capacity 1024, 16-token pages) three times:
     cold, then warm (measured: every kernel in ``required`` must be
     launched during this run), then traced with torch.profiler (device
     time by kernel, device busy share); all three must give the same
-    tokens.  Returns the measurements."""
+    tokens.  Without ``traced`` the third run is left out.  Returns the
+    measurements."""
     SE, T, K = M.SE, M.T, M.K
     phase_s = {"prefill": 0.0, "decode": 0.0}
 
@@ -1066,27 +1186,34 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
         f"in {st['decode_steps']} steps, {phase_s['decode']:.4f} s "
         f"({dec_tps:.1f} tok/s); peak memory {peak / 2 ** 30:.3f} GiB "
         f"(weights {n_weight_bytes / 2 ** 30:.3f} GiB); stats {st}")
-    # A third run is traced with torch.profiler: device time by kernel and
-    # the device's busy share of the run's wall time.
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        _, reqs2 = serve()
-        torch.cuda.synchronize()
-        traced_wall = time.perf_counter() - t0
-    del _
     tokens = [r.out_tokens for r in reqs]
-    check(tokens == [r.out_tokens for r in reqs2]
-          and tokens == [r.out_tokens for r in reqs_cold],
+    check(tokens == [r.out_tokens for r in reqs_cold],
           "repeat runs gave other tokens")
-    log(f"e2e{tag}: cold, warm and traced runs gave identical tokens")
-    by_kernel = _device_time_by_kernel(prof)
-    busy = sum(by_kernel.values()) / 1e6
-    log(f"trace{tag} (third run, profiler on): wall {traced_wall:.4f} s, "
-        f"device busy {busy:.4f} s ({100 * busy / traced_wall:.1f}%)")
-    for name, us in sorted(by_kernel.items(), key=lambda kv: -kv[1])[:15]:
-        log(f"  {us / 1e3:10.3f} ms  {name[:110]}")
+    traced_wall = busy = None
+    if traced:
+        # A third run is traced with torch.profiler: device time by kernel
+        # and the device's busy share of the run's wall time.
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            _, reqs2 = serve()
+            torch.cuda.synchronize()
+            traced_wall = time.perf_counter() - t0
+        del _
+        check(tokens == [r.out_tokens for r in reqs2],
+              "repeat runs gave other tokens")
+        t0 = time.perf_counter()
+        by_kernel = _device_time_by_kernel(prof)
+        busy = sum(by_kernel.values()) / 1e6
+        log(f"trace{tag} (third run, profiler on): wall {traced_wall:.4f} "
+            f"s, device busy {busy:.4f} s ({100 * busy / traced_wall:.1f}%);"
+            f" trace read in {time.perf_counter() - t0:.1f} s")
+        for name, us in sorted(by_kernel.items(),
+                               key=lambda kv: -kv[1])[:15]:
+            log(f"  {us / 1e3:10.3f} ms  {name[:110]}")
+    log(f"e2e{tag}: cold, warm{' and traced' if traced else ''} runs gave "
+        "identical tokens")
     for i, r in enumerate(reqs):
         log(f"  req[{i}] prompt {r.prompt.size} tokens -> {r.out_tokens}")
     return {"prefill_tok_per_s": pre_tps, "decode_tok_per_s": dec_tps,
@@ -1307,7 +1434,7 @@ def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
     kernel's products with w1 | w2 concatenated (the elementwise terms
     excluded), ``scaled_dot_product_attention`` over pages dequantized and
     gathered beforehand."""
-    KS, KP, KQ = M.KS, M.KP, M.KQ
+    KS = M.KS
     w1, w2 = qz["w1"], qz["w2"]
     d, h = w1.shape
     w12 = torch.cat([w1, w2], dim=1)                       # (d, 2h)
@@ -1345,32 +1472,123 @@ def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
     del w12
 
     q, kq, vq, ks, vs, table, pos = qz["paged"]
+    rows["paged_attention_int8"].append(paged_row(
+        M, timer, entry, q, (kq, vq, ks, vs), table, pos, 0,
+        f"decode: B={q.shape[0]}, Hq={q.shape[2]}, Hkv={kq.shape[2]}, "
+        f"Dh={q.shape[3]}, int8 pages of {kq.shape[1]}, positions "
+        f"{pos.tolist()}"))
+    return rows
+
+
+def gmm_row(M, timer, entry, x, disp, w1, w2, idx, shape, plain_reps,
+            save_ab=False, trans_w=False) -> dict:
+    """Phase 4's row for one gather-GMM call: the kernel, its plain
+    version (``plain_reps`` runs) and the library yardstick; bytes: x's
+    rows, the slot ids, the offsets, the live experts' weights and the
+    outputs; operations: 2 d h a routed slot and weight."""
+    off = disp.expert_token_offsets
+    S, lens = disp.num_slots, disp.expert_lengths.tolist()
+    live = sum(1 for n in lens if n)
+    nw = 2 if w2 is not None else 1
+    d_in, h_out = ((w1.shape[2], w1.shape[1]) if trans_w
+                   else (w1.shape[1], w1.shape[2]))
+    nbytes = (x.shape[0] * d_in * EB + (S * 4 if idx is not None else 0)
+              + (len(lens) + 1) * 4 + live * d_in * h_out * EB * nw
+              + (3 if save_ab else 1) * S * h_out * EB)
+    ops = 2.0 * sum(lens) * d_in * h_out * nw
+    kw = dict(save_ab=save_ab, trans_w=trans_w)
+    return entry(
+        timer(lambda: M.KG.gather_gmm(x, idx, off, w1, w2, **kw)),
+        timer(lambda: M.KG.gather_gmm_plain(x, idx, off, w1, w2, **kw),
+              warm=1 if plain_reps < 3 else 2, reps=plain_reps),
+        nbytes, ops, library_gmm_ms(timer, x, idx, off, w1, w2, trans_w),
+        shape)
+
+
+def combine_row(M, timer, entry, p, disp, g, shape) -> dict:
+    """Phase 4's row for the combine: each partial read once, the slot ids
+    and gates, each token's output written once."""
+    tim = disp.token_index_map
+    L, k = tim.shape
+    d = p.shape[1]
+    return entry(timer(lambda: M.KC.combine(p, tim, g)),
+                 timer(lambda: M.KC.combine_plain(p, tim, g)),
+                 p.numel() * EB + L * k * (4 + EB) + L * d * EB,
+                 2.0 * L * k * d, None, shape)
+
+
+def gmm_dw_row(M, timer, entry, lhs, dout, disp, shape) -> dict:
+    """Phase 4's row for the grouped weight gradient; library: one
+    ``torch._grouped_mm`` over lhs transposed."""
+    off = disp.expert_token_offsets
+    ends = off[1:].contiguous()
+    E = off.shape[0] - 1
+    d_in, h_out = lhs.shape[1], dout.shape[1]
+    lhs_t = lhs.t()
+    return entry(
+        timer(lambda: M.KW.gmm_dw(lhs, dout, off)),
+        timer(lambda: M.KW.gmm_dw_plain(lhs, dout, off), warm=1, reps=3),
+        (lhs.numel() + dout.numel() + E * d_in * h_out) * EB + (E + 1) * 4,
+        2.0 * sum(disp.expert_lengths.tolist()) * d_in * h_out,
+        timer(lambda: torch._grouped_mm(lhs_t, dout, offs=ends)), shape)
+
+
+def flash_row(M, timer, entry, q, k, v, window, shape) -> dict:
+    """Phase 4's row for the causal flash-attention forward: operations
+    4 B H Dh a live (query, key) pair; library: SDPA."""
+    B, T_, H, Dh = q.shape
+    pairs = sum(min(t + 1, window) if window else t + 1 for t in range(T_))
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return entry(
+        timer(lambda: M.KF.flash_attention(q, k, v, causal=True,
+                                           window=window)),
+        timer(lambda: M.KF.flash_attention_plain(q, k, v, causal=True,
+                                                 window=window, chunk=512),
+              warm=1, reps=3),
+        (2 * q.numel() + k.numel() + v.numel()) * EB,
+        4.0 * B * H * Dh * pairs,
+        timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
+        shape)
+
+
+def paged_row(M, timer, entry, q, pages, table, pos, window, shape) -> dict:
+    """Phase 4's row for paged decode attention over model-dtype pages
+    ``(k, v)`` or int8 pages ``(kq, vq, ks, vs)``: bytes are q read and
+    the output written, each live position's k and v (values and int8
+    scales) and each live page's id; library: SDPA over the pages gathered
+    (and dequantized) beforehand to a dense (B, Hkv, T, Dh) view, masked
+    to each request's live window."""
+    int8 = len(pages) == 4
+    kernel, plain = ((M.KP.paged_attention_int8, M.KP.paged_attention_int8_plain)
+                     if int8 else (M.KP.paged_attention,
+                                   M.KP.paged_attention_plain))
     B, _, Hq, Dh = q.shape
-    ps, Hkv = kq.shape[1], kq.shape[2]
-    live = [int(p_) + 1 for p_ in pos.tolist()]
-    nbytes = (2 * q.numel() * EB + sum(live) * Hkv * 2 * (Dh + 2)
+    ps, Hkv = pages[0].shape[1], pages[0].shape[2]
+    live = [min(int(p_) + 1, window) if window else int(p_) + 1
+            for p_ in pos.tolist()]
+    per_pos = (Dh + 2) if int8 else Dh * EB
+    nbytes = (2 * q.numel() * EB + sum(live) * Hkv * 2 * per_pos
               + sum(-(-n // ps) for n in live) * 4 + 4 * B)
-    ops = 4.0 * sum(live) * Hq * Dh
     T_all = table.shape[1] * ps
     pt = table.long()
-    kd = KQ.dequantize(kq[pt], ks[pt], BF16).reshape(
-        B, T_all, Hkv, Dh).transpose(1, 2)
-    vd = KQ.dequantize(vq[pt], vs[pt], BF16).reshape(
-        B, T_all, Hkv, Dh).transpose(1, 2)
-    mask = (torch.arange(T_all, device=q.device)[None, :]
-            <= pos[:, None].long())
+    kd, vd = ((M.KQ.dequantize(pages[0][pt], pages[2][pt], BF16),
+               M.KQ.dequantize(pages[1][pt], pages[3][pt], BF16)) if int8
+              else (pages[0][pt], pages[1][pt]))
+    kd, vd = (t.reshape(B, T_all, Hkv, Dh).transpose(1, 2) for t in (kd, vd))
+    t_ids = torch.arange(T_all, device=q.device)[None, :]
+    mask = t_ids <= pos[:, None].long()
+    if window:
+        mask &= t_ids > pos[:, None].long() - window
     qd = q.transpose(1, 2)
-    args = (q, kq, vq, ks, vs, table, pos)
-    rows["paged_attention_int8"].append(entry(
-        timer(lambda: KP.paged_attention_int8(*args)),
-        timer(lambda: KP.paged_attention_int8_plain(*args)),
-        nbytes, ops,
-        timer(lambda: torch.nn.functional.scaled_dot_product_attention(
-            qd, kd, vd, attn_mask=mask[:, None, None, :], enable_gqa=True)),
-        f"decode: B={B}, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, int8 pages of {ps}, "
-        f"positions {pos.tolist()}", launches=2,   # split walk + merge
-        dependent=True))
-    return rows
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    return entry(
+        timer(lambda: kernel(q, *pages, table, pos, window=window)),
+        timer(lambda: plain(q, *pages, table, pos, window=window)),
+        nbytes, 4.0 * sum(live) * Hq * Dh,
+        timer(lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None, None, :],
+                           enable_gqa=True)),
+        shape, launches=2, dependent=True)   # split walk + merge
 
 
 def library_gmm_ms(timer, x, idx, off, w1, w2, trans_w) -> float:
@@ -1966,51 +2184,25 @@ def fused_kernel_timing(M, timer, entry, fz, moe):
     return rows
 
 
-def train_kernel_timing(M, timer, entry, tr, disp_tr, E):
+def train_kernel_timing(M, timer, entry, tr, disp_tr):
     """Phase 4, training kernels at the training shapes: the grouped
     weight gradient (dw1 and dw3) and the flash-attention forward, each
     beside its plain version, its bound and its library yardstick."""
-    KW, KF = M.KW, M.KF
-    off = disp_tr.expert_token_offsets
-    ends = off[1:].contiguous()
-    lens = disp_tr.expert_lengths.tolist()
-    S = disp_tr.num_slots
-    rows = {"gmm_dw": [], "flash_attention": []}
-    for name, lhs, dout in (("dw1", tr["xg"], tr["da"]),
-                            ("dw3", tr["y_swi"], tr["dyg"])):
-        d_in, h_out = lhs.shape[1], dout.shape[1]
-        nbytes = (lhs.numel() + dout.numel() + E * d_in * h_out) * EB + \
-            (E + 1) * 4
-        ops = 2.0 * sum(lens) * d_in * h_out
-        lhs_t = lhs.t()
-        rows["gmm_dw"].append(entry(
-            timer(lambda: KW.gmm_dw(lhs, dout, off)),
-            timer(lambda: KW.gmm_dw_plain(lhs, dout, off), warm=1, reps=3),
-            nbytes, ops,
-            timer(lambda: torch._grouped_mm(lhs_t, dout, offs=ends)),
-            f"training {name}: S={S}, {d_in}x{h_out} per expert, E={E}"))
-    k, v = tr["k"], tr["v"]
-    sdpa = torch.nn.functional.scaled_dot_product_attention
-    window = 4096
+    S, E = disp_tr.num_slots, disp_tr.expert_lengths.numel()
+    rows = {"gmm_dw": [
+        gmm_dw_row(M, timer, entry, lhs, dout, disp_tr,
+                   f"training {name}: S={S}, {lhs.shape[1]}x{dout.shape[1]}"
+                   f" per expert, E={E}")
+        for name, lhs, dout in (("dw1", tr["xg"], tr["da"]),
+                                ("dw3", tr["y_swi"], tr["dyg"]))]}
     # Mixtral's training shape (32/8 heads), then Qwen3-14B's (40/8)
-    for q, model in ((tr["q"], "mixtral-8x7b"), (tr["q40"], "qwen3-14b")):
-        B, T_, H, Dh = q.shape
-        pairs = sum(min(t + 1, window) for t in range(T_))  # live (q, k)
-        ops = 4.0 * B * H * Dh * pairs
-        nbytes = (2 * q.numel() + k.numel() + v.numel()) * EB
-        qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
-        rows["flash_attention"].append(entry(
-            timer(lambda: KF.flash_attention(q, k, v, causal=True,
-                                             window=window)),
-            timer(lambda: KF.flash_attention_plain(q, k, v, causal=True,
-                                                   window=window,
-                                                   chunk=512),
-                  warm=1, reps=3),
-            nbytes, ops,
-            timer(lambda: sdpa(qt, kt, vt, is_causal=True,
-                               enable_gqa=True)),
-            f"training {model}: B={B}, S={T_}, {H}/{k.shape[2]} heads of "
-            f"{Dh}, causal"))
+    rows["flash_attention"] = [
+        flash_row(M, timer, entry, q, tr["k"], tr["v"], 4096,
+                  f"training {model}: B={q.shape[0]}, S={q.shape[1]}, "
+                  f"{q.shape[2]}/{tr['k'].shape[2]} heads of {q.shape[3]}, "
+                  "causal")
+        for q, model in ((tr["q"], "mixtral-8x7b"),
+                         (tr["q40"], "qwen3-14b"))]
     return rows
 
 
@@ -3019,6 +3211,410 @@ def cpu_train_crosscheck(dev, arch="mixtral-8x7b", far_floor=0,
           "than lr")
     return {"card": out["card"], "cpu": out["cpu"], "param_max_diff": worst,
             "param_far": n_far, "grad_max_rel_diff": grad_rel}
+
+
+# Qwen3-30B-A3B at its own shapes (phases 22-23): 128 experts, top-8, d=2048,
+# expert width 768; training 2 x 2048 tokens (32,768 slots, ~256 a live
+# expert), decode 4 tokens (32 slots: most experts empty); attention 32/4
+# heads of 128 (a GQA group of 8, the widest the paged kernel instantiates).
+MOE30_DEC = 4
+
+
+def moe30_kernels(M, dev, timer, entry, errs, cfg) -> dict:
+    """Phases 22-23: every kernel that the Qwen3-30B-A3B paths run, against
+    its plain version at the model's shapes (each call repeated
+    bit-equal where one writer owns each output element), then timed as
+    phase 4.  Returns the timing rows by kernel."""
+    KG, KW, KC, KF, KFM, KP, KQ, KD, TR = (M.KG, M.KW, M.KC, M.KF, M.KFM,
+                                           M.KP, M.KQ, M.KD, M.TR)
+    E, k, d, h = cfg.num_experts, cfg.top_k, cfg.d_model, cfg.moe_d_ff
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    tag = "qwen3-moe-30b-a3b"
+    gen = torch.Generator(device=dev).manual_seed(30)
+
+    def randn(*shape, dtype=BF16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev)
+                .mul_(scale).to(dtype))
+
+    w1, w2 = randn(E, d, h, scale=d ** -0.5), randn(E, d, h, scale=d ** -0.5)
+    w3 = randn(E, h, d, scale=h ** -0.5)
+    wg = randn(d, E, scale=d ** -0.5)
+    shapes = {}
+    for label, L in (("training", TRAIN_BATCH * TRAIN_SEQ),
+                     ("decode", MOE30_DEC)):
+        x = randn(L, d)
+        g = TR.top_k_gating(x, wg, k)
+        topk = g.topk_experts.contiguous()
+        want = TR.build_dispatch(topk, E)
+        for call in ("", ", repeated"):
+            disp = KD.build_dispatch(topk, E)
+            for f in TR.Dispatch._fields:
+                check(torch.equal(getattr(disp, f), getattr(want, f)),
+                      f"dispatch [{tag} {label}]{call}: {f} differs")
+        lens = disp.expert_lengths.tolist()
+        shapes[label] = SimpleNamespace(
+            x=x, disp=disp, gates=g.topk_weights.to(BF16),
+            g_slot=slot_gates(M, x, wg, disp, k), L=L, S=disp.num_slots,
+            live=sum(1 for n_ in lens if n_), lens=lens)
+        log(f"parity build_dispatch [{tag} {label}: L={L}, k={k}, E={E}]: "
+            f"bit-equal, repeated bit-equal; {shapes[label].live} of {E} "
+            f"experts hold rows (most {max(lens)})")
+    tr, dec = shapes["training"], shapes["decode"]
+
+    def same_twice(name, fn):
+        got, again = fn(), fn()
+        got_t = got if isinstance(got, (tuple, list)) else (got,)
+        again_t = again if isinstance(again, (tuple, list)) else (again,)
+        check(all(torch.equal(a, b) for a, b in zip(got_t, again_t)),
+              f"{name}: a repeated call differs")
+        return got
+
+    def close(key, name, got, want, rtol, atol):
+        e = require_close(f"{name} [{tag}]", got, want, rtol, atol)
+        errs[key] = max(errs[key], e)
+        return e
+
+    # gather-GMM's instantiations
+    for label, sh in (("training", tr), ("decode", dec)):
+        idx, off = sh.disp.expert_token_indices, sh.disp.expert_token_offsets
+        kw = dict(save_ab=True) if label == "training" else {}
+        got = same_twice(f"gather_gmm {label} dual",
+                         lambda: KG.gather_gmm(sh.x, idx, off, w1, w2, **kw))
+        want = KG.gather_gmm_plain(sh.x, idx, off, w1, w2, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for part, g_, w_ in zip(("y", "a", "b"), got, want):
+            close("gather_gmm", f"gather_gmm {label} dual {part}", g_, w_,
+                  GMM_RTOL, GMM_ATOL)
+        sh.y_swi = got[0]
+        sh.p = same_twice(f"gather_gmm {label} w3", lambda: KG.gather_gmm(
+            sh.y_swi, None, off, w3, epilogue=False))
+        close("gather_gmm", f"gather_gmm {label} w3 forward", sh.p,
+              KG.gather_gmm_plain(sh.y_swi, None, off, w3, epilogue=False),
+              GMM_RTOL, GMM_ATOL)
+        del got, want
+    off = tr.disp.expert_token_offsets
+    tr.dyg, tr.da = randn(tr.S, d), randn(tr.S, h, scale=0.05)
+    for name, rows_, w in (("w3^T", tr.dyg, w3), ("w1^T", tr.da, w1)):
+        got = same_twice(f"gather_gmm {name}", lambda: KG.gather_gmm(
+            rows_, None, off, w, epilogue=False, trans_w=True))
+        close("gather_gmm", f"gather_gmm training {name}", got,
+              KG.gather_gmm_plain(rows_, None, off, w, epilogue=False,
+                                  trans_w=True), GMM_RTOL, GMM_ATOL)
+    log(f"parity gather_gmm [{tag}: S={tr.S} / {dec.S}, E={E}, d={d}, "
+        f"h={h}; dual + save_ab, w3 forward, w3^T, w1^T, decode dual and "
+        f"w3]: max |err| {errs['gather_gmm']:.4g}, every call repeated "
+        "bit-equal")
+
+    # the grouped weight gradient
+    tr.xg = tr.x[tr.disp.expert_token_indices.long()]
+    for name, lhs, dout in (("dw1", tr.xg, tr.da), ("dw3", tr.y_swi, tr.dyg)):
+        got = same_twice(f"gmm_dw {name}", lambda: KW.gmm_dw(lhs, dout, off))
+        close("gmm_dw", f"gmm_dw training {name}", got,
+              KW.gmm_dw_plain(lhs, dout, off), GMM_RTOL, GMM_ATOL)
+        for ex, n_ in enumerate(tr.lens):
+            check(n_ > 0 or not bool(got[ex].any()),
+                  f"gmm_dw {name}: empty expert {ex} not zero")
+    log(f"parity gmm_dw [{tag}: S={tr.S}, E={E}, {d}x{h} and {h}x{d}]: max "
+        f"|err| {errs['gmm_dw']:.4g}, repeated bit-equal")
+
+    # the fused pair
+    ws = (w1, w2, w3)
+    for label, sh in (("training", tr), ("decode", dec)):
+        idx, off_ = sh.disp.expert_token_indices, sh.disp.expert_token_offsets
+        sh.dy = randn(sh.L, d)
+        got = [KFM.fused_moe_fwd(sh.x, sh.g_slot, idx, off_, *ws)]
+        want = [KFM.fused_moe_fwd_plain(sh.x, sh.g_slot, idx, off_, *ws)]
+        # one writer per element of dgates and dw1-3 (dx sums by atomics)
+        bwd = [KFM.fused_moe_bwd(sh.x, sh.dy, sh.g_slot, idx, off_, *ws)
+               for _ in range(2)]
+        check(all(torch.equal(a, b) for a, b in zip(bwd[0][1:], bwd[1][1:])),
+              f"fused_moe_bwd [{tag} {label}]: a repeated call differs")
+        got += bwd[0]
+        want += KFM.fused_moe_bwd_plain(sh.x, sh.dy, sh.g_slot, idx, off_,
+                                        *ws)
+        rel = []
+        for i, (part, g_, w_) in enumerate(zip(
+                ("y", "dx", "dgates", "dw1", "dw2", "dw3"), got, want)):
+            scale = float(w_.float().abs().max())
+            e = close("fused_moe_fwd" if i == 0 else "fused_moe_bwd",
+                      f"fused_moe {label} {part}", g_, w_, 0.0,
+                      FUSED_SCALE_STEP * scale + GMM_ATOL)
+            rel.append(round(e / max(scale, 1e-30), 6))
+        for ex, n_ in enumerate(sh.lens):
+            check(n_ > 0 or not any(bool(t[ex].any()) for t in got[3:]),
+                  f"fused_moe {label}: empty expert {ex} has weight grads")
+        fwd_plan = [w_ for _, w_ in KFM.h_ranges(h, KFM.pass_width(sh.S, h))]
+        bwd_plan = [w_ for _, w_ in KFM.h_ranges(
+            h, KFM.bwd_pass_width(sh.S, h))]
+        log(f"parity fused_moe [{tag} {label}: S={sh.S}, {sh.live} live "
+            f"experts]: max |err| / scale (y, dx, dgates, dw1, dw2, dw3) "
+            f"{rel}; h-ranges forward {fwd_plan}, backward {bwd_plan}; "
+            "repeated backward bit-equal")
+        del got, want, bwd
+
+    # the combine at k = 8
+    for label, sh in (("training", tr), ("decode", dec)):
+        tim = sh.disp.token_index_map
+        got = KC.combine(sh.p, tim, sh.gates)
+        check(torch.equal(got, KC.combine_plain(sh.p, tim, sh.gates)),
+              f"combine [{tag} {label}]: not bit-equal")
+    log(f"parity combine [{tag}: k={k}, d={d}, L={tr.L} / {dec.L}]: "
+        "bit-equal")
+
+    # flash attention at 32/4 heads (G = 8)
+    q = randn(TRAIN_BATCH, TRAIN_SEQ, Hq, Dh)
+    kk, vv = (randn(TRAIN_BATCH, TRAIN_SEQ, Hkv, Dh) for _ in range(2))
+    close("flash_attention", f"flash_attention training {Hq}/{Hkv} heads",
+          KF.flash_attention(q, kk, vv, causal=True),
+          KF.flash_attention_plain(q, kk, vv, causal=True, chunk=512), 0.0,
+          FLASH_ATOL)
+    log(f"parity flash_attention [{tag}: B={TRAIN_BATCH}, S={TRAIN_SEQ}, "
+        f"{Hq}/{Hkv} heads of {Dh}]: max |err| "
+        f"{errs['flash_attention']:.4g} (atol {FLASH_ATOL})")
+
+    # paged attention over bf16 and int8 pages at the group of 8
+    ps, pps = 16, 64
+    n_pages = 1 + 4 * pps
+    kb, vb = randn(n_pages, ps, Hkv, Dh), randn(n_pages, ps, Hkv, Dh)
+    kq, ks = KQ.quantize(kb)
+    vq, vs = KQ.quantize(vb)
+    qd = randn(4, 1, Hq, Dh)
+    perm = torch.randperm(n_pages - 1, generator=torch.Generator()
+                          .manual_seed(6)) + 1
+    table = perm[:4 * pps].reshape(4, pps).to(torch.int32).to(dev)
+    pos = torch.tensor([36 + 15, 128 + 15, 299 + 15, 510 + 15],
+                       dtype=torch.int32, device=dev)
+    edge_table = table.clone()
+    edge_table[2] = 0
+    edge_pos = torch.tensor([0, 700, 0, 1000], dtype=torch.int32, device=dev)
+    span, split_pos = split_boundaries(KP, dev, Hkv, pps, ps)
+    cases = (("decode", table, pos), ("pos 0 + dead table", edge_table,
+                                       edge_pos),
+             (f"split boundaries (span {span})", table, split_pos))
+    for name, (kernel, plain, pages) in (
+            ("paged_attention", (KP.paged_attention,
+                                 KP.paged_attention_plain, (kb, vb))),
+            ("paged_attention_int8", (KP.paged_attention_int8,
+                                      KP.paged_attention_int8_plain,
+                                      (kq, vq, ks, vs)))):
+        for case_name, tab, p_ in cases:
+            close(name, f"{name} {case_name}", kernel(qd, *pages, tab, p_),
+                  plain(qd, *pages, tab, p_), 0.0, PAGED_ATOL)
+        log(f"parity {name} [{tag}: {Hq}/{Hkv} heads of {Dh}, group "
+            f"{Hq // Hkv}; {'; '.join(c[0] for c in cases)}]: max |err| "
+            f"{errs[name]:.4g} (atol {PAGED_ATOL})")
+    torch.cuda.synchronize()
+
+    # -- timing (phase 23) --
+    gmm = partial(gmm_row, M, timer, entry)
+    idx_tr, idx_dec = (sh.disp.expert_token_indices for sh in (tr, dec))
+    rows = {
+        "gather_gmm": [
+            gmm(tr.x, tr.disp, w1, w2, idx_tr, f"{tag} training dual w1/w2 "
+                f"+ save_ab: S={tr.S}, E={E}, d={d}, h={h}", 1, save_ab=True),
+            gmm(tr.y_swi, tr.disp, w3, None, None,
+                f"{tag} training w3 forward: S={tr.S}, {h}->{d}", 1),
+            gmm(tr.dyg, tr.disp, w3, None, None,
+                f"{tag} training w3^T: S={tr.S}, {d}->{h}", 1, trans_w=True),
+            gmm(tr.da, tr.disp, w1, None, None,
+                f"{tag} training w1^T: S={tr.S}, {h}->{d}", 1, trans_w=True),
+            gmm(dec.x, dec.disp, w1, w2, idx_dec, f"{tag} decode dual w1/w2: "
+                f"S={dec.S}, {dec.live} live experts", 5),
+            gmm(dec.y_swi, dec.disp, w3, None, None,
+                f"{tag} decode w3: S={dec.S}", 5)],
+        "gmm_dw": [
+            gmm_dw_row(M, timer, entry, lhs, dout, tr.disp,
+                       f"{tag} training {name}: S={tr.S}, "
+                       f"{lhs.shape[1]}x{dout.shape[1]} per expert, E={E}")
+            for name, lhs, dout in (("dw1", tr.xg, tr.da),
+                                    ("dw3", tr.y_swi, tr.dyg))],
+        "combine": [
+            combine_row(M, timer, entry, sh.p, sh.disp, sh.gates,
+                        f"{tag} {label}: S={sh.S}, L={sh.L}, k={k}, d={d}")
+            for label, sh in (("training", tr), ("decode", dec))],
+        "flash_attention": [flash_row(
+            M, timer, entry, q, kk, vv, 0, f"{tag} training: "
+            f"B={TRAIN_BATCH}, S={TRAIN_SEQ}, {Hq}/{Hkv} heads of {Dh}, "
+            "causal")]}
+    for name, pages_ in (("paged_attention", (kb, vb)),
+                         ("paged_attention_int8", (kq, vq, ks, vs))):
+        rows[name] = [paged_row(
+            M, timer, entry, qd, pages_, table, pos, 0,
+            f"{tag} decode: B=4, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, pages of {ps},"
+            f" positions {pos.tolist()}")]
+    fused = fused_kernel_timing(M, timer, entry, {
+        "x": tr.x, "g": tr.g_slot, "disp": tr.disp, "dy": tr.dy,
+        "x_dec": dec.x, "g_dec": dec.g_slot, "disp_dec": dec.disp},
+        {"w1": w1, "w2": w2, "w3": w3})
+    for name, rs in fused.items():
+        for r in rs:
+            r["shape"] = f"{tag} {r['shape']}"
+    rows.update(fused)
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def microbatch_phase(dev, K, cfg=None, seq: int = TRAIN_SEQ) -> dict:
+    """Phases 27-28: gradient accumulation on Mixtral-8x7B at full width,
+    2 layers, float32 masters (``blaze_pallas``).  The step at 2 x 2048
+    tokens with M = 2 against M = 1 on the same batch and weights (the
+    first step's learning rate is 0, so neither moves a weight; the
+    moments are reset between them): loss and ce within ``MB_LOSS_RTOL``,
+    grad norm within ``MB_NORM_RTOL``.  Then 8 x 2048 tokens with M = 4,
+    whose live set is one 2 x 2048 microbatch: a cold and a warm step must
+    finish with finite numbers; the state held between steps, the warm
+    step's peak and the simulated peak are printed beside the M = 1
+    step's peak.  ``cfg`` and ``seq`` replace the model and the sequence
+    length (a CPU rehearsal)."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    cfg = cfg or get_config("mixtral-8x7b").replace(
+        num_layers=2, moe_impl="blaze_pallas", use_pallas=True)
+    base = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       batch_size=TRAIN_BATCH, seq_len=seq, seed=0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = init_params(cfg, gen, dev, dtype=torch.float32)
+    opt = init_adamw(params)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated()
+    out = {"state_bytes": held}
+
+    def run(tcfg, batch, label):
+        step = make_train_step(cfg, tcfg, dev)
+        opt.step = 0
+        for t in opt.mu + opt.nu:
+            t.zero_()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        _, _, m = step(params, opt, batch)
+        m = {k_: float(v) for k_, v in m.items()}
+        m["step_s"] = time.perf_counter() - t0
+        m["peak_bytes"] = torch.cuda.max_memory_allocated()
+        m["peak_sim_bytes"] = step.peak_sim_bytes
+        m["launches"] = K.launch_counts()
+        check(all(np.isfinite(m[k_]) for k_ in ("loss", "grad_norm")),
+              f"microbatches {label}: non-finite loss or grad norm")
+        log(f"train microbatches [{label}]: loss {m['loss']:.6f} ce "
+            f"{m['ce']:.6f} grad_norm {m['grad_norm']:.6f} lr {m['lr']} "
+            f"step {m['step_s']:.4f} s, peak {m['peak_bytes'] / 2 ** 30:.3f}"
+            f" GiB (state held {held / 2 ** 30:.3f} GiB; simulated "
+            f"{m['peak_sim_bytes'] / 2 ** 30:.3f} GiB); launches "
+            f"{m['launches']}")
+        return m
+
+    batch = next(make_batch_iterator(cfg.vocab_size, seq, TRAIN_BATCH, 0))
+    one = run(base, batch, f"M=1, {TRAIN_BATCH} x {seq}")
+    two = run(dataclasses.replace(base, num_microbatches=2), batch,
+              f"M=2, {TRAIN_BATCH} x {seq}")
+    rel = {k_: abs(two[k_] - one[k_]) / abs(one[k_])
+           for k_ in ("loss", "ce", "grad_norm")}
+    log(f"train microbatches: M=2 against M=1, relative differences {rel} "
+        f"(tolerances loss and ce {MB_LOSS_RTOL}, grad norm {MB_NORM_RTOL})")
+    check(rel["loss"] <= MB_LOSS_RTOL and rel["ce"] <= MB_LOSS_RTOL
+          and rel["grad_norm"] <= MB_NORM_RTOL,
+          "M=2 and M=1 steps disagree beyond the stated tolerances")
+    check(two["launches"]["gather_gmm"] == 2 * one["launches"]["gather_gmm"],
+          "M=2 did not run the expert kernels twice as often as M=1")
+    big = dataclasses.replace(base, batch_size=4 * TRAIN_BATCH,
+                              num_microbatches=4)
+    batches = make_batch_iterator(cfg.vocab_size, seq, big.batch_size, 0)
+    cold = run(big, next(batches), f"M=4, {big.batch_size} x {seq}, cold")
+    warm = run(big, next(batches), f"M=4, {big.batch_size} x {seq}, warm")
+    tokens = big.batch_size * seq
+    log(f"train microbatches [M=4, {big.batch_size} x {seq}]: "
+        f"completes; {tokens / warm['step_s']:.1f} tokens/s (warm step "
+        f"{warm['step_s']:.4f} s), peak {warm['peak_bytes'] / 2 ** 30:.3f} "
+        f"GiB against {one['peak_bytes'] / 2 ** 30:.3f} GiB at M=1 on one "
+        f"microbatch ({(warm['peak_bytes'] - one['peak_bytes']) / 2 ** 30:+.3f}"
+        f" GiB); state held between steps {held / 2 ** 30:.3f} GiB")
+    out.update(m1=one, m2=two, m4_cold=cold, m4_warm=warm,
+               rel_m2_m1=rel, tokens_per_s_m4=tokens / warm["step_s"])
+    return out
+
+
+def checkpoint_phase(M, dev) -> dict:
+    """Phase 29: a training checkpoint round trip on the card at a reduced
+    width of Qwen3-30B-A3B (2 layers, d=512, 32 experts, top-8, expert
+    width 256, GQA 8/1 heads of 128; float32 masters, bf16 compute).  Two
+    steps, a save, a restore of the parameters (bit-equal to the masters)
+    and of the AdamW state (bit-equal), and a restore into a serving
+    template (matrices in bf16): its greedy tokens must equal those of an
+    engine over the in-memory masters cast the same way, leaf for leaf."""
+    import tempfile
+
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.checkpointing import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWState, init_adamw
+    cfg = get_config("qwen3-moe-30b-a3b").replace(
+        num_layers=2, d_model=512, num_heads=8, num_kv_heads=1,
+        num_experts=32, moe_d_ff=256, vocab_size=4096,
+        moe_impl="blaze_pallas", use_pallas=True)
+    tcfg = TrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=10,
+                       batch_size=2, seq_len=256)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0), dev,
+                         dtype=torch.float32)
+    opt = init_adamw(params)
+    step = make_train_step(cfg, tcfg, dev)
+    batches = make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
+                                  tcfg.batch_size, 0)
+    losses = [float(step(params, opt, next(batches))[2]["loss"])
+              for _ in range(2)]
+    serving = init_params(cfg, torch.Generator(device=dev).manual_seed(1),
+                          dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/step_1"
+        save_checkpoint(path, 1, params, opt)
+        nbytes = sum(f.stat().st_size for f in Path(path).iterdir())
+        other = lambda t: torch.full_like(t, 7.0)
+        n, masters, opt2 = restore_checkpoint(
+            path, _map_leaves(params, other),
+            AdamWState(0, [other(t) for t in opt.mu],
+                       [other(t) for t in opt.nu]))
+        _, served = restore_checkpoint(path, serving)
+    check(n == 1 and opt2.step == opt.step == 2, "checkpoint step")
+    check(all(torch.equal(a.detach(), b) for a, b in zip(
+        list(_leaves(params)) + opt.mu + opt.nu,
+        list(_leaves(masters)) + opt2.mu + opt2.nu)),
+        "checkpoint: a restored float32 leaf differs")
+    dtypes = iter([t.dtype for t in _leaves(serving)])
+    cast = _map_leaves(params, lambda t: t.detach().to(next(dtypes)))
+    check(all(a.dtype == b.dtype and a.device == b.device
+              and torch.equal(a, b)
+              for a, b in zip(_leaves(cast), _leaves(served))),
+          "checkpoint: the serving layout differs from the cast masters")
+    rng = np.random.default_rng(9)
+    prompts = [rng.integers(3, cfg.vocab_size, size=n_).astype(np.int32)
+               for n_ in (40, 7, 130)]
+    tokens = []
+    for weights in (served, cast):
+        eng = M.SE.ServeEngine(cfg, weights, batch_slots=3, capacity=256,
+                               device=dev)
+        reqs = [M.SE.Request(prompt=p, max_new_tokens=8,
+                             eos_id=cfg.vocab_size) for p in prompts]
+        eng.generate(reqs)
+        tokens.append([r.out_tokens for r in reqs])
+    check(tokens[0] == tokens[1], "checkpoint: restored engine's tokens "
+          "differ from the in-memory weights' engine")
+    log(f"checkpoint round trip [{cfg.name}, 2 layers, d=512, E=32, top-8, "
+        f"{sum(t.numel() for t in _leaves(params)) / 1e6:.1f} M float32 "
+        f"parameters]: losses {losses}; {nbytes / 2 ** 20:.1f} MiB on disk; "
+        f"masters and AdamW state bit-equal; serving layout equals the cast "
+        f"masters; greedy tokens equal: {tokens[0]}")
+    return {"losses": losses, "bytes": nbytes, "tokens": tokens[0]}
 
 
 def _device_time_by_kernel(prof) -> dict[str, float]:

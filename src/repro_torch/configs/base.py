@@ -5,7 +5,8 @@ and defaults, so that a reference config converts field for field:
 ``ModelConfig(**dataclasses.asdict(reference_cfg))``.  The properties
 ``checkpoint_plan`` and ``resolved_save_yswi`` read the plan through the
 port's ``core/checkpoint.py``.  :class:`TrainConfig` is the reference's
-training config without its checkpoint-saving fields.
+training config; its checkpoint directory has no default (the reference
+writes under ``/tmp``), so saving needs one named.
 """
 
 from __future__ import annotations
@@ -153,9 +154,11 @@ class TrainConfig:
     grad_clip: float = 1.0
     batch_size: int = 8
     seq_len: int = 256
-    num_microbatches: int = 1            # gradient accumulation (not ported)
+    num_microbatches: int = 1            # gradient accumulation
     gmm_backend: str = "auto"            # over ModelConfig.gmm_backend
     seed: int = 0
+    checkpoint_every: int = 0            # 0 -> disabled
+    checkpoint_dir: str = ""             # required when checkpoint_every > 0
     log_every: int = 10
 
     def replace(self, **kw) -> "TrainConfig":

@@ -5,9 +5,15 @@ prompts, greedy decoding through the paged engine.
         --reduced --device cpu [--layers 2] [--prompts 4] [--max-new 16]
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \
         --reduced --device cpu [--kv-dtype int8]
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch qwen3-moe-30b-a3b --reduced --device cpu \
+        --ckpt build/ckpt/step_2
 
 Runs on the card by default (``--device cuda``).  ``--kv-dtype int8``
-stores the KV pages as int8 with float16 scales.  Prints each request's
+stores the KV pages as int8 with float16 scales.  ``--ckpt DIR`` serves
+the parameters of a training checkpoint (``launch/train.py --ckpt-dir``):
+its float32 masters are restored into the serving layout, matrices cast
+to the config's dtype.  Prints each request's
 tokens and then one JSON run record with the engine stats, the KV bytes
 per cached token and the resolved grouped-GEMM backend
 (``REPRO_GMM_BACKEND`` selects it, as in the reference).
@@ -26,6 +32,7 @@ from repro_torch.configs import get_config
 from repro_torch.core.device import resolve_device
 from repro_torch.interop import init_params
 from repro_torch.serve.engine import Request, ServeEngine
+from repro_torch.train.checkpointing import restore_checkpoint
 
 
 def main(argv=None):
@@ -39,6 +46,8 @@ def main(argv=None):
     ap.add_argument("--capacity", type=int, default=512)
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--kv-dtype", choices=("model", "int8"), default="model")
+    ap.add_argument("--ckpt", default="",
+                    help="serve the parameters of this training checkpoint")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
@@ -50,6 +59,8 @@ def main(argv=None):
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev)
+    if args.ckpt:
+        _, params = restore_checkpoint(args.ckpt, params)
     eng = ServeEngine(cfg, params, batch_slots=args.prompts,
                       capacity=args.capacity, page_size=args.page_size,
                       kv_dtype=args.kv_dtype, device=dev)
@@ -75,6 +86,7 @@ def main(argv=None):
            "capacity": args.capacity, "page_size": args.page_size,
            "kv_dtype": args.kv_dtype,
            "kv_bytes_per_token": eng.kv_bytes_per_token,
+           "checkpoint": args.ckpt or None,
            "seconds": seconds, "stats": dict(eng.stats)}
     print(f"run-record: {json.dumps(rec)}")
 

@@ -5,6 +5,9 @@ batches from the synthetic pipeline, the MoEBlaze training step.
         --reduced --steps 3 --device cpu [--batch 2] [--seq 64] [--layers 2]
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-14b \
         --reduced --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch qwen3-moe-30b-a3b --reduced --steps 4 --batch 4 --seq 64 \
+        --microbatches 2 --device cpu --ckpt-dir build/ckpt
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch mixtral-8x7b --reduced --device cpu --mesh 1,2 \
         --moe-parallel ep_a2a
@@ -16,6 +19,11 @@ layer is the config's ``moe_impl`` (``blaze`` for Mixtral); the
 grouped-GEMM backend is chosen, as in the reference, by
 ``REPRO_GMM_BACKEND`` (``ragged``, ``torch._grouped_mm``, when unset;
 ``pallas_fused`` runs the fused kernel pair).  Kernels take their plain versions on the CPU.
+
+``--microbatches M`` accumulates the gradients of M pieces of each batch
+(the live activations are one piece's).  ``--ckpt-dir DIR`` saves the
+parameters and the optimizer state to ``DIR/step_<n>`` at step ``steps //
+2`` (``train/checkpointing.py``; ``launch/serve.py --ckpt`` serves them).
 
 ``--mesh D,M`` (or ``D,M,N``) lays the ranks that torchrun starts out as a
 ``('data', 'model')`` mesh of D x M ranks (or ``('data', 'node',
@@ -63,6 +71,8 @@ def main(argv=None):
     ap.add_argument("--microbatches", type=int, default=1)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--log-every", type=int, default=10)
+    ap.add_argument("--ckpt-dir", default="",
+                    help="save a checkpoint here at step steps // 2")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
                     help="D,M: data x model ranks; D,M,N: with N nodes")
@@ -81,7 +91,10 @@ def main(argv=None):
     tcfg = TrainConfig(total_steps=args.steps, batch_size=args.batch,
                        seq_len=args.seq, learning_rate=args.lr,
                        num_microbatches=args.microbatches,
-                       log_every=args.log_every)
+                       log_every=args.log_every,
+                       checkpoint_every=(args.steps // 2 if args.ckpt_dir
+                                         else 0),
+                       checkpoint_dir=args.ckpt_dir)
     mesh = None
     if args.mesh is not None:
         dev = init_distributed(args.device)
@@ -102,7 +115,9 @@ def main(argv=None):
            "transport": (transport(mesh.group(mesh.axis_names), dev)
                          if mesh is not None else None),
            "moe_overflow": history[-1]["moe_overflow"],
-           "batch": args.batch, "seq": args.seq, "history": history}
+           "batch": args.batch, "seq": args.seq,
+           "microbatches": args.microbatches,
+           "checkpoint_dir": args.ckpt_dir or None, "history": history}
     if rank0:
         print(f"run-record: {json.dumps(rec)}")
     if mesh is not None:

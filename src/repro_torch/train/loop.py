@@ -1,33 +1,47 @@
 """Training step and loop.
 
-Mirrors ``repro/train/loop.py``: ``make_train_step`` (with the
-checkpoint-plan resolution, the budget fit and the simulated peak) and
-``train`` (without checkpoint saving).  A step is value-and-grad of
-``train_loss``, global-norm clipping, the cosine schedule and AdamW.
-PyTorch runs eagerly, so there is nothing to compile; the step updates the
-parameters and the optimizer state in place and returns them.
+Mirrors ``repro/train/loop.py``: ``make_train_step`` (with gradient
+accumulation, the checkpoint-plan resolution, the budget fit and the
+simulated peak) and ``train`` (with the backend resolved per step and
+periodic checkpoint saving).  A step is value-and-grad of ``train_loss``,
+global-norm clipping, the cosine schedule and AdamW.  PyTorch runs
+eagerly, so there is nothing to compile; the step updates the parameters
+and the optimizer state in place and returns them.
+
+Gradient accumulation (``tcfg.num_microbatches = M > 1``) splits the
+global batch along its leading axis into M microbatches, as the reference
+does, and runs forward and backward on each in order: the live activations
+are one microbatch's.  Each leaf's gradient is divided by M as it arrives
+(a tensor hook) and summed into the leaf's ``.grad`` by autograd, so the
+float32 sum is the reference's ``acc + g / M`` in microbatch order, and no
+second set of gradients is held beside the accumulator: a microbatch's
+gradient of a leaf is freed once it is added.  The loss and each metric are the mean
+over the microbatches; clipping and AdamW run once, on the sum.
 
 Under a :class:`~repro_torch.launch.mesh.Mesh` every rank runs the step
 on its own batch rows (``sharding.batch_specs``) and its own parameters
 (``sharding.local_params`` for the resolved MoE mode), and the step gives
 the single-device step's numbers: the loss is the global masked mean, the
-gradients are summed over the data axes the batch is split over, the
-global norm counts each expert shard once (summed over the axes the
-shards are split over) and each replicated leaf once, and AdamW updates
-the local shards.  Every rank reports the same metrics.
+gradients are summed over the data axes the batch is split over (once,
+after accumulation), the global norm counts each expert shard once (summed
+over the axes the shards are split over) and each replicated leaf once,
+and AdamW updates the local shards.  Every rank reports the same metrics.
 
 The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once per step
 function, as in the reference: call-site argument > active
 ``use_backend`` scope > ``tcfg.gmm_backend`` > ``cfg.gmm_backend`` >
 ``REPRO_GMM_BACKEND`` > auto; each step runs inside ``use_backend`` of
-that name.  The checkpoint plan follows the same discipline: call-site
-``remat_policy`` > ``cfg.remat_policy`` > ``"none"``, or, with
-``hbm_budget``, ``CheckpointPlan.fit`` over the simulated peaks of
-``core/memsim.py``.
+that name.  ``train`` resolves it again at the top of every step and keeps
+one step function per backend name, so a scope entered between steps (in
+``step_hook``) changes exactly the steps run inside it.  The checkpoint
+plan follows the same discipline: call-site ``remat_policy`` >
+``cfg.remat_policy`` > ``"none"``, or, with ``hbm_budget``,
+``CheckpointPlan.fit`` over the simulated peaks of ``core/memsim.py``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 import torch
@@ -44,6 +58,7 @@ from repro_torch.interop import init_params
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_block import check_supported as check_moe
 from repro_torch.models.moe_block import resolve_moe_parallel
+from repro_torch.train.checkpointing import save_checkpoint
 from repro_torch.train.optimizer import (AdamWState, adamw_update,
                                          clip_by_global_norm,
                                          cosine_schedule, init_adamw,
@@ -83,15 +98,18 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     masters (``interop.init_params(..., dtype=torch.float32)``), updated in
     place with ``opt_state``.  The metrics are 0-d tensors on the device
     (``loss``, ``ce``, ``aux``, ``moe_overflow``, ``grad_norm``) and the
-    float ``lr``.  The resolved grouped-GEMM backend is
-    ``step_fn.resolved_backend``.
+    float ``lr``; with ``tcfg.num_microbatches > 1`` the first four are
+    means over the microbatches (which need float32 leaves: the sum
+    accumulates in the leaves' ``.grad``).  The resolved grouped-GEMM
+    backend is ``step_fn.resolved_backend``.
 
     The checkpoint plan is ``remat_policy`` (a name, spec or plan) over
     ``cfg.remat_policy`` over the default, as ``step_fn.resolved_plan``
     (a ``ResolvedPlan``).  ``hbm_budget`` (bytes per device) picks the
     plan by ``CheckpointPlan.fit`` instead (``remat_policy`` becomes the
     preferred candidate), at the live set of one device: the global batch
-    divided by the mesh's data-parallel shards.  ``step_fn.peak_sim_bytes``
+    divided by the microbatch count and by the mesh's data-parallel
+    shards.  ``step_fn.peak_sim_bytes``
     is the simulated per-device step peak under the resolved plan
     (``core/memsim.py``, ``base="train"``).
 
@@ -101,10 +119,7 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     dev = resolve_device(device)
     resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
     cfg = cfg.replace(gmm_backend=resolved.name)
-    if tcfg.num_microbatches > 1:
-        raise NotImplementedError(
-            "num_microbatches > 1 (gradient accumulation) is not ported "
-            "(ROADMAP.md §A item 2: training)")
+    n_micro = max(tcfg.num_microbatches, 1)
     mode, shard_group = "single", None
     if mesh is not None:
         # an invalid (mode, mesh) pairing raises here, at construction
@@ -112,7 +127,7 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
             mode = resolve_moe_parallel(cfg, mesh)
         ax = SH.shard_axes(mesh, mode)
         shard_group = mesh.group(ax) if ax else None
-    b_live = max(tcfg.batch_size // _dp_shards(mesh), 1)
+    b_live = max(tcfg.batch_size // n_micro // _dp_shards(mesh), 1)
     if hbm_budget is not None:
         prefer = (CK.get_plan(remat_policy) if remat_policy is not None
                   else None)
@@ -129,23 +144,40 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
 
     def _step(params, opt_state: AdamWState, batch):
         leaves = tree_leaves(params)
+        if n_micro > 1 and any(p.dtype != torch.float32 for p in leaves):
+            raise ValueError("gradient accumulation sums in the leaves' "
+                             ".grad and takes float32 leaves only")
         for p in leaves:
             p.requires_grad_(True)
-        dp = ()
-        if mesh is not None:
-            dp = SH.batch_axes(mesh, batch["tokens"].shape[0])
-            batch = SH.local_batch(
-                batch, SH.batch_specs(batch, mesh), mesh)
-        # Spans that name the step's parts in a profiler trace (no cost
-        # without a profiler).  The backward's kernels are launched from
-        # autograd's own thread, so a trace does not attribute them to the
-        # backward span.
-        with record_function("train_step.forward"):
-            loss, metrics = T.train_loss(
-                params, batch_to_device(batch, dev), cfg, mesh=mesh,
-                dp_axes=dp)
-        with record_function("train_step.backward"):
-            grads = list(torch.autograd.grad(loss, leaves))
+            p.grad = None
+        # each leaf's gradient divided by M on its way into .grad, where
+        # autograd adds it to the sum of the microbatches before it
+        hooks = ([p.register_hook(lambda g: g / n_micro) for p in leaves]
+                 if n_micro > 1 else [])
+        per_micro, dp = [], ()
+        try:
+            for mb in _microbatches(batch, n_micro):
+                if mesh is not None:
+                    dp = SH.batch_axes(mesh, mb["tokens"].shape[0])
+                    mb = SH.local_batch(mb, SH.batch_specs(mb, mesh), mesh)
+                # Spans that name the step's parts in a profiler trace (no
+                # cost without a profiler).  The backward's kernels are
+                # launched from autograd's own thread, so a trace does not
+                # attribute them to the backward span.
+                with record_function("train_step.forward"):
+                    loss, metrics = T.train_loss(
+                        params, batch_to_device(mb, dev), cfg, mesh=mesh,
+                        dp_axes=dp)
+                with record_function("train_step.backward"):
+                    torch.autograd.backward(loss, inputs=leaves)
+                per_micro.append({k: v.detach() for k, v in metrics.items()})
+                del loss, metrics
+        finally:
+            for hk in hooks:
+                hk.remove()
+        grads = [p.grad for p in leaves]
+        for p in leaves:
+            p.grad = None
         with record_function("train_step.optimizer"):
             if dp:
                 for g in grads:
@@ -160,10 +192,11 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
             opt_state = adamw_update(grads, opt_state, leaves, lr=lr,
                                      b1=tcfg.b1, b2=tcfg.b2, eps=tcfg.eps,
                                      weight_decay=tcfg.weight_decay)
-        ce, aux = metrics["ce"], metrics["aux"].detach()
+        mean = lambda vals: torch.stack(vals).mean()
         return params, opt_state, {
-            "loss": ce + aux, "ce": ce, "aux": aux,
-            "moe_overflow": metrics["moe_overflow"].detach(),
+            "loss": mean([m["ce"] + m["aux"] for m in per_micro]),
+            **{k: mean([m[k] for m in per_micro])
+               for k in ("ce", "aux", "moe_overflow")},
             "grad_norm": gnorm, "lr": lr}
 
     def step_fn(params, opt_state: AdamWState, batch):
@@ -179,6 +212,17 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     step_fn.moe_parallel = mode
     step_fn.mesh = mesh
     return step_fn
+
+
+def _microbatches(batch: dict, n: int):
+    """The batch's ``n`` equal pieces along its leading axis, in order."""
+    rows = batch["tokens"].shape[0]
+    if rows % n:
+        raise ValueError(f"a batch of {rows} rows does not split into "
+                         f"{n} microbatches")
+    size = rows // n
+    for i in range(n):
+        yield {k: v[i * size:(i + 1) * size] for k, v in batch.items()}
 
 
 def _sim_mesh(cfg, mesh, mode: str) -> dict:
@@ -198,24 +242,50 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     history)``.  Without ``params`` the weights are drawn from
     ``tcfg.seed`` as float32 masters; without ``batch_iterator`` the
     batches come from the synthetic pipeline seeded with ``tcfg.seed``.
-    Every step's metrics are read back as floats (which waits for the
-    device), with ``step_s`` the step's host time, ``remat_plan`` (the
-    canonical spec of the step's checkpoint plan) and ``peak_sim_bytes``
-    (its simulated per-device peak); ``step_hook(step, metrics)`` sees each
-    of them, and ``history`` keeps every ``log_every``-th step and the
-    last, with the step's ``gmm_backend``.
+
+    The grouped-GEMM backend is resolved at the top of every step (a
+    ``use_backend`` scope entered between steps, e.g. in ``step_hook``,
+    retargets the next step); the step functions are kept per backend
+    name.  Every step's metrics are read back as floats (which waits for
+    the device), with ``step_s`` the step's host time, ``gmm_backend``,
+    ``remat_plan`` (the canonical spec of the step's checkpoint plan) and
+    ``peak_sim_bytes`` (its simulated per-device peak); ``step_hook(step,
+    metrics)`` sees each of them, and ``history`` keeps every
+    ``log_every``-th step and the last.  With ``tcfg.checkpoint_every``
+    the parameters and the optimizer state are saved after every such
+    step but the first, to ``<checkpoint_dir>/step_<step>``
+    (``train/checkpointing.py``), as the reference saves them.
 
     With a ``mesh`` every rank draws the same whole parameters (or takes
     ``params``, the whole tree) and keeps its
-    ``sharding.local_params``; the returned ``params`` are this rank's."""
+    ``sharding.local_params``; the returned ``params`` are this rank's.
+    Checkpoints are not saved under a mesh."""
     dev = resolve_device(device)
+    if tcfg.checkpoint_every:
+        if not tcfg.checkpoint_dir:
+            raise ValueError("checkpoint_every needs a checkpoint_dir")
+        if mesh is not None:
+            raise NotImplementedError(
+                "saving checkpoints under a mesh is not ported (ROADMAP.md "
+                "§A item 6: distribution)")
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         params = init_params(cfg, gen, dev,
                              dtype=getattr(torch, cfg.param_dtype))
-    step_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
+    step_fns = {}
+
+    def step_fn_for(name: str):
+        if name not in step_fns:
+            step_fns[name] = make_train_step(cfg, tcfg, dev, backend=name,
+                                             mesh=mesh)
+        return step_fns[name]
+
+    def resolve_backend() -> str:
+        return GB.resolve(None, config=_config_backend(cfg, tcfg)).name
+
     if mesh is not None:
-        params = SH.local_params(params, mesh, step_fn.moe_parallel)
+        params = SH.local_params(params, mesh,
+                                 step_fn_for(resolve_backend()).moe_parallel)
     opt_state = init_adamw(params)
     if batch_iterator is None:
         batch_iterator = make_batch_iterator(
@@ -224,20 +294,27 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     t0 = time.perf_counter()
     for step in range(tcfg.total_steps):
         batch = next(batch_iterator)
+        backend = resolve_backend()
+        step_fn = step_fn_for(backend)
         ts = time.perf_counter()
         params, opt_state, metrics = step_fn(params, opt_state, batch)
         m = {k: float(v) for k, v in metrics.items()}
         m["step_s"] = time.perf_counter() - ts
+        m["gmm_backend"] = backend
         m["remat_plan"] = step_fn.resolved_plan.spec
         m["peak_sim_bytes"] = step_fn.peak_sim_bytes
         if step_hook is not None:
             step_hook(step, m)
         if step % tcfg.log_every == 0 or step == tcfg.total_steps - 1:
             m["step"] = step
-            m["gmm_backend"] = step_fn.resolved_backend.name
             m["wall_s"] = time.perf_counter() - t0
             history.append(m)
             log(f"step {step:5d} loss {m['loss']:.4f} ce {m['ce']:.4f} "
                 f"gnorm {m['grad_norm']:.3f} lr {m['lr']:.2e} "
                 f"({m['wall_s']:.1f}s)")
+        if tcfg.checkpoint_every and step and \
+                step % tcfg.checkpoint_every == 0:
+            save_checkpoint(os.path.join(tcfg.checkpoint_dir,
+                                         f"step_{step}"),
+                            step, params, opt_state)
     return params, opt_state, history

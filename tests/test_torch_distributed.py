@@ -31,7 +31,10 @@ a floor of 1e-4 times each leaf's scale, as ``tests/test_torch_train.py``
 holds the gradients.  These steps run the configs' default checkpoint
 plan, ``"none"``, so every rank reruns its exchanges in the backward's
 recompute; one more ``ep_a2a`` step under ``"paper"`` (the tagged
-projections kept, the rest recomputed) is held to the same gradients.
+projections kept, the rest recomputed) is held to the same gradients, and
+one with two microbatches (the gradients accumulated over them, then
+summed over the data axis once) to the reference's single-device step
+with two microbatches (``tests/test_sharding.py:243-260``).
 The validation errors need no ranks.
 
 The JAX oracles run in this process; the ranks get numpy arrays.  Each
@@ -156,6 +159,7 @@ def _train_batch():
 
 
 TCFG = dict(learning_rate=1e-3, batch_size=8, seq_len=32)
+TCFG_MB2 = dict(TCFG, num_microbatches=2)
 # the reference's configuration, and the same without the auxiliary losses
 TRAIN_CFGS = {"train": MOE_CFG,
               "train_noaux": MOE_CFG.replace(aux_loss_weight=0.0,
@@ -177,6 +181,14 @@ def jtrain():
                      "mu": np_params(jax.device_get(o1.mu)),
                      "metrics": {k: float(m1[k])
                                  for k in ("loss", "grad_norm")}}
+    # two microbatches (tests/test_sharding.py:243-260)
+    p1, o1, m1 = jax.jit(j_make_train_step(
+        TRAIN_CFGS["train_noaux"], JTrainConfig(**TCFG_MB2)))(
+        params, j_init_adamw(params),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    out["train_noaux_mb2"] = {
+        "mu": np_params(jax.device_get(o1.mu)),
+        "metrics": {k: float(m1[k]) for k in ("loss", "grad_norm")}}
     return out
 
 
@@ -202,6 +214,11 @@ def flat22(tmp_path_factory, jtrain):
         moe_parallel="ep_a2a", remat_policy="paper")
     cases["train_noaux/ep_a2a/paper"] = {
         "kind": "train", "cfg": dataclasses.asdict(cfg), "tcfg": TCFG,
+        "params": jtrain["params"], "batch": jtrain["batch"]}
+    cfg = torch_config(TRAIN_CFGS["train_noaux"]).replace(
+        moe_parallel="ep_a2a")
+    cases["train_noaux/ep_a2a/mb2"] = {
+        "kind": "train", "cfg": dataclasses.asdict(cfg), "tcfg": TCFG_MB2,
         "params": jtrain["params"], "batch": jtrain["batch"]}
     return _spawn(tmp_path_factory.mktemp("mesh22"), (2, 2),
                   ("data", "model"), cases)
@@ -315,10 +332,12 @@ def test_sharded_train_step_matches_reference(tp, flat22, jtrain, mode):
     _same_metrics(flat22, f"train/{mode}")
 
 
-@pytest.mark.parametrize("mode", TRAIN_MODES + ("ep_a2a/paper",))
+@pytest.mark.parametrize("mode", TRAIN_MODES + ("ep_a2a/paper",
+                                                 "ep_a2a/mb2"))
 def test_sharded_train_step_gradients_match_reference(tp, flat22, jtrain,
                                                       mode):
-    ref = jtrain["train_noaux"]
+    ref = jtrain["train_noaux_mb2" if mode.endswith("/mb2")
+                 else "train_noaux"]
     want = _port_tree(tp, ref["mu"])
 
     def close(a, b, path):

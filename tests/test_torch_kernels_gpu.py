@@ -114,6 +114,13 @@ PATH_SHAPES = [(4, 8, 2), (2048, 8, 2), (4096, 8, 2), (8192, 2, 1),
                (8192, 8, 2), (16385, 8, 1)]
 
 
+# Qwen3-30B-A3B's expert bank (E = 128, k = 8): ragged training rows with
+# a quarter of the experts empty, and the decode slots (4 tokens x 8 = 32
+# slots, 96 experts empty)
+E128_TRAIN = tuple((i * 53) % 97 + 1 if i % 4 else 0 for i in range(128))
+E128_DECODE = tuple(1 if i % 4 == 0 else 0 for i in range(128))
+
+
 def _topk_fast(L, E, k, seed):
     """(L, k) distinct expert ids per row, vectorized for large L."""
     rng = np.random.default_rng(seed)
@@ -254,7 +261,9 @@ def test_gather_gmm_kernel(dev, K, dtype, L, d, h, lengths):
     (300, 8, 8, 4096, 0),      # k = 8: every expert
     (4, 8, 8, 4096, 0),        # decode rows, k = 8
     (37, 8, 2, 4100, 0),       # d not a multiple of the 16-byte piece
-    (64, 8, 2, 4096, 1)])      # p's base one element off 16-byte alignment
+    (64, 8, 2, 4096, 1),       # p's base one element off 16-byte alignment
+    (4096, 128, 8, 2048, 0),   # Qwen3-30B-A3B: k = 8 at d = 2048
+    (4, 128, 8, 2048, 0)])     # its decode rows
 def test_combine_kernel(dev, K, dtype, L, E, k, d, off):
     """Bit-equal to the plain version, one launch a call, on the 16-byte
     path and on the element-wise one (d = 4100, a misaligned p)."""
@@ -307,12 +316,12 @@ def test_paged_attention_kernel_mixtral_heads(dev, K):
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["bf16", "int8"])
-@pytest.mark.parametrize("g", [4, 5])
+@pytest.mark.parametrize("g", [4, 5, 8])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (40, 0.0), (0, 30.0)])
 def test_paged_attention_split_boundaries(dev, K, quant, g, window, cap):
     """The split walk at the serving shapes (8 kv heads of 128, 16-token
-    pages, 64 pages a request) with the GQA groups of Mixtral (4) and
-    Qwen3-14B (5): positions on the last and first row of a split, one
+    pages, 64 pages a request) with the GQA groups of Mixtral (4),
+    Qwen3-14B (5) and Qwen3-30B-A3B (8, the widest instantiated): positions on the last and first row of a split, one
     row past a boundary, and the table's end; against the plain version
     and against the split walk's plain version at the kernel's split."""
     import torch
@@ -382,7 +391,9 @@ def test_gather_gmm_save_ab_and_transposed(dev, K, dtype, L, d, h,
                                           # widths off the 256 / 128 tiles
     (512, 1000, (0, 0, 300, 0), 0),       # every slot on one expert
     (1024, 2048, (2, 1, 0, 3, 0, 0, 1, 1), 0),    # decode: 8 slots
-    (256, 384, (0, 0, 0, 0), 300)])       # no routed row: all rows zeroed
+    (256, 384, (0, 0, 0, 0), 300),        # no routed row: all rows zeroed
+    pytest.param(2048, 768, E128_TRAIN, 0, id="qwen3-moe-e128-training"),
+    pytest.param(2048, 768, E128_DECODE, 0, id="qwen3-moe-e128-decode")])
 def test_gather_gmm_wgmma_instantiations(dev, K, d, h, lengths, past):
     """The three wgmma instantiations of gather-GMM in bf16 (the dual
     branch over gathered rows with and without ``save_ab`` and over
@@ -458,7 +469,9 @@ def test_gmm_dw_kernel(dev, K, dtype, d, h, lengths):
     (328, 520, (0, 200, 0, 77), 23),      # partial TMA boxes, empty experts
     (256, 384, (0, 0, 300, 0), 0),        # every row on one expert
     (64, 64, (1, 0, 63, 65), 5),          # one row; rows on a step boundary
-    (4096, 256, (1000, 700), 300)])       # ep_a2a: a trash group past E
+    (4096, 256, (1000, 700), 300),        # ep_a2a: a trash group past E
+    pytest.param(2048, 768, E128_TRAIN, 0, id="qwen3-moe-dw1"),
+    pytest.param(768, 2048, E128_TRAIN, 0, id="qwen3-moe-dw3")])
 def test_gmm_dw_wgmma_edges(dev, K, d, h, lengths, past):
     """The bf16 kernel (moe_dw_wgmma): rows past offsets[E] hold NaN and
     contribute nothing, empty experts are exactly 0, a repeated call is
@@ -491,7 +504,11 @@ def test_gmm_dw_wgmma_edges(dev, K, d, h, lengths, past):
     # routing.slice_dispatch's layout: 2 of 8 experts, the other slots
     # past offsets[E]
     pytest.param(100, 8, 128, 96, (0, 1, 2, 4, 5, 6, 7), 2, 2,
-                 id="sliced-dead-slots")])
+                 id="sliced-dead-slots"),
+    # Qwen3-30B-A3B: top-8 of 128 experts, 85 of them empty
+    pytest.param(512, 128, 2048, 768,
+                 _topk(512, 128, 8, seed=3, experts=range(0, 128, 3)), 0,
+                 128, id="qwen3-moe-e128-top8")])
 def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
     """The bf16 backward (moe_bwd_up_wgmma, moe_dw_wgmma's gathered
     instantiations, moe_down_wgmma with two products, the dgates sum):
@@ -532,7 +549,8 @@ def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
     (1, 4, 2, 128, True, 0, 0.0),          # one position
     (2048, 4, 2, 128, True, 700, 30.0),    # window < S and a softcap
     (300, 4, 2, 64, True, 0, 0.0),         # S not a multiple of 128
-    (300, 8, 2, 128, True, 200, 0.0)])
+    (300, 8, 2, 128, True, 200, 0.0),
+    (2048, 32, 4, 128, True, 0, 0.0)])     # Qwen3-30B-A3B's heads: G = 8
 def test_flash_attention_kernel(dev, K, dtype, S, H, Hkv, Dh, causal,
                                 window, cap):
     rng = np.random.default_rng(S + Dh)
@@ -692,7 +710,14 @@ def _fused_inputs(dev, dtype, L, E, d, h, experts, seed):
                  id="one-row-expert-d328"),
     # k = 1, every slot on expert 5
     pytest.param(300, 8, 256, 384, np.full((300, 1), 5, np.int32),
-                 id="all-slots-one-expert")])
+                 id="all-slots-one-expert"),
+    # Qwen3-30B-A3B's widths: top-8 of 128 experts (85 empty), and its
+    # decode (4 tokens, 32 slots over 128 experts)
+    pytest.param(512, 128, 2048, 768,
+                 _topk(512, 128, 8, seed=3, experts=range(0, 128, 3)),
+                 id="qwen3-moe-e128-top8"),
+    pytest.param(4, 128, 2048, 768, _topk(4, 128, 8, seed=4),
+                 id="qwen3-moe-decode")])
 def test_fused_moe_kernels(dev, K, dtype, L, E, d, h, experts):
     F = K.fused_moe
     x, dy, g, disp, ws = _fused_inputs(dev, dtype, L, E, d, h, experts,
@@ -951,13 +976,15 @@ def test_swiglu_function_matches_plain_autograd(dev, K, dtype, tol):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window,cap", [(0, 0.0), (10, 0.0), (0, 5.0),
                                         (6, 5.0)])
-@pytest.mark.parametrize("hkv,g,dh,ps", [(2, 2, 16, 8), (8, 5, 128, 16)],
-                         ids=["small", "qwen3_heads"])
+@pytest.mark.parametrize("hkv,g,dh,ps", [(2, 2, 16, 8), (8, 5, 128, 16),
+                                         (4, 8, 128, 16)],
+                         ids=["small", "qwen3_heads", "qwen3_moe_heads"])
 def test_paged_attention_int8_kernel(dev, K, dtype, window, cap, hkv, g, dh,
                                      ps):
     """Over int8 pools quantized on the card; the Qwen3-14B heads (40
-    query heads over 8 kv heads of 128, a group of 5); position 0 and a
-    dead slot (table all trash)."""
+    query heads over 8 kv heads of 128, a group of 5) and Qwen3-30B-A3B's
+    (32 over 4, a group of 8); position 0 and a dead slot (table all
+    trash)."""
     q, k, v, table, pos = _paged_case(dtype, dev, P=13, ps=ps, hkv=hkv, g=g,
                                       dh=dh)
     kq, ks = K.kv_quant.quantize(k)
@@ -1082,3 +1109,41 @@ def test_kernels_on_a_sliced_dispatch(dev, K, dtype, lo, count):
         np.testing.assert_allclose(g_.cpu().numpy(), w_, err_msg=name, **tol)
     # no gate gradient in the dead zone
     assert not got[2][int(off[-1]):].any()
+
+
+def test_train_step_microbatches_match_on_card(dev):
+    """``make_train_step`` with two microbatches against one, on the card
+    at a reduced width of Qwen3-30B-A3B (2 layers, d=512, top-8 of 32
+    experts, bf16 compute on ``blaze_pallas``), from the same float32
+    weights and batch, without the load-balance loss (estimated per
+    microbatch, so not invariant): loss and cross entropy 1e-5 relative
+    (the same per-token terms summed in other groupings), grad norm 1e-2
+    (each microbatch's bf16 weight gradients round before the float32
+    sum); the expert kernels run twice as often."""
+    import torch
+
+    from repro_torch import kernels
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    cfg = get_config("qwen3-moe-30b-a3b").replace(
+        num_layers=2, d_model=512, num_heads=8, num_kv_heads=1,
+        num_experts=32, moe_d_ff=256, vocab_size=4096, aux_loss_weight=0.0,
+        moe_impl="blaze_pallas", use_pallas=True)
+    batch = next(make_batch_iterator(cfg.vocab_size, 256, 4, 0))
+    out = {}
+    for M in (1, 2):
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev, dtype=torch.float32)
+        step = make_train_step(cfg, TrainConfig(batch_size=4, seq_len=256,
+                                                num_microbatches=M), dev)
+        kernels.reset_launches()
+        _, _, m = step(params, init_adamw(params), batch)
+        out[M] = ({k: float(v) for k, v in m.items()},
+                  kernels.launch_counts()["gather_gmm"])
+    for key, rtol in (("loss", 1e-5), ("ce", 1e-5), ("grad_norm", 1e-2)):
+        np.testing.assert_allclose(out[2][0][key], out[1][0][key], rtol=rtol,
+                                   err_msg=key)
+    assert out[2][1] == 2 * out[1][1] > 0

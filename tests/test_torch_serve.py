@@ -179,8 +179,14 @@ def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
     assert (step.resolved_plan.spec, step.resolved_plan.source) == \
         ("paper", "config")
     assert step.peak_sim_bytes > 0
-    with pytest.raises(NotImplementedError, match="§A item 2"):
-        make_train_step(cfg, tcfg.replace(num_microbatches=2), "cpu")
+    # two microbatches of a 4-row batch: the plan and the simulated peak
+    # are those of the 2-row microbatch, the live batch
+    step = make_train_step(cfg, tcfg.replace(batch_size=4,
+                                             num_microbatches=2), "cpu")
+    live = make_train_step(cfg, tcfg.replace(batch_size=2), "cpu")
+    assert (step.resolved_plan.spec, step.resolved_plan.source) == \
+        ("none", "config")
+    assert step.peak_sim_bytes == live.peak_sim_bytes
 
 
 def test_port_imports_no_jax_and_no_reference():
@@ -189,7 +195,8 @@ def test_port_imports_no_jax_and_no_reference():
     ``blaze`` on ``pallas_fused`` under the default plan and under
     ``paper``, the dense Qwen3-14B, and ``ep_a2a`` on ``pallas`` over a
     one-rank mesh), with the checkpoint plans, the simulator, the
-    baselines, the Table-1 configs and ``compat`` imported, leave JAX and
+    baselines, the Table-1 configs, ``compat``, the training checkpoints
+    and the Qwen3-30B-A3B config imported, leave JAX and
     the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
@@ -206,6 +213,9 @@ def test_port_imports_no_jax_and_no_reference():
         "import repro_torch.core.memsim, repro_torch.kernels.gather_rows\n"
         "import repro_torch.core.checkpoint, repro_torch.core.baseline\n"
         "import repro_torch.configs.paper_tables, repro_torch.compat\n"
+        "import repro_torch.train.checkpointing\n"
+        "import repro_torch.configs.qwen3_moe_30b_a3b\n"
+        "assert get_config('qwen3-moe-30b-a3b').num_experts == 128\n"
         "from repro_torch.launch.mesh import init_distributed, "
         "make_debug_mesh\n"
         "cfg = get_config('mixtral-8x7b').reduced().replace("
