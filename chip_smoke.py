@@ -65,7 +65,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    pages, 5 greedy requests (prompts of 37, 129, 300, 511 and 64 tokens, 16
    new tokens each; the 5th refills a slot), three times: cold, then warm
    (measured: every kernel's launch count must rise during this run), then
-   traced with torch.profiler (device time by kernel, device busy share);
+   traced with torch.profiler, device activity only (device time by
+   kernel, device busy share);
    all three must give the same tokens;
 6. CPU cross-check — one 24-token prompt through the same weights copied
    to the CPU (plain versions there); prefill logits must agree with the
@@ -211,7 +212,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 29. a training checkpoint on the card — a reduced width of Qwen3-30B-A3B
    trained 2 steps, saved, restored (masters and AdamW state bit-equal)
    and restored into the serving layout, whose engine's greedy tokens
-   must equal those of an engine over the in-memory masters cast alike.
+   must equal those of an engine over the in-memory masters cast alike;
+30. temperature sampling (run after phase 6, on phase 5's weights and
+   prompts) — ``greedy=False``, T = 0.8, seed 11: the same tokens cold
+   and warm, on 4 slots and on 1, and in reversed submission order with
+   the same request ids; seed 12 gives other tokens; the sampler's noise
+   bit-equal on the CPU and the card; decode tokens/s sampled and greedy,
+   the sampler's device time a step;
+31. prefix sharing with copy-on-write pages, over bf16 and over int8
+   pages — a 512-token prompt, the same plus 37 tokens, the first again
+   (covered exactly: a re-fed token and a fork), then one request on a
+   256-token prefix and three more with distinct suffixes in one batch:
+   the stats of the reference's admission, the shared pages bit-unchanged
+   by the fork, first-token logits within the CPU tolerance of an engine
+   without sharing and its greedy tokens (or a first divergence at a
+   top-2 gap within it), the paged kernel on every decode step; the
+   prefill seconds with and without sharing and the suffix prefill's
+   plain attention;
+32. per-request backends and the paged-attention registry — one
+   ``generate`` with requests on ``pallas``, ``ragged`` and the engine's
+   own ``segment`` (``moe_impl="blaze"``): each group's tokens equal its
+   own engine's, ``gather_gmm`` launched in the ``pallas`` group only; a
+   ``paged_kernel="dense"`` engine launches no ``paged_attention`` and its
+   logits lie within the CPU tolerance of the kernel engine's; the
+   default engine resolves to the kernel from ``auto``;
+33. the async runtime — on Mixtral (after phase 32) and on Qwen3-14B at
+   full depth (after phase 17, phase 16's weights): tokens equal the
+   synchronous engine's, greedy and sampled; each request's stream in
+   order with one terminal event; the emission queue drained; sync and
+   async wall times over 3 interleaved rounds.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -441,9 +470,13 @@ def main() -> int:
     from repro_torch.kernels import gather_rows as KR
     from repro_torch.launch import mesh as MESH
     from repro_torch.models import moe_block as MB
+    from repro_torch.serve import paged_cache as PC
+    from repro_torch.serve import runtime as RT
+    from repro_torch.serve import sampling as SM
     M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR, KFM=KFM,
                         ML=ML, KS=KS, KP=KP, KQ=KQ, SE=SE, T=T, K=K, SH=SH,
-                        CL=CL, MS=MS, KR=KR, MESH=MESH, MB=MB, KD=KD)
+                        CL=CL, MS=MS, KR=KR, MESH=MESH, MB=MB, KD=KD, PC=PC,
+                        RT=RT, SM=SM)
 
     t_start = time.perf_counter()
 
@@ -743,6 +776,24 @@ def main() -> int:
     prompt = rng.integers(3, cfg.vocab_size, size=24).astype(np.int32)
     cpu_prefill_crosscheck(T, cfg, params, prompt, dev)
 
+    mark("30")
+    # -- 30. temperature sampling -------------------------------------------
+    samp = sampling_phase(M, cfg, params, prompts, dev, timer)
+
+    mark("31")
+    # -- 31. prefix sharing, bf16 and int8 pages ------------------------------
+    pref = {"bf16": prefix_phase(M, cfg, params, dev, timer),
+            "int8": prefix_phase(M, cfg, params, dev, timer, "int8")}
+
+    mark("32")
+    # -- 32. per-request backends and the paged-attention registry -----------
+    backs = backends_phase(M, cfg, params, prompts, dev)
+
+    mark("33")
+    # -- 33. the async runtime (Mixtral) --------------------------------------
+    rt_mix = runtime_phase(M, cfg, params, prompts, dev, " [mixtral-8x7b]")
+    torch.cuda.empty_cache()
+
     mark("7")
     # -- 7. training ----------------------------------------------------------
     # The training step holds ~65 GB; free the serving weights and what
@@ -874,6 +925,10 @@ def main() -> int:
     qx = cpu_prefill_crosscheck(T, qcfg.replace(num_layers=2),
                                 dict(qparams, layers=qparams["layers"][:2]),
                                 qprompt, dev, allow_near_tie=True)
+
+    mark("33 [qwen3-14b]")
+    # -- 33. the async runtime (Qwen3-14B, 40 layers) -------------------------
+    rt_qwen = runtime_phase(M, qcfg, qparams, qprompts, dev, " [qwen3-14b]")
     del qparams
     torch.cuda.empty_cache()
 
@@ -1095,6 +1150,11 @@ def main() -> int:
     log(f"paper-table-record: {json.dumps(paper)}")
     log(f"microbatch-record: {json.dumps(micro)}")
     log(f"checkpoint-record: {json.dumps(ckpt)}")
+    log(f"sampling-record: {json.dumps(samp)}")
+    log(f"prefix-record: {json.dumps(pref)}")
+    log(f"backends-record: {json.dumps(backs)}")
+    log("runtime-record: " + json.dumps({"mixtral-8x7b": rt_mix,
+                                         "qwen3-14b": rt_qwen}))
     # every main-path build is at most N_ONE slots: one kernel launch a call
     log("build_dispatch calls a step (one kernel launch each): " + ", ".join(
         f"{tag} {rec['launches_per_step']['build_dispatch']:g}"
@@ -1115,10 +1175,10 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
     """Phases 5, 16 and 24: ``prompts`` (16 new tokens each) served by the
     port's engine on 4 slots (capacity 1024, 16-token pages) three times:
     cold, then warm (measured: every kernel in ``required`` must be
-    launched during this run), then traced with torch.profiler (device
-    time by kernel, device busy share); all three must give the same
-    tokens.  Without ``traced`` the third run is left out.  Returns the
-    measurements."""
+    launched during this run), then traced with torch.profiler over
+    device activity (device time by kernel, device busy share); all three
+    must give the same tokens.  Without ``traced`` the third run is left
+    out.  Returns the measurements."""
     SE, T, K = M.SE, M.T, M.K
     phase_s = {"prefill": 0.0, "decode": 0.0}
 
@@ -1192,10 +1252,12 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
     traced_wall = busy = None
     if traced:
         # A third run is traced with torch.profiler: device time by kernel
-        # and the device's busy share of the run's wall time.
+        # and the device's busy share of the run's wall time.  Device
+        # activity alone: the same kernel times as with host activity, a
+        # traced wall near the untraced one, and a trace read in about 40%
+        # of the time (Qwen3-14B: 24.7 s against 60.1 s).
         from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             _, reqs2 = serve()
             torch.cuda.synchronize()
@@ -3615,6 +3677,665 @@ def checkpoint_phase(M, dev) -> dict:
         f"masters and AdamW state bit-equal; serving layout equals the cast "
         f"masters; greedy tokens equal: {tokens[0]}")
     return {"losses": losses, "bytes": nbytes, "tokens": tokens[0]}
+
+
+# -- phases 30-33: sampling, prefix sharing, per-request backends, the
+#    async runtime ---------------------------------------------------------
+
+
+class _Capture:
+    """``T.prefill`` and ``T.paged_decode_step`` wrapped while the block
+    runs: each call synchronized and timed (``seconds``), its float32
+    logits kept on the host (``prefill`` / ``decode`` lists, one
+    ``(rows, vocab)`` tensor a call)."""
+
+    def __init__(self, T):
+        self.T = T
+        self.prefill, self.decode = [], []
+        self.seconds = {"prefill": 0.0, "decode": 0.0}
+
+    def __enter__(self):
+        self.real = (self.T.prefill, self.T.paged_decode_step)
+
+        def wrap(kind, fn, store):
+            def run(*a, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.seconds[kind] += time.perf_counter() - t0
+                store.append(out.float().cpu())
+                return out
+            return run
+
+        self.T.prefill = wrap("prefill", self.real[0], self.prefill)
+        self.T.paged_decode_step = wrap("decode", self.real[1], self.decode)
+        return self
+
+    def __exit__(self, *exc):
+        self.T.prefill, self.T.paged_decode_step = self.real
+
+
+def _timed_decode_stage(SE):
+    """Patch ``_GroupScheduler.dispatch_decode`` to synchronize around each
+    step (the sampler included) and add its seconds to the returned dict;
+    call the returned ``undo`` to restore it."""
+    real = SE._GroupScheduler.dispatch_decode
+    acc = {"s": 0.0}
+
+    def timed(self):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(self)
+        torch.cuda.synchronize()
+        acc["s"] += time.perf_counter() - t0
+        return out
+
+    SE._GroupScheduler.dispatch_decode = timed
+
+    def undo():
+        SE._GroupScheduler.dispatch_decode = real
+    return acc, undo
+
+
+class _Rows:
+    """While the block runs: for every token an engine samples, the float32
+    logits row it was drawn from, on the host, by ``(rid, token index)``
+    (``rows``).  ``watch(eng)`` wraps an engine's sampler; the scheduler's
+    dispatch stages pair each sampled row with its request.  The host copy
+    synchronizes each step: record only runs that are not timed."""
+
+    def __init__(self, SE):
+        self.SE = SE
+        self.rows = {}
+        self._last = {}
+        self._watched = []
+
+    def watch(self, eng):
+        real = eng._sample
+
+        def sample(logits, keys):
+            self._last["logits"] = logits.float().cpu()
+            return real(logits, keys)
+
+        eng._sample = sample
+        self._watched.append(eng)
+        return eng
+
+    def __enter__(self):
+        S = self.SE._GroupScheduler
+        self.real = (S.dispatch_prefill, S.dispatch_decode)
+        rows, last = self.rows, self._last
+
+        def prefill(sched, admit):
+            reqs = [sched.owner[s] for s in admit]
+            out = self.real[0](sched, admit)
+            for i, r in enumerate(reqs):
+                rows[(r.rid, 0)] = last["logits"][i]
+            return out
+
+        def decode(sched):
+            out = self.real[1](sched)
+            if out is not None:
+                for s, r, tidx in out[1]:
+                    rows[(r.rid, tidx)] = last["logits"][s]
+            return out
+
+        S.dispatch_prefill, S.dispatch_decode = prefill, decode
+        return self
+
+    def __exit__(self, *exc):
+        S = self.SE._GroupScheduler
+        S.dispatch_prefill, S.dispatch_decode = self.real
+        # the wrapper refers to its engine: drop it, so that the engine,
+        # and the weights it holds, go when the phase lets go of them
+        for eng in self._watched:
+            del eng._sample
+        self._watched.clear()
+
+
+def _explain(what, SM, got, got_rows, ref, ref_rows, rids, temperature=None,
+             seed=0) -> list:
+    """Tokens of two runs of the same requests: identical, or each
+    request's first divergence must be one that rounding explains.  Runs
+    batched or scheduled otherwise prefill in other buckets, whose bf16
+    sums round otherwise, so a later step's logits may differ by a few bf16
+    steps; a token may then flip where the two best scores (logits / T
+    plus the request's noise, or the logits when greedy) lie within twice
+    that difference of each other.  Checks the logits within
+    ``CPU_LOGIT_ATOL`` and the gap within 2 x their difference / T.
+    Returns the divergences."""
+    out = []
+    for a, b, rid in zip(got, ref, rids):
+        if a == b:
+            continue
+        j = next((t for t, (x, y) in enumerate(zip(a, b)) if x != y),
+                 min(len(a), len(b)))
+        la, lb = got_rows[(rid, j)], ref_rows[(rid, j)]
+        diff = float((la - lb).abs().max())
+        score = lb.clone()
+        t = 1.0
+        if temperature is not None:
+            t = temperature
+            score = SM.sample_scores(lb[None], SM.gumbel_noise(
+                seed, torch.tensor([rid]), torch.tensor([j]), lb.numel()),
+                temperature)[0]
+        top2 = torch.topk(score, 2).values
+        gap = float(top2[0] - top2[1])
+        out.append({"rid": rid, "token": j, "logit_diff": diff,
+                    "top2_score_gap": gap})
+        check(diff <= CPU_LOGIT_ATOL and gap <= 2 * diff / t,
+              f"{what}: request {rid} diverges at token {j}: logits "
+              f"{diff:.4g} apart, top-2 score gap {gap:.4g} (more than "
+              "rounding explains)")
+    return out
+
+
+def sampling_phase(M, cfg, params, prompts, dev, timer) -> dict:
+    """Phase 30: temperature sampling (``greedy=False``, T = 0.8, seed 11)
+    on phase 5's engine and prompts, each request's rid fixed to its
+    index.  Warm tokens must equal cold ones; on 1 slot and with the
+    prompts submitted in reverse order the tokens must be the same, or
+    diverge first where rounding explains it (``_explain``: another
+    schedule prefills in other buckets); seed 12 must give other tokens.
+    The sampler's noise for fixed float32 logits must be bit-equal on the
+    CPU and the card, and so its tokens.  Logs the decode tokens/s (the
+    step synchronized, the sampler included) sampled and greedy, and the
+    sampler's device time a decode step."""
+    SE, SM = M.SE, M.SM
+
+    def serve(slots=4, order=None, seed=11, greedy=False, rec=None):
+        eng = SE.ServeEngine(cfg, params, batch_slots=slots, capacity=1024,
+                             page_size=16, greedy=greedy, temperature=0.8,
+                             seed=seed, device=dev)
+        reqs = [SE.Request(prompt=p, max_new_tokens=16,
+                           eos_id=cfg.vocab_size, rid=i)
+                for i, p in enumerate(prompts)]
+        sub = reqs if order is None else [reqs[i] for i in order]
+        if rec is None:
+            eng.generate(sub)
+        else:
+            with rec:
+                rec.watch(eng).generate(sub)
+        return [r.out_tokens for r in reqs], eng.stats
+
+    recs = {name: _Rows(SE) for name in ("cold", "one", "reversed")}
+    cold, _ = serve(rec=recs["cold"])
+    tps = {}
+    for mode in ("sampled", "greedy"):
+        acc, undo = _timed_decode_stage(SE)
+        try:
+            toks, st = serve(greedy=mode == "greedy")
+        finally:
+            undo()
+        tps[mode] = st["decode_slot_tokens"] / acc["s"]
+        if mode == "sampled":
+            warm = toks
+    one, _ = serve(slots=1, rec=recs["one"])
+    rev, _ = serve(order=list(range(len(prompts)))[::-1],
+                   rec=recs["reversed"])
+    other, _ = serve(seed=12)
+    check(warm == cold, "sampling: warm run gave other tokens than cold")
+    rids = list(range(len(prompts)))
+    diverged = {name: _explain(f"sampling [{name}]", SM, toks,
+                               recs[name].rows, cold, recs["cold"].rows,
+                               rids, 0.8, 11)
+                for name, toks in (("one", one), ("reversed", rev))}
+    check(other != cold, "sampling: seed 12 gave seed 11's tokens")
+    # the sampler alone: the same noise and tokens on both devices
+    V = cfg.vocab_size
+    srng = np.random.default_rng(30)
+    logits = torch.from_numpy(
+        (3 * srng.standard_normal((4, V))).astype(np.float32))
+    rid = torch.tensor([0, 1, 2, 70000], dtype=torch.int32)
+    gidx = torch.tensor([0, 5, 9, 15], dtype=torch.int32)
+    noise_cpu = SM.gumbel_noise(11, rid, gidx, V)
+    noise_dev = SM.gumbel_noise(11, rid.to(dev), gidx.to(dev), V)
+    keys = torch.from_numpy(SM.row_keys(11, rid.numpy(), gidx.numpy()))
+    bits_equal = torch.equal(SM.uniform_bits(keys, V),
+                             SM.uniform_bits(keys.to(dev), V).cpu())
+    n_diff = int((noise_cpu != noise_dev.cpu()).sum())
+    tok_cpu = SM.sample(logits, noise_cpu, 0.8)
+    lg = logits.to(dev)
+    tok_dev = SM.sample(lg, noise_dev, 0.8).cpu()
+    check(bits_equal and n_diff == 0,
+          f"sampling: noise differs between the CPU and the card "
+          f"(hash bits equal {bits_equal}, {n_diff} noise values differ)")
+    check(torch.equal(tok_cpu, tok_dev),
+          "sampling: the CPU and the card sample other tokens")
+    k_dev = keys.to(dev)
+    sampler_ms = timer(lambda: SM.sample(
+        lg, SM.noise_from_keys(k_dev, V), 0.8))
+    argmax_ms = timer(lambda: torch.argmax(lg, dim=-1))
+    log(f"sampling [T=0.8, seed 11]: warm tokens equal cold; 1 slot "
+        f"{'equal' if one == cold else diverged['one']}; reversed "
+        f"submission {'equal' if rev == cold else diverged['reversed']}; "
+        f"seed 12 differs; noise over (4, {V}) bit-equal CPU vs card, "
+        f"tokens {tok_dev.tolist()} on both")
+    log(f"sampling: decode {tps['sampled']:.1f} tok/s sampled, "
+        f"{tps['greedy']:.1f} greedy (step synchronized); sampler "
+        f"{sampler_ms:.4f} ms a step against argmax {argmax_ms:.4f} ms "
+        f"(4 x {V}, device time)")
+    for i, t in enumerate(cold):
+        log(f"  req[{i}] sampled -> {t}")
+    return {"decode_tok_per_s_sampled": tps["sampled"],
+            "decode_tok_per_s_greedy": tps["greedy"],
+            "sampler_ms": sampler_ms, "argmax_ms": argmax_ms,
+            "one_slot_equal": one == cold, "reversed_equal": rev == cold,
+            "diverged": diverged, "tokens": cold}
+
+
+def prefix_phase(M, cfg, params, dev, timer, kv_dtype=None) -> dict:
+    """Phase 31: prefix sharing with copy-on-write pages, over bf16 (or
+    int8) pages.  Scenario A serves a 512-token prompt, the same plus 37
+    tokens, then the first again (covered exactly: the last token is
+    re-fed into a fork of the last shared page); scenario B serves one
+    request on a 256-token prefix, then three more with distinct suffixes
+    in one batch.  The same calls run on an engine without sharing.
+
+    The stats must be those of the reference's admission
+    (``repro/serve/engine.py:432-519``): a miss prefills its whole prompt;
+    a hit maps the cached chain of full pages and prefills from the chain's
+    end; a prompt the chain covers prefills its last token and forks one
+    page.  The chain's pages must be bit-unchanged by the fork, every first
+    token's logits within ``CPU_LOGIT_ATOL`` of the engine without sharing,
+    and greedy tokens equal to its tokens, or diverge first where that
+    engine's top two logits lie within the tolerance.  The paged kernel
+    must be launched on every decode step of every layer.  Logs the
+    prefill seconds and tokens with and without sharing, and the suffix
+    prefill's attention (the plain gather over the table's positions)."""
+    SE, T, K, PC = M.SE, M.T, M.K, M.PC
+    prng = np.random.default_rng(31)
+    V, ps = cfg.vocab_size, 16
+    base = prng.integers(3, V, size=512).astype(np.int32)
+    ext = np.concatenate([base, prng.integers(3, V, size=37)]).astype(
+        np.int32)
+    pre = prng.integers(3, V, size=256)
+    grp = [np.concatenate([pre, prng.integers(3, V, size=n)]).astype(
+        np.int32) for n in (40, 77, 100, 13)]
+    scenarios = {"A": [[base], [ext], [base]],
+                 "B": [[grp[0]], grp[1:]]}
+    # the reference's accounting for these lengths
+    want = {"A": {"prefix_misses": 1, "prefix_hits": 2,
+                  "shared_pages_mapped": 2 * (512 // ps), "cow_forks": 1,
+                  "prefill_tokens": 512 + 37 + 1},
+            "B": {"prefix_misses": 1, "prefix_hits": 3,
+                  "shared_pages_mapped": 3 * (256 // ps), "cow_forks": 0,
+                  "prefill_tokens": 296 + 77 + 100 + 13}}
+    kernel = "paged_attention_int8" if kv_dtype == "int8" else \
+        "paged_attention"
+
+    def run(name, share, snapshot=None):
+        eng = SE.ServeEngine(cfg, params, batch_slots=4, capacity=1024,
+                             page_size=ps, kv_dtype=kv_dtype,
+                             prefix_cache=share, device=dev)
+        out, logits, unchanged = [], [], None
+        with _Capture(T) as cap:
+            for c, call in enumerate(scenarios[name]):
+                if snapshot is not None and c == 2:
+                    chain = eng._prefix.lookup(PC.page_keys(base, ps))
+                    before = [a[chain].clone() for pages in eng._cache
+                              for a in pages if a is not None]
+                n_pre, n_dec = len(cap.prefill), len(cap.decode)
+                reqs = [SE.Request(prompt=p, max_new_tokens=16,
+                                   eos_id=V) for p in call]
+                eng.generate(reqs)
+                for i, r in enumerate(reqs):
+                    # request i of a call sits in slot i (slots are handed
+                    # out lowest first): row i of each step's logits
+                    rows = [cap.prefill[n_pre][i]] + [
+                        d[i] for d in cap.decode[n_dec:]][:15]
+                    out.append(r.out_tokens)
+                    logits.append(rows)
+                if snapshot is not None and c == 2:
+                    after = [a[chain] for pages in eng._cache
+                             for a in pages if a is not None]
+                    unchanged = all(torch.equal(x, y)
+                                    for x, y in zip(before, after))
+                    snapshot.append(sum(int(x.view(torch.uint8).long().sum())
+                                        for x in before))
+                    snapshot.append(sum(int(x.view(torch.uint8).long().sum())
+                                        for x in after))
+        return eng.stats, out, logits, cap.seconds["prefill"], unchanged
+
+    rec = {}
+    for name in scenarios:               # a cold pass of both engines first
+        run(name, False)
+        run(name, True)
+    for name in scenarios:
+        st0, toks0, lg0, pre0, _ = run(name, False)
+        K.reset_launches()
+        sums = []
+        st1, toks1, lg1, pre1, unchanged = run(
+            name, True, sums if name == "A" else None)
+        launches = K.launch_counts()[kernel]
+        for key, v in want[name].items():
+            check(st1[key] == v, f"prefix [{name}, {kv_dtype or 'bf16'}]: "
+                  f"{key} {st1[key]}, the reference's accounting gives {v}")
+        check(launches == st1["decode_steps"] * cfg.num_layers,
+              f"prefix [{name}]: {kernel} launched {launches} times in "
+              f"{st1['decode_steps']} decode steps of {cfg.num_layers} "
+              "layers")
+        if name == "A":
+            check(unchanged, "prefix: the fork changed a shared page")
+        first = max(float((a[0] - b[0]).abs().max())
+                    for a, b in zip(lg1, lg0))
+        check(first <= CPU_LOGIT_ATOL,
+              f"prefix [{name}]: first-token logits {first:.4g} from the "
+              "engine without sharing")
+        diverged = []
+        for i, (a, b) in enumerate(zip(toks1, toks0)):
+            if a == b:
+                continue
+            j = next(t for t, (x, y) in enumerate(zip(a, b)) if x != y)
+            top2 = torch.topk(lg0[i][j], 2).values
+            gap = float(top2[0] - top2[1])
+            diverged.append({"request": i, "token": j, "top2_gap": gap})
+            check(gap <= CPU_LOGIT_ATOL,
+                  f"prefix [{name}]: request {i} diverges at token {j} "
+                  f"where the top-2 gap is {gap:.4g}")
+        rec[name] = {"stats": {k: st1[k] for k in want[name]},
+                     "stats_without": {"prefill_tokens":
+                                       st0["prefill_tokens"]},
+                     "prefill_s": pre1, "prefill_s_without": pre0,
+                     "first_logit_max_diff": first, "diverged": diverged,
+                     "decode_steps": st1["decode_steps"],
+                     "kernel_launches": launches}
+        log(f"prefix [{name}, {kv_dtype or 'bf16'} pages]: stats "
+            f"{rec[name]['stats']} (the reference's accounting); prefill "
+            f"{st1['prefill_tokens']} tokens in {pre1:.4f} s with sharing, "
+            f"{st0['prefill_tokens']} in {pre0:.4f} s without; first-token "
+            f"logits max |diff| {first:.4g}; greedy tokens "
+            f"{'equal' if not diverged else f'diverge {diverged}'}; "
+            f"{kernel} {launches} launches in {st1['decode_steps']} decode "
+            "steps")
+        if name == "A":
+            log(f"prefix [A]: the 32 shared pages bit-unchanged by the COW "
+                f"fork (byte sums {sums[0]} before, {sums[1]} after)")
+            rec[name]["page_byte_sums"] = sums
+    # the suffix prefill's attention: the plain gather over pps x ps
+    # positions (no kernel computes it, here or in the reference)
+    Hq, Hkv, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+    pages = T.init_paged_cache(cfg.replace(num_layers=1), 257, ps, dev,
+                               quantized=kv_dtype == "int8")[0]
+    for a in (a for a in pages if a is not None):
+        if a.dtype.is_floating_point:
+            a.copy_(torch.randn(a.shape, device=dev).to(a.dtype))
+        else:
+            a.copy_(torch.randint(-127, 128, a.shape, device=dev))
+    table = (torch.randperm(256, device=dev)[:4 * 64].reshape(4, 64) + 1).to(
+        torch.int32)
+    rec["suffix_attention_ms"] = {}
+    for B, Sq, off in ((1, 64, 512), (4, 128, 256)):
+        q = torch.randn(B, Sq, Hq, Dh, device=dev).to(BF16)
+        pos = (off + torch.arange(Sq, device=dev))[None].expand(B, Sq)
+        ms = timer(lambda: PC.paged_gather_attention(q, pages, table[:B],
+                                                     pos))
+        rec["suffix_attention_ms"][f"B={B}, Sq={Sq}"] = ms
+        log(f"prefix suffix attention [{kv_dtype or 'bf16'} pages, B={B}, "
+            f"Sq={Sq}, {Hq}/{Hkv} heads of {Dh}, over 64 x {ps} positions]: "
+            f"{ms:.4f} ms a layer (plain gather, device time)")
+    return rec
+
+
+def backends_phase(M, cfg, params, prompts, dev) -> dict:
+    """Phase 32: per-request grouped-GEMM backends and the paged-attention
+    registry, Mixtral with ``moe_impl="blaze"``.  One ``generate`` carries
+    a request on ``pallas``, one on ``ragged`` and one on the engine's own
+    (``segment``); each group's tokens must equal those of an engine built
+    with that backend, and ``gather_gmm`` must be launched while the
+    ``pallas`` group runs and in no other.  An engine with
+    ``paged_kernel="dense"`` must launch no ``paged_attention``, and its
+    first-token and first decode-step logits lie within
+    ``CPU_LOGIT_ATOL`` of the kernel engine's; the default engine resolves
+    to the kernel from ``auto``."""
+    SE, T, K = M.SE, M.T, M.K
+    cfg_b = cfg.replace(moe_impl="blaze")
+    picks = {"pallas": prompts[0], "ragged": prompts[1], None: prompts[4]}
+
+    def engine(**kw):
+        return SE.ServeEngine(cfg_b, params, batch_slots=4, capacity=1024,
+                              page_size=16, device=dev, **kw)
+
+    eng = engine(gmm_backend="segment")
+    by_group = {}
+    real = eng._serve_group
+
+    def serve_group(requests, name):
+        K.reset_launches()
+        real(requests, name)
+        torch.cuda.synchronize()
+        by_group[name] = K.launch_counts()
+
+    eng._serve_group = serve_group
+    reqs = {b: SE.Request(prompt=p, max_new_tokens=8, eos_id=cfg.vocab_size,
+                          gmm_backend=b) for b, p in picks.items()}
+    eng.generate(list(reqs.values()))
+    del eng._serve_group        # the wrapper refers to the engine
+    check(sorted(by_group) == ["pallas", "ragged", "segment"],
+          f"backends: groups {sorted(by_group)}")
+    for b, p in picks.items():
+        name = b or "segment"
+        alone = SE.Request(prompt=p, max_new_tokens=8, eos_id=cfg.vocab_size)
+        engine(gmm_backend=name).generate([alone])
+        check(reqs[b].out_tokens == alone.out_tokens,
+              f"backends: the {name} group's tokens differ from a {name} "
+              "engine's")
+        n = by_group[name]["gather_gmm"]
+        check((n > 0) == (name == "pallas"),
+              f"backends: gather_gmm launched {n} times in the {name} group")
+    default = SE.ServeEngine(cfg, params, batch_slots=4, capacity=1024,
+                             page_size=16, device=dev)
+    check((default.paged_attn.name, default.paged_attn.source)
+          == ("pallas", "auto"),
+          f"registry: the default engine resolved {default.paged_attn}")
+    runs = {}
+    for impl in ("pallas", "dense"):
+        e = SE.ServeEngine(cfg, params, batch_slots=4, capacity=1024,
+                           page_size=16, device=dev,
+                           paged_kernel=None if impl == "pallas" else impl)
+        rs = [SE.Request(prompt=p, max_new_tokens=8, eos_id=cfg.vocab_size)
+              for p in prompts]
+        K.reset_launches()
+        with _Capture(T) as cap:
+            e.generate(rs)
+        runs[impl] = (K.launch_counts()["paged_attention"],
+                      cap.prefill, cap.decode, [r.out_tokens for r in rs])
+    check(runs["dense"][0] == 0 and runs["pallas"][0] > 0,
+          f"registry: paged_attention launched {runs['dense'][0]} times by "
+          f"the dense engine, {runs['pallas'][0]} by the kernel engine")
+    d_first = float((runs["dense"][1][0] - runs["pallas"][1][0]).abs().max())
+    d_step = float((runs["dense"][2][0] - runs["pallas"][2][0]).abs().max())
+    check(d_first <= CPU_LOGIT_ATOL and d_step <= CPU_LOGIT_ATOL,
+          f"registry: dense against the kernel: first-token logits "
+          f"{d_first:.4g}, first decode step {d_step:.4g}")
+    agree = sum(a == b for x, y in zip(runs["dense"][3], runs["pallas"][3])
+                for a, b in zip(x, y))
+    total = sum(len(x) for x in runs["pallas"][3])
+    log(f"backends [blaze; engine segment]: one generate, groups "
+        f"{sorted(by_group)}; each group's tokens equal its own engine's; "
+        f"gather_gmm launches by group "
+        f"{ {k: v['gather_gmm'] for k, v in by_group.items()} }")
+    log(f"registry: default engine -> {default.paged_attn.name} "
+        f"({default.paged_attn.source}); dense engine: paged_attention "
+        f"launches {runs['dense'][0]} (kernel engine {runs['pallas'][0]}); "
+        f"logits max |diff| first token {d_first:.4g}, first decode step "
+        f"{d_step:.4g}; tokens agreeing {agree} of {total}")
+    return {"gather_gmm_by_group": {k: v["gather_gmm"]
+                                    for k, v in by_group.items()},
+            "dense_paged_launches": runs["dense"][0],
+            "kernel_paged_launches": runs["pallas"][0],
+            "dense_first_logit_diff": d_first,
+            "dense_step_logit_diff": d_step,
+            "dense_tokens_agreeing": [agree, total],
+            "default_paged_kernel": [default.paged_attn.name,
+                                     default.paged_attn.source]}
+
+
+def runtime_phase(M, cfg, params, prompts, dev, tag, rounds=3) -> dict:
+    """Phase 33: the async runtime on the engine of phases 5 / 16 (4
+    slots, capacity 1024, 16-token pages, 16 new tokens).
+    ``AsyncServeRuntime.run`` must give the synchronous engine's tokens,
+    greedy and sampled (T = 0.8, seed 11), or diverge first where rounding
+    explains it (``_explain``: the runtime admits requests as they arrive,
+    so its prefill batches, and their buckets, may differ from the
+    synchronous engine's); every request's callbacks must stream its tokens
+    in order and then exactly one terminal event; the stream iterator must
+    yield a lone request's tokens (those of a synchronous engine serving it
+    alone) and return its reason; the emission queue's gets must equal its
+    puts, above 0; the paged kernel must be launched.  The same request set
+    is timed synchronously (one engine) and asynchronously (one runtime
+    over another engine) in ``rounds`` interleaved rounds after a warm one
+    (wall seconds, end to end, nothing recorded)."""
+    SE, K, RT, SM = M.SE, M.K, M.RT, M.SM
+
+    def engine(rec=None, **kw):
+        eng = SE.ServeEngine(cfg, params, batch_slots=4, capacity=1024,
+                             page_size=16, device=dev, **kw)
+        return eng if rec is None else rec.watch(eng)
+
+    def requests(ps=prompts):
+        return [SE.Request(prompt=p, max_new_tokens=16,
+                           eos_id=cfg.vocab_size) for p in ps]
+
+    def sync(rec=None, **kw):
+        rs = requests()
+        eng = engine(rec, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rec is None:
+            eng.generate(rs)
+        else:
+            with rec:
+                eng.generate(rs)
+        torch.cuda.synchronize()
+        return [r.out_tokens for r in rs], time.perf_counter() - t0, {
+            "prefill_calls": eng.stats["prefill_calls"],
+            "decode_steps": eng.stats["decode_steps"]}
+
+    def run_async(rec=None, **kw):
+        rs, events = requests(), []
+        for i, r in enumerate(rs):
+            r.on_token = lambda t, i=i: events.append(("tok", i, t))
+            r.on_finish = lambda why, i=i: events.append(("fin", i, why))
+        eng = engine(rec, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if rec is None:
+            with RT.AsyncServeRuntime(eng) as rt:
+                rt.run(rs)
+        else:
+            with rec, RT.AsyncServeRuntime(eng) as rt:
+                rt.run(rs)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for i, r in enumerate(rs):
+            mine = [e for e in events if e[1] == i]
+            check(mine == [("tok", i, t) for t in r.out_tokens]
+                  + [("fin", i, r.finish_reason)],
+                  f"runtime{tag}: request {i}'s events out of order")
+        q = rt.emit_q.stats
+        check(q["gets"] == q["puts"] > 0,
+              f"runtime{tag}: emission queue {q}")
+        return [r.out_tokens for r in rs], wall, {
+            "emit": dict(q), "staged": dict(rt.staged_q.stats),
+            "buffers": dict(rt.buffers.stats),
+            "prefill_calls": eng.stats["prefill_calls"],
+            "decode_steps": eng.stats["decode_steps"]}
+
+    rids = list(range(len(prompts)))
+    diverged = {}
+    for mode, kw in (("greedy", {}),
+                     ("sampled", dict(greedy=False, temperature=0.8,
+                                      seed=11))):
+        rs_, ra_ = _Rows(SE), _Rows(SE)
+        ts, _, _ = sync(rs_, **kw)
+        ta, _, _ = run_async(ra_, **kw)
+        diverged[mode] = _explain(
+            f"runtime{tag} [{mode}]", SM, ta, ra_.rows, ts, rs_.rows, rids,
+            kw.get("temperature"), kw.get("seed", 0))
+        if mode == "greedy":
+            ref = ts
+    # The timed rounds reuse one engine and one runtime, as a server keeps
+    # them (a new runtime starts threads whose first CUDA calls set up
+    # per-thread state); each is warmed by one untimed round first.
+    walls = {"sync": [], "async": []}
+    agree = {"sync": [], "async": []}
+    steps = {}
+    sync_eng, async_eng = engine(), engine()
+    rt = RT.AsyncServeRuntime(async_eng)
+    try:
+        for rnd in range(rounds + 1):
+            for mode in ("sync", "async"):
+                rs, events = requests(), []
+                for i, r in enumerate(rs):
+                    r.on_token = lambda t, i=i: events.append(("tok", i, t))
+                    r.on_finish = lambda why, i=i: events.append(
+                        ("fin", i, why))
+                eng = sync_eng if mode == "sync" else async_eng
+                before = dict(eng.stats)
+                K.reset_launches()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if mode == "sync":
+                    eng.generate(rs)
+                else:
+                    rt.run(rs)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                toks = [r.out_tokens for r in rs]
+                steps[mode] = {k: eng.stats[k] - before[k] for k in (
+                    "prefill_calls", "decode_steps")}
+                check(K.launch_counts()["paged_attention"] > 0,
+                      f"runtime{tag}: paged_attention not launched")
+                for i, r in enumerate(rs):
+                    check([e for e in events if e[1] == i]
+                          == [("tok", i, t) for t in r.out_tokens]
+                          + [("fin", i, r.finish_reason)],
+                          f"runtime{tag}: request {i}'s events out of order")
+                if mode == "sync":          # one schedule, one result
+                    check(toks == ref, f"runtime{tag}: a synchronous run "
+                          "gave other tokens")
+                if rnd:
+                    walls[mode].append(wall)
+                    agree[mode].append(toks == ref)
+    finally:
+        rt.close()
+    q = rt.emit_q.stats
+    check(q["gets"] == q["puts"] > 0, f"runtime{tag}: emission queue {q}")
+    qstats = {"emit": dict(q), "staged": dict(rt.staged_q.stats),
+              "buffers": dict(rt.buffers.stats), "steps": steps}
+    alone = requests(prompts[:1])
+    engine().generate(alone)
+    with RT.AsyncServeRuntime(engine()) as rt:
+        r = requests(prompts[:1])[0]
+        it, seen = rt.stream(r, timeout=120.0), []
+        try:
+            while True:
+                seen.append(next(it))
+        except StopIteration as stop:
+            reason = stop.value
+    check(seen == alone[0].out_tokens == r.out_tokens and reason == "length",
+          f"runtime{tag}: stream gave {seen} [{reason}], a lone "
+          f"synchronous run {alone[0].out_tokens}")
+    med = {m: statistics.median(w) for m, w in walls.items()}
+    log(f"runtime{tag}: async against sync tokens: greedy "
+        f"{'equal' if not diverged['greedy'] else diverged['greedy']}, "
+        f"sampled (T=0.8 seed 11) "
+        f"{'equal' if not diverged['sampled'] else diverged['sampled']}; "
+        f"streams in order with one terminal event each; the stream "
+        f"iterator equals a lone synchronous run")
+    log(f"runtime{tag}: wall sync {walls['sync']} s, async "
+        f"{walls['async']} s; medians {med['sync']:.4f} / "
+        f"{med['async']:.4f} s (async / sync "
+        f"{med['async'] / med['sync']:.3f}); timed rounds' tokens equal the "
+        f"sync run's: sync {agree['sync']}, async {agree['async']}; the "
+        f"runtime's queues over all rounds and the last round's steps "
+        f"{qstats}")
+    return {"wall_sync_s": walls["sync"], "wall_async_s": walls["async"],
+            "median_sync_s": med["sync"], "median_async_s": med["async"],
+            "timed_async_tokens_equal": agree["async"],
+            "diverged": diverged, "queues": qstats}
 
 
 def _device_time_by_kernel(prof) -> dict[str, float]:

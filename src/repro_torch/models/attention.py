@@ -3,10 +3,13 @@ the training forward, and the paged attention sublayer of serving.
 
 Mirrors ``repro/models/attention.py`` (``_project_qkv``,
 ``attention_sublayer`` without a ``KVCache``, ``paged_attention_sublayer``
-without prefix offsets).  Full-sequence attention is the flash-attention
-kernel when ``cfg.use_pallas`` is set (``flash_attention_fused``) and the
-plain chunked computation otherwise (the reference computes it in plain
-JAX then); decode attention goes through the paged attention kernel.
+with its prefix-sharing suffix branch).  Full-sequence attention is the
+flash-attention kernel when ``cfg.use_pallas`` is set
+(``flash_attention_fused``) and the plain chunked computation otherwise
+(the reference computes it in plain JAX then); decode attention goes
+through the paged-attention implementation ``attn_impl`` (the kernel by
+default); the suffix prefill of prefix sharing attends over the request's
+gathered pages in plain PyTorch, as the reference does in plain jnp.
 Weights are cast to the activations' dtype on use, as in the reference.
 The q projection and the output projection are the producers of the
 checkpoint tags ``QKV`` and ``ATTN_OUT`` (``core/checkpoint.py:tagged``),
@@ -53,25 +56,38 @@ def project_qkv(x: torch.Tensor, p: dict, cfg, positions: torch.Tensor):
 def paged_attention_sublayer(x: torch.Tensor, p: dict, cfg, *,
                              is_local: bool, positions: torch.Tensor,
                              pages: PC.PagedKV, page_table: torch.Tensor,
-                             prefill: bool) -> torch.Tensor:
+                             prefill: bool,
+                             offsets: torch.Tensor | None = None,
+                             attn_impl: str = "pallas") -> torch.Tensor:
     """Attention sublayer against a block-paged cache; writes the new k/v
     into ``pages`` in place and returns ``(B, S, d)``.
 
     ``prefill=True``: ``x`` is the whole right-padded prompt with
     ``positions = arange(S)``; every position's k/v is scattered through
-    ``page_table`` and attention is causal over the in-flight k/v.
+    ``page_table`` and attention is causal over the in-flight k/v.  With
+    ``offsets`` ``(B,)`` (prefix sharing), ``x`` is each request's unshared
+    suffix and ``positions`` the absolute ``(B, S)`` grid: k/v scatter at
+    ``offsets[b] + t`` and attention gathers the request's pages, reading
+    the shared prefix from the cache.
     ``prefill=False``: S == 1, ``positions`` are the (B,) per-request write
-    positions; the token's k/v is appended and attention walks the pages."""
+    positions; the token's k/v is appended and attention walks the pages
+    through ``attn_impl`` (``pallas``: the kernel; ``dense``: the plain
+    gather)."""
     B, S, _ = x.shape
     window = cfg.sliding_window if is_local else 0
-    q, k, v, _ = project_qkv(x, p, cfg, positions)
-    if prefill:
+    q, k, v, pos_b = project_qkv(x, p, cfg, positions)
+    if prefill and offsets is None:
         PC.write_prefill(pages, k, v, page_table)
         o = _full_attention(q, k, v, cfg, causal=True, window=window)
+    elif prefill:
+        PC.write_prefill_offset(pages, k, v, page_table, offsets)
+        o = PC.paged_gather_attention(q, pages, page_table, pos_b,
+                                      window=window, cap=cfg.attn_softcap)
     else:
         PC.write_decode(pages, k, v, page_table, positions)
         o = PC.paged_attention(q, pages, page_table, positions,
-                               window=window, cap=cfg.attn_softcap)
+                               window=window, cap=cfg.attn_softcap,
+                               impl=attn_impl)
     return _out_proj(o.reshape(B, S, -1), p)
 
 

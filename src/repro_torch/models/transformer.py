@@ -6,8 +6,8 @@ Mirrors ``repro/models/transformer.py`` (``_apply_sublayer`` for the
 ``attn_moe`` / ``attn_local_moe`` and ``attn_ffn`` / ``attn_local_ffn``
 kinds, whose dense blocks add no auxiliary loss, ``forward`` and
 ``train_loss``
-for token inputs, ``init_paged_cache``, ``prefill`` without prefix
-offsets, ``paged_decode_step``).  Layers run in a Python loop where the
+for token inputs, ``init_paged_cache``, ``prefill`` with prefix offsets,
+``paged_decode_step``).  Layers run in a Python loop where the
 reference scans over stacked groups; ``params["layers"]`` is a list with
 one dict per layer (see ``repro_torch.interop``).  Weights are cast to
 ``cfg.dtype`` on use, as in the reference (a no-op for serving weights,
@@ -116,11 +116,13 @@ def _logits(params, x, cfg):
                    cfg.final_softcap)
 
 
-def _layers(params, x, cfg, *, positions, cache, page_table, prefill):
+def _layers(params, x, cfg, *, positions, cache, page_table, prefill,
+            offsets=None, attn_impl="pallas"):
     for p, kind, pages in zip(params["layers"], layer_kinds(cfg), cache):
         attend = partial(paged_attention_sublayer, positions=positions,
                          pages=pages, page_table=page_table,
-                         prefill=prefill)
+                         prefill=prefill, offsets=offsets,
+                         attn_impl=attn_impl)
         x, _, _ = _apply_sublayer(x, p, kind, cfg, attend)
     return x
 
@@ -225,32 +227,46 @@ def _data_group(mesh, dp_axes):
     return mesh.group(axes) if axes else None
 
 
-def prefill(params, tokens, lengths, cache, page_table, cfg):
+def prefill(params, tokens, lengths, cache, page_table, cfg, *,
+            offsets=None, attn_impl: str = "pallas"):
     """Whole-prompt forward that fills the paged cache in one call.
 
     tokens: (B, S) right-padded prompts; lengths: (B,) true lengths;
     page_table: (B, pages_per_seq) int32.  Every position is written through
     the page table (pad tails land on the trash page or in slots that decode
     overwrites before reading).  Returns float32 logits (B, vocab) at each
-    request's last prompt token."""
+    request's last prompt token.
+
+    With ``offsets`` (B,) (prefix sharing), ``tokens`` holds each request's
+    unshared suffix (``lengths`` the suffix lengths): rows are written at
+    absolute ``offsets[b] + t`` and attend through the page table, reading
+    the shared prefix from the cache; the logits row is still the last real
+    token (relative index ``lengths - 1``).  ``attn_impl`` is accepted for
+    the reference's signature; prefill attends without the paged kernel."""
     check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)
+    if offsets is not None:
+        positions = offsets.long()[:, None] + positions[None, :]
     x = _layers(params, x, cfg, positions=positions, cache=cache,
-                page_table=page_table, prefill=True)
+                page_table=page_table, prefill=True, offsets=offsets,
+                attn_impl=attn_impl)
     idx = torch.clamp(lengths.long() - 1, 0, S - 1)
     x_last = x[torch.arange(B, device=x.device), idx]
     return _logits(params, x_last, cfg)
 
 
-def paged_decode_step(params, cache, tokens, lengths, page_table, cfg):
+def paged_decode_step(params, cache, tokens, lengths, page_table, cfg, *,
+                      attn_impl: str = "pallas"):
     """One decode step with every request at its own position.
 
     tokens: (B, 1) last token per request; lengths: (B,) int32 position the
-    token is written at.  Returns float32 logits (B, vocab)."""
+    token is written at.  ``attn_impl`` picks the paged-attention
+    implementation (``pallas``: the kernel; ``dense``: the plain gather).
+    Returns float32 logits (B, vocab)."""
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
     x = _layers(params, x, cfg, positions=lengths, cache=cache,
-                page_table=page_table, prefill=False)
+                page_table=page_table, prefill=False, attn_impl=attn_impl)
     return _logits(params, x[:, 0], cfg)

@@ -1147,3 +1147,85 @@ def test_train_step_microbatches_match_on_card(dev):
         np.testing.assert_allclose(out[2][0][key], out[1][0][key], rtol=rtol,
                                    err_msg=key)
     assert out[2][1] == 2 * out[1][1] > 0
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_paged_kernels_over_shared_and_forked_pages(dev, K, quantized):
+    """Prefix sharing maps one physical page into several page tables, and
+    a copy-on-write fork copies a shared page into a private one: the
+    paged kernels over such tables (rows 0-2 share pages 1-4; row 3 holds
+    a fork of page 4 in page 9, then its own pages) against their plain
+    versions, before and after the fork; the fork leaves page 4 as it
+    was."""
+    import torch
+
+    from repro_torch.serve import paged_cache as PC
+    rng = np.random.default_rng(3)
+    P, ps, hkv, g, dh = 16, 16, 8, 4, 128
+    pages = PC.init_paged_kv(P, ps, hkv, dh, torch.bfloat16, dev,
+                             quantized=quantized)
+    k = _t(rng.normal(size=(P, ps, hkv, dh)), dev, "bfloat16")
+    v = _t(rng.normal(size=(P, ps, hkv, dh)), dev, "bfloat16")
+    table = np.array([[1, 2, 3, 4, 5, 0], [1, 2, 3, 4, 6, 7],
+                      [1, 2, 3, 4, 0, 0], [1, 2, 3, 9, 10, 0]], np.int32)
+    pos = _t(np.array([70, 95, 63, 73], np.int32), dev)
+    flat_p = torch.arange(P, device=dev).repeat_interleave(ps)
+    flat_o = torch.arange(ps, device=dev).repeat(P)
+    PC._scatter(pages, k.reshape(P * ps, hkv, dh), v.reshape(P * ps, hkv, dh),
+                flat_p, flat_o)
+    q = _t(rng.normal(size=(4, 1, hkv * g, dh)), dev, "bfloat16")
+    A = K.paged_attention
+
+    def both(tab):
+        tab = _t(tab, dev)
+        if quantized:
+            args = (q, pages.k, pages.v, pages.k_scale, pages.v_scale, tab,
+                    pos)
+            got = A.paged_attention_int8(*args)
+            want = A.paged_attention_int8_plain(*args)
+        else:
+            args = (q, pages.k, pages.v, tab, pos)
+            got = A.paged_attention(*args)
+            want = A.paged_attention_plain(*args)
+        _close(got, want, "bfloat16")
+        return got
+
+    both(table)
+    shared = [a[4].clone() for a in pages if a is not None]
+    PC.copy_page(pages, 4, 9)
+    _sync()
+    assert all(_equal(a[4], b) for a, b in
+               zip([a for a in pages if a is not None], shared))
+    assert all(_equal(a[4], a[9]) for a in pages if a is not None)
+    forked = table.copy()
+    forked[3] = [1, 2, 3, 9, 10, 0]
+    out = both(forked)
+    # row 3 reads the fork's copy of page 4: the same values as row 3 of a
+    # table that maps page 4 itself
+    forked[3, 3] = 4
+    ref = both(forked)
+    assert _equal(out[3], ref[3])
+
+
+def test_sampling_noise_bit_equal_on_cpu_and_card(dev):
+    """The sampler's counter-based hash of each row key and vocabulary
+    index, and its Gumbel noise, give the same bits on the CPU and the
+    card, and so the same tokens."""
+    import torch
+
+    from repro_torch.serve import sampling as SM
+    V = 32000
+    rid = torch.tensor([0, 1, 7, 70000, 2 ** 31 - 1], dtype=torch.int32)
+    gidx = torch.tensor([0, 3, 15, 1023, 0], dtype=torch.int32)
+    for seed in (0, 11, 2 ** 40 + 5):
+        keys = torch.from_numpy(SM.row_keys(seed, rid.numpy(), gidx.numpy()))
+        assert _equal(SM.uniform_bits(keys, V),
+                      SM.uniform_bits(keys.to(dev), V).cpu())
+        n_cpu = SM.gumbel_noise(seed, rid, gidx, V)
+        n_dev = SM.gumbel_noise(seed, rid.to(dev), gidx.to(dev), V)
+        assert _equal(n_cpu, n_dev.cpu())
+        logits = torch.from_numpy(np.random.default_rng(seed % 97).normal(
+            size=(5, V)).astype(np.float32))
+        for temp in (0.8, 1.0, 1.7):
+            assert _equal(SM.sample(logits, n_cpu, temp),
+                          SM.sample(logits.to(dev), n_dev, temp).cpu())

@@ -146,18 +146,25 @@ def test_engine_without_device_needs_cuda(tp, params, monkeypatch):
 
 
 def test_engine_refuses_unported_options(tp, params):
-    ServeEngine = tp.engine.ServeEngine
-    for kw in (dict(greedy=False), dict(prefix_cache=True)):
-        with pytest.raises(NotImplementedError):
-            ServeEngine(TCFG, params[1], device="cpu", **kw)
+    """Only serving over a mesh and SSM block kinds still refuse; the
+    options ported since (sampling, prefix sharing, the paged kernel
+    choice, a per-request backend) are accepted."""
+    ServeEngine, Request = tp.engine.ServeEngine, tp.engine.Request
+    with pytest.raises(NotImplementedError, match="§A item 6"):
+        ServeEngine(TCFG, params[1], device="cpu", mesh=object())
     with pytest.raises(NotImplementedError, match="block kinds"):
         ServeEngine(TCFG.replace(block_pattern=("mlstm",)), params[1],
                     device="cpu")
+    prompt = np.arange(3, 6, dtype=np.int32)
+    for kw in (dict(greedy=False, temperature=0.7, seed=3),
+               dict(prefix_cache=True), dict(paged_kernel="dense")):
+        eng = ServeEngine(TCFG, params[1], device="cpu", **kw)
+        r = eng.generate([Request(prompt=prompt, max_new_tokens=2)])[0]
+        assert len(r.out_tokens) == 2
     eng = ServeEngine(TCFG, params[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="§A item 3"):
-        eng.generate([tp.engine.Request(prompt=np.arange(3, 6,
-                                                         dtype=np.int32),
-                                        gmm_backend="segment")])
+    r = eng.generate([Request(prompt=prompt, max_new_tokens=2,
+                              gmm_backend="segment")])[0]
+    assert len(r.out_tokens) == 2 and r.finish_reason == "length"
 
 
 def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
@@ -190,8 +197,9 @@ def test_train_entry_points_need_cuda_unless_cpu(tp, monkeypatch):
 
 
 def test_port_imports_no_jax_and_no_reference():
-    """``import repro_torch``, CPU engine runs (Mixtral; Qwen3-14B over
-    bf16 and over int8 pages) and CPU training steps (``blaze_pallas``,
+    """``import repro_torch``, CPU engine runs (Mixtral, also sampled with
+    prefix sharing and through the async runtime; Qwen3-14B over bf16 and
+    over int8 pages) and CPU training steps (``blaze_pallas``,
     ``blaze`` on ``pallas_fused`` under the default plan and under
     ``paper``, the dense Qwen3-14B, and ``ep_a2a`` on ``pallas`` over a
     one-rank mesh), with the checkpoint plans, the simulator, the
@@ -225,6 +233,13 @@ def test_port_imports_no_jax_and_no_reference():
         "r = eng.generate([Request(prompt=np.arange(3, 9, dtype=np.int32),"
         " max_new_tokens=3)])[0]\n"
         "assert len(r.out_tokens) == 3\n"
+        "from repro_torch.serve.runtime import AsyncServeRuntime\n"
+        "eng = ServeEngine(cfg, p, batch_slots=2, capacity=32, device='cpu', "
+        "greedy=False, temperature=0.8, prefix_cache=True)\n"
+        "with AsyncServeRuntime(eng) as rt:\n"
+        "    h = rt.submit(Request(prompt=np.arange(3, 20, dtype=np.int32),"
+        " max_new_tokens=3))\n"
+        "    assert len(h.result(timeout=60).out_tokens) == 3\n"
         "_, _, h = train(cfg.replace(use_pallas=True), TrainConfig("
         "total_steps=1, batch_size=1, seq_len=32), device='cpu', "
         "log=lambda _: None)\n"

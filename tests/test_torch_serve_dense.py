@@ -155,7 +155,9 @@ def test_int8_engine_runs(tp, params):
 
     tp.paged_attention.paged_attention_int8_plain = spy
     try:
-        int8, i_reqs = _run(tp, tparams, kv_dtype="int8")
+        # the kernel named: a CPU engine's auto is the plain gather (C6)
+        int8, i_reqs = _run(tp, tparams, kv_dtype="int8",
+                            paged_kernel="pallas")
     finally:
         tp.paged_attention.paged_attention_int8_plain = before
     assert len(calls) == int8.stats["decode_steps"] * JCFG.num_layers > 0

@@ -91,3 +91,38 @@ def torch_config(jax_cfg):
     (``repro_torch.configs`` imports no torch)."""
     from repro_torch.configs.base import ModelConfig
     return ModelConfig(**dataclasses.asdict(jax_cfg))
+
+
+def tiny_dense_config():
+    """The reference serving tests' model (``tests/test_prefix_cache.py``,
+    ``tests/test_runtime.py``): yi-6b cut to 2 layers, d=64, 2 heads of 32,
+    FFN 128, vocabulary 64, float32.  The port runs it as its dense
+    ``attn_ffn`` model."""
+    from repro.configs import get_config
+    return get_config("yi_6b").reduced().replace(
+        num_layers=2, d_model=64, num_heads=2, num_kv_heads=2, head_dim=32,
+        d_ff=128, vocab_size=64, attn_chunk=16)
+
+
+def greedy_continuation(jax_params, jax_cfg, prompts, max_new: int,
+                        capacity: int):
+    """The reference model's greedy continuation of each prompt: its
+    ``forward`` over prompt + tokens so far, right-padded to ``capacity``
+    (one compiled shape; causal, so the padding does not reach the real
+    positions), the argmax at the last real position.  The port's engines
+    are held to these tokens, not to the reference engine's, which vary
+    from run to run (ROADMAP.md §C)."""
+    import jax
+    import jax.numpy as jnp
+
+    from repro.models import transformer as JT
+    fwd = jax.jit(lambda p, t: JT.forward(p, {"tokens": t}, jax_cfg)[0])
+    seqs = [list(p) for p in prompts]
+    for _ in range(max_new):
+        toks = np.zeros((len(seqs), capacity), np.int32)
+        for i, q in enumerate(seqs):
+            toks[i, :len(q)] = q
+        logits = np.asarray(fwd(jax_params, jnp.asarray(toks)))
+        for i, q in enumerate(seqs):
+            q.append(int(logits[i, len(q) - 1].argmax()))
+    return [q[len(p):] for q, p in zip(seqs, prompts)]
