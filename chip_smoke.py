@@ -31,7 +31,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    forward h-ranges and three backward ones with ragged last ones, an
    expert of one row, every slot on one expert, d off the 256-wide tile,
    slots past offsets[E] in ``routing.slice_dispatch``'s layout), the
-   backward's dgates and weight gradients bit-equal across calls, and
+   forward's y and every output of the backward bit-equal across calls
+   (one writer per element), and
    flash attention at Qwen3-14B's 40/8 heads (with a window and a
    softcap) and at S=300; the
    expert layer's autograd Functions (``blaze_pallas``, ``moe_ffn_blaze``
@@ -240,7 +241,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    full depth (after phase 17, phase 16's weights): tokens equal the
    synchronous engine's, greedy and sampled; each request's stream in
    order with one terminal event; the emission queue drained; sync and
-   async wall times over 3 interleaved rounds.
+   async wall times over 3 interleaved rounds;
+34. Hymba-1.5B training — full width, all 32 layers (attention and Mamba
+   heads in parallel, window 1024), 2 x 2048 tokens, ``use_pallas=True``,
+   the default plan, as phase 7 with 3 warm steps: flash attention at
+   head width 64 (25/5 heads) and the three fused-SwiGLU kernels at
+   d = 1600, h = 5504 launched exactly as the plan says a step; then
+   phase 9's CPU cross-check on the reduced (2-layer) Hymba;
+35. Hymba-1.5B decode — random bf16 weights, all 32 layers, through
+   ``init_cache`` / ``decode_step``: 4 requests teacher-forced through a
+   64-token prompt, every step's logits held against ``forward``'s on the
+   card (``CPU_LOGIT_ATOL`` plus twice the forward's own spread: the
+   forward with the plain attention and FFN, and with the scans in
+   16-position chunks), then 32 greedy tokens timed (tok/s) and again
+   under torch.profiler (the same tokens; device busy share); a 2-layer
+   cut decodes 1280 positions, past the 1024-token window (the rolling
+   cache wraps), held against the forward the same way;
+36. xLSTM-1.3B — phase 35 at all 48 layers (7.3 GB bf16), then training
+   one group (7 mLSTM + 1 sLSTM layers) at full width, 2 x 2048 tokens,
+   3 warm steps, and phase 9's CPU cross-check on a reduced cut of one
+   mLSTM and one sLSTM layer; no kernel runs on this path (no attention,
+   d_ff = 0, plain scans) and none may be launched;
+37. Gemma2-27B served at full width and full depth (46 layers, 56.8 GB
+   bf16): three requests on 2 slots of capacity 4608, one prompt of 4200
+   tokens (past the 4096-token local window, so the window cuts in its
+   prefill and every decode step), 32 greedy tokens each, as phase 16
+   (flash attention with the window and softcap 50 at a GQA group of 2,
+   the paged kernel with both, the fused SwiGLU forward at d = 4608,
+   h = 36864); then phase 6's CPU cross-check on a 2-layer cut (one local
+   and one global layer);
+38. Yi-6B (32 layers) and DeepSeek-Coder-33B (4 of 62 layers: 62 would
+   take 66.7 GB) served as phase 5, untraced, each with phase 6's CPU
+   cross-check on a 2-layer cut;
+39. the kernels at the new paths' shapes, against their plain versions
+   and timed as phase 4: flash attention at Hymba's heads (window 1024,
+   B = 2, S = 2048) and at Gemma2's (window 4096, softcap 50, S = 8192),
+   the fused-SwiGLU trio at d = 1600, h = 5504 and d = 4608, h = 36864
+   (L = 4096 and 4), paged attention with Gemma2's window and softcap.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -473,10 +510,11 @@ def main() -> int:
     from repro_torch.serve import paged_cache as PC
     from repro_torch.serve import runtime as RT
     from repro_torch.serve import sampling as SM
+    from repro_torch.models import ssm as SSM
     M = SimpleNamespace(KG=KG, KW=KW, KF=KF, KC=KC, KO=KO, TR=TR, KFM=KFM,
                         ML=ML, KS=KS, KP=KP, KQ=KQ, SE=SE, T=T, K=K, SH=SH,
                         CL=CL, MS=MS, KR=KR, MESH=MESH, MB=MB, KD=KD, PC=PC,
-                        RT=RT, SM=SM)
+                        RT=RT, SM=SM, SSM=SSM, init_params=init_params)
 
     t_start = time.perf_counter()
 
@@ -1051,6 +1089,116 @@ def main() -> int:
     ckpt = checkpoint_phase(M, dev)
     torch.cuda.empty_cache()
 
+    mark("34")
+    # -- 34. Hymba-1.5B training, 32 layers ------------------------------------
+    cfg_hy = get_config("hymba-1.5b").replace(use_pallas=True)
+    nh = cfg_hy.num_layers
+    htrain = training_phase(cfg_hy, dev, K, (
+        "flash_attention", "fused_swiglu_fwd", "fused_swiglu_bwd_x",
+        "fused_swiglu_bwd_w"), "hymba-1.5b", per_step={
+            "flash_attention": 2 * nh, "fused_swiglu_fwd": 2 * nh,
+            "fused_swiglu_bwd_x": nh, "fused_swiglu_bwd_w": nh},
+        steps_warm=NEW_WARM_STEPS, spans=False)
+    torch.cuda.empty_cache()
+    xcheck_h = cpu_train_crosscheck(dev, arch="hymba-1.5b")
+    torch.cuda.empty_cache()
+
+    mark("35")
+    # -- 35. Hymba-1.5B decode, 32 layers, and 2 layers past the window --------
+    cfg_hyd = get_config("hymba-1.5b").replace(dtype="bfloat16",
+                                               use_pallas=True)
+    hdec = decode_phase(M, cfg_hyd, dev, " [hymba-1.5b, 32 layers]", K,
+                        cut_cfg=cfg_hyd.replace(num_layers=2))
+    check(hdec["launches"]["fused_swiglu_fwd"] == nh * DECODE_NEW,
+          "decode [hymba-1.5b]: the fused SwiGLU forward is not launched "
+          "once a layer a step")
+
+    mark("36")
+    # -- 36. xLSTM-1.3B decode (48 layers) and training (8 layers) --------------
+    # no kernel runs on this path: no attention, no FFN (d_ff = 0), and the
+    # scans are plain PyTorch as the reference's are plain JAX
+    cfg_xd = get_config("xlstm-1.3b").replace(dtype="bfloat16",
+                                              use_pallas=True)
+    xdec = decode_phase(M, cfg_xd, dev, " [xlstm-1.3b, 48 layers]", K,
+                        cut_cfg=cfg_xd.replace(num_layers=8, dtype="float32"),
+                        cut_len=DECODE_PROMPT)
+    check(not any(xdec["launches"].values()),
+          "decode [xlstm-1.3b]: a kernel was launched on a path that has none")
+    cfg_xt = get_config("xlstm-1.3b").replace(num_layers=8, use_pallas=True)
+    xtrain = training_phase(cfg_xt, dev, K, (), "xlstm-1.3b, 8 layers",
+                            steps_warm=NEW_WARM_STEPS, spans=False)
+    check(not any(xtrain["launches"].values()),
+          "train [xlstm-1.3b]: a kernel was launched on a path that has none")
+    log("xlstm-1.3b: decode and training launched no kernel (the path has "
+        "none: no attention, d_ff = 0, plain scans)")
+    torch.cuda.empty_cache()
+    # one mLSTM and one sLSTM layer: at a random init the mLSTM normalizer
+    # amplifies float32 rounding from layer to layer, and eight layers
+    # would move the card and the CPU apart beyond any fixed tolerance
+    # (tests/test_torch_ssm_models.py cuts the same way)
+    xcheck_x = cpu_train_crosscheck(dev, arch="xlstm-1.3b",
+                                    block_pattern=("mlstm", "slstm"),
+                                    slstm_every=2, num_layers=2)
+    torch.cuda.empty_cache()
+
+    mark("37")
+    # -- 37. Gemma2-27B served at all 46 layers, one prompt past the window ----
+    gcfg = get_config("gemma2-27b").replace(use_pallas=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    gparams = init_params(gcfg, gen, dev)
+    torch.cuda.synchronize()
+    g_weight_bytes = sum(t.numel() * t.element_size()
+                         for t in _leaves(gparams))
+    log(f"weights: {gcfg.name} full width and full depth, "
+        f"{gcfg.num_layers} layers, {g_weight_bytes / 1e9:.2f} GB bf16; "
+        f"allocated {torch.cuda.memory_allocated() / 2 ** 30:.3f} GiB")
+    # one prompt longer than the 4096-token local window: the window cuts in
+    # prefill and in every decode step of that request
+    gprompts = [rng.integers(3, gcfg.vocab_size, size=n).astype(np.int32)
+                for n in (4200, 37, 300)]
+    gserve = serving_phase(M, gcfg, gparams, gprompts, dev, (
+        "fused_swiglu_fwd", "flash_attention", "paged_attention"),
+        " [gemma2-27b bf16 pages]", slots=2, capacity=4608, max_new=32)
+    gprompt = rng.integers(3, gcfg.vocab_size, size=24).astype(np.int32)
+    gx = cpu_prefill_crosscheck(T, gcfg.replace(num_layers=2),
+                                dict(gparams, layers=gparams["layers"][:2]),
+                                gprompt, dev, allow_near_tie=True)
+    del gparams
+    torch.cuda.empty_cache()
+
+    mark("38")
+    # -- 38. Yi-6B (32 layers) and DeepSeek-Coder-33B (4 of 62 layers) ----------
+    dense_e2e = {}
+    for arch, layers in (("yi-6b", None), ("deepseek-coder-33b", 4)):
+        dcfg = get_config(arch).replace(use_pallas=True)
+        if layers is not None:
+            dcfg = dcfg.replace(num_layers=layers)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        dparams = init_params(dcfg, gen, dev)
+        d_bytes = sum(t.numel() * t.element_size() for t in _leaves(dparams))
+        log(f"weights: {dcfg.name} full width, {dcfg.num_layers} layers, "
+            f"{d_bytes / 1e9:.2f} GB bf16")
+        dprompts = [rng.integers(3, dcfg.vocab_size, size=n).astype(np.int32)
+                    for n in prompt_lens]
+        rec = serving_phase(M, dcfg, dparams, dprompts, dev, (
+            "fused_swiglu_fwd", "flash_attention", "paged_attention"),
+            f" [{arch} bf16 pages]", traced=False)
+        dprompt = rng.integers(3, dcfg.vocab_size, size=24).astype(np.int32)
+        rec["crosscheck"] = cpu_prefill_crosscheck(
+            T, dcfg.replace(num_layers=2),
+            dict(dparams, layers=dparams["layers"][:2]), dprompt, dev,
+            allow_near_tie=True)
+        rec["weight_bytes"] = d_bytes
+        dense_e2e[arch] = rec
+        del dparams
+        torch.cuda.empty_cache()
+
+    mark("39")
+    # -- 39. the kernels at the new paths' shapes ---------------------------------
+    for name, rs in new_shape_kernels(M, dev, timer, entry, errs).items():
+        rows[name].extend(rs)
+    torch.cuda.empty_cache()
+
     # -- report ---------------------------------------------------------------
     sources = {
         "build_dispatch": ("src/repro_torch/csrc/dispatch.cu",
@@ -1111,6 +1259,9 @@ def main() -> int:
             "launches_train": n_train, "launches_serve": n_serve,
             "launches_qwen3_moe_train": m_phase["launches"].get(name, 0),
             "launches_qwen3_moe_serve": m_serve["launches"].get(name, 0),
+            "launches_hymba_train": htrain["launches"].get(name, 0),
+            "launches_hymba_decode": hdec["launches"].get(name, 0),
+            "launches_gemma2_serve": gserve["launches"].get(name, 0),
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -1125,7 +1276,11 @@ def main() -> int:
                              (" [qwen3-moe-30b-a3b bf16 pages]", mserve,
                               m_weight_bytes),
                              (" [qwen3-moe-30b-a3b int8 pages]", mserve8,
-                              m_weight_bytes)):
+                              m_weight_bytes),
+                             (" [gemma2-27b bf16 pages]", gserve,
+                              g_weight_bytes),
+                             *((f" [{a} bf16 pages]", r, r["weight_bytes"])
+                               for a, r in dense_e2e.items())):
         rec = {k_: v for k_, v in rec.items()
                if k_ not in ("tokens", "launches")}
         log(f"e2e-record{tag}: "
@@ -1133,6 +1288,9 @@ def main() -> int:
     log(f"cpu cross-check [qwen3-14b, 2-layer cut]: {json.dumps(qx)}")
     log(f"cpu cross-check [qwen3-moe-30b-a3b, 2-layer cut]: "
         f"{json.dumps(mx)}")
+    log(f"cpu cross-check [gemma2-27b, 2-layer cut]: {json.dumps(gx)}")
+    log("decode-record: " + json.dumps({"hymba-1.5b": hdec,
+                                          "xlstm-1.3b": xdec}))
     log(f"layer-record [one-rank mesh]: {json.dumps(layer1)}")
     log(f"multi-rank-record: {json.dumps(multi)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
@@ -1142,7 +1300,9 @@ def main() -> int:
                          ("qwen3-moe-30b-a3b blaze_pallas", mtrain,
                           xcheck_m),
                          ("qwen3-moe-30b-a3b blaze+pallas_fused",
-                          mtrain_fused, None)):
+                          mtrain_fused, None),
+                         ("hymba-1.5b", htrain, xcheck_h),
+                         ("xlstm-1.3b, 8 layers", xtrain, xcheck_x)):
         rec = {k_: v for k_, v in rec.items() if k_ != "by_kernel_ms"}
         log(f"train-record [{tag}]: "
             f"{json.dumps(dict(rec, crosscheck=xc))}")
@@ -1171,14 +1331,16 @@ def main() -> int:
 
 
 def serving_phase(M, cfg, params, prompts, dev, required, tag,
-                  kv_dtype=None, traced=True) -> dict:
-    """Phases 5, 16 and 24: ``prompts`` (16 new tokens each) served by the
-    port's engine on 4 slots (capacity 1024, 16-token pages) three times:
-    cold, then warm (measured: every kernel in ``required`` must be
-    launched during this run), then traced with torch.profiler over
-    device activity (device time by kernel, device busy share); all three
-    must give the same tokens.  Without ``traced`` the third run is left
-    out.  Returns the measurements."""
+                  kv_dtype=None, traced=True, slots=4, capacity=1024,
+                  max_new=16) -> dict:
+    """Phases 5, 16, 24, 37 and 38: ``prompts`` (``max_new`` new tokens
+    each) served by the port's engine on ``slots`` slots (``capacity``
+    positions, 16-token pages) three times: cold, then warm (measured:
+    every kernel in ``required`` must be launched during this run), then
+    traced with torch.profiler over device activity (device time by
+    kernel, device busy share); all three must give the same tokens.
+    Without ``traced`` the third run is left out.  Returns the
+    measurements."""
     SE, T, K = M.SE, M.T, M.K
     phase_s = {"prefill": 0.0, "decode": 0.0}
 
@@ -1193,9 +1355,10 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
         return run
 
     def serve():
-        eng = SE.ServeEngine(cfg, params, batch_slots=4, capacity=1024,
-                             page_size=16, kv_dtype=kv_dtype, device=dev)
-        reqs = [SE.Request(prompt=p, max_new_tokens=16,
+        eng = SE.ServeEngine(cfg, params, batch_slots=slots,
+                             capacity=capacity, page_size=16,
+                             kv_dtype=kv_dtype, device=dev)
+        reqs = [SE.Request(prompt=p, max_new_tokens=max_new,
                            eos_id=cfg.vocab_size) for p in prompts]
         eng.generate(reqs)
         return eng, reqs
@@ -1231,7 +1394,7 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
         check(launches[name] > 0,
               f"kernel {name} was not launched on the serving path{tag}")
     for r in reqs:
-        check(len(r.out_tokens) == 16 and r.finish_reason == "length",
+        check(len(r.out_tokens) == max_new and r.finish_reason == "length",
               f"request of {r.prompt.size} tokens: {r.out_tokens}")
         check(all(0 <= t < cfg.vocab_size for t in r.out_tokens),
               "token out of range")
@@ -1271,6 +1434,7 @@ def serving_phase(M, cfg, params, prompts, dev, required, tag,
         log(f"trace{tag} (third run, profiler on): wall {traced_wall:.4f} "
             f"s, device busy {busy:.4f} s ({100 * busy / traced_wall:.1f}%);"
             f" trace read in {time.perf_counter() - t0:.1f} s")
+
         for name, us in sorted(by_kernel.items(),
                                key=lambda kv: -kv[1])[:15]:
             log(f"  {us / 1e3:10.3f} ms  {name[:110]}")
@@ -1496,19 +1660,35 @@ def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
     kernel's products with w1 | w2 concatenated (the elementwise terms
     excluded), ``scaled_dot_product_attention`` over pages dequantized and
     gathered beforehand."""
+    rows = swiglu_rows(M, timer, entry, qz["w1"], qz["w2"], randn,
+                       (("training", 4096), ("prefill", 2048),
+                        ("decode", 4)))
+    rows["paged_attention_int8"] = []
+    q, kq, vq, ks, vs, table, pos = qz["paged"]
+    rows["paged_attention_int8"].append(paged_row(
+        M, timer, entry, q, (kq, vq, ks, vs), table, pos, 0,
+        f"decode: B={q.shape[0]}, Hq={q.shape[2]}, Hkv={kq.shape[2]}, "
+        f"Dh={q.shape[3]}, int8 pages of {kq.shape[1]}, positions "
+        f"{pos.tolist()}"))
+    return rows
+
+
+def swiglu_rows(M, timer, entry, w1, w2, randn, shapes, tag="") -> dict:
+    """The fused-SwiGLU kernels' timing rows at (label, L) ``shapes`` for
+    weights w1, w2 (d, h): each beside its plain version, its bound and
+    ``torch.matmul`` of its products with w1 | w2 concatenated."""
     KS = M.KS
-    w1, w2 = qz["w1"], qz["w2"]
     d, h = w1.shape
     w12 = torch.cat([w1, w2], dim=1)                       # (d, 2h)
     rows = {n: [] for n in ("fused_swiglu_fwd", "fused_swiglu_bwd_x",
-                            "fused_swiglu_bwd_w", "paged_attention_int8")}
-    for label, L in (("training", 4096), ("prefill", 2048), ("decode", 4)):
+                            "fused_swiglu_bwd_w")}
+    for label, L in shapes:
         x, dy = randn(L, d), randn(L, h)
         _, a, b = KS.fused_swiglu_fwd(x, w1, w2)
         dadb = torch.cat(KS.swiglu_grads(dy, a, b, BF16), dim=1)
         ops = 4.0 * L * d * h
         reps = 3 if L > 4 else 5
-        shape = f"{label}: L={L}, d={d}, h={h}"
+        shape = f"{tag}{label}: L={L}, d={d}, h={h}"
         rows["fused_swiglu_fwd"].append(entry(
             timer(lambda: KS.fused_swiglu_fwd(x, w1, w2)),
             timer(lambda: KS.fused_swiglu_fwd_plain(x, w1, w2), warm=1,
@@ -1532,13 +1712,6 @@ def qwen_kernel_timing(M, timer, entry, qz, randn) -> dict:
             shape + " (library: x^T @ [da|db])"))
         del x, dy, a, b, dadb
     del w12
-
-    q, kq, vq, ks, vs, table, pos = qz["paged"]
-    rows["paged_attention_int8"].append(paged_row(
-        M, timer, entry, q, (kq, vq, ks, vs), table, pos, 0,
-        f"decode: B={q.shape[0]}, Hq={q.shape[2]}, Hkv={kq.shape[2]}, "
-        f"Dh={q.shape[3]}, int8 pages of {kq.shape[1]}, positions "
-        f"{pos.tolist()}"))
     return rows
 
 
@@ -1595,26 +1768,37 @@ def gmm_dw_row(M, timer, entry, lhs, dout, disp, shape) -> dict:
         timer(lambda: torch._grouped_mm(lhs_t, dout, offs=ends)), shape)
 
 
-def flash_row(M, timer, entry, q, k, v, window, shape) -> dict:
+def flash_row(M, timer, entry, q, k, v, window, shape, cap=0.0) -> dict:
     """Phase 4's row for the causal flash-attention forward: operations
-    4 B H Dh a live (query, key) pair; library: SDPA."""
+    4 B H Dh a live (query, key) pair; library: SDPA (with a boolean
+    causal-window mask where the window is shorter than the sequence;
+    none with a softcap, which SDPA does not compute)."""
     B, T_, H, Dh = q.shape
     pairs = sum(min(t + 1, window) if window else t + 1 for t in range(T_))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = None
+    if not cap and (not window or window >= T_):
+        library = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+                                     enable_gqa=True))
+    elif not cap:
+        i = torch.arange(T_, device=q.device)
+        mask = (i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+        library = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
+                                     enable_gqa=True))
     return entry(
         timer(lambda: M.KF.flash_attention(q, k, v, causal=True,
-                                           window=window)),
+                                           window=window, cap=cap)),
         timer(lambda: M.KF.flash_attention_plain(q, k, v, causal=True,
-                                                 window=window, chunk=512),
+                                                 window=window, cap=cap,
+                                                 chunk=512),
               warm=1, reps=3),
         (2 * q.numel() + k.numel() + v.numel()) * EB,
-        4.0 * B * H * Dh * pairs,
-        timer(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)),
-        shape)
+        4.0 * B * H * Dh * pairs, library, shape)
 
 
-def paged_row(M, timer, entry, q, pages, table, pos, window, shape) -> dict:
+def paged_row(M, timer, entry, q, pages, table, pos, window, shape,
+              cap=0.0) -> dict:
     """Phase 4's row for paged decode attention over model-dtype pages
     ``(k, v)`` or int8 pages ``(kq, vq, ks, vs)``: bytes are q read and
     the output written, each live position's k and v (values and int8
@@ -1644,12 +1828,12 @@ def paged_row(M, timer, entry, q, pages, table, pos, window, shape) -> dict:
         mask &= t_ids > pos[:, None].long() - window
     qd = q.transpose(1, 2)
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    library = None if cap else timer(lambda: sdpa(
+        qd, kd, vd, attn_mask=mask[:, None, None, :], enable_gqa=True))
     return entry(
-        timer(lambda: kernel(q, *pages, table, pos, window=window)),
-        timer(lambda: plain(q, *pages, table, pos, window=window)),
-        nbytes, 4.0 * sum(live) * Hq * Dh,
-        timer(lambda: sdpa(qd, kd, vd, attn_mask=mask[:, None, None, :],
-                           enable_gqa=True)),
+        timer(lambda: kernel(q, *pages, table, pos, window=window, cap=cap)),
+        timer(lambda: plain(q, *pages, table, pos, window=window, cap=cap)),
+        nbytes, 4.0 * sum(live) * Hq * Dh, library,
         shape, launches=2, dependent=True)   # split walk + merge
 
 
@@ -2018,15 +2202,17 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
         idx, off = disp.expert_token_indices, disp.expert_token_offsets
         if dy is None:
             dy = randn(*x.shape, dtype=x.dtype)
-        got = [KFM.fused_moe_fwd(x, g_slot, idx, off, *ws)]
+        tim = disp.token_index_map
+        got = [KFM.fused_moe_fwd(x, g_slot, idx, off, *ws, tim)]
         want = [KFM.fused_moe_fwd_plain(x, g_slot, idx, off, *ws)]
-        got += KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws)
+        got += KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws, tim)
         want += KFM.fused_moe_bwd_plain(x, dy, g_slot, idx, off, *ws)
         if x.dtype == BF16:
-            # one writer per element of dgates and dw1-3 (dx sums by atomics)
-            again = KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws)
-            for out, g_, a_ in zip(("dgates", "dw1", "dw2", "dw3"), got[2:],
-                                   again[1:]):
+            # one writer per element of every output (C9)
+            again = [KFM.fused_moe_fwd(x, g_slot, idx, off, *ws, tim),
+                     *KFM.fused_moe_bwd(x, dy, g_slot, idx, off, *ws, tim)]
+            for out, g_, a_ in zip(("y", "dx", "dgates", "dw1", "dw2",
+                                    "dw3"), got, again):
                 check(torch.equal(g_, a_),
                       f"fused_moe {name} {out}: a repeated call differs")
             del again
@@ -2054,7 +2240,8 @@ def fused_kernel_parity(M, dev, rng, randn, errs, moe, x_tr, disp_tr, x_dec,
             h_, KFM.bwd_pass_width(idx.shape[0], h_))]
         log(f"parity fused_moe {name}: max |err| / scale (y, dx, dgates, "
             f"dw1, dw2, dw3) {rel}; backward h-ranges {plan}"
-            + ("; repeated backward bit-equal" if x.dtype == BF16 else ""))
+            + ("; repeated forward and backward bit-equal"
+               if x.dtype == BF16 else ""))
         return dy
 
     g_tr = slot_gates(M, x_tr, moe["wg"], disp_tr, k)
@@ -2221,27 +2408,30 @@ def fused_kernel_timing(M, timer, entry, fz, moe):
         meta = S * 8 + (E + 1) * 4
         plain_reps = 3 if label == "training" else 5
         shape = f"{label}: L={L}, S={S}, d={d}, h={h}, E={E}"
-        # kernel launches a call: 2 an h-range forward, 4 a range and the
-        # dgates sum backward
+        # kernel launches a call: 2 an h-range and the slot sum forward, 4
+        # a range, the dgates sum and the slot sum backward
         n_fwd = len(KFM.h_ranges(h, KFM.pass_width(S, h)))
         n_bwd = len(KFM.h_ranges(h, KFM.bwd_pass_width(S, h)))
+        tim = disp.token_index_map
         rows["fused_moe_fwd"].append(entry(
-            timer(lambda: KFM.fused_moe_fwd(x, g, idx, off, w1, w2, w3)),
+            timer(lambda: KFM.fused_moe_fwd(x, g, idx, off, w1, w2, w3,
+                                            tim)),
             timer(lambda: KFM.fused_moe_fwd_plain(x, g, idx, off, w1, w2,
                                                   w3), warm=1,
                   reps=plain_reps),
             L * d * EB + meta + wbytes + L * d * 4, 6.0 * n * d * h,
             timer(lib_fwd), shape + " (library: 2 grouped_mm, composition)",
-            launches=2 * n_fwd))
+            launches=2 * n_fwd + 1))
         rows["fused_moe_bwd"].append(entry(
-            timer(lambda: KFM.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3)),
+            timer(lambda: KFM.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3,
+                                            tim)),
             timer(lambda: KFM.fused_moe_bwd_plain(x, dy, g, idx, off, w1,
                                                   w2, w3), warm=1,
                   reps=plain_reps),
             2 * L * d * EB + meta + wbytes + L * d * 4 + S * 4
             + 3 * E * d * h * 4, 16.0 * n * d * h,
             timer(lib_bwd), shape + " (library: 6 grouped_mm, composition)",
-            launches=4 * n_bwd + 1))
+            launches=4 * n_bwd + 2))
         del xg, dyg, ab, y_swi, dadb, da, db
     return rows
 
@@ -2705,11 +2895,15 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
     torch.distributed.destroy_process_group()
 
 
-def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None):
-    """Phases 7, 8, 12 and 18: a training step at full width through
-    ``make_train_step`` (on ``mesh``'s ranks when given); every kernel in
-    ``required`` must be launched during the warm steps, and each kernel
-    in ``per_step`` exactly that many times a step.  Returns the
+def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None,
+                   steps_warm=5, spans=True):
+    """Phases 7, 8, 12, 18, 34 and 36: a training step at full width
+    through ``make_train_step`` (on ``mesh``'s ranks when given); every
+    kernel in ``required`` must be launched during the ``steps_warm`` warm
+    steps, and each kernel in ``per_step`` exactly that many times a step.
+    The traced step records host activity too, for the step's named spans,
+    unless ``spans`` is False (device activity only: a model of many small
+    ops, whose host trace takes a minute to read).  Returns the
     measurements."""
     from repro_torch import sharding as SH
     from repro_torch.configs import TrainConfig
@@ -2729,7 +2923,6 @@ def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None):
     batches = make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
                                   tcfg.batch_size, tcfg.seed)
     tokens = tcfg.batch_size * tcfg.seq_len
-    steps_warm = 5
     torch.cuda.synchronize()
     log(f"train [{tag}]: {cfg.name} full width, {cfg.num_layers} layers, "
         f"moe_impl={cfg.moe_impl}, gmm_backend "
@@ -2774,16 +2967,20 @@ def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None):
               f"[{tag}] steps, expected {n} a step")
     step_s = statistics.median(m["step_s"] for m in warm)
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA] + (
+            [ProfilerActivity.CPU] if spans else [])) as prof:
         traced = run(next(batches), "traced step")
     by_kernel = _device_time_by_kernel(prof)
     busy = sum(by_kernel.values()) / 1e6
     # The forward and optimizer spans own their kernels; the backward's run
     # on autograd's thread, so the backward is the busy time left over.
-    spans = {ev.key: ev.device_time_total / 1e3 for ev in prof.key_averages()
-             if ev.key in ("train_step.forward", "train_step.optimizer")}
-    spans["backward (rest)"] = busy * 1e3 - sum(spans.values())
+    if spans:
+        spans = {ev.key: ev.device_time_total / 1e3
+                 for ev in prof.key_averages()
+                 if ev.key in ("train_step.forward", "train_step.optimizer")}
+        spans["backward (rest)"] = busy * 1e3 - sum(spans.values())
+    else:
+        spans = {}
     log(f"train [{tag}] trace (one step, profiler on): wall "
         f"{traced['step_s']:.4f} "
         f"s, device busy {busy:.4f} s "
@@ -3204,13 +3401,14 @@ def paper_table_phase(dev, table=None) -> dict:
 
 def cpu_train_crosscheck(dev, arch="mixtral-8x7b", far_floor=0,
                          **overrides):
-    """Phases 9 and 19: one training step of the reduced ``arch``
-    (float32) with ``overrides`` from the same weights and batch on the
-    card and on the CPU.  The loss's gradients must agree leaf by leaf
-    (``STEP_RTOL`` relative over ``STEP_RTOL`` of each leaf's scale, as
-    ``tests/test_torch_train.py`` holds them to the reference); then the
-    step's metrics and parameters as set out at ``STEP_FAR_SHARE``, with at
-    least ``far_floor`` elements of each leaf allowed beyond 2e-3 lr."""
+    """Phases 9, 19, 26, 34 and 36: one training step of the reduced
+    ``arch`` (float32) with ``overrides`` from the same weights and batch
+    on the card and on the CPU.  The loss's gradients must agree leaf by
+    leaf (``STEP_RTOL`` relative over ``STEP_RTOL`` of each leaf's scale,
+    as ``tests/test_torch_train.py`` holds them to the reference); then
+    the step's metrics and parameters as set out at ``STEP_FAR_SHARE``,
+    with at least ``far_floor`` elements of each leaf allowed beyond 2e-3
+    lr."""
     from repro_torch.configs import TrainConfig, get_config
     from repro_torch.data.pipeline import make_batch_iterator
     from repro_torch.interop import init_params
@@ -3385,12 +3583,16 @@ def moe30_kernels(M, dev, timer, entry, errs, cfg) -> dict:
     for label, sh in (("training", tr), ("decode", dec)):
         idx, off_ = sh.disp.expert_token_indices, sh.disp.expert_token_offsets
         sh.dy = randn(sh.L, d)
-        got = [KFM.fused_moe_fwd(sh.x, sh.g_slot, idx, off_, *ws)]
+        tim = sh.disp.token_index_map
+        got = [KFM.fused_moe_fwd(sh.x, sh.g_slot, idx, off_, *ws, tim)]
+        check(torch.equal(got[0], KFM.fused_moe_fwd(sh.x, sh.g_slot, idx,
+                                                    off_, *ws, tim)),
+              f"fused_moe_fwd [{tag} {label}]: a repeated call differs")
         want = [KFM.fused_moe_fwd_plain(sh.x, sh.g_slot, idx, off_, *ws)]
-        # one writer per element of dgates and dw1-3 (dx sums by atomics)
-        bwd = [KFM.fused_moe_bwd(sh.x, sh.dy, sh.g_slot, idx, off_, *ws)
+        # one writer per element of every output (C9)
+        bwd = [KFM.fused_moe_bwd(sh.x, sh.dy, sh.g_slot, idx, off_, *ws, tim)
                for _ in range(2)]
-        check(all(torch.equal(a, b) for a, b in zip(bwd[0][1:], bwd[1][1:])),
+        check(all(torch.equal(a, b) for a, b in zip(bwd[0], bwd[1])),
               f"fused_moe_bwd [{tag} {label}]: a repeated call differs")
         got += bwd[0]
         want += KFM.fused_moe_bwd_plain(sh.x, sh.dy, sh.g_slot, idx, off_,
@@ -3412,7 +3614,7 @@ def moe30_kernels(M, dev, timer, entry, errs, cfg) -> dict:
         log(f"parity fused_moe [{tag} {label}: S={sh.S}, {sh.live} live "
             f"experts]: max |err| / scale (y, dx, dgates, dw1, dw2, dw3) "
             f"{rel}; h-ranges forward {fwd_plan}, backward {bwd_plan}; "
-            "repeated backward bit-equal")
+            "repeated forward and backward bit-equal")
         del got, want, bwd
 
     # the combine at k = 8
@@ -4338,16 +4540,321 @@ def runtime_phase(M, cfg, params, prompts, dev, tag, rounds=3) -> dict:
             "diverged": diverged, "queues": qstats}
 
 
-def _device_time_by_kernel(prof) -> dict[str, float]:
-    """Self device time (us) of each device kernel in a profiler trace
-    (the training step's named spans are ranges, not kernels)."""
-    out = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0.0)
-        if (us > 0 and ev.device_type.name == "CUDA"
-                and not ev.key.startswith("train_step.")):
-            out[ev.key] = out.get(ev.key, 0.0) + us
+# The recurrent and hybrid paths (phases 34-36): Hymba-1.5B trains at all
+# 32 layers on 2 x 2048 tokens, 3 warm steps; decode runs B = 4 requests
+# teacher-forced through a 64-token prompt and then 32 greedy tokens; the
+# 2-layer run past Hymba's 1024-token window decodes 1280 positions (a
+# multiple of the 256-position Mamba chunk, so the forward it is held to
+# takes them whole).  xLSTM-1.3B trains one group (7 mLSTM + 1 sLSTM
+# layers): 48 layers with float32 masters and AdamW take ~58 GB before
+# activations.
+NEW_WARM_STEPS = 3
+DECODE_B, DECODE_PROMPT, DECODE_NEW = 4, 64, 32
+WRAP_LEN = 1280
+
+
+class _ScanChunks:
+    """Within this context the port's recurrent sublayers take ``chunk``
+    positions a chunk (the forward's own float32 spread under another,
+    equally valid chunking)."""
+
+    def __init__(self, ssm, chunk):
+        self.fns = (ssm.mlstm_sublayer, ssm.mamba_sublayer)
+        self.chunk = chunk
+
+    def __enter__(self):
+        self.saved = [dict(f.__kwdefaults__) for f in self.fns]
+        for f in self.fns:
+            f.__kwdefaults__["chunk"] = self.chunk
+
+    def __exit__(self, *exc):
+        for f, kw in zip(self.fns, self.saved):
+            f.__kwdefaults__.update(kw)
+
+
+def forward_spread(M, cfg, params, toks, full) -> float:
+    """The largest distance between ``full`` (the forward's logits) and
+    two other valid computations of the same function on the card: the
+    plain attention and FFN instead of the kernels, and the recurrent
+    scans in 16-position chunks."""
+    T = M.T
+    alt = [T.forward(params, {"tokens": toks}, cfg.replace(
+        use_pallas=False))[0]]
+    with _ScanChunks(M.SSM, 16):
+        alt.append(T.forward(params, {"tokens": toks}, cfg)[0])
+    return max(float((a - full).abs().max()) for a in alt)
+
+
+def decode_parity(M, cfg, params, toks, dev, tag, floor=CPU_LOGIT_ATOL,
+                  capacity=None) -> dict:
+    """``decode_step`` teacher-forced over every position of ``toks``
+    (B, S) from ``init_cache(cfg, B, S)`` against ``forward``'s logits on
+    the card.  Tolerance: ``floor`` (in bf16 the CPU cross-check's
+    ``CPU_LOGIT_ATOL``) plus twice the forward's own spread
+    (``forward_spread``): decode is the same function rounded at other
+    points (decode attention in plain PyTorch over the cache, the scans
+    one position at a time).  Every
+    step's argmax must equal the forward's unless the forward's top two
+    lie within the tolerance.  The cache holds ``capacity`` positions
+    (default S).  Returns the cache after the last step, the last logits
+    and the measurements."""
+    T = M.T
+    B, S = toks.shape
+    full = T.forward(params, {"tokens": toks}, cfg)[0]
+    spread = forward_spread(M, cfg, params, toks, full)
+    tol = floor + 2 * spread
+    cache = T.init_cache(cfg, B, capacity or S, dev)
+    worst, flips = 0.0, 0
+    for t in range(S):
+        lg, cache = T.decode_step(params, cache, {"tokens": toks[:, t:t + 1]},
+                                  t, cfg)
+        ref = full[:, t]
+        worst = max(worst, float((lg - ref).abs().max()))
+        top2 = ref.topk(2).values
+        same = lg.argmax(-1) == ref.argmax(-1)
+        check(bool((same | (top2[:, 0] - top2[:, 1] <= tol)).all()),
+              f"decode{tag}: step {t} argmax differs from the forward's "
+              "beyond a near tie")
+        flips += int((~same).sum())
+    log(f"decode parity{tag}: {S} positions x B={B}, max |logit diff| vs "
+        f"forward {worst:.4g} (tol {tol:.4g} = {floor} + 2 x the "
+        f"forward's own spread {spread:.4g}), max |logit| "
+        f"{float(full.abs().max()):.3f}, argmax flips at near ties {flips}")
+    check(worst <= tol, f"decode{tag}: logits disagree with the forward")
+    del full
+    return cache, lg, {"max_logit_diff": worst, "tol": tol,
+                       "forward_spread": spread, "near_tie_flips": flips}
+
+
+def decode_phase(M, cfg, dev, tag, K, cut_cfg=None, cut_len=WRAP_LEN) -> dict:
+    """Phases 35 and 36 (decode): random bf16 weights from seed 0, B =
+    DECODE_B requests teacher-forced through a DECODE_PROMPT-token prompt
+    by ``decode_step`` (held against ``forward``: ``decode_parity``, first
+    with the same draws in float32, then in bf16), then
+    DECODE_NEW greedy tokens timed, and the same greedy tokens again from
+    a copy of the cache under torch.profiler (the same tokens; device
+    busy share).  With ``cut_cfg`` (fewer layers, its own dtype) a run of
+    ``cut_len`` positions is held against the forward the same way: Hymba
+    cut to 2 layers in bf16 over WRAP_LEN positions, past the 1024-token
+    window; xLSTM cut to 8 layers in float32, where the forward's own
+    spread is still small (at 48 layers two valid computations of a
+    random-init xLSTM's logits differ by several units, in float32 too).
+    """
+    T = M.T
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = M.init_params(cfg, gen, dev)
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    toks = torch.randint(3, cfg.vocab_size, (DECODE_B, DECODE_PROMPT),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    log(f"decode{tag}: weights {n_bytes / 1e9:.2f} GB bf16, "
+        f"{cfg.num_layers} layers; B={DECODE_B}, prompt {DECODE_PROMPT}, "
+        f"{DECODE_NEW} greedy tokens")
+    out = {"weight_bytes": n_bytes}
+    with torch.inference_mode():
+        # in float32 first (the same draws, unrounded): rounding noise 2^-16
+        # of bf16's, so the parity is held where the random-init model's
+        # amplification of it still leaves a sharp check
+        cfg32 = cfg.replace(dtype="float32")
+        p32 = M.init_params(cfg32, torch.Generator(device=dev).manual_seed(0),
+                            dev, dtype=torch.float32)
+        # floor 1e-2: float32 logits of size ~5 summed in other orders
+        # through every layer
+        _, _, out["parity_float32"] = decode_parity(
+            M, cfg32, p32, toks, dev, tag + " float32", floor=1e-2)
+        del p32, _
+        torch.cuda.empty_cache()
+        cache, lg, out["parity"] = decode_parity(
+            M, cfg, params, toks, dev, tag,
+            capacity=DECODE_PROMPT + DECODE_NEW)
+        start = _clone_cache(cache)
+
+        def greedy(c, lg_):
+            tok, toks_out = lg_.argmax(-1, keepdim=True), []
+            for i in range(DECODE_NEW):
+                lg_, c = T.decode_step(params, c, {"tokens": tok},
+                                       DECODE_PROMPT + i, cfg)
+                tok = lg_.argmax(-1, keepdim=True)
+                toks_out.append(tok)
+            return torch.cat(toks_out, 1)
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        got = greedy(cache, lg)
+        torch.cuda.synchronize()
+        dec_s = time.perf_counter() - t0
+        launches = K.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            again = greedy(start, lg)
+            torch.cuda.synchronize()
+            traced_s = time.perf_counter() - t0
+        check(torch.equal(got, again), f"decode{tag}: a traced rerun gave "
+              "other greedy tokens")
+        busy = sum(_device_time_by_kernel(prof).values()) / 1e6
+        del start, cache
+        tps = DECODE_B * DECODE_NEW / dec_s
+        log(f"decode{tag} launches over {DECODE_NEW} greedy steps: "
+            f"{launches}")
+        log(f"decode{tag}: {DECODE_B * DECODE_NEW} greedy tokens in "
+            f"{dec_s:.4f} s ({tps:.1f} tok/s, {1e3 * dec_s / DECODE_NEW:.2f}"
+            f" ms a step); traced rerun wall {traced_s:.4f} s, device busy "
+            f"{busy:.4f} s ({100 * busy / traced_s:.1f}%); peak memory "
+            f"{peak / 2 ** 30:.3f} GiB; tokens[0] {got[0].tolist()}")
+        out.update(decode_tok_per_s=tps, decode_s=dec_s, busy_s=busy,
+                   traced_wall_s=traced_s, peak_bytes=peak,
+                   launches=launches)
+        if cut_cfg is not None:
+            if cut_cfg.dtype == cfg.dtype:
+                cut = dict(params, layers=params["layers"][:cut_cfg.num_layers])
+            else:
+                cut = M.init_params(cut_cfg, torch.Generator(
+                    device=dev).manual_seed(0), dev, dtype=getattr(
+                        torch, cut_cfg.dtype))
+            ctoks = torch.randint(
+                3, cfg.vocab_size, (2, cut_len),
+                generator=torch.Generator(device=dev).manual_seed(2),
+                device=dev)
+            f32 = cut_cfg.dtype == "float32"
+            _, _, out["cut"] = decode_parity(
+                M, cut_cfg, cut, ctoks, dev,
+                f" [{cut_cfg.name}, {cut_cfg.num_layers} layers, "
+                f"{cut_len} positions, {cut_cfg.dtype}"
+                + (f", window {cut_cfg.sliding_window}]"
+                   if cut_cfg.sliding_window else "]"),
+                floor=1e-2 if f32 else CPU_LOGIT_ATOL)
+            del cut
+    del params
+    torch.cuda.empty_cache()
     return out
+
+
+def new_shape_kernels(M, dev, timer, entry, errs) -> dict:
+    """Phase 39: the kernels at the shapes the new paths give them, each
+    against its plain version and timed beside its bound, plain time and
+    library time: flash attention at Hymba-1.5B's heads (25/5 of 64,
+    window 1024, B = 2, S = 2048) and at Gemma2-27B's (32/16 of 128,
+    window 4096, softcap 50, B = 1, S = 8192); the fused-SwiGLU trio at
+    Hymba's widths (d = 1600, off the 128-row tile, h = 5504) and
+    Gemma2's (d = 4608, h = 36864) at training (L = 4096) and decode
+    (L = 4); paged decode attention with Gemma2's window and softcap at
+    its GQA group of 2.  Returns the timing rows by kernel."""
+    KF, KS, KP = M.KF, M.KS, M.KP
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape, dtype=BF16, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {n: [] for n in ("flash_attention", "fused_swiglu_fwd",
+                            "fused_swiglu_bwd_x", "fused_swiglu_bwd_w",
+                            "paged_attention")}
+    for label, (B, S, H, Hkv, Dh, window, cap) in (
+            ("hymba-1.5b", (2, 2048, 25, 5, 64, 1024, 0.0)),
+            ("gemma2-27b", (1, 8192, 32, 16, 128, 4096, 50.0))):
+        q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), \
+            randn(B, S, Hkv, Dh)
+        got = KF.flash_attention(q, k, v, causal=True, window=window,
+                                 cap=cap)
+        want = KF.flash_attention_plain(q, k, v, causal=True, window=window,
+                                        cap=cap, chunk=512)
+        e = require_close(f"flash_attention [{label}]", got, want, 0.0,
+                          FLASH_ATOL)
+        errs["flash_attention"] = max(errs["flash_attention"], e)
+        shape = (f"{label}: B={B}, S={S}, {H}/{Hkv} heads of {Dh}, window "
+                 f"{window}" + (f", softcap {cap:g}" if cap else ""))
+        log(f"parity flash_attention [{shape}]: max |err| {e:.4g} (atol "
+            f"{FLASH_ATOL})")
+        rows["flash_attention"].append(flash_row(
+            M, timer, entry, q, k, v, window, shape, cap=cap))
+        del q, k, v, got, want
+    for label, (d, h) in (("hymba-1.5b", (1600, 5504)),
+                          ("gemma2-27b", (4608, 36864))):
+        w1 = randn(d, h, scale=d ** -0.5)
+        w2 = randn(d, h, scale=d ** -0.5)
+        for L in (4096, 4):
+            x, dy = randn(L, d), randn(L, h)
+            got = list(KS.fused_swiglu_fwd(x, w1, w2))
+            check(all(torch.equal(a, b) for a, b in zip(
+                got, KS.fused_swiglu_fwd(x, w1, w2))),
+                f"fused_swiglu [{label} L={L}]: repeated forward differs")
+            want = list(KS.fused_swiglu_fwd_plain(x, w1, w2))
+            a, b = got[1], got[2]
+            got.append(KS.fused_swiglu_bwd_x(dy, a, b, w1, w2))
+            want.append(KS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2))
+            got += KS.fused_swiglu_bwd_w(x, dy, a, b)
+            want += KS.fused_swiglu_bwd_w_plain(x, dy, a, b)
+            rel = []
+            for key, out, g_, w_ in zip(
+                    ("fused_swiglu_fwd",) * 3 + ("fused_swiglu_bwd_x",)
+                    + ("fused_swiglu_bwd_w",) * 2,
+                    ("y", "a", "b", "dx", "dw1", "dw2"), got, want):
+                scale = float(w_.float().abs().max())
+                e = require_close(f"fused_swiglu [{label} L={L}] {out}", g_,
+                                  w_, 0.0, FUSED_SCALE_STEP * scale
+                                  + GMM_ATOL)
+                errs[key] = max(errs[key], e)
+                rel.append(round(e / max(scale, 1e-30), 6))
+            log(f"parity fused_swiglu [{label}: L={L}, d={d}, h={h}]: max "
+                f"|err| / scale (y, a, b, dx, dw1, dw2) {rel}; repeated "
+                "forward bit-equal")
+            del x, dy, got, want, a, b
+        for name, rs in swiglu_rows(M, timer, entry, w1, w2, randn,
+                                    (("training", 4096), ("decode", 4)),
+                                    tag=f"{label} ").items():
+            rows[name].extend(rs)
+        del w1, w2
+    # paged decode attention, Gemma2's heads (group 2), its window and
+    # softcap, positions on both sides of the window's length
+    ps, pps, Hq, Hkv, Dh = 16, 320, 32, 16, 128
+    n_pages = 1 + 4 * pps
+    kp, vp = randn(n_pages, ps, Hkv, Dh), randn(n_pages, ps, Hkv, Dh)
+    q = randn(4, 1, Hq, Dh)
+    table = (torch.randperm(n_pages - 1, generator=torch.Generator()
+                            .manual_seed(26)) + 1)[:4 * pps].reshape(
+        4, pps).to(torch.int32).to(dev)
+    pos = torch.tensor([100, 4095, 4097, pps * ps - 1], dtype=torch.int32,
+                       device=dev)
+    got = KP.paged_attention(q, kp, vp, table, pos, window=4096, cap=50.0)
+    want = KP.paged_attention_plain(q, kp, vp, table, pos, window=4096,
+                                    cap=50.0)
+    e = require_close("paged_attention [gemma2-27b]", got, want, 0.0,
+                      PAGED_ATOL)
+    errs["paged_attention"] = max(errs["paged_attention"], e)
+    shape = (f"gemma2-27b decode: B=4, Hq={Hq}, Hkv={Hkv}, Dh={Dh}, page "
+             f"{ps}, window 4096, softcap 50, positions {pos.tolist()}")
+    log(f"parity paged_attention [{shape}]: max |err| {e:.4g} (atol "
+        f"{PAGED_ATOL})")
+    rows["paged_attention"].append(paged_row(
+        M, timer, entry, q, (kp, vp), table, pos, 4096, shape, cap=50.0))
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def _device_time_by_kernel(prof) -> dict[str, float]:
+    """Device time (us) of each device kernel, copy and fill in a profiler
+    trace, read from the tracer's raw events (building the profiler's
+    per-event Python objects took a minute for a serving trace of
+    Gemma2-27B's ~170,000 kernels); the training step's named spans are
+    ranges, not kernels.  It reads the busy time that ``key_averages``
+    read before (0.0727 s both ways on phase 5's trace)."""
+    out = {}
+    for ev in prof.profiler.kineto_results.events():
+        name = ev.name()
+        if (ev.device_type().name == "CUDA" and not ev.is_user_annotation()
+                and not name.startswith("train_step.")):
+            out[name] = out.get(name, 0.0) + ev.duration_ns() / 1e3
+    return out
+
+
+
 
 
 def _leaves(tree):
@@ -4367,6 +4874,18 @@ def _map_leaves(tree, fn):
     if isinstance(tree, list):
         return [_map_leaves(v, fn) for v in tree]
     return fn(tree)
+
+
+def _clone_cache(tree):
+    """A copy of a decode cache (lists of tuples and named tuples of
+    tensors)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(_clone_cache(t) for t in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_clone_cache(t) for t in tree)
+    return tree
 
 
 def _to_device(tree, device):

@@ -41,16 +41,18 @@
 //      chunk, stored transposed, so that the gathered operand is the
 //      128-wide A;
 //   4. moe_down_wgmma<SCATTER, TRANS_B> (moe_wgmma.cuh) with two products:
-//      dx[idx[s]] += da w1[e][:, range]^T + db w2[e][:, range]^T, w1 and
-//      w2 read K-major where they lie.
-// and a last kernel sums each slot's dgates partials over the column tiles
-// in a fixed order.  The ranges write disjoint column (dw1, dw2) or row
-// (dw3) blocks, so the weight gradients and dgates are never summed across
-// blocks or launches: a repeated call gives the same bits.  dx alone sums
-// across ranges and a token's k slots with float32 reductions (float4,
-// into the zeroed dx), whose order varies from run to run; the tolerance
-// against the plain version covers it.  A call is 4 ceil(h / hc) + 1
-// kernel launches (49 at Mixtral's training shape, 5 at decode).
+//      dxs[s] += da w1[e][:, range]^T + db w2[e][:, range]^T into a float32
+//      (S, d) per-slot buffer, w1 and w2 read K-major where they lie.
+// and two last kernels: one sums each slot's dgates partials over the
+// column tiles in a fixed order, one (fused_moe.cuh: slot_sum) each
+// token's rows of dxs into dx in a fixed order.  The ranges write disjoint
+// column (dw1, dw2) or row (dw3) blocks, and a slot row of dxs belongs to
+// one tile of each launch (one float4 reduction an element a launch, the
+// launches in stream order), so every output element has one writer: a
+// repeated call gives the same bits.  (Until the per-slot buffer, dx took
+// float4 reductions from a token's k slots, whose order varied from run to
+// run.)  A call is 4 ceil(h / hc) + 2 kernel launches (50 at Mixtral's
+// training shape, 6 at decode).
 //
 // Measured on an H100 80GB HBM3 at 700 W at Mixtral's training shape
 // (tools/fused_moe_ranges.py, tools/kernel_ab.py; PERF.md): dw3 from a
@@ -526,8 +528,10 @@ bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
 // float32: dx (L, d), zeroed by the caller; dg (S,), dw1, dw2 (E, d, h),
 // dw3 (E, h, d).  With a workspace (bf16, d and h multiples of 8, 16-byte
 // aligned pointers: the caller checks): ws holds three bf16 (S, hc) chunks,
-// hc a multiple of 128 (kernels/fused_moe.py:bwd_pass_width), and part a
-// float32 (ceil(h / 128), S); every output but dx is written whole.
+// hc a multiple of 128 (kernels/fused_moe.py:bwd_pass_width), part a
+// float32 (ceil(h / 128), S) and dxs a float32 (S, d), zeroed by the
+// caller; tim is the dispatch's (L, k) token_index_map, each token's slots
+// in the order they are summed; every output is written whole.
 // Without one (ws null: float32, or widths or pointers the tensor-core path
 // does not take), every output must be zeroed by the caller.
 REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
@@ -537,6 +541,7 @@ REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
                                   float* dg, float* dw1, float* dw2,
                                   float* dw3, void* ws, float* part, int hc,
                                   int S, int L, int d, int h, int E,
+                                  float* dxs, const int* tim, int k,
                                   cudaStream_t stream) {
   if (E < 1 || d <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   if (S <= 0 || L <= 0) return 0;
@@ -546,7 +551,8 @@ REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
                     repro::aligned16(w3);
   if (ws != nullptr) {
     if (!fast || part == nullptr || !repro::aligned16(ws) || hc <= 0 ||
-        hc % bup::BN != 0)
+        hc % bup::BN != 0 || dxs == nullptr || !repro::aligned16(dxs) ||
+        !repro::aligned16(dx) || tim == nullptr || k <= 0)
       return (int)cudaErrorInvalidValue;
     const int n_sm = sm_count();
     if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
@@ -625,14 +631,15 @@ REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
           myg, myg, myg, mo3, mo3, (const bf16*)dy, d, yg, yg, hc, idx,
           offsets, S, L, d, hw, E);
       k_dx<<<grid_dx, down::THREADS, down::SMEM, stream>>>(
-          mda_x, m1t, mdb_x, m2t, idx, nullptr, offsets, dx, S, L, d, E, h0,
-          hw, 1);
+          mda_x, m1t, mdb_x, m2t, idx, nullptr, offsets, dxs, S, L, d, E,
+          h0, hw, 1);
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
     const int n_ct = (h + bup::BN - 1) / bup::BN;
     sum_dgates<<<std::min((S + 255) / 256, 4 * n_sm), 256, 0, stream>>>(
         part, offsets, S, E, n_ct, dg);
+    repro::fused::slot_sum(dxs, tim, k, dx, L, d, S, stream);
   } else if (fast) {
     return (int)cudaErrorInvalidValue;
   } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {

@@ -32,25 +32,33 @@
 //   down tiles (128 slot rows of one expert, 256 columns of d): chunk rows
 //        (contiguous in slot order) and w3[e][range, d tile] arrive by
 //        TMA; m64n256k16 from shared memory; the epilogue adds g_slot[s]
-//        acc into y[idx[s]] with float4 reductions (neighbouring lanes
-//        swap a row's halves first).
-// So y takes S d ceil(h / hc) reductions (2.3e8 at training, 32x fewer)
-// and every other sum stays in registers.  On an H100 80GB HBM3 at
+//        acc into row s of a float32 (S, d) per-slot buffer ys with float4
+//        reductions (neighbouring lanes swap a row's halves first);
+// and after the last range one more kernel (fused_moe.cuh: slot_sum) sums
+// each token's slots of ys into y in a fixed order.  A slot row belongs
+// to one tile of each launch, so each element of ys takes one reduction a
+// launch, and the launches add in stream order: every element of ys and
+// of y has one writer and a repeated call gives the same bits.  (Until the
+// per-slot buffer, the down kernel reduced into y[idx[s]], where a
+// token's k slots met in an order that varied from run to run: millions
+// of y's elements differed in their last bit between two calls at
+// Mixtral's and Qwen3-30B-A3B's training shapes.)  ys costs S d 4 bytes of
+// workspace (128 MiB at S = 8192, d = 4096); every other sum stays in
+// registers.  On an H100 80GB HBM3 at
 // 700 W the first version's reductions took about half of its 31 ms at
 // training (PERF.md §6 has the profile and this design's times).  Both
 // kernels are persistent (one block per SM walks the tiles, row tiles
 // fastest, so the blocks at work share their weight tiles in L2) and
 // mask every ragged edge: rows past an expert's end are computed and
 // never stored, columns past the range or past d are zero-filled by TMA
-// or skipped, the tail of the contraction reads zeros.  The order of the
-// reductions varies from run to run (the tolerance against the plain
-// version says so).
+// or skipped, the tail of the contraction reads zeros.
 //
 // Bound: operations (6 S d h; 2.9 TFLOP at S = 8192, d = 4096, h = 14336)
 // in training and prefill, the bytes of the touched experts' weights at
 // decode.  float32 inputs, and d or h not a multiple of 8 (or unaligned
 // pointers), take a plain float32-FMA kernel: a block per (32-row tile,
-// 32-wide h-chunk) reducing its partial into y (fwd_simt_kernel).
+// 32-wide h-chunk) reducing its partial into y (fwd_simt_kernel) with
+// atomics, whose order varies from run to run.
 
 #include <algorithm>
 
@@ -174,19 +182,25 @@ fwd_simt_kernel(const T* __restrict__ x, const float* __restrict__ g_slot,
 // w1, w2: (E, d, h); w3: (E, h, d), all of x's dtype; y: (L, d) float32,
 // zeroed by the caller; chunk: (S, hc) of x's dtype, hc a multiple of 128
 // (the h-range width, kernels/fused_moe.py:pass_width), used by the bf16
-// path only.  The bf16 path makes 2 ceil(h / hc) launches.
+// path only, as are ys: (S, d) float32, zeroed by the caller, and tim: the
+// dispatch's (L, k) token_index_map, each token's slots in the order they
+// are summed.  The bf16 path makes 2 ceil(h / hc) + 1 launches.
 REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
                                   const float* g_slot, const int* idx,
                                   const int* offsets, const void* w1,
                                   const void* w2, const void* w3, float* y,
                                   void* chunk, int hc, int S, int L, int d,
-                                  int h, int E, cudaStream_t stream) {
+                                  int h, int E, float* ys, const int* tim,
+                                  int k, cudaStream_t stream) {
   if (E < 1 || d <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
   if (S <= 0 || L <= 0) return 0;
   if (dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
       repro::aligned16(x) && repro::aligned16(w1) && repro::aligned16(w2) &&
       repro::aligned16(w3) && chunk != nullptr && repro::aligned16(chunk)) {
-    if (hc <= 0 || hc % up::BN != 0) return (int)cudaErrorInvalidValue;
+    if (hc <= 0 || hc % up::BN != 0 || ys == nullptr ||
+        !repro::aligned16(ys) || !repro::aligned16(y) || tim == nullptr ||
+        k <= 0)
+      return (int)cudaErrorInvalidValue;
     const int n_sm = sm_count();
     if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
     // weights as 3-D (E, rows, cols) maps, so the boxes of one expert read
@@ -220,11 +234,12 @@ REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
       if (err != cudaSuccess) return (int)err;
       moe_down_wgmma<true, false>
           <<<grid_b, down::THREADS, down::SMEM, stream>>>(
-              mc, m3, mc, m3, idx, g_slot, offsets, y, S, L, d, E, h0, hw,
+              mc, m3, mc, m3, idx, g_slot, offsets, ys, S, L, d, E, h0, hw,
               0);
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
+    repro::fused::slot_sum(ys, tim, k, y, L, d, S, stream);
   } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {
     dim3 grid(max_row_tiles(S, E, SBM), (h + SBH - 1) / SBH);
     if (dtype == REPRO_DTYPE_BF16)

@@ -25,9 +25,17 @@
 //        (E, n, K), wgmma's own B layout); a second product (A2, w2), when
 //        asked for, runs on in the same accumulator (the fused backward's
 //        dx = da w1^T + db w2^T); the epilogue either adds g_slot[s] acc
-//        (acc alone without gates) into a float32 y[idx[s]] with float4
-//        reductions (SCATTER: the fused forward and backward) or stores
-//        round(acc) into row s of a bf16 output (gather-GMM).
+//        (acc alone without gates) into row s of a float32 (S, n) per-slot
+//        buffer (SCATTER: the fused forward and backward, whose callers sum
+//        each token's slots in a fixed order afterwards: fused_moe.cuh
+//        slot_sum) or stores round(acc) into row s of a bf16 output
+//        (gather-GMM).  A slot row belongs to one tile, and each of its
+//        elements to one thread, so each element takes one float4
+//        reduction a launch (fire and forget, done in L2) and the launches
+//        add in stream order: one writer per element, the same bits every
+//        call.  (A plain read and write in the epilogue instead made the
+//        fused forward 47% slower at Mixtral's training shape: the
+//        dependent loads stall the consumers.)
 //   The rows of a bf16 output of up or down at or past offsets[E] belong
 //   to no tile: the consumers of every block zero a share of them after
 //   their last tile.
@@ -415,12 +423,12 @@ moe_down_wgmma(const __grid_constant__ CUtensorMap tm_a,
     __syncwarp();
 
     if (SCATTER) {
-      float* y = static_cast<float*>(out);
+      float* ys = static_cast<float*>(out);
       const int s = r0 + cw * 64 + my_row;
       int t = s < r1 ? idx[s] : -1;
       if (t >= L) t = -1;
       const float g = t < 0 ? 0.f : g_slot != nullptr ? g_slot[s] : 1.f;
-      float* yrow = y + (size_t)(t < 0 ? 0 : t) * n + n0 + my_col;
+      float* yrow = ys + (size_t)(t < 0 ? 0 : s) * n + n0 + my_col;
 #pragma unroll
       for (int j = 0; j < 32; ++j) {
         // even lanes send row 1's pair, odd lanes row 0's

@@ -35,13 +35,20 @@ from repro_torch.core.device import resolve_device
 from repro_torch.models.transformer import (MOE_KINDS, check_supported,
                                             layer_kinds)
 
-#: leaves stored in the storage dtype: the ones the forward casts to the
-#: model dtype on use (the dense FFN's ``w1``/``w2``/``w3`` among them), and
-#: the expert weights, which the port casts as well where the reference
-#: keeps them float32 (everything else is a norm scale, the ``q_norm`` and
-#: ``k_norm`` scales included, kept float32)
+#: leaves stored in the storage dtype: the matrices the forward casts to
+#: the model dtype on use (the dense FFN's ``w1``/``w2``/``w3`` and the
+#: recurrent blocks' projections among them), and the expert weights,
+#: which the port casts as well where the reference keeps them float32.
+#: Everything else stays float32: the norm scales (``q_norm`` and
+#: ``k_norm`` included), the biases ``f_bias`` and ``dt_bias`` and the
+#: skip ``d_skip``, which the sublayers cast to the model dtype on use as
+#: the reference does, and Mamba's ``a_log``, which the scan reads as
+#: float32.
 CAST_TO_MODEL_DTYPE = {"wq", "wk", "wv", "wo", "wg", "w1", "w2", "w3",
-                       "embed", "unembed"}
+                       "embed", "unembed",
+                       "w_up", "w_z", "wif", "w_down",        # mLSTM
+                       "w_zifo", "w_up1", "w_up2",            # sLSTM
+                       "w_in", "w_dt", "w_b", "w_c", "w_out"}  # Mamba
 
 
 def _tensor(a: np.ndarray, name: str, dtype: torch.dtype,
@@ -89,7 +96,11 @@ def init_params(cfg, generator: torch.Generator | None = None,
     stored in ``dtype`` (default ``cfg.dtype``, the serving layout).  The
     numbers are not the reference's (the generators differ).  A MoE block
     draws ``moe = {wg, w1, w2, w3}``; a dense block draws ``ffn = {w1 (d,
-    d_ff), w2 (d, d_ff) for swiglu, w3 (d_ff, d)}``."""
+    d_ff), w2 (d, d_ff) for swiglu, w3 (d_ff, d)}``; the recurrent and
+    hybrid blocks draw the leaves of the reference's ``init_mlstm_params``,
+    ``init_slstm_params`` and ``init_mamba_params`` (``models/ssm.py``),
+    with its constant biases (forget gates at 3, ``a_log`` 0, ``d_skip``
+    1).  A Hymba block is ``{ln1, ln2, attn, mamba, ffn}``."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -104,14 +115,59 @@ def init_params(cfg, generator: torch.Generator | None = None,
         return w.div_(fan_in ** 0.5).to(dt)
 
     zeros = lambda: torch.zeros(d, dtype=torch.float32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def attn():
+        p = {"wq": dense((d, H * dh), d), "wk": dense((d, Hkv * dh), d),
+             "wv": dense((d, Hkv * dh), d), "wo": dense((H * dh, d), H * dh)}
+        if cfg.qk_norm:
+            p["q_norm"] = torch.zeros(dh, device=dev)
+            p["k_norm"] = torch.zeros(dh, device=dev)
+        return p
+
+    def ffn():
+        p = {"w1": dense((d, d_ff), d)}
+        if cfg.ffn_act == "swiglu":
+            p["w2"] = dense((d, d_ff), d)
+        p["w3"] = dense((d_ff, d), d_ff)
+        return p
+
+    def mlstm():
+        # the reference's init_mlstm_params: H heads of width 2 d / H
+        return {"w_up": dense((d, 2 * d), d), "w_z": dense((d, 2 * d), d),
+                "wq": dense((2 * d, 2 * d), 2 * d),
+                "wk": dense((2 * d, 2 * d), 2 * d),
+                "wv": dense((2 * d, 2 * d), 2 * d),
+                "wif": dense((2 * d, 2 * H), 2 * d),
+                "f_bias": torch.full((H,), 3.0, **f32),
+                "w_down": dense((2 * d, d), 2 * d)}
+
+    def slstm():
+        return {"w_zifo": dense((d, 4 * d), d),
+                "f_bias": torch.full((d,), 3.0, **f32),
+                "w_up1": dense((d, 2 * d), d), "w_up2": dense((d, 2 * d), d),
+                "w_down": dense((2 * d, d), 2 * d)}
+
+    def mamba():
+        Hs, N = cfg.ssm_heads, cfg.ssm_state
+        return {"w_in": dense((d, Hs * dh), d), "w_dt": dense((d, Hs), d),
+                "dt_bias": torch.zeros(Hs, **f32),
+                "w_b": dense((d, N), d), "w_c": dense((d, N), d),
+                "a_log": torch.zeros(Hs, **f32),
+                "d_skip": torch.ones(Hs, 1, **f32),
+                "w_out": dense((Hs * dh, d), Hs * dh)}
+
     layers = []
     for kind in layer_kinds(cfg):
-        attn = {"wq": dense((d, H * dh), d), "wk": dense((d, Hkv * dh), d),
-                "wv": dense((d, Hkv * dh), d), "wo": dense((H * dh, d), H * dh)}
-        if cfg.qk_norm:
-            attn["q_norm"] = torch.zeros(dh, device=dev)
-            attn["k_norm"] = torch.zeros(dh, device=dev)
-        layer = {"ln1": zeros(), "ln2": zeros(), "attn": attn}
+        if kind in ("mlstm", "slstm"):
+            layers.append({"ln1": zeros(),
+                           kind: mlstm() if kind == "mlstm" else slstm()})
+            continue
+        if kind == "hymba":
+            layers.append({"ln1": zeros(), "ln2": zeros(), "attn": attn(),
+                           "mamba": mamba(), "ffn": ffn()})
+            continue
+        layer = {"ln1": zeros(), "ln2": zeros(), "attn": attn()}
         if kind in MOE_KINDS:
             moe = {"wg": dense((d, E), d), "w1": dense((E, d, h), d)}
             if cfg.ffn_act == "swiglu":
@@ -119,11 +175,7 @@ def init_params(cfg, generator: torch.Generator | None = None,
             moe["w3"] = dense((E, h, d), h)
             layer["moe"] = moe
         else:
-            ffn = {"w1": dense((d, d_ff), d)}
-            if cfg.ffn_act == "swiglu":
-                ffn["w2"] = dense((d, d_ff), d)
-            ffn["w3"] = dense((d_ff, d), d_ff)
-            layer["ffn"] = ffn
+            layer["ffn"] = ffn()
         if cfg.post_norms:
             layer["ln1_post"] = zeros()
             layer["ln2_post"] = zeros()

@@ -48,9 +48,9 @@ SIGNATURES = {
     "repro_paged_attention": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                               I, I, F, F, P],
     "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                            I, P],
+                            I, P, P, I, P],
     "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, P],
+                            I, I, I, I, I, I, P, P, I, P],
     "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                P],
     "repro_fused_swiglu_bwd_x": [I, P, P, P, P, P, P, I, I, I, P],

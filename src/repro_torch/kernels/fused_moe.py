@@ -14,20 +14,24 @@ per range one kernel writes the rounded ``y_swi`` of those columns into a
 bf16 ``(S, hc)`` chunk, capped at :data:`CHUNK_CAP_BYTES` (32 MiB, a
 fixed bound on the workspace whatever S; ``tools/fused_moe_ranges.py``
 times the forward per width), and a second adds the chunk's gated
-products into y.  A call is 2·⌈h/hc⌉ kernel launches (14 at Mixtral's
-training shape, 2 at decode) and counts once in
-``fused_moe_fwd.launches``.
+products into each slot's row of a float32 ``(S, d)`` buffer; a last
+kernel sums each token's slot rows into y in the order of its entries in
+the dispatch's ``token_index_map``.  A call is
+2·⌈h/hc⌉ + 1 kernel launches (15 at Mixtral's training shape, 3 at
+decode) and counts once in ``fused_moe_fwd.launches``.
 
 The bf16 backward walks h in ranges of width :func:`bwd_pass_width`:
 three bf16 ``(S, hc)`` chunks (``da``, ``db`` and ``g·y_swi`` of the
 range, each rounded once) within :data:`BWD_CHUNK_CAP_BYTES` (64 MiB),
 and a float32 ``(⌈h/128⌉, S)`` buffer of dgates partials.  Per range four
 kernels: the recomputed a, b and dyu with the elementwise terms, the dw1
-and dw2 columns of the range, dw3's rows of the range, and dx; then one
-sum of the dgates partials (:func:`fused_moe_bwd_passes_plain` is the
-same decomposition in plain PyTorch).  A call is 4·⌈h/hc⌉ + 1 kernel
-launches (49 at Mixtral's training shape, 5 at decode) and counts once
-in ``fused_moe_bwd.launches``.
+and dw2 columns of the range, dw3's rows of the range, and each slot's
+row of dx into a float32 ``(S, d)`` buffer; then one sum of the dgates
+partials and one fixed-order sum of each token's slot rows into dx
+(:func:`fused_moe_bwd_passes_plain` is the same decomposition in plain
+PyTorch).  A call is 4·⌈h/hc⌉ + 2 kernel launches (50 at Mixtral's
+training shape, 6 at decode) and counts once in
+``fused_moe_bwd.launches``.
 
 Rounding points (the reference's, kept by the plain versions): ``y_swi``
 is rounded to the I/O dtype before the second GEMM and in the backward;
@@ -39,9 +43,10 @@ Bound on the card: operations (6·S·d·h forward, 16·S·d·h backward) in
 training, the touched experts' weight bytes at decode (and the backward's
 float32 weight gradients).  ``csrc/fused_moe_fwd.cu`` and
 ``csrc/fused_moe_bwd.cu`` (wgmma + TMA, the kernels of
-``csrc/moe_wgmma.cuh``) sum dx and y across blocks with float32 atomics
-into zeroed outputs; the backward's weight gradients and dgates have one
-writer per element.  See the sources for the designs.
+``csrc/moe_wgmma.cuh``) give every element of every output one writer, so
+a repeated call gives the same bits; the general path (float32, or widths
+the tensor cores do not take) sums with float32 atomics in an order that
+varies from run to run.  See the sources for the designs.
 """
 
 from __future__ import annotations
@@ -252,30 +257,51 @@ def _check(x, g_slot, idx, offsets, w1, w2, w3, dy=None):
     return S, L, d, h, E
 
 
+def _check_tim(tim, idx, L: int) -> None:
+    """The dispatch's ``(L, k)`` int32 ``token_index_map``: the order in
+    which the kernels sum each token's per-slot rows."""
+    if tim is None:
+        raise ValueError("the fused MoE kernels take the dispatch's "
+                         "token_index_map (tim) on the card")
+    _lib.require(tim, "token_index_map", dtype=torch.int32, ndim=2,
+                 device=idx.device)
+    if tim.shape[0] != L:
+        raise ValueError(f"token_index_map has {tim.shape[0]} rows for "
+                         f"L={L} tokens")
+
+
 def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
                   offsets: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor,
-                  w3: torch.Tensor) -> torch.Tensor:
+                  w3: torch.Tensor,
+                  tim: torch.Tensor | None = None) -> torch.Tensor:
     """x: (L, d); g_slot: (S,) float32 slot gates in expert order; idx:
     (S,) int32 ``expert_token_indices``; offsets: (E+1,) int32; w1, w2:
-    (E, d, h); w3: (E, h, d).  Returns the combined (L, d) output in
-    float32.  A CPU tensor takes the plain version; a CUDA tensor launches
-    the kernels (counted once per call in ``fused_moe_fwd.launches``).
-    In bf16 with d and h multiples of 8 the call allocates one ``(S, hc)``
+    (E, d, h); w3: (E, h, d); ``tim``: the dispatch's (L, k) int32
+    ``token_index_map``, the order of each token's slots in its sum (the
+    plain version, which adds slots by ``index_add_``, takes none).
+    Returns the combined (L, d) output in float32.  A CPU tensor takes the
+    plain version; a CUDA tensor launches the kernels (counted once per
+    call in ``fused_moe_fwd.launches``).  In
+    bf16 with d and h multiples of 8 the call allocates one ``(S, hc)``
     bf16 workspace of at most :data:`CHUNK_CAP_BYTES` (:func:`pass_width`;
-    ``S · 128`` values above 131,072 slots) besides y."""
+    ``S · 128`` values above 131,072 slots) and a float32 ``(S, d)``
+    per-slot buffer besides y."""
     if not x.is_cuda:
         return fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3)
+    _check_tim(tim, idx, L)
     y = torch.zeros(L, d, dtype=torch.float32, device=x.device)
-    chunk, hc = None, 0
+    chunk, ys, hc = None, None, 0
     if x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0 and S > 0:
         hc = pass_width(S, h)
         chunk = torch.empty(S, hc, dtype=x.dtype, device=x.device)
+        ys = torch.zeros(S, d, dtype=torch.float32, device=x.device)
     code = _lib.lib().repro_fused_moe_fwd(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), g_slot.data_ptr(),
         idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         w3.data_ptr(), y.data_ptr(),
         None if chunk is None else chunk.data_ptr(), hc, S, L, d, h, E,
+        None if ys is None else ys.data_ptr(), tim.data_ptr(), tim.shape[1],
         _lib.stream_ptr(x))
     _lib.check("repro_fused_moe_fwd", code)
     fused_moe_fwd.launches += 1
@@ -284,17 +310,21 @@ def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
 
 def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
                   idx: torch.Tensor, offsets: torch.Tensor, w1: torch.Tensor,
-                  w2: torch.Tensor, w3: torch.Tensor):
-    """Backward of :func:`fused_moe_fwd`; ``dy`` (L, d) in ``x.dtype``.
-    Returns ``(dx (L, d), dgates_slot (S,), dw1, dw2, dw3)``, all float32.
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernels
-    (counted once per call in ``fused_moe_bwd.launches``).  In bf16 with d
-    and h multiples of 8 the call allocates a bf16 ``(3, S, hc)`` workspace
-    within :data:`BWD_CHUNK_CAP_BYTES` (:func:`bwd_pass_width`) and a float32
-    ``(⌈h/128⌉, S)`` one besides the outputs."""
+                  w2: torch.Tensor, w3: torch.Tensor,
+                  tim: torch.Tensor | None = None):
+    """Backward of :func:`fused_moe_fwd`; ``dy`` (L, d) in ``x.dtype``;
+    ``tim`` as there.  Returns ``(dx (L, d), dgates_slot (S,), dw1, dw2,
+    dw3)``, all float32.  A CPU tensor takes the plain version; a CUDA
+    tensor launches the kernels (counted once per call in
+    ``fused_moe_bwd.launches``).  In bf16 with d and h multiples of 8 the
+    call allocates a bf16 ``(3, S, hc)`` workspace within
+    :data:`BWD_CHUNK_CAP_BYTES` (:func:`bwd_pass_width`), a float32
+    ``(⌈h/128⌉, S)`` one and a float32 ``(S, d)`` per-slot dx besides the
+    outputs."""
     if not x.is_cuda:
         return fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3, dy=dy)
+    _check_tim(tim, idx, L)
     f32 = dict(dtype=torch.float32, device=x.device)
     fast = (x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0
             and S > 0 and all(t.data_ptr() % 16 == 0
@@ -304,12 +334,13 @@ def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
     dg = new(S, **f32)
     dw1, dw2 = new(E, d, h, **f32), new(E, d, h, **f32)
     dw3 = new(E, h, d, **f32)
-    ws = part = None
+    ws = part = dxs = None
     hc = 0
     if fast:
         hc = bwd_pass_width(S, h)
         ws = torch.empty(3, S, hc, dtype=x.dtype, device=x.device)
         part = torch.empty(-(-h // H_TILE), S, **f32)
+        dxs = torch.zeros(S, d, **f32)
     code = _lib.lib().repro_fused_moe_bwd(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
         g_slot.data_ptr(), idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(),
@@ -317,7 +348,8 @@ def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
         dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(),
         None if ws is None else ws.data_ptr(),
         None if part is None else part.data_ptr(), hc, S, L, d, h, E,
-        _lib.stream_ptr(x))
+        None if dxs is None else dxs.data_ptr(), tim.data_ptr(),
+        tim.shape[1], _lib.stream_ptr(x))
     _lib.check("repro_fused_moe_bwd", code)
     fused_moe_bwd.launches += 1
     return dx, dg, dw1, dw2, dw3

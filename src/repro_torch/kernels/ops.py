@@ -114,7 +114,7 @@ class MoEBlazeFused(torch.autograd.Function):
         g_slot = torch.zeros(eti.shape[0], dtype=torch.float32,
                              device=x.device)
         g_slot[tim.reshape(-1).long()] = gates.reshape(-1).float()
-        y = fused_moe_fwd(x, g_slot, eti, off, w1, w2, w3)
+        y = fused_moe_fwd(x, g_slot, eti, off, w1, w2, w3, tim)
         ctx.save_for_backward(x, w1, w2, w3, eti, off, tim, g_slot)
         ctx.gates_dtype = gates.dtype
         return y.to(x.dtype)
@@ -123,7 +123,8 @@ class MoEBlazeFused(torch.autograd.Function):
     def backward(ctx, dy):
         x, w1, w2, w3, eti, off, tim, g_slot = ctx.saved_tensors
         dx, dgs, dw1, dw2, dw3 = fused_moe_bwd(
-            x, dy.to(x.dtype).contiguous(), g_slot, eti, off, w1, w2, w3)
+            x, dy.to(x.dtype).contiguous(), g_slot, eti, off, w1, w2, w3,
+            tim)
         dgates = dgs[tim.reshape(-1).long()].reshape(tim.shape)
         return (dx.to(x.dtype), dgates.to(ctx.gates_dtype), dw1.to(w1.dtype),
                 dw2.to(w2.dtype), dw3.to(w3.dtype), None, None, None)

@@ -11,6 +11,12 @@ through the async runtime with live token streaming.
         --ckpt build/ckpt/step_2
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mixtral-8x7b \
         --reduced --device cpu --stream --prefix-cache [--paged-kernel dense]
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma2-27b \
+        --reduced --device cpu        (also yi-6b, deepseek-coder-33b)
+
+The paged engine serves attention block patterns only: for hymba-1.5b
+and xlstm-1.3b it raises the reference engine's ``ValueError`` (their
+recurrent state decodes through ``models.transformer.decode_step``).
 
 Runs on the card by default (``--device cuda``).  ``--kv-dtype int8``
 stores the KV pages as int8 with float16 scales.  ``--ckpt DIR`` serves

@@ -8,13 +8,17 @@ batches from the synthetic pipeline, the MoEBlaze training step.
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch qwen3-moe-30b-a3b --reduced --steps 4 --batch 4 --seq 64 \
         --microbatches 2 --device cpu --ckpt-dir build/ckpt
+    PYTHONPATH=src python -m repro_torch.launch.train --arch hymba-1.5b \
+        --reduced --steps 2 --batch 2 --seq 64 --device cpu
+        (also xlstm-1.3b, gemma2-27b, yi-6b, deepseek-coder-33b)
     PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train \
         --arch mixtral-8x7b --reduced --device cpu --mesh 1,2 \
         --moe-parallel ep_a2a
 
 Runs on the card by default (``--device cuda``), with ``use_pallas=True``:
 attention through the flash-attention kernel and, for a dense SwiGLU
-model, the FFN through the fused SwiGLU kernels.  A MoE model's expert
+model or Hymba, the FFN through the fused SwiGLU kernels (xLSTM runs no
+kernel: its scans are plain PyTorch, as the reference's are plain JAX).  A MoE model's expert
 layer is the config's ``moe_impl`` (``blaze`` for Mixtral); the
 grouped-GEMM backend is chosen, as in the reference, by
 ``REPRO_GMM_BACKEND`` (``ragged``, ``torch._grouped_mm``, when unset;

@@ -1,17 +1,22 @@
-"""Model assembly: embeddings, the attention + MoE or dense FFN
-sublayers, the full-sequence forward and training loss, and the paged
-prefill / decode entry points of serving.
+"""Model assembly: embeddings, the attention + MoE or dense FFN blocks
+and the recurrent and hybrid blocks, the full-sequence forward and
+training loss, the cache decode entry points, and the paged prefill /
+decode entry points of serving.
 
 Mirrors ``repro/models/transformer.py`` (``_apply_sublayer`` for the
 ``attn_moe`` / ``attn_local_moe`` and ``attn_ffn`` / ``attn_local_ffn``
-kinds, whose dense blocks add no auxiliary loss, ``forward`` and
-``train_loss``
-for token inputs, ``init_paged_cache``, ``prefill`` with prefix offsets,
+kinds, whose dense blocks add no auxiliary loss, and for ``mlstm``,
+``slstm`` and ``hymba``; ``forward`` and ``train_loss`` for token
+inputs; ``init_cache`` and ``decode_step``; ``paged_supported``,
+``init_paged_cache``, ``prefill`` with prefix offsets,
 ``paged_decode_step``).  Layers run in a Python loop where the
 reference scans over stacked groups; ``params["layers"]`` is a list with
-one dict per layer (see ``repro_torch.interop``).  Weights are cast to
-``cfg.dtype`` on use, as in the reference (a no-op for serving weights,
-which are stored cast).  The KV pools are updated in place.
+one dict per layer (see ``repro_torch.interop``) and a decode cache is a
+list with one tuple per layer (the reference's per-sublayer tuple).
+Weights are cast to ``cfg.dtype`` on use, as in the reference (a no-op
+for serving weights, which are stored cast).  The KV pools, and the
+``KVCache`` buffers of ``decode_step``, are updated in place; the
+recurrent states of ``decode_step`` are new tensors.
 
 The training forward applies the checkpoint plan of ``cfg.remat_policy``
 as the reference's ``forward`` does (``core/checkpoint.plan_policies``):
@@ -30,7 +35,8 @@ import torch
 
 from repro_torch.core import checkpoint as CK
 from repro_torch.core.collectives import all_reduce_
-from repro_torch.models.attention import (attention_sublayer,
+from repro_torch.models import ssm
+from repro_torch.models.attention import (attention_sublayer, init_kv_cache,
                                           paged_attention_sublayer)
 from repro_torch.models.common import rms_norm, softcap
 from repro_torch.models.ffn import FFN_ACTS, ffn_sublayer
@@ -40,7 +46,10 @@ from repro_torch.serve.paged_cache import init_paged_kv
 
 MOE_KINDS = ("attn_moe", "attn_local_moe")
 DENSE_KINDS = ("attn_ffn", "attn_local_ffn")
-KINDS = MOE_KINDS + DENSE_KINDS
+ATTN_KINDS = MOE_KINDS + DENSE_KINDS
+#: the recurrent (xLSTM) and hybrid (Hymba) kinds of ``models/ssm.py``
+SSM_KINDS = ("mlstm", "slstm", "hymba")
+KINDS = ATTN_KINDS + SSM_KINDS
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -56,25 +65,49 @@ def check_supported(cfg) -> None:
     if bad:
         raise NotImplementedError(
             f"block kinds {bad} are not ported; the port runs "
-            f"{KINDS} (ROADMAP.md §A item 5: more architectures)")
+            f"{KINDS}")
     if cfg.input_kind != "tokens":
-        raise NotImplementedError("the port takes token inputs only")
+        raise NotImplementedError(
+            f"input_kind={cfg.input_kind!r}: the port takes token inputs "
+            "only (ROADMAP.md §A item 5: frames and mixed inputs)")
     CK.resolve_plan(config=cfg.remat_policy)  # raises for a bad spec
-    if (set(cfg.block_pattern) & set(DENSE_KINDS)
+    if (set(cfg.block_pattern) & {*DENSE_KINDS, "hymba"}
             and cfg.ffn_act not in FFN_ACTS):
         raise NotImplementedError(
             f"ffn_act={cfg.ffn_act!r}: the dense FFN takes {FFN_ACTS}")
 
 
-def _apply_sublayer(x, p, kind: str, cfg, attend, *, mesh=None,
+def _apply_sublayer(x, p, kind: str, cfg, attend, *, cache=None, mesh=None,
                     dp_axes=("pod", "data")):
-    """One attention + MoE or dense FFN block; ``attend(h, p_attn, cfg,
-    is_local=...)`` is the attention sublayer (full-sequence or paged).
-    Returns the new residual stream, the block's auxiliary loss and its
-    ``ep_a2a`` overflow share (both zero for a dense block).  ``mesh`` and
-    ``dp_axes`` go to the MoE sublayer."""
+    """One block.  ``attend(h, p_attn, cfg, is_local=..., cache=...)`` is
+    the attention sublayer (full-sequence, cache decode or paged) and
+    returns ``(out, new_cache)``.  ``cache`` is the layer's decode cache
+    tuple (``init_cache``) or None.  Returns the new residual stream, the
+    block's auxiliary loss and its ``ep_a2a`` overflow share (both zero
+    but for a MoE block) and the layer's new cache tuple (its entries None
+    where there is no cache).  ``mesh`` and ``dp_axes`` go to the MoE
+    sublayer."""
+    zero = (None if kind in MOE_KINDS
+            else torch.zeros((), dtype=torch.float32, device=x.device))
+    c0 = cache[0] if cache is not None else None
+    if kind in ("mlstm", "slstm"):
+        sub = ssm.mlstm_sublayer if kind == "mlstm" else ssm.slstm_sublayer
+        h, st = sub(rms_norm(x, p["ln1"]), p[kind], cfg, state=c0)
+        return x + h, zero, zero, (st,)
+    if kind == "hymba":
+        # attention and Mamba heads in parallel on the same input, fused by
+        # their mean, then the FFN
+        h = rms_norm(x, p["ln1"])
+        ha, kv = attend(h, p["attn"], cfg, is_local=cfg.sliding_window > 0,
+                        cache=c0)
+        hm, st = ssm.mamba_sublayer(
+            h, p["mamba"], cfg, state=cache[1] if cache is not None else None)
+        x = x + 0.5 * (ha + hm)
+        h = ffn_sublayer(rms_norm(x, p["ln2"]), p["ffn"], cfg)
+        return x + h, zero, zero, (kv, st)
     is_local = "local" in kind and cfg.sliding_window > 0
-    h = attend(rms_norm(x, p["ln1"]), p["attn"], cfg, is_local=is_local)
+    h, kv = attend(rms_norm(x, p["ln1"]), p["attn"], cfg, is_local=is_local,
+                   cache=c0)
     if cfg.post_norms:
         h = rms_norm(h, p["ln1_post"])
     x = x + h
@@ -85,24 +118,94 @@ def _apply_sublayer(x, p, kind: str, cfg, attend, *, mesh=None,
         overflow = stats["a2a_overflow"]
     else:
         h = ffn_sublayer(h, p["ffn"], cfg)
-        aux = torch.zeros((), dtype=torch.float32, device=x.device)
-        overflow = aux
+        aux = overflow = zero
     if cfg.post_norms:
         h = rms_norm(h, p["ln2_post"])
-    return x + h, aux, overflow
+    return x + h, aux, overflow, (kv,)
+
+
+def paged_supported(cfg) -> bool:
+    """Paged serving covers the attention block patterns (a recurrent
+    carry is O(1) state a slot: nothing to page)."""
+    return all(k in ATTN_KINDS for k in cfg.block_pattern)
 
 
 def init_paged_cache(cfg, num_pages: int, page_size: int, device, *,
                      quantized: bool = False):
     """One :class:`~repro_torch.serve.paged_cache.PagedKV` pool per layer
     (physical page 0 is the trash page), in the model dtype, or with
-    ``quantized`` int8 values and float16 per-(position, head) scales."""
+    ``quantized`` int8 values and float16 per-(position, head) scales.
+    Raises ``ValueError`` for a pattern that is not all attention, as the
+    reference does."""
+    if not paged_supported(cfg):
+        raise ValueError(
+            f"paged serving needs an attention block pattern; "
+            f"{cfg.name} has {cfg.block_pattern} (use T.decode_step)")
     check_supported(cfg)
     dt = getattr(torch, cfg.dtype)
     return [init_paged_kv(num_pages, page_size, cfg.num_kv_heads,
                           cfg.resolved_head_dim, dt, device,
                           quantized=quantized)
             for _ in range(cfg.num_layers)]
+
+
+def init_cache(cfg, batch: int, capacity: int, device) -> list:
+    """Decode cache of :func:`decode_step`: one tuple per layer.  An
+    attention layer holds a :class:`~repro_torch.models.attention.KVCache`
+    of ``capacity`` slots (the window's, if shorter, for a local layer);
+    an mLSTM layer its (C, n, m) state with heads of width 2 d / H; an
+    sLSTM layer its (c, n, m); a Hymba layer a KVCache of its window and
+    its Mamba state (B, ssm_heads, head_dim, ssm_state).  States are
+    float32, KV in the model dtype."""
+    check_supported(cfg)
+    dt = getattr(torch, cfg.dtype)
+    dh = cfg.resolved_head_dim
+    f32 = dict(dtype=torch.float32, device=device)
+
+    def kv(cap):
+        return init_kv_cache(batch, cap, cfg.num_kv_heads, dh, dt, device)
+
+    def sub_cache(kind):
+        if kind in ATTN_KINDS:
+            local = "local" in kind and cfg.sliding_window
+            return (kv(min(cfg.sliding_window, capacity) if local
+                       else capacity),)
+        if kind == "mlstm":
+            H = cfg.num_heads
+            dhh = 2 * cfg.d_model // H
+            return ((torch.zeros(batch, H, dhh, dhh, **f32),
+                     torch.zeros(batch, H, dhh, **f32),
+                     torch.full((batch, H), -1e30, **f32)),)
+        if kind == "slstm":
+            d = cfg.d_model
+            return ((torch.zeros(batch, d, **f32),
+                     torch.zeros(batch, d, **f32),
+                     torch.full((batch, d), -1e30, **f32)),)
+        cap = (min(cfg.sliding_window, capacity) if cfg.sliding_window
+               else capacity)
+        return (kv(cap), torch.zeros(batch, cfg.ssm_heads, dh, cfg.ssm_state,
+                                     **f32))
+
+    return [sub_cache(kind) for kind in layer_kinds(cfg)]
+
+
+def decode_step(params, cache: list, batch, pos, cfg):
+    """One-token decode.  batch["tokens"]: (B, 1); ``pos``: the scalar
+    absolute position of the token (an int or a 0-d tensor; the batch
+    decodes in lockstep).  Returns float32 logits (B, vocab) and the new
+    cache (the KV buffers written in place, the recurrent states new)."""
+    if cfg.input_kind == "frames":
+        raise ValueError("encoder-only architectures do not decode")
+    check_supported(cfg)
+    x = _embed(params, batch["tokens"], cfg)
+    positions = torch.full((1,), int(pos), dtype=torch.long,
+                           device=x.device)
+    attend = partial(attention_sublayer, positions=positions)
+    new_cache = []
+    for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache):
+        x, _, _, nc = _apply_sublayer(x, p, kind, cfg, attend, cache=c)
+        new_cache.append(nc)
+    return _logits(params, x[:, 0], cfg), new_cache
 
 
 def _embed(params, tokens, cfg):
@@ -119,11 +222,12 @@ def _logits(params, x, cfg):
 def _layers(params, x, cfg, *, positions, cache, page_table, prefill,
             offsets=None, attn_impl="pallas"):
     for p, kind, pages in zip(params["layers"], layer_kinds(cfg), cache):
-        attend = partial(paged_attention_sublayer, positions=positions,
-                         pages=pages, page_table=page_table,
-                         prefill=prefill, offsets=offsets,
-                         attn_impl=attn_impl)
-        x, _, _ = _apply_sublayer(x, p, kind, cfg, attend)
+        def attend(h, p_attn, cfg, *, is_local, cache, pages=pages):
+            return paged_attention_sublayer(
+                h, p_attn, cfg, is_local=is_local, positions=positions,
+                pages=pages, page_table=page_table, prefill=prefill,
+                offsets=offsets, attn_impl=attn_impl), None
+        x = _apply_sublayer(x, p, kind, cfg, attend)[0]
     return x
 
 
@@ -176,7 +280,7 @@ def _apply_group(x, *, sub, layers, kinds):
     and overflow shares summed."""
     aux = overflow = 0.0
     for p, kind in zip(layers, kinds):
-        x, a, o = sub(x, p, kind)
+        x, a, o, _ = sub(x, p, kind)
         aux = aux + a
         overflow = overflow + o
     return x, aux, overflow

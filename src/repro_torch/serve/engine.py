@@ -135,6 +135,11 @@ class ServeEngine:
                                           config=cfg.remat_policy)
         cfg = cfg.replace(gmm_backend=self.backend.name,
                           remat_policy=self.remat_plan.spec)
+        if not T.paged_supported(cfg):
+            raise ValueError(
+                f"ServeEngine pages attention KV; {cfg.name} has "
+                f"block pattern {cfg.block_pattern} (SSM carries are O(1) "
+                f"per-slot state — serve those via T.decode_step directly)")
         if kv_dtype not in (None, "model", "int8"):
             raise ValueError(f"kv_dtype must be None|'model'|'int8', "
                              f"got {kv_dtype!r}")

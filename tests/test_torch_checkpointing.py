@@ -207,3 +207,81 @@ def test_launchers_save_and_serve_a_checkpoint(tp, tmp_path, capsys):
     ServeEngine(cfg, params, batch_slots=2, capacity=512,
                 device="cpu").generate(reqs)
     assert [r.out_tokens for r in reqs] == served
+
+
+@pytest.mark.parametrize("arch", ["mixtral_8x7b", "gemma2_27b"])
+def test_restores_a_reference_checkpoint(tp, tmp_path, arch):
+    """A checkpoint that the reference's ``save_checkpoint`` wrote after
+    one training step (parameters and its ``AdamWState``) restores in the
+    port: every leaf equal to the reference's exactly, the moments in the
+    port's leaf order and ``step`` as an int; then one more step from both
+    agrees to ``tests/test_torch_train.py``'s tolerances (loss 1e-4
+    relative; each parameter within the step size, all but a 1e-4 share
+    of each leaf within 2e-3 of it).  Gemma2's two-block pattern checks
+    the group slicing (layer i is group i // 2, block i % 2)."""
+    import dataclasses
+
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config
+    from repro.configs.base import TrainConfig as JTrainConfig
+    from repro.data.pipeline import make_batch_iterator as j_batches
+    from repro.models import transformer as JT
+    from repro.train.checkpointing import save_checkpoint as j_save
+    from repro.train.loop import make_train_step as j_make_train_step
+    from repro.train.optimizer import init_adamw as j_init_adamw
+    from repro_torch.configs import TrainConfig
+    from repro_torch.train.checkpointing import _flatten, restore_checkpoint
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    from torch_parity import f32, np_params, to_torch, torch_config
+    jcfg = get_config(arch).reduced()
+    if arch == "mixtral_8x7b":
+        jcfg = jcfg.replace(moe_impl="blaze", gmm_backend="segment")
+    tcfg_m = torch_config(jcfg)
+    if arch == "mixtral_8x7b":
+        tcfg_m = tcfg_m.replace(moe_impl="blaze_pallas")
+    jt = JTrainConfig(learning_rate=1e-3, warmup_steps=0, total_steps=4,
+                      batch_size=2, seq_len=64)
+    jp = JT.init_params(jax.random.PRNGKey(0), jcfg)
+    step = jax.jit(j_make_train_step(jcfg, jt))
+    batches = [{k: jnp.asarray(v) for k, v in b.items()} for b, _ in zip(
+        j_batches(jcfg.vocab_size, jt.seq_len, jt.batch_size, 0), range(2))]
+    jp, jopt, _ = step(jp, j_init_adamw(jp), batches[0])
+    j_save(str(tmp_path / "ref"), 1, jp, jopt)
+
+    template = tp.interop.init_params(tcfg_m, device="cpu",
+                                      dtype=tp.torch.float32)
+    step_n, params, opt = restore_checkpoint(str(tmp_path / "ref"), template,
+                                             init_adamw(template))
+    assert step_n == 1 and opt.step == 1
+    def by_path(np_tree):
+        return _flatten(tp.interop.params_from_jax(
+            np_params(np_tree), tcfg_m, device="cpu",
+            dtype=tp.torch.float32))
+
+    want = by_path(jp)
+    got = _flatten(params)
+    assert list(got) == list(_flatten(template))
+    for key, t in got.items():
+        assert tp.torch.equal(t, want[key]), key
+    for name in ("mu", "nu"):
+        ref_tree = by_path(getattr(jopt, name))
+        for key, t in zip(got, getattr(opt, name)):
+            assert tp.torch.equal(t, ref_tree[key]), (name, key)
+
+    jp2, _, m = step(jp, jopt, batches[1])
+    fields = {f.name for f in dataclasses.fields(TrainConfig)}
+    tcfg = TrainConfig(**{k: v for k, v in dataclasses.asdict(jt).items()
+                          if k in fields})
+    params, _, m_port = make_train_step(tcfg_m, tcfg, "cpu")(
+        params, opt, {k: to_torch(np.asarray(v))
+                      for k, v in batches[1].items()})
+    np.testing.assert_allclose(float(m_port["loss"]), float(m["loss"]),
+                               rtol=1e-4)
+    lr = float(m["lr"])
+    want = by_path(jp2)
+    for key, t in _flatten(params).items():
+        err = np.abs(f32(t) - f32(want[key]))
+        assert err.max() <= lr, (key, err.max())
+        assert int((err > 2e-3 * lr).sum()) <= 1e-4 * err.size, key

@@ -511,10 +511,10 @@ def test_gmm_dw_wgmma_edges(dev, K, d, h, lengths, past):
                  128, id="qwen3-moe-e128-top8")])
 def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
     """The bf16 backward (moe_bwd_up_wgmma, moe_dw_wgmma's gathered
-    instantiations, moe_down_wgmma with two products, the dgates sum):
-    dgates and dw1-3 bit-equal across calls (one writer per element),
-    dgates past offsets[E] and empty experts' gradients exactly 0, every
-    output against the plain version."""
+    instantiations, moe_down_wgmma with two products, the dgates sum, the
+    slot sum of dx): every output bit-equal across calls (one writer per
+    element), dgates past offsets[E] and empty experts' gradients exactly
+    0, every output against the plain version."""
     import torch
     F = K.fused_moe
     x, dy, g, disp, ws = _fused_inputs(dev, "bfloat16", L, E, d, h,
@@ -523,14 +523,14 @@ def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
         disp = K.routing.slice_dispatch(disp, lo, count=count)
         ws = tuple(w[lo:lo + count].contiguous() for w in ws)
     idx, off = disp.expert_token_indices, disp.expert_token_offsets
-    got = F.fused_moe_bwd(x, dy, g, idx, off, *ws)
-    again = F.fused_moe_bwd(x, dy, g, idx, off, *ws)
+    tim = disp.token_index_map
+    got = F.fused_moe_bwd(x, dy, g, idx, off, *ws, tim)
+    again = F.fused_moe_bwd(x, dy, g, idx, off, *ws, tim)
     want = F.fused_moe_bwd_plain(x, dy, g, idx, off, *ws)
     _sync()
     for name, g_, a_, w_ in zip(("dx", "dgates", "dw1", "dw2", "dw3"), got,
                                 again, want):
-        if name != "dx":
-            assert torch.equal(g_, a_), name
+        assert torch.equal(g_, a_), name
         _scale_close(name, g_, w_, "bfloat16")
     assert not got[1][int(off[-1]):].any()
     for e, n in enumerate(disp.expert_lengths.tolist()):
@@ -723,9 +723,10 @@ def test_fused_moe_kernels(dev, K, dtype, L, E, d, h, experts):
     x, dy, g, disp, ws = _fused_inputs(dev, dtype, L, E, d, h, experts,
                                        seed=L + d)
     idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    tim = disp.token_index_map
     before = (F.fused_moe_fwd.launches, F.fused_moe_bwd.launches)
-    got = [F.fused_moe_fwd(x, g, idx, off, *ws),
-           *F.fused_moe_bwd(x, dy, g, idx, off, *ws)]
+    got = [F.fused_moe_fwd(x, g, idx, off, *ws, tim),
+           *F.fused_moe_bwd(x, dy, g, idx, off, *ws, tim)]
     want = [F.fused_moe_fwd_plain(x, g, idx, off, *ws),
             *F.fused_moe_bwd_plain(x, dy, g, idx, off, *ws)]
     _sync()
@@ -755,20 +756,24 @@ def test_fused_moe_refuses_what_it_does_not_take(dev, K):
     x, dy, g, disp, ws = _fused_inputs(dev, "bfloat16", 16, 4, 64, 32, None,
                                        seed=0)
     idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    tim = disp.token_index_map
     before = F.fused_moe_fwd.launches
     bad = [
-        (x.half(), g, idx, off, *ws),                       # float16
-        (x.t().contiguous().t(), g, idx, off, *ws),         # strided x
-        (x, g.to(torch.bfloat16), idx, off, *ws),           # bf16 gates
-        (x, g, idx.long(), off, *ws),                       # int64 ids
-        (x, g, idx, off, ws[0].float(), ws[1], ws[2]),      # mixed dtypes
-        (x, g, idx, off, ws[0], ws[1], ws[0]),              # w3 shape
-        (x, g, idx, off[:-1], *ws)]                         # offsets
+        (x.half(), g, idx, off, *ws, tim),                  # float16
+        (x.t().contiguous().t(), g, idx, off, *ws, tim),    # strided x
+        (x, g.to(torch.bfloat16), idx, off, *ws, tim),      # bf16 gates
+        (x, g, idx.long(), off, *ws, tim),                  # int64 ids
+        (x, g, idx, off, ws[0].float(), ws[1], ws[2], tim),  # mixed dtypes
+        (x, g, idx, off, ws[0], ws[1], ws[0], tim),         # w3 shape
+        (x, g, idx, off[:-1], *ws, tim),                    # offsets
+        (x, g, idx, off, *ws),                              # no token map
+        (x, g, idx, off, *ws, tim.long()),                  # int64 map
+        (x, g, idx, off, *ws, tim[:-1])]                    # map rows
     for args in bad:
         with pytest.raises(ValueError):
             F.fused_moe_fwd(*args)
     with pytest.raises(ValueError):
-        F.fused_moe_bwd(x, dy.float(), g, idx, off, *ws)
+        F.fused_moe_bwd(x, dy.float(), g, idx, off, *ws, tim)
     assert F.fused_moe_fwd.launches == before
 
 
@@ -1094,8 +1099,8 @@ def test_kernels_on_a_sliced_dispatch(dev, K, dtype, lo, count):
     _close(K.gmm_dw.gmm_dw(x[idx.long()], a, off),
            K.gmm_dw.gmm_dw_plain(x[idx.long()], a, off), dtype)
     F = K.fused_moe
-    got = [F.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3),
-           *F.fused_moe_bwd(x, dy, g_slot, idx, off, w1, w2, w3)]
+    got = [F.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3, tim),
+           *F.fused_moe_bwd(x, dy, g_slot, idx, off, w1, w2, w3, tim)]
     want = [F.fused_moe_fwd_plain(x, g_slot, idx, off, w1, w2, w3),
             *F.fused_moe_bwd_plain(x, dy, g_slot, idx, off, w1, w2, w3)]
     _sync()
@@ -1229,3 +1234,123 @@ def test_sampling_noise_bit_equal_on_cpu_and_card(dev):
         for temp in (0.8, 1.0, 1.7):
             assert _equal(SM.sample(logits, n_cpu, temp),
                           SM.sample(logits.to(dev), n_dev, temp).cpu())
+
+
+@pytest.mark.parametrize("L,E,k,d,h", [
+    pytest.param(4096, 8, 2, 4096, 14336, id="mixtral-training"),
+    pytest.param(4096, 128, 8, 2048, 768, id="qwen3-moe-training")])
+def test_fused_moe_repeats_bit_equal(dev, K, L, E, k, d, h):
+    """The fused MoE forward's y and the backward's outputs are bit-equal
+    across repeated calls at Mixtral-8x7B's training shape (2 x 2048
+    tokens, 8192 slots, seven forward h-ranges) and Qwen3-30B-A3B's
+    (32,768 slots over 128 experts, top-8): every output element has one
+    writer (a per-slot buffer summed over each token's slots in a fixed
+    order), so the recompute inside a checkpoint region sees the forward's
+    bits; against the plain version at the bf16 tolerance."""
+    import torch
+    F = K.fused_moe
+    gen = torch.Generator(device=dev).manual_seed(L + E)
+    topk = (torch.rand(L, E, generator=gen, device=dev).argsort(1)[:, :k]
+            .to(torch.int32).contiguous())
+    disp = K.routing.build_dispatch(topk, E)
+    S = disp.num_slots
+    bf = dict(device=dev, dtype=torch.bfloat16)
+    x, dy = (torch.randn(L, d, generator=gen, device=dev).to(bf["dtype"])
+             for _ in range(2))
+    w1, w2 = ((torch.randn(E, d, h, generator=gen, device=dev)
+               * d ** -0.5).to(**bf) for _ in range(2))
+    w3 = (torch.randn(E, h, d, generator=gen, device=dev)
+          * h ** -0.5).to(**bf)
+    g = torch.rand(S, generator=gen, device=dev)
+    idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    tim = disp.token_index_map
+    y = F.fused_moe_fwd(x, g, idx, off, w1, w2, w3, tim)
+    for call in range(2):
+        assert _equal(F.fused_moe_fwd(x, g, idx, off, w1, w2, w3, tim), y)
+    _scale_close("y", y, F.fused_moe_fwd_plain(x, g, idx, off, w1, w2, w3),
+                 "bfloat16")
+    outs = F.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3, tim)
+    again = F.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3, tim)
+    for name, a, b in zip(("dx", "dgates", "dw1", "dw2", "dw3"), outs, again):
+        assert _equal(a, b), name
+    del outs, again
+    _sync()
+
+
+@pytest.mark.parametrize("B,S,window", [(2, 2048, 1024), (1, 300, 100)])
+def test_flash_attention_hymba_heads(dev, K, B, S, window):
+    """Flash attention at Hymba-1.5B's heads: 25 query heads over 5 KV
+    heads of 64 (a GQA group of 5 on the Dh-64 instantiation), its
+    1024-token window at its training length, and a short ragged case."""
+    rng = np.random.default_rng(S)
+    q = _t(rng.normal(size=(B, S, 25, 64)), dev, "bfloat16")
+    k, v = (_t(rng.normal(size=(B, S, 5, 64)), dev, "bfloat16")
+            for _ in range(2))
+    A = K.flash_attention
+    got = A.flash_attention(q, k, v, causal=True, window=window)
+    want = A.flash_attention_plain(q, k, v, causal=True, window=window,
+                                   chunk=512)
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), atol=2e-2)
+
+
+@pytest.mark.parametrize("L", [4096, 300, 4, 1])
+def test_fused_swiglu_hymba_widths(dev, K, L):
+    """The fused SwiGLU forward, bwd_x and bwd_w at Hymba-1.5B's widths,
+    d = 1600 (not a multiple of the 128-row tile: the tail path) and
+    h = 5504, at the training rows, a ragged count and decode."""
+    import torch
+    d, h = 1600, 5504
+    rng = np.random.default_rng(L)
+    x = _t(rng.normal(size=(L, d)), dev, "bfloat16")
+    w1, w2 = (_t(rng.normal(size=(d, h)) * d ** -0.5, dev, "bfloat16")
+              for _ in range(2))
+    dy = _t(rng.normal(size=(L, h)), dev, "bfloat16")
+    FS = K.fused_swiglu
+    got = FS.fused_swiglu_fwd(x, w1, w2)
+    for name, g_, w_ in zip(("y", "a", "b"), got,
+                            FS.fused_swiglu_fwd_plain(x, w1, w2)):
+        _scale_close(name, g_, w_, "bfloat16")
+    for g_, again in zip(got, FS.fused_swiglu_fwd(x, w1, w2)):
+        assert torch.equal(g_, again)
+    _, a, b = got
+    _scale_close("dx", FS.fused_swiglu_bwd_x(dy, a, b, w1, w2),
+                 FS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2), "bfloat16")
+    for name, g_, w_ in zip(("dw1", "dw2"), FS.fused_swiglu_bwd_w(x, dy, a, b),
+                            FS.fused_swiglu_bwd_w_plain(x, dy, a, b)):
+        _scale_close(name, g_, w_, "bfloat16")
+
+
+def test_hymba_decode_matches_forward_on_card(dev):
+    """Reduced Hymba (2 layers, d = 256, window 64) in bf16 on the card:
+    ``decode_step`` teacher-forced over 80 positions (past the window, so
+    the rolling cache wraps) against ``forward``'s logits at the same
+    positions (flash attention and the fused SwiGLU kernels in the
+    forward; decode attention, the Mamba step and the fused SwiGLU
+    forward at decode rows in the steps): within 0.125 (logits of size ~4
+    through two bf16 layers rounded at other points), and every step's
+    argmax equal to the forward's unless the forward's top two lie within
+    that tolerance."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.interop import init_params
+    from repro_torch.models import transformer as T
+    cfg = get_config("hymba-1.5b").reduced().replace(
+        dtype="bfloat16", use_pallas=True)
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    toks = torch.randint(3, cfg.vocab_size, (2, 128),
+                         generator=torch.Generator(device=dev).manual_seed(1),
+                         device=dev)
+    with torch.inference_mode():
+        full, _ = T.forward(params, {"tokens": toks}, cfg)
+        cache = T.init_cache(cfg, 2, 64, dev)
+        for t in range(80):
+            step, cache = T.decode_step(params, cache,
+                                        {"tokens": toks[:, t:t + 1]}, t, cfg)
+            ref = full[:, t]
+            assert float((step - ref).abs().max()) <= 0.125, t
+            top2 = ref.topk(2).values
+            same = step.argmax(-1) == ref.argmax(-1)
+            assert bool((same | (top2[:, 0] - top2[:, 1] <= 0.125)).all()), t

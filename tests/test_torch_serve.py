@@ -146,13 +146,15 @@ def test_engine_without_device_needs_cuda(tp, params, monkeypatch):
 
 
 def test_engine_refuses_unported_options(tp, params):
-    """Only serving over a mesh and SSM block kinds still refuse; the
-    options ported since (sampling, prefix sharing, the paged kernel
-    choice, a per-request backend) are accepted."""
+    """Only serving over a mesh still refuses as not ported; an SSM block
+    pattern is refused with the reference engine's ValueError (it pages
+    attention KV only); the options ported since (sampling, prefix
+    sharing, the paged kernel choice, a per-request backend) are
+    accepted."""
     ServeEngine, Request = tp.engine.ServeEngine, tp.engine.Request
     with pytest.raises(NotImplementedError, match="§A item 6"):
         ServeEngine(TCFG, params[1], device="cpu", mesh=object())
-    with pytest.raises(NotImplementedError, match="block kinds"):
+    with pytest.raises(ValueError, match="T.decode_step"):
         ServeEngine(TCFG.replace(block_pattern=("mlstm",)), params[1],
                     device="cpu")
     prompt = np.arange(3, 6, dtype=np.int32)
@@ -204,8 +206,9 @@ def test_port_imports_no_jax_and_no_reference():
     ``paper``, the dense Qwen3-14B, and ``ep_a2a`` on ``pallas`` over a
     one-rank mesh), with the checkpoint plans, the simulator, the
     baselines, the Table-1 configs, ``compat``, the training checkpoints
-    and the Qwen3-30B-A3B config imported, leave JAX and
-    the reference package out of ``sys.modules``."""
+    and the Qwen3-30B-A3B config imported, and decode steps and a
+    training step of reduced Hymba and xLSTM (``models/ssm.py``), leave
+    JAX and the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
@@ -271,6 +274,23 @@ def test_port_imports_no_jax_and_no_reference():
         "_, _, h = train(qcfg, TrainConfig(total_steps=1, batch_size=1, "
         "seq_len=32), device='cpu', log=lambda _: None)\n"
         "assert np.isfinite(h[0]['loss'])\n"
+        "import repro_torch.models.ssm\n"
+        "from repro_torch.models import transformer as T\n"
+        "for a in ('hymba-1.5b', 'xlstm-1.3b'):\n"
+        "    c = get_config(a).reduced().replace(num_layers=8 if a[0] == 'x'"
+        " else 2, d_model=64, num_heads=2, vocab_size=64)\n"
+        "    cp = init_params(c, torch.Generator().manual_seed(0), 'cpu')\n"
+        "    cache = T.init_cache(c, 1, 8, 'cpu')\n"
+        "    for t in range(3):\n"
+        "        lg, cache = T.decode_step(cp, cache, {'tokens': "
+        "torch.tensor([[t + 3]])}, t, c)\n"
+        "    assert bool(torch.isfinite(lg).all())\n"
+        "    _, _, h = train(c.replace(use_pallas=True), TrainConfig("
+        "total_steps=1, batch_size=1, seq_len=32), device='cpu', "
+        "log=lambda _: None)\n"
+        "    assert np.isfinite(h[0]['loss'])\n"
+        "for a in ('gemma2-27b', 'yi-6b', 'deepseek-coder-33b'):\n"
+        "    assert T.paged_supported(get_config(a))\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"

@@ -110,6 +110,8 @@ def main() -> int:
         outs = [torch.empty_like(t) for t in want]
         part = torch.empty(-(-H // FM.H_TILE), S, **f32)
         planned, n_chunks = FM.bwd_pass_width(S, H), 3
+    ys = torch.zeros(S, D, **f32)          # the per-slot float32 buffer
+    tim = disp.token_index_map
     readings = []
     for hc in (int(w) for w in widths.split(",")):
         chunk = torch.empty(n_chunks, S, hc, dtype=torch.bfloat16,
@@ -117,19 +119,22 @@ def main() -> int:
 
         def run():
             outs[0].zero_()
+            ys.zero_()
             if args.direction == "fwd":
                 rc = lib.repro_fused_moe_fwd(
                     code, x.data_ptr(), g_slot.data_ptr(), idx.data_ptr(),
                     off.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                     w3.data_ptr(), outs[0].data_ptr(), chunk.data_ptr(), hc,
-                    S, L, D, H, E, stream)
+                    S, L, D, H, E, ys.data_ptr(), tim.data_ptr(),
+                    tim.shape[1], stream)
             else:
                 rc = lib.repro_fused_moe_bwd(
                     code, x.data_ptr(), dy.data_ptr(), g_slot.data_ptr(),
                     idx.data_ptr(), off.data_ptr(), w1.data_ptr(),
                     w2.data_ptr(), w3.data_ptr(),
                     *(t.data_ptr() for t in outs), chunk.data_ptr(),
-                    part.data_ptr(), hc, S, L, D, H, E, stream)
+                    part.data_ptr(), hc, S, L, D, H, E, ys.data_ptr(),
+                    tim.data_ptr(), tim.shape[1], stream)
             _lib.check(f"repro_fused_moe_{args.direction}", rc)
 
         run()

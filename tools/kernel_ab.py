@@ -157,22 +157,33 @@ def cases(name: str, dev):
 
     disp, idx, off = route(x)
     S = disp.num_slots
+    if name in ("fused_moe_fwd", "fused_moe_bwd"):
+        import inspect
+
+        from repro_torch.kernels import fused_moe as FM
+
+        def tim_kw(fn, ds):
+            """The token map, as the training path passes it, where the
+            tree's kernel takes one."""
+            return ({"tim": ds.token_index_map}
+                    if "tim" in inspect.signature(fn).parameters else {})
     if name == "fused_moe_fwd":
-        from repro_torch.kernels import fused_moe as FM
         g_slot = torch.rand(S, generator=gen, device=dev)
+        kw = tim_kw(FM.fused_moe_fwd, disp)
         return [(f"L={L}, S={S}, d={d}, h={h}, E={E}",
-                 lambda: FM.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3))]
+                 lambda: FM.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3,
+                                          **kw))]
     if name == "fused_moe_bwd":
-        from repro_torch.kernels import fused_moe as FM
         dy = randn(L, d)
         out = []
         for label, n in (("training", L), ("decode", 4)):
             ds, ids, offs = (disp, idx, off) if n == L else route(x[:n])
             g_slot = torch.rand(ds.num_slots, generator=gen, device=dev)
+            kw = tim_kw(FM.fused_moe_bwd, ds)
             out.append((f"{label}: L={n}, S={ds.num_slots}, d={d}, h={h}",
-                        lambda n=n, g_slot=g_slot, ids=ids, offs=offs:
+                        lambda n=n, g_slot=g_slot, ids=ids, offs=offs, kw=kw:
                         FM.fused_moe_bwd(x[:n], dy[:n], g_slot, ids, offs,
-                                         w1, w2, w3)))
+                                         w1, w2, w3, **kw)))
         return out
     if name == "gmm_dw":
         from repro_torch.kernels import gmm_dw as KW
