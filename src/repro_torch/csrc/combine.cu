@@ -79,13 +79,13 @@ combine_kernel(const T* __restrict__ p, const int* __restrict__ tim,
   if (l >= L) return;
   const int t = threadIdx.x % tpt;
   const int* tl = tim + (size_t)l * k;
-  const T* gl = g + (size_t)l * k;
+  const T* gl = g != nullptr ? g + (size_t)l * k : nullptr;
   const T* rows[KM];
   float gate[KM];
 #pragma unroll
   for (int i = 0; i < KM; ++i) {
     rows[i] = i < k ? p + (size_t)tl[i] * d : p;
-    gate[i] = i < k ? repro::to_f32(gl[i]) : 0.f;
+    gate[i] = i >= k ? 0.f : gl != nullptr ? repro::to_f32(gl[i]) : 1.f;
   }
   const int step = tpt * VEC;
   for (int c0 = t * VEC; c0 < d; c0 += U * step) {
@@ -111,7 +111,7 @@ combine_kernel(const T* __restrict__ p, const int* __restrict__ tim,
       for (int i = KM; i < k; ++i) {
         Piece<T, VEC> w;
         w.load(p + (size_t)tl[i] * d + c);
-        const float gi = repro::to_f32(gl[i]);
+        const float gi = gl != nullptr ? repro::to_f32(gl[i]) : 1.f;
 #pragma unroll
         for (int e = 0; e < VEC; ++e)
           acc[e] = __fadd_rn(acc[e], __fmul_rn(gi, w.at(e)));
@@ -156,8 +156,9 @@ int launch(const void* p, const int* tim, const void* g, void* y, int L,
 
 }  // namespace
 
-// p: (S, d); tim: (L, k) int32 slot ids; g: (L, k) gates in p's dtype;
-// y: (L, d).
+// p: (S, d); tim: (L, k) int32 slot ids; g: (L, k) gates in p's dtype,
+// or null for gates of 1 (the fused MoE kernels sum each token's float32
+// slot rows this way: 1 x v is v, so only the additions round); y: (L, d).
 REPRO_API int repro_combine(int dtype, const void* p, const int* tim,
                             const void* g, void* y, int L, int k, int d,
                             cudaStream_t stream) {

@@ -4,6 +4,13 @@
 
 #include "common.cuh"
 
+// combine.cu: y[l] = sum_i g[l, i] p[tim[l, i]] in the order i = 0 .. k-1;
+// the fused kernels call it with float32 p and g null (gates of 1) to sum
+// each token's rows of their per-slot buffer into the output.
+REPRO_API int repro_combine(int dtype, const void* p, const int* tim,
+                            const void* g, void* y, int L, int k, int d,
+                            cudaStream_t stream);
+
 namespace repro {
 namespace fused {
 
@@ -95,38 +102,6 @@ __device__ __forceinline__ void load_rows(const int* __restrict__ idx,
 __device__ __forceinline__ void red_add(float* p, float v) {
   asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
 }
-
-namespace {
-
-// y[t] = the sum of the per-slot rows ys[tim[t][j]], j = 0 .. k-1, in that
-// order (tim: the dispatch's (L, k) token_index_map): the fixed-order sum
-// over a token's slots that gives the fused kernels' float32 outputs one
-// writer per element (ys from moe_down_wgmma<SCATTER>).  Entries outside
-// [0, S) add nothing.  d is a multiple of 4 and ys, y 16-byte aligned (the
-// tensor-core paths' widths).
-__global__ void __launch_bounds__(256)
-slot_sum_kernel(const float* __restrict__ ys, const int* __restrict__ tim,
-                int k, float* __restrict__ y, int L, int d, int S) {
-  const int t = blockIdx.x;
-  for (int c = 4 * threadIdx.x; c < d; c += 4 * blockDim.x) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int j = 0; j < k; ++j) {
-      const int s = tim[(size_t)t * k + j];
-      if (s < 0 || s >= S) continue;
-      const float4 v =
-          *reinterpret_cast<const float4*>(ys + (size_t)s * d + c);
-      acc = make_float4(acc.x + v.x, acc.y + v.y, acc.z + v.z, acc.w + v.w);
-    }
-    *reinterpret_cast<float4*>(y + (size_t)t * d + c) = acc;
-  }
-}
-
-inline void slot_sum(const float* ys, const int* tim, int k, float* y, int L,
-                     int d, int S, cudaStream_t stream) {
-  slot_sum_kernel<<<L, 256, 0, stream>>>(ys, tim, k, y, L, d, S);
-}
-
-}  // namespace
 
 __device__ __forceinline__ float sigmoidf(float a) {
   return 1.f / (1.f + expf(-a));

@@ -44,8 +44,8 @@
 //      dxs[s] += da w1[e][:, range]^T + db w2[e][:, range]^T into a float32
 //      (S, d) per-slot buffer, w1 and w2 read K-major where they lie.
 // and two last kernels: one sums each slot's dgates partials over the
-// column tiles in a fixed order, one (fused_moe.cuh: slot_sum) each
-// token's rows of dxs into dx in a fixed order.  The ranges write disjoint
+// column tiles in a fixed order, one (combine.cu, float32, gates of 1)
+// each token's rows of dxs into dx in a fixed order.  The ranges write disjoint
 // column (dw1, dw2) or row (dw3) blocks, and a slot row of dxs belongs to
 // one tile of each launch (one float4 reduction an element a launch, the
 // launches in stream order), so every output element has one writer: a
@@ -639,7 +639,9 @@ REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
     const int n_ct = (h + bup::BN - 1) / bup::BN;
     sum_dgates<<<std::min((S + 255) / 256, 4 * n_sm), 256, 0, stream>>>(
         part, offsets, S, E, n_ct, dg);
-    repro::fused::slot_sum(dxs, tim, k, dx, L, d, S, stream);
+    const int err =
+        repro_combine(REPRO_DTYPE_F32, dxs, tim, nullptr, dx, L, k, d, stream);
+    if (err != 0) return err;
   } else if (fast) {
     return (int)cudaErrorInvalidValue;
   } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {

@@ -34,8 +34,8 @@
 //        TMA; m64n256k16 from shared memory; the epilogue adds g_slot[s]
 //        acc into row s of a float32 (S, d) per-slot buffer ys with float4
 //        reductions (neighbouring lanes swap a row's halves first);
-// and after the last range one more kernel (fused_moe.cuh: slot_sum) sums
-// each token's slots of ys into y in a fixed order.  A slot row belongs
+// and after the last range the combine kernel (combine.cu, float32, gates
+// of 1) sums each token's slots of ys into y in a fixed order.  A slot row belongs
 // to one tile of each launch, so each element of ys takes one reduction a
 // launch, and the launches add in stream order: every element of ys and
 // of y has one writer and a repeated call gives the same bits.  (Until the
@@ -239,7 +239,9 @@ REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    repro::fused::slot_sum(ys, tim, k, y, L, d, S, stream);
+    const int err =
+        repro_combine(REPRO_DTYPE_F32, ys, tim, nullptr, y, L, k, d, stream);
+    if (err != 0) return err;
   } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {
     dim3 grid(max_row_tiles(S, E, SBM), (h + SBH - 1) / SBH);
     if (dtype == REPRO_DTYPE_BF16)

@@ -27,8 +27,8 @@
 //        dx = da w1^T + db w2^T); the epilogue either adds g_slot[s] acc
 //        (acc alone without gates) into row s of a float32 (S, n) per-slot
 //        buffer (SCATTER: the fused forward and backward, whose callers sum
-//        each token's slots in a fixed order afterwards: fused_moe.cuh
-//        slot_sum) or stores round(acc) into row s of a bf16 output
+//        each token's slots in a fixed order afterwards with combine.cu)
+//        or stores round(acc) into row s of a bf16 output
 //        (gather-GMM).  A slot row belongs to one tile, and each of its
 //        elements to one thread, so each element takes one float4
 //        reduction a launch (fire and forget, done in L2) and the launches

@@ -14,15 +14,15 @@ that a row is held to.  Inputs are bf16 from seed 0:
   random gate, at prefill (L = 2048, S = 4096) and decode (L = 4, S = 8);
 - ``flash_attention``: B = 2, S = 2048, 32/8 heads of 128 (Mixtral) and
   40/8 (Qwen3-14B), causal, window 4096;
-- ``fused_moe_fwd``: Mixtral-8x7B, 2 x 2048 tokens, d = 4096, h = 14336,
-  top-2 of 8 experts from a random gate;
-- ``gather_gmm``: the same routing and weights, each instantiation as the
+- ``fused_moe_fwd`` and ``fused_moe_bwd``: Mixtral-8x7B (d = 4096, h =
+  14336, top-2 of 8 experts) and Qwen3-30B-A3B (d = 2048, h = 768, top-8
+  of 128 experts), each at training (2 x 2048 tokens) and decode (4
+  tokens), experts from a random gate;
+- ``gather_gmm``: Mixtral's routing and weights, each instantiation as the
   training step calls it (the dual branch with ``save_ab``, the w3
   forward over identity rows, the backward's w3ᵀ and w1ᵀ), and the dual
   branch at serving's prefill (4 x 512 tokens) and decode (4 tokens);
 - ``fused_swiglu_bwd_w``: Qwen3-14B at ``fused_swiglu_bwd_x``'s shape;
-- ``fused_moe_bwd``: ``fused_moe_fwd``'s routing and weights, at the
-  training shape and at decode (4 tokens, 8 slots);
 - ``gmm_dw``: the same routing, dw1 (gathered x rows against a (S, h) da)
   and dw3 (a (S, h) g·y_swi against the gathered dy rows);
 - ``build_dispatch``: ``chip_smoke.DISPATCH_SHAPES`` (decode to the
@@ -132,6 +132,8 @@ def cases(name: str, dev):
                          src, 0, ids))]
         return out
     from repro_torch.core import routing
+    if name in ("fused_moe_fwd", "fused_moe_bwd"):
+        return fused_moe_cases(name, dev, randn, gen)
     L, d, h, E = 4096, 4096, 14336, 8
     if name == "combine":
         from repro_torch.kernels import combine as KC
@@ -157,34 +159,6 @@ def cases(name: str, dev):
 
     disp, idx, off = route(x)
     S = disp.num_slots
-    if name in ("fused_moe_fwd", "fused_moe_bwd"):
-        import inspect
-
-        from repro_torch.kernels import fused_moe as FM
-
-        def tim_kw(fn, ds):
-            """The token map, as the training path passes it, where the
-            tree's kernel takes one."""
-            return ({"tim": ds.token_index_map}
-                    if "tim" in inspect.signature(fn).parameters else {})
-    if name == "fused_moe_fwd":
-        g_slot = torch.rand(S, generator=gen, device=dev)
-        kw = tim_kw(FM.fused_moe_fwd, disp)
-        return [(f"L={L}, S={S}, d={d}, h={h}, E={E}",
-                 lambda: FM.fused_moe_fwd(x, g_slot, idx, off, w1, w2, w3,
-                                          **kw))]
-    if name == "fused_moe_bwd":
-        dy = randn(L, d)
-        out = []
-        for label, n in (("training", L), ("decode", 4)):
-            ds, ids, offs = (disp, idx, off) if n == L else route(x[:n])
-            g_slot = torch.rand(ds.num_slots, generator=gen, device=dev)
-            kw = tim_kw(FM.fused_moe_bwd, ds)
-            out.append((f"{label}: L={n}, S={ds.num_slots}, d={d}, h={h}",
-                        lambda n=n, g_slot=g_slot, ids=ids, offs=offs, kw=kw:
-                        FM.fused_moe_bwd(x[:n], dy[:n], g_slot, ids, offs,
-                                         w1, w2, w3, **kw)))
-        return out
     if name == "gmm_dw":
         from repro_torch.kernels import gmm_dw as KW
         xg = x[idx.long()]
@@ -213,6 +187,41 @@ def cases(name: str, dev):
         out.append((f"{label} dual: S={ds.num_slots}, {d}->{h}",
                     lambda xs=xs, ids=ids, offs=offs:
                     KG.gather_gmm(xs, ids, offs, w1, w2)))
+    return out
+
+
+def fused_moe_cases(name: str, dev, randn, gen):
+    """The fused MoE forward or backward at each model's training and
+    decode shapes, the token map passed as the training path passes it
+    where the checkout's kernel takes one."""
+    import inspect
+
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels import fused_moe as FM
+    fn = getattr(FM, name)
+    takes_tim = "tim" in inspect.signature(fn).parameters
+    out = []
+    for model, d, h, E, k in (("mixtral-8x7b", 4096, 14336, 8, 2),
+                              ("qwen3-moe-30b-a3b", 2048, 768, 128, 8)):
+        x, dy = randn(4096, d), randn(4096, d)
+        w1 = randn(E, d, h, scale=d ** -0.5)
+        w2 = randn(E, d, h, scale=d ** -0.5)
+        w3 = randn(E, h, d, scale=h ** -0.5)
+        wg = randn(d, E)
+        for label, n in (("training", 4096), ("decode", 4)):
+            ds = routing.build_dispatch(routing.top_k_gating(
+                x[:n], wg, k).topk_experts.contiguous(), E)
+            S = ds.num_slots
+            g_slot = torch.rand(S, generator=gen, device=dev)
+            args = (x[:n], g_slot) if name == "fused_moe_fwd" else \
+                (x[:n], dy[:n], g_slot)
+            args += (ds.expert_token_indices, ds.expert_token_offsets,
+                     w1, w2, w3)
+            kw = {"tim": ds.token_index_map} if takes_tim else {}
+            out.append((f"{model} {label}: L={n}, S={S}, d={d}, h={h}, "
+                        f"E={E}", lambda args=args, kw=kw: fn(*args, **kw)))
     return out
 
 
