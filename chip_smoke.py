@@ -283,7 +283,35 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    and timed as phase 4: flash attention at Hymba's heads (window 1024,
    B = 2, S = 2048) and at Gemma2's (window 4096, softcap 50, S = 8192),
    the fused-SwiGLU trio at d = 1600, h = 5504 and d = 4608, h = 36864
-   (L = 4096 and 4), paged attention with Gemma2's window and softcap.
+   (L = 4096 and 4), paged attention with Gemma2's window and softcap;
+40. the fused MoE pair's general path (float32, and bf16 with d = 1020,
+   off the multiple of 8): 1024 tokens, top-2 of 8 experts, h = 2048;
+   every output of both directions bit-equal over three calls (one
+   writer per element) and held against its plain version, then timed;
+41. the kernels at the frame and mixed paths' shapes, held and timed as
+   phase 4: flash attention without the causal mask at HuBERT-XLarge's
+   training shape (B = 2, S = 2048, 16/16 heads of 80: the general
+   kernel) and at 32/8 heads of 128 (the wgmma kernel's non-causal
+   branch), causal at LLaVA-NeXT's prefill (B = 1, S = 6144, 32/8 heads
+   of 128), the fused-SwiGLU trio at d = 4096, h = 14336 over 6144 rows;
+42. HuBERT-XLarge training at all 48 layers (frames from
+   ``synthesize_batch``, 2 x 2048, about 82 s of 20 ms frames), as phase
+   7: 96 flash launches a step (48 in the forward, 48 in the recompute),
+   frames/s, peak and busy share; then a CPU cross-check of the forward
+   on a 2-layer cut (64 frames; every position's logits within the bf16
+   tolerance of phase 6);
+43. LLaVA-NeXT-Mistral-7B at full width and depth (32 layers, 14.5 GB
+   bf16): ``forward`` with ``last_only`` over 1 x 6144 positions (all 2880
+   anyres image slots and 3264 text tokens), cold, warm (tokens/s, peak;
+   flash and the fused SwiGLU forward once a layer) and traced (busy
+   share); then the CPU cross-check on a 2-layer cut (24 image slots, 24
+   tokens);
+44. LLaVA-NeXT decode through ``init_cache`` / ``decode_step`` at 32
+   layers, as phase 35: B = 4 teacher-forced through a 64-token prompt
+   (bf16, measured), 16 greedy tokens timed and traced; a 2-layer float32
+   cut held against the forward;
+45. LLaVA-NeXT training with the depth cut to 4 layers, 2 x 4096
+   positions (2048 image slots each), ``use_pallas=True``, as phase 7.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -309,6 +337,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM, NVIDIA data sheet
 BF16_OPS_PER_S = 989e12          # dense bf16 tensor-core peak
+F32_OPS_PER_S = 67e12            # float32 outside the tensor cores
 BF16 = torch.bfloat16
 EB = 2                           # bytes per bf16 element
 # Kernel vs plain tolerances in bf16 (stated with their reasons):
@@ -337,6 +366,15 @@ CPU_LOGIT_ATOL = 0.125
 #    or term is off by the output's own scale).
 F32_RTOL, F32_FLOOR = 1e-5, 1e-5
 FLASH_ATOL = 2e-2
+#  flash attention in bf16 over long sequences (phase 41: S = 2048 and
+#    6144): each output averages hundreds to thousands of keys, so |o| is
+#    about 0.03 and the absolute bound above would hide a dropped kv tile
+#    or a wrong GQA head.  Each element is held to 2^-5 of |o| plus its
+#    row's mean |o| (over Dh): room for a few bf16 roundings (2^-8 each:
+#    the plain version's scaled q, the kernel's P and both outputs), far
+#    below what a 64-key tile dropped from 2048 moves a row (about
+#    sqrt(64 / 2048), 18% of its values).
+FLASH_ROW_REL = 2 ** -5
 #  fused MoE forward and backward: float32 outputs whose sums over h-chunks,
 #    slots and row tiles run through atomics in another order than the
 #    plain version's, from bf16 operands (the backward also rounds da, db
@@ -443,14 +481,14 @@ def split_boundaries(KP, dev, Hkv: int, pps: int, ps: int):
                               dtype=torch.int32, device=dev)
 
 
-def bound_ms(nbytes: float, ops: float,
-             launch_ms: float = 0.0) -> tuple[float, str]:
+def bound_ms(nbytes: float, ops: float, launch_ms: float = 0.0,
+             ops_per_s: float = BF16_OPS_PER_S) -> tuple[float, str]:
     """The least time for the work: the largest of its bytes over the
-    memory rate, its operations over the bf16 peak and ``launch_ms`` (the
-    time of empty kernels launched as a call of the kernel launches its
-    own)."""
+    memory rate, its operations over the peak for the inputs' type
+    (``ops_per_s``: bf16 unless given) and ``launch_ms`` (the time of
+    empty kernels launched as a call of the kernel launches its own)."""
     return max((nbytes / HBM_BYTES_PER_S * 1e3, "bytes"),
-               (ops / BF16_OPS_PER_S * 1e3, "operations"),
+               (ops / ops_per_s * 1e3, "operations"),
                (launch_ms, "launch"), key=lambda t: t[0])
 
 
@@ -469,6 +507,25 @@ def require_close(name, got, want, rtol, atol) -> float:
                     f"(max |err| {worst:.4g})")
     check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
     return worst
+
+
+def require_row_close(name, got, want, rel) -> dict:
+    """Holds every element to ``rel`` times (|want| + its row's mean
+    |want| over the last axis); returns the largest absolute error, the
+    largest ratio of error to that scale, and max and mean |want|."""
+    w = want.float()
+    err = (got.float() - w).abs()
+    scale = w.abs() + w.abs().mean(-1, keepdim=True)
+    ratio = err / scale.clamp_min(torch.finfo(torch.float32).tiny)
+    out = {"max_abs_err": float(err.max()), "max_ratio": float(ratio.max()),
+           "max_abs_o": float(w.abs().max()),
+           "mean_abs_o": float(w.abs().mean())}
+    bad = int((ratio > rel).sum())
+    check(bad == 0, f"{name}: {bad} elements beyond {rel:.4g} of |o| plus "
+                    f"the row's mean |o| (max ratio {out['max_ratio']:.4g}, "
+                    f"max |err| {out['max_abs_err']:.4g})")
+    check(bool(torch.isfinite(got.float()).all()), f"{name}: non-finite")
+    return out
 
 
 def card_line() -> str:
@@ -724,8 +781,9 @@ def main() -> int:
         return floors[key]
 
     def entry(ms, plain_ms, nbytes, ops, library_ms=None, shape="",
-              launches=1, dependent=False):
-        b, by = bound_ms(nbytes, ops, launch_floor(launches, dependent))
+              launches=1, dependent=False, ops_per_s=BF16_OPS_PER_S):
+        b, by = bound_ms(nbytes, ops, launch_floor(launches, dependent),
+                         ops_per_s)
         return {"shape": shape, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": b, "bound_by": by, "library_ms": library_ms,
                 "kernel_launches": launches}
@@ -1205,6 +1263,92 @@ def main() -> int:
         rows[name].extend(rs)
     torch.cuda.empty_cache()
 
+    mark("40")
+    # -- 40. the fused MoE pair's general path: one writer per element ---------
+    for name, rs in general_path_phase(M, dev, timer, entry, errs).items():
+        rows[name].extend(rs)
+    torch.cuda.empty_cache()
+
+    mark("41")
+    # -- 41. the kernels at the frame and mixed paths' shapes ------------------
+    for name, rs in frames_mixed_kernels(M, dev, timer, entry, errs).items():
+        rows[name].extend(rs)
+    torch.cuda.empty_cache()
+
+    mark("42")
+    # -- 42. HuBERT-XLarge training, all 48 layers, 2 x 2048 frames ------------
+    # flash attention without the causal mask, heads of 80: once a layer in
+    # the forward and once in the backward's recompute; the GELU FFN is two
+    # plain products, as in the reference
+    cfg_hu = get_config("hubert-xlarge").replace(use_pallas=True)
+    nhu = cfg_hu.num_layers
+    hutrain = training_phase(cfg_hu, dev, K, ("flash_attention",),
+                             "hubert-xlarge", per_step={
+                                 "flash_attention": 2 * nhu},
+                             steps_warm=5, spans=False, seq=HUBERT_SEQ)
+    check(hutrain["launches_per_step"]["flash_attention"] == 96,
+          "train [hubert-xlarge]: not 96 flash launches a step")
+    log(f"train [hubert-xlarge]: {hutrain['tokens_per_s']:.1f} frames/s "
+        f"({hutrain['tokens_per_s'] * 0.02:.1f} s of 20 ms frames a second "
+        f"of training), step {hutrain['step_s']:.4f} s, peak "
+        f"{hutrain['peak_bytes'] / 2 ** 30:.3f} GiB, device busy "
+        f"{100 * hutrain['busy_s'] / hutrain['traced_wall_s']:.1f}%, flash "
+        f"launches a step {hutrain['launches_per_step']['flash_attention']:g}")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hu2 = cfg_hu.replace(num_layers=2, dtype="bfloat16")
+    huparams = init_params(hu2, gen, dev)
+    hux = cpu_forward_crosscheck(T, hu2, huparams, dev)
+    del huparams
+    torch.cuda.empty_cache()
+
+    mark("43")
+    # -- 43. LLaVA-NeXT-Mistral-7B: forward at all 32 layers over 6144 ---------
+    #        positions, then the CPU cross-check on a 2-layer cut
+    lcfg = get_config("llava-next-mistral-7b").replace(use_pallas=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    lparams = init_params(lcfg, gen, dev)
+    torch.cuda.synchronize()
+    l_weight_bytes = sum(t.numel() * t.element_size()
+                         for t in _leaves(lparams))
+    log(f"weights: {lcfg.name} full width and full depth, "
+        f"{lcfg.num_layers} layers, {l_weight_bytes / 1e9:.2f} GB bf16 "
+        f"({sum(t.numel() for t in _leaves(lparams)) / 1e9:.3f} B "
+        "parameters)")
+    lfwd = llava_forward_phase(M, lcfg, lparams, dev, K)
+    lfwd["weight_bytes"] = l_weight_bytes
+    lx = cpu_forward_crosscheck(T, lcfg.replace(num_layers=2),
+                                dict(lparams, layers=lparams["layers"][:2]),
+                                dev)
+    del lparams
+    torch.cuda.empty_cache()
+
+    mark("44")
+    # -- 44. LLaVA-NeXT decode through init_cache / decode_step, 32 layers -----
+    ldec = decode_phase(M, lcfg.replace(dtype="bfloat16"), dev,
+                        " [llava-next-mistral-7b, 32 layers]", K,
+                        cut_cfg=lcfg.replace(num_layers=2, dtype="float32"),
+                        cut_len=DECODE_PROMPT, f32_full=False,
+                        n_new=LLAVA_DECODE_NEW)
+    check(ldec["launches"]["fused_swiglu_fwd"]
+          == lcfg.num_layers * LLAVA_DECODE_NEW,
+          "decode [llava-next-mistral-7b]: the fused SwiGLU forward is not "
+          "launched once a layer a step")
+    torch.cuda.empty_cache()
+
+    mark("45")
+    # -- 45. LLaVA-NeXT training, 4 layers, 2 x 4096 positions -----------------
+    cfg_lt = get_config("llava-next-mistral-7b").replace(num_layers=4,
+                                                         use_pallas=True)
+    nl = cfg_lt.num_layers
+    ltrain = training_phase(cfg_lt, dev, K, (
+        "fused_swiglu_fwd", "fused_swiglu_bwd_x", "fused_swiglu_bwd_w",
+        "flash_attention"), "llava-next-mistral-7b, 4 layers", per_step={
+            "flash_attention": 2 * nl, "fused_swiglu_fwd": 2 * nl,
+            "fused_swiglu_bwd_x": nl, "fused_swiglu_bwd_w": nl},
+        steps_warm=NEW_WARM_STEPS, seq=LLAVA_TRAIN_SEQ)
+    torch.cuda.empty_cache()
+
     # -- report ---------------------------------------------------------------
     sources = {
         "build_dispatch": ("src/repro_torch/csrc/dispatch.cu",
@@ -1268,6 +1412,10 @@ def main() -> int:
             "launches_hymba_train": htrain["launches"].get(name, 0),
             "launches_hymba_decode": hdec["launches"].get(name, 0),
             "launches_gemma2_serve": gserve["launches"].get(name, 0),
+            "launches_hubert_train": hutrain["launches"].get(name, 0),
+            "launches_llava_forward": lfwd["launches"].get(name, 0),
+            "launches_llava_decode": ldec["launches"].get(name, 0),
+            "launches_llava_train": ltrain["launches"].get(name, 0),
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -1296,7 +1444,12 @@ def main() -> int:
         f"{json.dumps(mx)}")
     log(f"cpu cross-check [gemma2-27b, 2-layer cut]: {json.dumps(gx)}")
     log("decode-record: " + json.dumps({"hymba-1.5b": hdec,
-                                          "xlstm-1.3b": xdec}))
+                                          "xlstm-1.3b": xdec,
+                                          "llava-next-mistral-7b": ldec}))
+    log("frames-mixed-record: " + json.dumps({
+        "llava-next-mistral-7b forward": lfwd,
+        "cpu cross-check [hubert-xlarge, 2 layers]": hux,
+        "cpu cross-check [llava-next-mistral-7b, 2 layers]": lx}))
     log(f"layer-record [one-rank mesh]: {json.dumps(layer1)}")
     log(f"multi-rank-record: {json.dumps(multi)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
@@ -1308,7 +1461,9 @@ def main() -> int:
                          ("qwen3-moe-30b-a3b blaze+pallas_fused",
                           mtrain_fused, None),
                          ("hymba-1.5b", htrain, xcheck_h),
-                         ("xlstm-1.3b, 8 layers", xtrain, xcheck_x)):
+                         ("xlstm-1.3b, 8 layers", xtrain, xcheck_x),
+                         ("hubert-xlarge", hutrain, None),
+                         ("llava-next-mistral-7b, 4 layers", ltrain, None)):
         rec = {k_: v for k_, v in rec.items() if k_ != "by_kernel_ms"}
         log(f"train-record [{tag}]: "
             f"{json.dumps(dict(rec, crosscheck=xc))}")
@@ -1774,18 +1929,21 @@ def gmm_dw_row(M, timer, entry, lhs, dout, disp, shape) -> dict:
         timer(lambda: torch._grouped_mm(lhs_t, dout, offs=ends)), shape)
 
 
-def flash_row(M, timer, entry, q, k, v, window, shape, cap=0.0) -> dict:
-    """Phase 4's row for the causal flash-attention forward: operations
-    4 B H Dh a live (query, key) pair; library: SDPA (with a boolean
-    causal-window mask where the window is shorter than the sequence;
-    none with a softcap, which SDPA does not compute)."""
+def flash_row(M, timer, entry, q, k, v, window, shape, cap=0.0,
+              causal=True) -> dict:
+    """Phase 4's row for the flash-attention forward, causal unless
+    ``causal`` is False (no window then): operations 4 B H Dh a live
+    (query, key) pair; library: SDPA (with a boolean causal-window mask
+    where the window is shorter than the sequence; none with a softcap,
+    which SDPA does not compute)."""
     B, T_, H, Dh = q.shape
-    pairs = sum(min(t + 1, window) if window else t + 1 for t in range(T_))
+    pairs = (T_ * T_ if not causal else
+             sum(min(t + 1, window) if window else t + 1 for t in range(T_)))
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     library = None
     if not cap and (not window or window >= T_):
-        library = timer(lambda: sdpa(qt, kt, vt, is_causal=True,
+        library = timer(lambda: sdpa(qt, kt, vt, is_causal=causal,
                                      enable_gqa=True))
     elif not cap:
         i = torch.arange(T_, device=q.device)
@@ -1793,9 +1951,9 @@ def flash_row(M, timer, entry, q, k, v, window, shape, cap=0.0) -> dict:
         library = timer(lambda: sdpa(qt, kt, vt, attn_mask=mask,
                                      enable_gqa=True))
     return entry(
-        timer(lambda: M.KF.flash_attention(q, k, v, causal=True,
+        timer(lambda: M.KF.flash_attention(q, k, v, causal=causal,
                                            window=window, cap=cap)),
-        timer(lambda: M.KF.flash_attention_plain(q, k, v, causal=True,
+        timer(lambda: M.KF.flash_attention_plain(q, k, v, causal=causal,
                                                  window=window, cap=cap,
                                                  chunk=512),
               warm=1, reps=3),
@@ -2902,23 +3060,27 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
 
 
 def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None,
-                   steps_warm=5, spans=True):
-    """Phases 7, 8, 12, 18, 34 and 36: a training step at full width
-    through ``make_train_step`` (on ``mesh``'s ranks when given); every
-    kernel in ``required`` must be launched during the ``steps_warm`` warm
-    steps, and each kernel in ``per_step`` exactly that many times a step.
-    The traced step records host activity too, for the step's named spans,
-    unless ``spans`` is False (device activity only: a model of many small
-    ops, whose host trace takes a minute to read).  Returns the
+                   steps_warm=5, spans=True, seq=TRAIN_SEQ):
+    """Phases 7, 8, 12, 18, 34, 36, 42 and 45: a training step at full
+    width through ``make_train_step`` (on ``mesh``'s ranks when given), on
+    TRAIN_BATCH x ``seq`` batches of the config's input kind (the
+    pipeline's packed tokens, or ``synthesize_batch``'s frames or image
+    embeddings and tokens, seed 0 onwards); every kernel in ``required``
+    must be launched during the ``steps_warm`` warm steps, and each kernel
+    in ``per_step`` exactly that many times a step.  The traced step
+    records host activity too, for the step's named spans, unless
+    ``spans`` is False (device activity only: a model of many small ops,
+    whose host trace takes a minute to read).  Returns the
     measurements."""
     from repro_torch import sharding as SH
     from repro_torch.configs import TrainConfig
-    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.data.pipeline import (make_batch_iterator,
+                                           synthesize_batch)
     from repro_torch.interop import init_params
     from repro_torch.train.loop import make_train_step
     from repro_torch.train.optimizer import init_adamw
     tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=100,
-                       batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+                       batch_size=TRAIN_BATCH, seq_len=seq, seed=0)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev, dtype=torch.float32)
     step_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
@@ -2926,8 +3088,12 @@ def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None,
         params = SH.local_params(params, mesh, step_fn.moe_parallel)
     opt = init_adamw(params)
     n_params = sum(t.numel() for t in _leaves(params))
-    batches = make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
-                                  tcfg.batch_size, tcfg.seed)
+    if cfg.input_kind == "tokens":
+        batches = make_batch_iterator(cfg.vocab_size, tcfg.seq_len,
+                                      tcfg.batch_size, tcfg.seed)
+    else:
+        batches = (synthesize_batch(cfg, tcfg.batch_size, tcfg.seq_len,
+                                    seed=i) for i in range(1000))
     tokens = tcfg.batch_size * tcfg.seq_len
     torch.cuda.synchronize()
     log(f"train [{tag}]: {cfg.name} full width, {cfg.num_layers} layers, "
@@ -4640,7 +4806,7 @@ def decode_parity(M, cfg, params, toks, dev, tag, capacity=None,
     and the measurements."""
     T = M.T
     B, S = toks.shape
-    full = T.forward(params, {"tokens": toks}, cfg)[0]
+    full = T.forward(params, _token_batch(cfg, toks), cfg)[0]
     top = float(full.abs().max())
     cap = DECODE_TOL_CAP * top
     spread = None
@@ -4649,7 +4815,7 @@ def decode_parity(M, cfg, params, toks, dev, tag, capacity=None,
         how = f"{DECODE_F32_ATOL} (float32)"
     else:
         p32 = _map_leaves(params, lambda t: t.float())
-        spread = float((T.forward(p32, {"tokens": toks}, cfg.replace(
+        spread = float((T.forward(p32, _token_batch(cfg, toks), cfg.replace(
             dtype="float32"))[0] - full).abs().max())
         del p32
         tol = CPU_LOGIT_ATOL + 2 * spread
@@ -4686,14 +4852,24 @@ def decode_parity(M, cfg, params, toks, dev, tag, capacity=None,
                        "argmax_flips": flips}
 
 
+def _token_batch(cfg, toks) -> dict:
+    """A forward's batch of the token stream ``toks`` (B, S): for a model
+    of mixed inputs, with no image slot ahead of it (``decode_step``
+    decodes a token stream, as the reference's does)."""
+    if cfg.input_kind != "mixed":
+        return {"tokens": toks}
+    return {"tokens": toks, "image_embeds": torch.zeros(
+        toks.shape[0], 0, cfg.d_model, device=toks.device)}
+
+
 def decode_phase(M, cfg, dev, tag, K, cut_cfg=None, cut_len=WRAP_LEN,
-                 f32_full=True) -> dict:
-    """Phases 35 and 36 (decode): random bf16 weights from seed 0, B =
+                 f32_full=True, n_new=DECODE_NEW) -> dict:
+    """Phases 35, 36 and 44 (decode): random bf16 weights from seed 0, B =
     DECODE_B requests teacher-forced through a DECODE_PROMPT-token prompt
     by ``decode_step`` (``decode_parity``: with ``f32_full`` held first
     with the same draws in float32; then in bf16, measured and not held,
     since at full depth a random-init model amplifies bf16 rounding past
-    the cap), then DECODE_NEW greedy tokens timed, and the same greedy
+    the cap), then ``n_new`` greedy tokens timed, and the same greedy
     tokens again from a copy of the cache under torch.profiler (the same
     tokens; device busy share).  With ``cut_cfg`` (fewer layers) a run
     of ``cut_len`` positions is held against the forward in float32 and,
@@ -4712,7 +4888,7 @@ def decode_phase(M, cfg, dev, tag, K, cut_cfg=None, cut_len=WRAP_LEN,
                          device=dev)
     log(f"decode{tag}: weights {n_bytes / 1e9:.2f} GB bf16, "
         f"{cfg.num_layers} layers; B={DECODE_B}, prompt {DECODE_PROMPT}, "
-        f"{DECODE_NEW} greedy tokens")
+        f"{n_new} greedy tokens")
     out = {"weight_bytes": n_bytes}
     with torch.inference_mode():
         if f32_full:
@@ -4727,12 +4903,12 @@ def decode_phase(M, cfg, dev, tag, K, cut_cfg=None, cut_len=WRAP_LEN,
             torch.cuda.empty_cache()
         cache, lg, out["parity"] = decode_parity(
             M, cfg, params, toks, dev, tag,
-            capacity=DECODE_PROMPT + DECODE_NEW, held=False)
+            capacity=DECODE_PROMPT + n_new, held=False)
         start = _clone_cache(cache)
 
         def greedy(c, lg_):
             tok, toks_out = lg_.argmax(-1, keepdim=True), []
-            for i in range(DECODE_NEW):
+            for i in range(n_new):
                 lg_, c = T.decode_step(params, c, {"tokens": tok},
                                        DECODE_PROMPT + i, cfg)
                 tok = lg_.argmax(-1, keepdim=True)
@@ -4758,11 +4934,11 @@ def decode_phase(M, cfg, dev, tag, K, cut_cfg=None, cut_len=WRAP_LEN,
               "other greedy tokens")
         busy = sum(_device_time_by_kernel(prof).values()) / 1e6
         del start, cache
-        tps = DECODE_B * DECODE_NEW / dec_s
-        log(f"decode{tag} launches over {DECODE_NEW} greedy steps: "
+        tps = DECODE_B * n_new / dec_s
+        log(f"decode{tag} launches over {n_new} greedy steps: "
             f"{launches}")
-        log(f"decode{tag}: {DECODE_B * DECODE_NEW} greedy tokens in "
-            f"{dec_s:.4f} s ({tps:.1f} tok/s, {1e3 * dec_s / DECODE_NEW:.2f}"
+        log(f"decode{tag}: {DECODE_B * n_new} greedy tokens in "
+            f"{dec_s:.4f} s ({tps:.1f} tok/s, {1e3 * dec_s / n_new:.2f}"
             f" ms a step); traced rerun wall {traced_s:.4f} s, device busy "
             f"{busy:.4f} s ({100 * busy / traced_s:.1f}%); peak memory "
             f"{peak / 2 ** 30:.3f} GiB; tokens[0] {got[0].tolist()}")
@@ -4902,6 +5078,292 @@ def new_shape_kernels(M, dev, timer, entry, errs) -> dict:
                 f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}), library {r['library_ms']}")
     return rows
+
+
+# The fused MoE pair's general path (phase 40): 1024 tokens routed top-2
+# of 8 experts from uniform scores (2048 slots), d = 1024, h = 2048, in
+# float32 and in bf16 with d = 1020 (off the multiple of 8 the tensor-core
+# path needs).
+GENERAL_SHAPES = (("float32", torch.float32, 1024), ("bf16, d=1020",
+                                                     torch.bfloat16, 1020))
+GENERAL_L, GENERAL_E, GENERAL_K, GENERAL_H = 1024, 8, 2, 2048
+
+
+def general_path_phase(M, dev, timer, entry, errs) -> dict:
+    """Phase 40: the fused MoE pair's general path (float32-FMA kernels,
+    ``kernels/fused_moe.tensor_core_path`` false) at GENERAL_SHAPES: every
+    output of the forward and the backward bit-equal across three calls
+    (one writer per element), each against its plain version (float32:
+    ``F32_RTOL`` over ``F32_FLOOR`` of the output's scale; bf16: one bf16
+    step of the scale plus ``GMM_ATOL``), then timed beside its plain
+    version and its bound (operations 6 S d h forward, 16 S d h backward,
+    over the float32 peak for float32 inputs and the bf16 peak for bf16
+    ones, as the rows of phase 4 count them).  Inputs from their own
+    generator.  Returns the timing rows by kernel."""
+    KFM = M.KFM
+    gen = torch.Generator(device=dev).manual_seed(40)
+    L, E, k, h = GENERAL_L, GENERAL_E, GENERAL_K, GENERAL_H
+    topk = (torch.rand(L, E, generator=gen, device=dev).argsort(1)[:, :k]
+            .to(torch.int32).contiguous())
+    disp = M.TR.build_dispatch(topk, E)
+    S = disp.num_slots
+    idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    tim = disp.token_index_map
+    g = torch.rand(S, generator=gen, device=dev)
+    rows = {"fused_moe_fwd": [], "fused_moe_bwd": []}
+    for label, dtype, d in GENERAL_SHAPES:
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dtype)
+        x, dy = randn(L, d), randn(L, d)
+        ws = (randn(E, d, h, scale=d ** -0.5), randn(E, d, h, scale=d ** -0.5),
+              randn(E, h, d, scale=h ** -0.5))
+        check(not KFM.tensor_core_path(x, ws, dy),
+              f"general path [{label}]: the inputs take the tensor-core path")
+        fwd = lambda: KFM.fused_moe_fwd(x, g, idx, off, *ws, tim)
+        bwd = lambda: KFM.fused_moe_bwd(x, dy, g, idx, off, *ws, tim)
+        got = [fwd(), *bwd()]
+        for call in range(2):
+            for out, a, b in zip(("y", "dx", "dgates", "dw1", "dw2", "dw3"),
+                                 got, [fwd(), *bwd()]):
+                check(torch.equal(a, b), f"fused_moe general path [{label}] "
+                      f"{out}: a repeated call differs")
+        want = [KFM.fused_moe_fwd_plain(x, g, idx, off, *ws),
+                *KFM.fused_moe_bwd_plain(x, dy, g, idx, off, *ws)]
+        rel = []
+        for i, (out, a, b) in enumerate(zip(
+                ("y", "dx", "dgates", "dw1", "dw2", "dw3"), got, want)):
+            scale = float(b.abs().max())
+            if dtype == torch.float32:
+                rt, at = F32_RTOL, F32_FLOOR * scale
+            else:
+                rt, at = 0.0, FUSED_SCALE_STEP * scale + GMM_ATOL
+            e = require_close(f"fused_moe general path [{label}] {out}", a, b,
+                              rt, at)
+            key = "fused_moe_fwd" if i == 0 else "fused_moe_bwd"
+            errs[key] = max(errs[key], e)
+            rel.append(round(e / max(scale, 1e-30), 8))
+        hc_f = KFM.general_pass_width(S, h)
+        hc_b = KFM.general_bwd_pass_width(S, h)
+        n_f = len(KFM.h_ranges(h, hc_f))
+        n_b = len(KFM.h_ranges(h, hc_b))
+        log(f"parity fused_moe general path [{label}: L={L}, S={S}, d={d}, "
+            f"h={h}]: max |err| / scale (y, dx, dgates, dw1, dw2, dw3) "
+            f"{rel}; every output bit-equal over three calls; h-ranges "
+            f"{n_f} forward, {n_b} backward")
+        eb = x.element_size()
+        rate = F32_OPS_PER_S if dtype == torch.float32 else BF16_OPS_PER_S
+        shape = f"general path, {label}: L={L}, S={S}, d={d}, h={h}"
+        w_bytes = 3 * E * d * h * eb
+        rows["fused_moe_fwd"].append(entry(
+            timer(fwd), timer(lambda: KFM.fused_moe_fwd_plain(
+                x, g, idx, off, *ws), warm=1, reps=3),
+            L * d * eb + S * 8 + w_bytes + L * d * 4, 6.0 * S * d * h, None,
+            shape, launches=2 * n_f + 1, ops_per_s=rate))
+        rows["fused_moe_bwd"].append(entry(
+            timer(bwd), timer(lambda: KFM.fused_moe_bwd_plain(
+                x, dy, g, idx, off, *ws), warm=1, reps=3),
+            2 * L * d * eb + S * 8 + w_bytes + L * d * 4 + S * 4
+            + 3 * E * d * h * 4, 16.0 * S * d * h, None, shape,
+            launches=5 * n_b + 2, ops_per_s=rate))
+        del x, dy, ws, got, want
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+# The frame and mixed paths (phases 41-45).  HuBERT-XLarge trains at all 48
+# layers on 2 x 2048 frames (about 82 s of 20 ms frames); LLaVA-NeXT's
+# forward takes 1 x 6144 positions (all 2880 anyres image slots and 3264
+# text tokens), its decode B = 4 over a 64-token prompt and 16 greedy
+# tokens, its training 2 x 4096 positions (2048 image slots each, by the
+# reference's min(num_image_tokens, S // 2)) at 4 of 32 layers.
+HUBERT_SEQ = 2048
+LLAVA_PREFILL, LLAVA_TRAIN_SEQ, LLAVA_DECODE_NEW = 6144, 4096, 16
+# The short inputs of the CPU cross-checks (phase 43): 64 frames; 48
+# positions of which 24 image slots.
+XCHECK_SEQ = {"frames": 64, "mixed": 48}
+# Phase 41's flash-attention shapes (label, (B, S, H, Hkv, Dh, causal))
+# and LLaVA's FFN widths (d, h).
+FRAMES_MIXED_FLASH = (
+    ("hubert-xlarge training", (2, 2048, 16, 16, 80, False)),
+    ("bidirectional, wgmma", (2, 2048, 32, 8, 128, False)),
+    ("llava-next-mistral-7b prefill", (1, 6144, 32, 8, 128, True)))
+LLAVA_FFN = (4096, 14336)
+
+
+def frames_mixed_kernels(M, dev, timer, entry, errs) -> dict:
+    """Phase 41: the kernels at the shapes the frame and mixed paths give
+    them, each against its plain version and timed beside its bound,
+    plain time and library time: flash attention without the causal mask
+    at HuBERT-XLarge's training shape (B = 2, S = 2048, 16/16 heads of 80:
+    the general kernel) and at 32/8 heads of 128 (the wgmma kernel's
+    non-causal branch), and causal at LLaVA-NeXT's prefill (B = 1, S =
+    6144, 32/8 heads of 128); the fused-SwiGLU trio at LLaVA's widths
+    (d = 4096, h = 14336) over the prefill's L = 6144 rows.  Returns the
+    timing rows by kernel."""
+    KF, KS = M.KF, M.KS
+    g = torch.Generator(device=dev).manual_seed(41)
+
+    def randn(*shape, dtype=BF16, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(dtype)
+
+    rows = {n: [] for n in ("flash_attention", "fused_swiglu_fwd",
+                            "fused_swiglu_bwd_x", "fused_swiglu_bwd_w")}
+    for label, (B, S, H, Hkv, Dh, causal) in FRAMES_MIXED_FLASH:
+        q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), \
+            randn(B, S, Hkv, Dh)
+        got = KF.flash_attention(q, k, v, causal=causal)
+        check(torch.equal(got, KF.flash_attention(q, k, v, causal=causal)),
+              f"flash_attention [{label}]: a repeated call differs")
+        want = KF.flash_attention_plain(q, k, v, causal=causal, chunk=512)
+        r = require_row_close(f"flash_attention [{label}]", got, want,
+                              FLASH_ROW_REL)
+        errs["flash_attention"] = max(errs["flash_attention"],
+                                      r["max_abs_err"])
+        shape = (f"{label}: B={B}, S={S}, {H}/{Hkv} heads of {Dh}, "
+                 + ("causal" if causal else "causal=False"))
+        log(f"parity flash_attention [{shape}]: max |err| "
+            f"{r['max_abs_err']:.4g}, max |o| {r['max_abs_o']:.4g}, mean "
+            f"|o| {r['mean_abs_o']:.4g}, max |err| / (|o| + row mean |o|) "
+            f"{r['max_ratio']:.4g} (bound {FLASH_ROW_REL:.4g}); repeated "
+            "call bit-equal")
+        rows["flash_attention"].append(flash_row(
+            M, timer, entry, q, k, v, 0, shape, causal=causal))
+        del q, k, v, got, want
+    (d, h), L = LLAVA_FFN, LLAVA_PREFILL
+    w1, w2 = randn(d, h, scale=d ** -0.5), randn(d, h, scale=d ** -0.5)
+    x, dy = randn(L, d), randn(L, h)
+    got = list(KS.fused_swiglu_fwd(x, w1, w2))
+    check(all(torch.equal(a, b) for a, b in zip(
+        got, KS.fused_swiglu_fwd(x, w1, w2))),
+        "fused_swiglu [llava]: repeated forward differs")
+    want = list(KS.fused_swiglu_fwd_plain(x, w1, w2))
+    a, b = got[1], got[2]
+    got.append(KS.fused_swiglu_bwd_x(dy, a, b, w1, w2))
+    want.append(KS.fused_swiglu_bwd_x_plain(dy, a, b, w1, w2))
+    got += KS.fused_swiglu_bwd_w(x, dy, a, b)
+    want += KS.fused_swiglu_bwd_w_plain(x, dy, a, b)
+    rel = []
+    for key, out, g_, w_ in zip(
+            ("fused_swiglu_fwd",) * 3 + ("fused_swiglu_bwd_x",)
+            + ("fused_swiglu_bwd_w",) * 2,
+            ("y", "a", "b", "dx", "dw1", "dw2"), got, want):
+        scale = float(w_.float().abs().max())
+        e = require_close(f"fused_swiglu [llava L={L}] {out}", g_, w_, 0.0,
+                          FUSED_SCALE_STEP * scale + GMM_ATOL)
+        errs[key] = max(errs[key], e)
+        rel.append(round(e / max(scale, 1e-30), 6))
+    log(f"parity fused_swiglu [llava-next-mistral-7b: L={L}, d={d}, h={h}]: "
+        f"max |err| / scale (y, a, b, dx, dw1, dw2) {rel}; repeated forward "
+        "bit-equal")
+    del x, dy, got, want, a, b
+    for name, rs in swiglu_rows(M, timer, entry, w1, w2, randn,
+                                (("prefill", L),),
+                                tag="llava-next-mistral-7b ").items():
+        rows[name].extend(rs)
+    del w1, w2
+    for name, rs in rows.items():
+        for r in rs:
+            log(f"time {name} [{r['shape']}]: {r['ms']:.4f} ms, plain "
+                f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}), library {r['library_ms']}")
+    return rows
+
+
+def cpu_forward_crosscheck(T, cfg, params, dev) -> dict:
+    """Phase 43: a short batch of the config's input kind
+    (``synthesize_batch``, seed 5: XCHECK_SEQ positions) through the same
+    weights on the card and copied to the CPU (plain versions there): the
+    forward's logits at every position must agree within
+    ``CPU_LOGIT_ATOL``, and the last position's argmax, unless the card's
+    top two lie within the tolerance of each other."""
+    from repro_torch.data.pipeline import synthesize_batch
+    from repro_torch.train.loop import batch_to_device
+    batch = synthesize_batch(cfg, 1, XCHECK_SEQ[cfg.input_kind], seed=5)
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        card = T.forward(params, batch_to_device(batch, dev), cfg)[0]
+        card = card.float().cpu()
+        cpu_params = _to_device(params, cpu)
+        torch.set_num_threads(8)
+        t0 = time.perf_counter()
+        on_cpu = T.forward(cpu_params, batch_to_device(batch, cpu),
+                           cfg)[0].float()
+        cpu_s = time.perf_counter() - t0
+    del cpu_params
+    check(bool(torch.isfinite(card).all()), "card logits not finite")
+    diff = float((card - on_cpu).abs().max())
+    top2 = torch.topk(card[0, -1], 2).values
+    gap = float(top2[0] - top2[1])
+    tok_card, tok_cpu = int(card[0, -1].argmax()), int(on_cpu[0, -1].argmax())
+    log(f"cpu cross-check [{cfg.name}, {cfg.num_layers} layers, forward over "
+        f"{card.shape[1]} positions]: max |logit diff| {diff:.4g} (tol "
+        f"{CPU_LOGIT_ATOL}), max |logit| {float(card.abs().max()):.3f}, last "
+        f"position argmax card {tok_card} / cpu {tok_cpu}, card top-2 gap "
+        f"{gap:.4g}, cpu forward {cpu_s:.1f} s")
+    check(diff <= CPU_LOGIT_ATOL, "CPU and card logits disagree")
+    check(tok_card == tok_cpu or gap <= CPU_LOGIT_ATOL,
+          "CPU and card argmax differ beyond a near tie")
+    return {"max_logit_diff": diff, "argmax_card": tok_card,
+            "argmax_cpu": tok_cpu, "top2_gap": gap, "cpu_s": cpu_s,
+            "positions": int(card.shape[1])}
+
+
+def llava_forward_phase(M, cfg, params, dev, K) -> dict:
+    """Phase 43: ``forward`` with ``last_only`` over one LLAVA_PREFILL
+    mixed input (``synthesize_batch``, seed 0: every image slot and the
+    text after them) at the config's depth, cold, then warm (timed:
+    tokens/s, peak; flash attention and the fused SwiGLU forward launched
+    once a layer), then under torch.profiler (device busy share); the
+    logits finite and the same in all three runs."""
+    from repro_torch.data.pipeline import synthesize_batch
+    from repro_torch.train.loop import batch_to_device
+    T = M.T
+    batch = batch_to_device(synthesize_batch(cfg, 1, LLAVA_PREFILL), dev)
+    n_img = batch["image_embeds"].shape[1]
+
+    def run():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            lg = T.forward(params, batch, cfg, last_only=True)[0]
+        torch.cuda.synchronize()
+        return lg, time.perf_counter() - t0
+
+    cold, cold_s = run()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    warm, warm_s = run()
+    launches = K.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        traced, traced_s = run()
+    busy = sum(_device_time_by_kernel(prof).values()) / 1e6
+    check(cold.shape == (1, 1, cfg.vocab_size), "forward: logits shape")
+    check(bool(torch.isfinite(warm).all()), "forward: logits not finite")
+    check(torch.equal(cold, warm) and torch.equal(warm, traced),
+          "forward: the cold, warm and traced runs differ")
+    n = cfg.num_layers
+    for name in ("flash_attention", "fused_swiglu_fwd"):
+        check(launches[name] == n, f"forward [{cfg.name}]: {name} launched "
+              f"{launches[name]} times, expected {n} (one a layer)")
+    tps = LLAVA_PREFILL / warm_s
+    log(f"forward [{cfg.name}, {n} layers, last_only]: 1 x {LLAVA_PREFILL} "
+        f"positions ({n_img} image slots, {LLAVA_PREFILL - n_img} text "
+        f"tokens) in {warm_s:.4f} s warm ({tps:.1f} tokens/s; cold "
+        f"{cold_s:.3f} s); traced wall {traced_s:.4f} s, device busy "
+        f"{busy:.4f} s ({100 * busy / traced_s:.1f}%); peak memory "
+        f"{peak / 2 ** 30:.3f} GiB; launches {launches}; argmax "
+        f"{int(warm.argmax())}")
+    return {"tokens_per_s": tps, "forward_s": warm_s, "cold_s": cold_s,
+            "busy_s": busy, "traced_wall_s": traced_s, "peak_bytes": peak,
+            "launches": launches, "image_slots": n_img,
+            "positions": LLAVA_PREFILL}
 
 
 def _device_time_by_kernel(prof) -> dict[str, float]:

@@ -3,10 +3,11 @@
 The port runs the architectures it has a config file for: Mixtral-8x7B
 and Qwen3-30B-A3B (MoE); Qwen3-14B, Gemma2-27B, Yi-6B and
 DeepSeek-Coder-33B (dense SwiGLU); Hymba-1.5B (hybrid attention and Mamba
-heads) and xLSTM-1.3B (mLSTM and sLSTM); plus the paper's Table-1
-configs (``paper_conf1`` … ``paper_conf7``), with the aliases of
-``repro/configs/__init__.py``.  The reference's ``hubert_xlarge`` and
-``llava_next_mistral_7b`` (frame and mixed inputs) are not ported.
+heads) and xLSTM-1.3B (mLSTM and sLSTM); HuBERT-XLarge (an encoder over
+frame inputs) and LLaVA-NeXT-Mistral-7B (a decoder over image patch
+embeddings and text tokens); plus the paper's Table-1 configs
+(``paper_conf1`` … ``paper_conf7``), with the aliases of
+``repro/configs/__init__.py``.
 """
 
 from __future__ import annotations
@@ -17,7 +18,8 @@ from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.configs.paper_tables import PAPER_CONFS
 
 ARCH_IDS = ["yi_6b", "qwen3_moe_30b_a3b", "xlstm_1_3b", "deepseek_coder_33b",
-            "gemma2_27b", "mixtral_8x7b", "hymba_1_5b", "qwen3_14b"]
+            "gemma2_27b", "mixtral_8x7b", "hubert_xlarge",
+            "llava_next_mistral_7b", "hymba_1_5b", "qwen3_14b"]
 
 _ALIASES = {a.replace("_", "-"): a for a in ARCH_IDS}
 _ALIASES.update({"xlstm-1.3b": "xlstm_1_3b", "hymba-1.5b": "hymba_1_5b"})

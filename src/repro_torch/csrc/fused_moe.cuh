@@ -96,13 +96,6 @@ __device__ __forceinline__ void load_rows(const int* __restrict__ idx,
   }
 }
 
-// An atomic float32 add whose result is not read (a reduction): the plain
-// kernels' sums across h-chunks, slots and row tiles land in zeroed
-// float32 outputs in an order that varies from run to run.
-__device__ __forceinline__ void red_add(float* p, float v) {
-  asm volatile("red.global.add.f32 [%0], %1;\n" ::"l"(p), "f"(v) : "memory");
-}
-
 __device__ __forceinline__ float sigmoidf(float a) {
   return 1.f / (1.f + expf(-a));
 }

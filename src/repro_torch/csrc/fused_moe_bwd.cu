@@ -66,10 +66,17 @@
 // gradients, 2 for dx; 7.7 TFLOP at S = 8192, d = 4096, h = 14336) in
 // training, bytes at decode (the touched experts' weights read and the
 // three float32 weight gradients written).  float32 inputs, and d or h
-// not a multiple of 8, take a plain float32-FMA kernel with a block per
-// (32-row tile, 32-wide h-chunk), which keeps da and db in float32 as the
-// reference does and sums every output across blocks with float32
-// reductions into zeroed outputs (bwd_simt_kernel).
+// not a multiple of 8 (or unaligned pointers), take the general path: the
+// same h-ranges through three float32 (S, hc) chunks, in float32 FMA, with
+// da and db kept in float32 as the reference keeps them.  Per range:
+// bwd_simt_up writes da, db and g y_swi and each 32-column tile's dgates
+// partial per slot; dw_simt (moe_wgmma.cuh, shared with gmm_dw.cu) gives
+// each 64 x 64 tile of dw1, dw2 (the range's columns) and dw3 (its rows)
+// to one block that walks the expert's slot rows in order and stores the
+// tile once; bwd_simt_dx gives each (32 slot rows, 32 columns of d) tile
+// of dx's per-slot buffer to one block that walks the whole range.  Then
+// the same sum_dgates and combine: every output has one writer on both
+// paths, so a repeated call gives the same bits.
 
 #include <algorithm>
 
@@ -83,7 +90,6 @@ using namespace repro::hopper;
 using repro::fused::load_rows;
 using repro::fused::locate_tile;
 using repro::fused::max_row_tiles;
-using repro::fused::red_add;
 using repro::fused::round_bf16;
 using repro::fused::SBH;
 using repro::fused::SBK;
@@ -377,22 +383,28 @@ __global__ void sum_dgates(const float* __restrict__ part,
   }
 }
 
-// General path: the same three phases on SBM x SBH tiles in float32 FMA;
-// da and db stay float32.  Each thread computes 2 x 2 outputs of each
-// product (rows ty * 2.., columns tx * 2..).
+// General path (float32, or widths the tensor-core path does not take):
+// the same h-ranges through three float32 (S, hc) chunks
+// (kernels/fused_moe.py:general_bwd_pass_width), in float32 FMA; da and db
+// stay float32, as in the reference.  Each thread computes 2 x 2 outputs
+// of a 32 x 32 tile (rows ty * 2.., columns tx * 2..).
+//
+// bwd_simt_up: tile (SBM slot rows of one expert, SBH columns of the
+// range) -> a, b and dyu over all of d -> da, db and g y_swi into the
+// chunks (rows ldc apart) and the row sums of y_swi dyu into part[ct][s],
+// ct the tile's column tile of h (SBH wide).
 template <typename T>
 __global__ void __launch_bounds__(256)
-bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
-                const float* __restrict__ g_slot, const int* __restrict__ idx,
-                const int* __restrict__ offsets, const T* __restrict__ w1,
-                const T* __restrict__ w2, const T* __restrict__ w3,
-                float* __restrict__ dx, float* __restrict__ dg,
-                float* __restrict__ dw1, float* __restrict__ dw2,
-                float* __restrict__ dw3, int S, int L, int d, int h, int E) {
+bwd_simt_up(const T* __restrict__ x, const T* __restrict__ dy,
+            const float* __restrict__ g_slot, const int* __restrict__ idx,
+            const int* __restrict__ offsets, const T* __restrict__ w1,
+            const T* __restrict__ w2, const T* __restrict__ w3,
+            float* __restrict__ da, float* __restrict__ db,
+            float* __restrict__ yg, int ldc, float* __restrict__ part,
+            int S, int L, int d, int h, int E, int h0, int hw) {
   constexpr int P = SBH + 1;  // padded row of every 32 x 32 tile
   __shared__ float Xs[SBM][P], DYs[SBM][P];
   __shared__ float W1s[SBK][P], W2s[SBK][P], W3s[SBK][P];
-  __shared__ float Da[SBM][P], Db[SBM][P], Yg[SBM][P];
   __shared__ int info[3];
   __shared__ int tok_s[SBM];
   __shared__ float g_s[SBM];
@@ -400,14 +412,14 @@ bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
   const int e = info[0];
   if (e < 0) return;
   const int r0 = info[1], r1 = info[2];
-  const int j0 = blockIdx.y * SBH;
+  const int j0 = blockIdx.y * SBH;  // within the range
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;
   load_rows(idx, g_slot, r0, r1, L, SBM, tok_s, g_s);
   __syncthreads();
-  const T* w1e = w1 + (size_t)e * d * h;
-  const T* w2e = w2 + (size_t)e * d * h;
-  const T* w3e = w3 + (size_t)e * h * d;
+  const T* w1e = w1 + (size_t)e * d * h + h0;
+  const T* w2e = w2 + (size_t)e * d * h + h0;
+  const T* w3e = w3 + ((size_t)e * h + h0) * d;
   auto gather = [&](float (*dst)[P], const T* src, int k0) {
     for (int i = tid; i < SBM * SBK; i += 256) {
       const int r = i / SBK, kk = i % SBK;
@@ -417,20 +429,19 @@ bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
     }
   };
 
-  // 1. a, b, dyu
   float a[2][2] = {}, b[2][2] = {}, u[2][2] = {};
   for (int k0 = 0; k0 < d; k0 += SBK) {
     gather(Xs, x, k0);
     gather(DYs, dy, k0);
     for (int i = tid; i < SBK * SBH; i += 256) {
       const int kk = i / SBH, c = i % SBH;
-      bool ok = k0 + kk < d && j0 + c < h;
+      bool ok = k0 + kk < d && j0 + c < hw;
       const size_t off = (size_t)(k0 + kk) * h + j0 + c;
       W1s[kk][c] = ok ? repro::to_f32(w1e[off]) : 0.f;
       W2s[kk][c] = ok ? repro::to_f32(w2e[off]) : 0.f;
-      // W3s[k][j] = w3[e][j0 + j][k0 + k]; consecutive threads walk k
+      // W3s[k][j] = w3[e][h0 + j0 + j][k0 + k]; consecutive threads walk k
       const int jr = i / SBK, kc = i % SBK;
-      ok = j0 + jr < h && k0 + kc < d;
+      ok = j0 + jr < hw && k0 + kc < d;
       W3s[kc][jr] = ok ? repro::to_f32(w3e[(size_t)(j0 + jr) * d + k0 + kc])
                        : 0.f;
     }
@@ -449,7 +460,9 @@ bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
         }
     __syncthreads();
   }
-  // 2. elementwise terms; y_swi * dyu per element into Xs for the row sums
+  // elementwise terms into the chunks; y_swi * dyu per element into Xs
+  // for the row sums (columns past the range are zero: their weights read
+  // as zeros)
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -461,80 +474,148 @@ bwd_simt_kernel(const T* __restrict__ x, const T* __restrict__ dy,
       const float sa = av * sg;
       const float ys = repro::to_f32(repro::from_f32<T>(sa * bv));
       const float dys = uv * g;
-      Da[r][c] = dys * bv * (sg * (1.f + av * (1.f - sg)));
-      Db[r][c] = dys * sa;
-      Yg[r][c] = ys * g;
       Xs[r][c] = ys * uv;
+      const int s = r0 + r;
+      if (s < r1 && j0 + c < hw) {
+        const size_t o = (size_t)s * ldc + j0 + c;
+        da[o] = dys * bv * (sg * (1.f + av * (1.f - sg)));
+        db[o] = dys * sa;
+        yg[o] = ys * g;
+      }
     }
   __syncthreads();
-  if (tid < SBM && tok_s[tid] >= 0) {
-    float s = 0.f;
-    for (int c = 0; c < SBH; ++c) s += Xs[tid][c];
-    red_add(dg + r0 + tid, s);
+  if (tid < SBM && r0 + tid < r1) {
+    float sum = 0.f;
+    for (int c = 0; c < SBH; ++c) sum += Xs[tid][c];
+    part[(size_t)((h0 + j0) / SBH) * S + r0 + tid] = sum;
   }
-  __syncthreads();
-  // 3. dx, dw1, dw2, dw3 over the d-tiles
-  for (int n0 = 0; n0 < d; n0 += SBK) {
-    gather(Xs, x, n0);
-    gather(DYs, dy, n0);
+}
+
+// bwd_simt_dx: tile (SBM slot rows of one expert, SBK columns of d) ->
+// da w1[e][:, range]^T + db w2[e][:, range]^T summed over the whole range
+// in registers, then added into the slot's row of the float32 per-slot
+// buffer dxs: one block writes each element in a launch, and the ranges'
+// launches add in stream order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+bwd_simt_dx(const float* __restrict__ da, const float* __restrict__ db,
+            int ldc, const int* __restrict__ offsets,
+            const T* __restrict__ w1, const T* __restrict__ w2,
+            float* __restrict__ dxs, int S, int d, int h, int E, int h0,
+            int hw) {
+  constexpr int P = SBH + 1;
+  __shared__ float Das[SBM][P], Dbs[SBM][P];
+  __shared__ float W1s[SBK][P], W2s[SBK][P];
+  __shared__ int info[3];
+  locate_tile(offsets, E, S, SBM, info);
+  const int e = info[0];
+  if (e < 0) return;
+  const int r0 = info[1], r1 = info[2];
+  const int n0 = blockIdx.y * SBK;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  const T* w1e = w1 + (size_t)e * d * h + h0;
+  const T* w2e = w2 + (size_t)e * d * h + h0;
+  float acc[2][2] = {};
+  for (int j0 = 0; j0 < hw; j0 += SBH) {
+    for (int i = tid; i < SBM * SBH; i += 256) {
+      const int r = i / SBH, c = i % SBH;
+      const bool ok = r0 + r < r1 && j0 + c < hw;
+      const size_t o = (size_t)(r0 + r) * ldc + j0 + c;
+      Das[r][c] = ok ? da[o] : 0.f;
+      Dbs[r][c] = ok ? db[o] : 0.f;
+    }
     for (int i = tid; i < SBK * SBH; i += 256) {
-      const int n = i / SBH, c = i % SBH;  // W1s[n][j] = w1[e][n0 + n][j0 + j]
-      const bool ok = n0 + n < d && j0 + c < h;
-      const size_t off = (size_t)(n0 + n) * h + j0 + c;
-      W1s[n][c] = ok ? repro::to_f32(w1e[off]) : 0.f;
-      W2s[n][c] = ok ? repro::to_f32(w2e[off]) : 0.f;
+      const int n = i / SBH, c = i % SBH;  // W1s[n][j] = w1[e][n0 + n][j]
+      const bool ok = n0 + n < d && j0 + c < hw;
+      const size_t o = (size_t)(n0 + n) * h + j0 + c;
+      W1s[n][c] = ok ? repro::to_f32(w1e[o]) : 0.f;
+      W2s[n][c] = ok ? repro::to_f32(w2e[o]) : 0.f;
     }
     __syncthreads();
-    float ox[2][2] = {}, o1[2][2] = {}, o2[2][2] = {}, o3[2][2] = {};
-#pragma unroll 4
-    for (int q = 0; q < 32; ++q)
+#pragma unroll 8
+    for (int q = 0; q < SBH; ++q)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
           const int ri = ty * 2 + i, cj = tx * 2 + j;
-          // dx[r][n]: q runs over the chunk's columns
-          ox[i][j] = fmaf(Da[ri][q], W1s[cj][q],
-                          fmaf(Db[ri][q], W2s[cj][q], ox[i][j]));
-          // dw1[n][j], dw2[n][j]: q runs over rows (ri is n, cj is j)
-          o1[i][j] = fmaf(Xs[q][ri], Da[q][cj], o1[i][j]);
-          o2[i][j] = fmaf(Xs[q][ri], Db[q][cj], o2[i][j]);
-          // dw3[j][n]: ri is j, cj is n
-          o3[i][j] = fmaf(Yg[q][ri], DYs[q][cj], o3[i][j]);
+          acc[i][j] = fmaf(Das[ri][q], W1s[cj][q],
+                           fmaf(Dbs[ri][q], W2s[cj][q], acc[i][j]));
         }
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int ri = ty * 2 + i, cj = tx * 2 + j;
-        const int t = tok_s[ri];
-        if (t >= 0 && n0 + cj < d) red_add(dx + (size_t)t * d + n0 + cj, ox[i][j]);
-        if (n0 + ri < d && j0 + cj < h) {
-          const size_t o = (size_t)(n0 + ri) * h + j0 + cj;
-          red_add(dw1 + (size_t)e * d * h + o, o1[i][j]);
-          red_add(dw2 + (size_t)e * d * h + o, o2[i][j]);
-        }
-        if (j0 + ri < h && n0 + cj < d)
-          red_add(dw3 + ((size_t)e * h + j0 + ri) * d + n0 + cj, o3[i][j]);
-      }
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int s = r0 + ty * 2 + i;
+    if (s >= r1) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + tx * 2 + j;
+      if (n < d) dxs[(size_t)s * d + n] += acc[i][j];
+    }
+  }
+}
+
+template <typename T>
+int launch_simt(const void* x, const void* dy, const float* g_slot,
+                const int* idx, const int* offsets, const void* w1,
+                const void* w2, const void* w3, float* dw1, float* dw2,
+                float* dw3, float* ws, float* part, int hc, int S, int L,
+                int d, int h, int E, float* dxs, cudaStream_t stream) {
+  float* da = ws;
+  float* db = da + (size_t)S * hc;
+  float* yg = db + (size_t)S * hc;
+  const int row_tiles = max_row_tiles(S, E, SBM);
+  const int d_tiles = (d + dws::BM - 1) / dws::BM;
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hw = std::min(hc, h - h0);
+    bwd_simt_up<T><<<dim3(row_tiles, (hw + SBH - 1) / SBH), 256, 0,
+                     stream>>>((const T*)x, (const T*)dy, g_slot, idx,
+                               offsets, (const T*)w1, (const T*)w2,
+                               (const T*)w3, da, db, yg, hc, part, S, L, d,
+                               h, E, h0, hw);
+    // dw1, dw2 (moe_wgmma.cuh's dw_simt): the range's columns, (d, hw)
+    // blocks of rows h apart
+    const dim3 g12(d_tiles, (hw + dws::BN - 1) / dws::BN, E);
+    dw_simt<T, true, float, false, float><<<g12, 256, 0, stream>>>(
+        (const T*)x, d, d, da, hc, hw, idx, offsets, S, L, dw1 + h0,
+        (size_t)d * h, h);
+    dw_simt<T, true, float, false, float><<<g12, 256, 0, stream>>>(
+        (const T*)x, d, d, db, hc, hw, idx, offsets, S, L, dw2 + h0,
+        (size_t)d * h, h);
+    // dw3: the range's rows, an (hw, d) block
+    dw_simt<float, false, T, true, float>
+        <<<dim3((hw + dws::BM - 1) / dws::BM, d_tiles, E), 256, 0, stream>>>(
+            yg, hc, hw, (const T*)dy, d, d, idx, offsets, S, L,
+            dw3 + (size_t)h0 * d, (size_t)h * d, d);
+    bwd_simt_dx<T><<<dim3(row_tiles, (d + SBK - 1) / SBK), 256, 0,
+                     stream>>>(da, db, hc, offsets, (const T*)w1,
+                               (const T*)w2, dxs, S, d, h, E, h0, hw);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
 // x, dy: (L, d); g_slot: (S,) float32; idx: (S,) int32; offsets: (E+1,)
 // int32; w1, w2: (E, d, h); w3: (E, h, d), all of x's dtype.  Outputs, all
-// float32: dx (L, d), zeroed by the caller; dg (S,), dw1, dw2 (E, d, h),
-// dw3 (E, h, d).  With a workspace (bf16, d and h multiples of 8, 16-byte
-// aligned pointers: the caller checks): ws holds three bf16 (S, hc) chunks,
-// hc a multiple of 128 (kernels/fused_moe.py:bwd_pass_width), part a
-// float32 (ceil(h / 128), S) and dxs a float32 (S, d), zeroed by the
-// caller; tim is the dispatch's (L, k) token_index_map, each token's slots
-// in the order they are summed; every output is written whole.
-// Without one (ws null: float32, or widths or pointers the tensor-core path
-// does not take), every output must be zeroed by the caller.
-REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
+// float32 and each written whole (zeros with no slots): dx (L, d), dg
+// (S,), dw1, dw2 (E, d, h), dw3 (E, h, d).  tensor_cores: the path, which
+// the caller chooses (kernels/fused_moe.py:tensor_core_path) and sizes the
+// workspace for: 1 for the tensor-core path, refused unless x is bf16, d
+// and h are multiples of 8 and x, dy and the weights are 16-byte aligned;
+// 0 for the general path, which takes any input.  ws holds three (S, hc)
+// chunks, hc a multiple of 128: bf16 on the tensor-core path
+// (kernels/fused_moe.py:bwd_pass_width), float32 on the general path
+// (general_bwd_pass_width); part is a float32 (ceil(h / 128), S) on the
+// tensor-core path, (ceil(h / 32), S) on the general one; dxs a float32
+// (S, d), zeroed by the caller; tim is the dispatch's (L, k)
+// token_index_map, each token's slots in the order they are summed.
+REPRO_API int repro_fused_moe_bwd(int dtype, int tensor_cores, const void* x,
+                                  const void* dy,
                                   const float* g_slot, const int* idx,
                                   const int* offsets, const void* w1,
                                   const void* w2, const void* w3, float* dx,
@@ -544,16 +625,35 @@ REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
                                   float* dxs, const int* tim, int k,
                                   cudaStream_t stream) {
   if (E < 1 || d <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
-  if (S <= 0 || L <= 0) return 0;
-  const bool fast = dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
-                    repro::aligned16(x) && repro::aligned16(dy) &&
-                    repro::aligned16(w1) && repro::aligned16(w2) &&
-                    repro::aligned16(w3);
-  if (ws != nullptr) {
-    if (!fast || part == nullptr || !repro::aligned16(ws) || hc <= 0 ||
-        hc % bup::BN != 0 || dxs == nullptr || !repro::aligned16(dxs) ||
-        !repro::aligned16(dx) || tim == nullptr || k <= 0)
-      return (int)cudaErrorInvalidValue;
+  if (dtype != REPRO_DTYPE_BF16 && dtype != REPRO_DTYPE_F32)
+    return (int)cudaErrorInvalidValue;
+  if (tensor_cores &&
+      !(dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
+        repro::aligned16(x) && repro::aligned16(dy) &&
+        repro::aligned16(w1) && repro::aligned16(w2) &&
+        repro::aligned16(w3)))
+    return (int)cudaErrorInvalidValue;
+  if (S <= 0 || L <= 0) {
+    // nothing to walk: every output is zero
+    const size_t wbytes = (size_t)E * d * h * sizeof(float);
+    const size_t sizes[5] = {(size_t)std::max(L, 0) * d * sizeof(float),
+                             (size_t)std::max(S, 0) * sizeof(float), wbytes,
+                             wbytes, wbytes};
+    void* outs[5] = {dx, dg, dw1, dw2, dw3};
+    for (int i = 0; i < 5; ++i) {
+      if (sizes[i] == 0) continue;
+      const cudaError_t err = cudaMemsetAsync(outs[i], 0, sizes[i], stream);
+      if (err != cudaSuccess) return (int)err;
+    }
+    return 0;
+  }
+  if (ws == nullptr || part == nullptr || !repro::aligned16(ws) ||
+      hc <= 0 || hc % bup::BN != 0 || dxs == nullptr ||
+      !repro::aligned16(dxs) || !repro::aligned16(dx) || tim == nullptr ||
+      k <= 0)
+    return (int)cudaErrorInvalidValue;
+  int n_ct = (h + SBH - 1) / SBH;
+  if (tensor_cores) {
     const int n_sm = sm_count();
     if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
     // weights: w1, w2 (E, d, h) read MN-major by the first kernel and
@@ -636,28 +736,24 @@ REPRO_API int repro_fused_moe_bwd(int dtype, const void* x, const void* dy,
       const cudaError_t err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    const int n_ct = (h + bup::BN - 1) / bup::BN;
-    sum_dgates<<<std::min((S + 255) / 256, 4 * n_sm), 256, 0, stream>>>(
-        part, offsets, S, E, n_ct, dg);
-    const int err =
-        repro_combine(REPRO_DTYPE_F32, dxs, tim, nullptr, dx, L, k, d, stream);
-    if (err != 0) return err;
-  } else if (fast) {
-    return (int)cudaErrorInvalidValue;
-  } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {
-    dim3 grid(max_row_tiles(S, E, SBM), (h + SBH - 1) / SBH);
-    if (dtype == REPRO_DTYPE_BF16)
-      bwd_simt_kernel<bf16><<<grid, 256, 0, stream>>>(
-          (const bf16*)x, (const bf16*)dy, g_slot, idx, offsets,
-          (const bf16*)w1, (const bf16*)w2, (const bf16*)w3, dx, dg, dw1, dw2,
-          dw3, S, L, d, h, E);
-    else
-      bwd_simt_kernel<float><<<grid, 256, 0, stream>>>(
-          (const float*)x, (const float*)dy, g_slot, idx, offsets,
-          (const float*)w1, (const float*)w2, (const float*)w3, dx, dg, dw1,
-          dw2, dw3, S, L, d, h, E);
+    n_ct = (h + bup::BN - 1) / bup::BN;
   } else {
-    return (int)cudaErrorInvalidValue;
+    const int err =
+        dtype == REPRO_DTYPE_BF16
+            ? launch_simt<bf16>(x, dy, g_slot, idx, offsets, w1, w2, w3, dw1,
+                                dw2, dw3, (float*)ws, part, hc, S, L, d, h,
+                                E, dxs, stream)
+            : launch_simt<float>(x, dy, g_slot, idx, offsets, w1, w2, w3,
+                                 dw1, dw2, dw3, (float*)ws, part, hc, S, L,
+                                 d, h, E, dxs, stream);
+    if (err != 0) return err;
   }
+  const int n_sm = sm_count();
+  if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
+  sum_dgates<<<std::min((S + 255) / 256, 4 * n_sm), 256, 0, stream>>>(
+      part, offsets, S, E, n_ct, dg);
+  const int err =
+      repro_combine(REPRO_DTYPE_F32, dxs, tim, nullptr, dx, L, k, d, stream);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }

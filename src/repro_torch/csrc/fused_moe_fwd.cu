@@ -56,9 +56,13 @@
 // Bound: operations (6 S d h; 2.9 TFLOP at S = 8192, d = 4096, h = 14336)
 // in training and prefill, the bytes of the touched experts' weights at
 // decode.  float32 inputs, and d or h not a multiple of 8 (or unaligned
-// pointers), take a plain float32-FMA kernel: a block per (32-row tile,
-// 32-wide h-chunk) reducing its partial into y (fwd_simt_kernel) with
-// atomics, whose order varies from run to run.
+// pointers), take the general path: the same h-ranges, through a float32
+// (S, hc) chunk (kernels/fused_moe.py:general_pass_width), in float32 FMA
+// on 32 x 32 tiles: fwd_simt_up writes the range's rounded y_swi, and
+// fwd_simt_down gives each (32 slot rows, 32 columns of d) tile to one
+// block that walks the whole range and adds its gated product into ys,
+// then the same combine, so that every output of both paths has one
+// writer and a repeated call gives the same bits.
 
 #include <algorithm>
 
@@ -72,26 +76,27 @@ using namespace repro::hopper;
 using repro::fused::load_rows;
 using repro::fused::locate_tile;
 using repro::fused::max_row_tiles;
-using repro::fused::red_add;
 using repro::fused::SBH;
 using repro::fused::SBK;
 using repro::fused::SBM;
 using repro::fused::sigmoidf;
 using bf16 = __nv_bfloat16;
 
-// General path: the same decomposition on SBM x SBH tiles in float32 FMA,
-// each thread 2 x 2 outputs of each product.
+// General path, the same h-ranges on SBM x SBH tiles in float32 FMA, each
+// thread 2 x 2 outputs.  fwd_simt_up: tile (SBM slot rows of one expert,
+// SBH columns of the range) -> a, b over all of d -> round(silu(a) b) into
+// the float32 chunk (rows ldc apart; the value rounded to x's dtype, the
+// reference's rounding point).
 template <typename T>
 __global__ void __launch_bounds__(256)
-fwd_simt_kernel(const T* __restrict__ x, const float* __restrict__ g_slot,
-                const int* __restrict__ idx, const int* __restrict__ offsets,
-                const T* __restrict__ w1, const T* __restrict__ w2,
-                const T* __restrict__ w3, float* __restrict__ y, int S, int L,
-                int d, int h, int E) {
+fwd_simt_up(const T* __restrict__ x, const float* __restrict__ g_slot,
+            const int* __restrict__ idx, const int* __restrict__ offsets,
+            const T* __restrict__ w1, const T* __restrict__ w2,
+            float* __restrict__ chunk, int ldc, int S, int L, int d, int h,
+            int E, int h0, int hw) {
   __shared__ float Xs[SBM][SBK + 1];
   __shared__ float W1s[SBK][SBH + 1];
   __shared__ float W2s[SBK][SBH + 1];
-  __shared__ float Ys[SBM][SBH + 1];
   __shared__ int info[3];
   __shared__ int tok_s[SBM];
   __shared__ float g_s[SBM];
@@ -99,14 +104,13 @@ fwd_simt_kernel(const T* __restrict__ x, const float* __restrict__ g_slot,
   const int e = info[0];
   if (e < 0) return;
   const int r0 = info[1], r1 = info[2];
-  const int j0 = blockIdx.y * SBH;
+  const int j0 = blockIdx.y * SBH;  // within the range
   const int tid = threadIdx.x;
   const int ty = tid / 16, tx = tid % 16;  // rows ty*2.., columns tx*2..
   load_rows(idx, g_slot, r0, r1, L, SBM, tok_s, g_s);
   __syncthreads();
-  const T* w1e = w1 + (size_t)e * d * h;
-  const T* w2e = w2 + (size_t)e * d * h;
-  const T* w3e = w3 + (size_t)e * h * d;
+  const T* w1e = w1 + (size_t)e * d * h + h0;
+  const T* w2e = w2 + (size_t)e * d * h + h0;
 
   float a[2][2] = {}, b[2][2] = {};
   for (int k0 = 0; k0 < d; k0 += SBK) {
@@ -118,7 +122,7 @@ fwd_simt_kernel(const T* __restrict__ x, const float* __restrict__ g_slot,
     }
     for (int i = tid; i < SBK * SBH; i += 256) {
       const int kk = i / SBH, c = i % SBH;
-      const bool ok = k0 + kk < d && j0 + c < h;
+      const bool ok = k0 + kk < d && j0 + c < hw;
       const size_t off = (size_t)(k0 + kk) * h + j0 + c;
       W1s[kk][c] = ok ? repro::to_f32(w1e[off]) : 0.f;
       W2s[kk][c] = ok ? repro::to_f32(w2e[off]) : 0.f;
@@ -140,52 +144,112 @@ fwd_simt_kernel(const T* __restrict__ x, const float* __restrict__ g_slot,
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int j = 0; j < 2; ++j) {
+      const int s = r0 + ty * 2 + i, c = j0 + tx * 2 + j;
+      if (s >= r1 || c >= hw) continue;
       const float av = a[i][j];
       const float v = (av * sigmoidf(av)) * b[i][j];
-      Ys[ty * 2 + i][tx * 2 + j] = repro::to_f32(repro::from_f32<T>(v));
+      chunk[(size_t)s * ldc + c] = repro::to_f32(repro::from_f32<T>(v));
     }
+}
+
+// fwd_simt_down: tile (SBM slot rows of one expert, SBK columns of d) ->
+// the range's chunk columns times w3[e][range, d tile], summed over the
+// whole range in registers, then g_slot[s] times it added into row s of
+// the float32 per-slot buffer ys: one block writes each element of ys in a
+// launch, and the ranges' launches add in stream order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+fwd_simt_down(const float* __restrict__ chunk, int ldc,
+              const float* __restrict__ g_slot, const int* __restrict__ idx,
+              const int* __restrict__ offsets, const T* __restrict__ w3,
+              float* __restrict__ ys, int S, int L, int d, int h, int E,
+              int h0, int hw) {
+  __shared__ float Ys[SBM][SBH + 1];
+  __shared__ float W3s[SBH][SBK + 1];
+  __shared__ int info[3];
+  __shared__ int tok_s[SBM];
+  __shared__ float g_s[SBM];
+  locate_tile(offsets, E, S, SBM, info);
+  const int e = info[0];
+  if (e < 0) return;
+  const int r0 = info[1], r1 = info[2];
+  const int n0 = blockIdx.y * SBK;
+  const int tid = threadIdx.x;
+  const int ty = tid / 16, tx = tid % 16;
+  load_rows(idx, g_slot, r0, r1, L, SBM, tok_s, g_s);
   __syncthreads();
-  float* W3s = &W1s[0][0];  // SBH x SBK tile of w3, reusing W1s
-  for (int n0 = 0; n0 < d; n0 += SBK) {
+  const T* w3e = w3 + ((size_t)e * h + h0) * d;
+  float p[2][2] = {};
+  for (int j0 = 0; j0 < hw; j0 += SBH) {
+    for (int i = tid; i < SBM * SBH; i += 256) {
+      const int r = i / SBH, c = i % SBH;
+      Ys[r][c] = (r0 + r < r1 && j0 + c < hw)
+                     ? chunk[(size_t)(r0 + r) * ldc + j0 + c] : 0.f;
+    }
     for (int i = tid; i < SBH * SBK; i += 256) {
       const int jr = i / SBK, c = i % SBK;
-      const bool ok = j0 + jr < h && n0 + c < d;
-      W3s[jr * (SBH + 1) + c] =
-          ok ? repro::to_f32(w3e[(size_t)(j0 + jr) * d + n0 + c]) : 0.f;
+      const bool ok = j0 + jr < hw && n0 + c < d;
+      W3s[jr][c] = ok ? repro::to_f32(w3e[(size_t)(j0 + jr) * d + n0 + c])
+                      : 0.f;
     }
     __syncthreads();
-    float p[2][2] = {};
 #pragma unroll 8
     for (int jj = 0; jj < SBH; ++jj)
 #pragma unroll
       for (int i = 0; i < 2; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j)
-          p[i][j] = fmaf(Ys[ty * 2 + i][jj], W3s[jj * (SBH + 1) + tx * 2 + j],
-                         p[i][j]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = ty * 2 + i, t = tok_s[r];
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int n = n0 + tx * 2 + j;
-        if (t >= 0 && n < d) red_add(y + (size_t)t * d + n, g_s[r] * p[i][j]);
-      }
-    }
+          p[i][j] = fmaf(Ys[ty * 2 + i][jj], W3s[jj][tx * 2 + j], p[i][j]);
     __syncthreads();
   }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = ty * 2 + i;
+    if (r0 + r >= r1) continue;
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int n = n0 + tx * 2 + j;
+      if (n < d) ys[(size_t)(r0 + r) * d + n] += g_s[r] * p[i][j];
+    }
+  }
+}
+
+template <typename T>
+int launch_simt(const void* x, const float* g_slot, const int* idx,
+                const int* offsets, const void* w1, const void* w2,
+                const void* w3, float* chunk, int hc, float* ys, int S, int L,
+                int d, int h, int E, cudaStream_t stream) {
+  const int row_tiles = max_row_tiles(S, E, SBM);
+  for (int h0 = 0; h0 < h; h0 += hc) {
+    const int hw = std::min(hc, h - h0);
+    fwd_simt_up<T><<<dim3(row_tiles, (hw + SBH - 1) / SBH), 256, 0,
+                     stream>>>((const T*)x, g_slot, idx, offsets,
+                               (const T*)w1, (const T*)w2, chunk, hc, S, L,
+                               d, h, E, h0, hw);
+    fwd_simt_down<T><<<dim3(row_tiles, (d + SBK - 1) / SBK), 256, 0,
+                       stream>>>(chunk, hc, g_slot, idx, offsets,
+                                 (const T*)w3, ys, S, L, d, h, E, h0, hw);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
 }
 
 }  // namespace
 
 // x: (L, d); g_slot: (S,) float32; idx: (S,) int32; offsets: (E+1,) int32;
 // w1, w2: (E, d, h); w3: (E, h, d), all of x's dtype; y: (L, d) float32,
-// zeroed by the caller; chunk: (S, hc) of x's dtype, hc a multiple of 128
-// (the h-range width, kernels/fused_moe.py:pass_width), used by the bf16
-// path only, as are ys: (S, d) float32, zeroed by the caller, and tim: the
-// dispatch's (L, k) token_index_map, each token's slots in the order they
-// are summed.  The bf16 path makes 2 ceil(h / hc) + 1 launches.
-REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
+// written whole; tensor_cores: the path, which the caller chooses
+// (kernels/fused_moe.py:tensor_core_path) and sizes the chunk for: 1 for
+// the tensor-core path, refused unless x is bf16, d and h are multiples of
+// 8 and x and the weights are 16-byte aligned; 0 for the general path,
+// which takes any input; chunk: (S, hc), hc a multiple of 128 (the h-range
+// width, kernels/fused_moe.py:pass_width), of x's dtype on the tensor-core
+// path, float32 on the general path; ys: (S, d) float32, zeroed by the
+// caller; tim: the dispatch's (L, k) token_index_map, each token's slots
+// in the order they are summed.  A call makes 2 ceil(h / hc) + 1 launches
+// (none with no slots: y is then zeroed).
+REPRO_API int repro_fused_moe_fwd(int dtype, int tensor_cores, const void* x,
                                   const float* g_slot, const int* idx,
                                   const int* offsets, const void* w1,
                                   const void* w2, const void* w3, float* y,
@@ -193,14 +257,24 @@ REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
                                   int h, int E, float* ys, const int* tim,
                                   int k, cudaStream_t stream) {
   if (E < 1 || d <= 0 || h <= 0) return (int)cudaErrorInvalidValue;
-  if (S <= 0 || L <= 0) return 0;
-  if (dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
-      repro::aligned16(x) && repro::aligned16(w1) && repro::aligned16(w2) &&
-      repro::aligned16(w3) && chunk != nullptr && repro::aligned16(chunk)) {
-    if (hc <= 0 || hc % up::BN != 0 || ys == nullptr ||
-        !repro::aligned16(ys) || !repro::aligned16(y) || tim == nullptr ||
-        k <= 0)
-      return (int)cudaErrorInvalidValue;
+  if (dtype != REPRO_DTYPE_BF16 && dtype != REPRO_DTYPE_F32)
+    return (int)cudaErrorInvalidValue;
+  if (tensor_cores &&
+      !(dtype == REPRO_DTYPE_BF16 && d % 8 == 0 && h % 8 == 0 &&
+        repro::aligned16(x) && repro::aligned16(w1) &&
+        repro::aligned16(w2) && repro::aligned16(w3)))
+    return (int)cudaErrorInvalidValue;
+  if (S <= 0 || L <= 0) {
+    if (L > 0)
+      return (int)cudaMemsetAsync(y, 0, (size_t)L * d * sizeof(float),
+                                  stream);
+    return 0;
+  }
+  if (chunk == nullptr || !repro::aligned16(chunk) || hc <= 0 ||
+      hc % up::BN != 0 || ys == nullptr || !repro::aligned16(ys) ||
+      !repro::aligned16(y) || tim == nullptr || k <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (tensor_cores) {
     const int n_sm = sm_count();
     if (n_sm <= 0) return (int)cudaErrorInvalidDevice;
     // weights as 3-D (E, rows, cols) maps, so the boxes of one expert read
@@ -239,21 +313,18 @@ REPRO_API int repro_fused_moe_fwd(int dtype, const void* x,
       err = cudaGetLastError();
       if (err != cudaSuccess) return (int)err;
     }
-    const int err =
-        repro_combine(REPRO_DTYPE_F32, ys, tim, nullptr, y, L, k, d, stream);
-    if (err != 0) return err;
-  } else if (dtype == REPRO_DTYPE_BF16 || dtype == REPRO_DTYPE_F32) {
-    dim3 grid(max_row_tiles(S, E, SBM), (h + SBH - 1) / SBH);
-    if (dtype == REPRO_DTYPE_BF16)
-      fwd_simt_kernel<bf16><<<grid, 256, 0, stream>>>(
-          (const bf16*)x, g_slot, idx, offsets, (const bf16*)w1,
-          (const bf16*)w2, (const bf16*)w3, y, S, L, d, h, E);
-    else
-      fwd_simt_kernel<float><<<grid, 256, 0, stream>>>(
-          (const float*)x, g_slot, idx, offsets, (const float*)w1,
-          (const float*)w2, (const float*)w3, y, S, L, d, h, E);
   } else {
-    return (int)cudaErrorInvalidValue;
+    const int err =
+        dtype == REPRO_DTYPE_BF16
+            ? launch_simt<bf16>(x, g_slot, idx, offsets, w1, w2, w3,
+                                (float*)chunk, hc, ys, S, L, d, h, E, stream)
+            : launch_simt<float>(x, g_slot, idx, offsets, w1, w2, w3,
+                                 (float*)chunk, hc, ys, S, L, d, h, E,
+                                 stream);
+    if (err != 0) return err;
   }
+  const int err =
+      repro_combine(REPRO_DTYPE_F32, ys, tim, nullptr, y, L, k, d, stream);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }

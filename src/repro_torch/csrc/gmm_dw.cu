@@ -36,8 +36,9 @@
 //
 // Bound: operations (2 S d h: ~0.96 TFLOP for one dW1 at S = 8192 slots,
 // d = 4096, h = 14336, against ~0.6 GB of operands).  float32 inputs, and
-// d or h not a multiple of 8 (or unaligned pointers), take a plain
-// float32-FMA tiled kernel with scalar, masked loads.
+// d or h not a multiple of 8 (or unaligned pointers), take moe_wgmma.cuh's
+// dw_simt, a float32-FMA tiled kernel with scalar, masked loads that the
+// fused MoE backward's general path shares.
 
 #include <algorithm>
 
@@ -48,70 +49,15 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 
-// General path (float32 or bf16, any d and h): float32 FMA on 64 x 64
-// output tiles, SBK rows per step, each thread a 4 x 4 sub-tile.
-constexpr int SBM = 64, SBN = 64, SBK = 16;
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-dw_simt_kernel(const T* __restrict__ lhs, const T* __restrict__ dout,
-               const int* __restrict__ offsets, T* __restrict__ dw, int S,
-               int d, int h) {
-  __shared__ float As[SBK][SBM];
-  __shared__ float Bs[SBK][SBN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int m0 = blockIdx.x * SBM;
-  const int n0 = blockIdx.y * SBN;
-  const int e = blockIdx.z;
-  const int lo = min(offsets[e], S);
-  const int hi = max(lo, min(offsets[e + 1], S));
-  float acc[4][4] = {};
-  for (int r0 = lo; r0 < hi; r0 += SBK) {
-    for (int i = tid; i < SBK * SBM; i += 256) {
-      const int kr = i / SBM, c = i % SBM;
-      const int r = r0 + kr, gc = m0 + c;
-      As[kr][c] = (r < hi && gc < d) ? repro::to_f32(lhs[(size_t)r * d + gc])
-                                     : 0.f;
-    }
-    for (int i = tid; i < SBK * SBN; i += 256) {
-      const int kr = i / SBN, c = i % SBN;
-      const int r = r0 + kr, gc = n0 + c;
-      Bs[kr][c] = (r < hi && gc < h) ? repro::to_f32(dout[(size_t)r * h + gc])
-                                     : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kr = 0; kr < SBK; ++kr) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[kr][ty * 4 + i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[kr][tx * 4 + j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  T* out = dw + (size_t)e * d * h;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int gr = m0 + ty * 4 + i, gc = n0 + tx * 4 + j;
-      if (gr < d && gc < h)
-        out[(size_t)gr * h + gc] = repro::from_f32<T>(acc[i][j]);
-    }
-}
-
+// General path (float32 or bf16, any d and h): moe_wgmma.cuh's dw_simt
+// with neither operand gathered, stored in lhs's dtype.
 template <typename T>
 void launch_simt(const void* lhs, const void* dout, const int* offsets,
                  void* dw, int S, int d, int h, int E, cudaStream_t stream) {
-  dim3 grid((d + SBM - 1) / SBM, (h + SBN - 1) / SBN, E);
-  dw_simt_kernel<T><<<grid, 256, 0, stream>>>(
-      (const T*)lhs, (const T*)dout, offsets, (T*)dw, S, d, h);
+  dim3 grid((d + dws::BM - 1) / dws::BM, (h + dws::BN - 1) / dws::BN, E);
+  dw_simt<T, false, T, false, T><<<grid, 256, 0, stream>>>(
+      (const T*)lhs, d, d, (const T*)dout, h, h, nullptr, offsets, S, S,
+      (T*)dw, (size_t)d * h, h);
 }
 
 }  // namespace

@@ -53,6 +53,10 @@
 //        The epilogue stages each warpgroup's tile in shared memory in the
 //        output's box layout and one thread writes it with TMA stores that
 //        run on under the next tile's products.
+//   dw_simt                the same dw in float32 FMA on 64 x 64 tiles,
+//        one block per tile walking its expert's rows in order: the general
+//        path of gmm_dw and of the fused backward (float32, or widths and
+//        alignments the TMA boxes cannot take).
 //
 // Included by one source each, inside an anonymous namespace: every
 // including source keeps its own copy of the kernels.
@@ -770,6 +774,99 @@ moe_dw_wgmma(const __grid_constant__ CUtensorMap tm_a,
     }
   }
   if (wt == 0) bulk_wait<0>();
+}
+
+// ---------------------------------------------------------------------------
+// dw_simt: the same grouped weight gradient on the general path (float32,
+// or widths and alignments the TMA boxes cannot take), in float32 FMA
+// ---------------------------------------------------------------------------
+
+// On 64 x 64 output tiles: for each expert e (blockIdx.z),
+// out[e][m][n] = sum over e's slot rows s, in order, of A(s, m) B(s, n),
+// where an operand is either a row of an (S, ld) matrix in slot order or,
+// gathered (GA, GB), row idx[s] of an (L, ld) matrix (zeros for a token id
+// at or past L).  One block per output tile walks the expert's rows 16 at a
+// time, each thread a 4 x 4 sub-tile, and stores its tile once, rounded to
+// TO; experts with no rows get zeros.  Expert e's output starts out_e
+// elements after expert e-1's, rows ldo apart.  gmm_dw.cu calls it with
+// neither operand gathered; fused_moe_bwd.cu's general path with x or dy
+// gathered against a float32 chunk, into the float32 weight gradients.
+namespace dws {
+constexpr int BM = 64, BN = 64, BK = 16;
+}  // namespace dws
+
+template <typename TA, bool GA, typename TB, bool GB, typename TO>
+__global__ void __launch_bounds__(256)
+dw_simt(const TA* __restrict__ A, int lda, int m_ext,
+        const TB* __restrict__ B, int ldb, int n_ext,
+        const int* __restrict__ idx, const int* __restrict__ offsets, int S,
+        int L, TO* __restrict__ out, size_t out_e, int ldo) {
+  constexpr int BM = dws::BM, BN = dws::BN, BK = dws::BK;
+  __shared__ float As[BK][BM];
+  __shared__ float Bs[BK][BN];
+  __shared__ int rows[BK];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN, e = blockIdx.z;
+  const int lo = min(offsets[e], S);
+  const int hi = max(lo, min(offsets[e + 1], S));
+  float acc[4][4] = {};
+  for (int s0 = lo; s0 < hi; s0 += BK) {
+    if ((GA || GB) && tid < BK) {
+      const int s = s0 + tid;
+      int t = s < hi ? idx[s] : -1;
+      if (t >= L) t = -1;
+      rows[tid] = t;
+    }
+    __syncthreads();
+    for (int i = tid; i < BK * BM; i += 256) {
+      const int kr = i / BM, c = i % BM, s = s0 + kr, gc = m0 + c;
+      float v = 0.f;
+      if (s < hi && gc < m_ext) {
+        if (GA) {
+          if (rows[kr] >= 0) v = repro::to_f32(A[(size_t)rows[kr] * lda + gc]);
+        } else {
+          v = repro::to_f32(A[(size_t)s * lda + gc]);
+        }
+      }
+      As[kr][c] = v;
+    }
+    for (int i = tid; i < BK * BN; i += 256) {
+      const int kr = i / BN, c = i % BN, s = s0 + kr, gc = n0 + c;
+      float v = 0.f;
+      if (s < hi && gc < n_ext) {
+        if (GB) {
+          if (rows[kr] >= 0) v = repro::to_f32(B[(size_t)rows[kr] * ldb + gc]);
+        } else {
+          v = repro::to_f32(B[(size_t)s * ldb + gc]);
+        }
+      }
+      Bs[kr][c] = v;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int kr = 0; kr < BK; ++kr) {
+      float av[4], bv[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) av[i] = As[kr][ty * 4 + i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) bv[j] = Bs[kr][tx * 4 + j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+  TO* oe = out + (size_t)e * out_e;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int gm = m0 + ty * 4 + i, gn = n0 + tx * 4 + j;
+      if (gm < m_ext && gn < n_ext)
+        oe[(size_t)gm * ldo + gn] = repro::from_f32<TO>(acc[i][j]);
+    }
 }
 
 }  // namespace

@@ -5,7 +5,10 @@ A copy of ``repro/data/pipeline.py`` (numpy only), so that the port and
 the reference draw the same token batches from one seed.  The corpus is a
 seeded Zipf-ish token stream with document structure (BOS/EOS markers,
 length distribution), packed into fixed-length sequences the way a
-production text pipeline would (no padding waste).
+production text pipeline would (no padding waste).  ``synthesize_batch``
+draws one batch of an architecture's input kind: token ids, frame
+embeddings (audio) or image patch embeddings ahead of text tokens (the
+vision-language model), the reference's stubs of those frontends.
 """
 
 from __future__ import annotations
@@ -86,3 +89,34 @@ def make_batch_iterator(vocab_size: int, seq_len: int, batch_size: int,
     return iter(PackedBatches(PipelineConfig(
         vocab_size=vocab_size, seq_len=seq_len, batch_size=batch_size,
         seed=seed)))
+
+
+def synthesize_batch(cfg, batch_size: int, seq_len: int, seed: int = 0):
+    """One batch of ``cfg.input_kind``, numpy from ``seed``, as the
+    reference draws it: ``tokens`` (B, S) and ``labels``; for frames
+    ``features`` (B, S, d) float32 and ``labels`` (B, S); for mixed
+    ``image_embeds`` (B, min(num_image_tokens, S // 2), d) float32, then
+    ``tokens`` and ``labels`` for the remaining text positions."""
+    rng = np.random.default_rng(seed)
+    if cfg.input_kind == "tokens":
+        toks = rng.integers(0, cfg.vocab_size, (batch_size, seq_len),
+                            dtype=np.int32)
+        return {"tokens": toks, "labels": toks.copy()}
+    if cfg.input_kind == "frames":
+        return {
+            "features": rng.standard_normal(
+                (batch_size, seq_len, cfg.d_model)).astype(np.float32),
+            "labels": rng.integers(0, cfg.vocab_size,
+                                   (batch_size, seq_len), dtype=np.int32),
+        }
+    if cfg.input_kind == "mixed":
+        n_img = min(cfg.num_image_tokens, seq_len // 2)
+        n_txt = seq_len - n_img
+        toks = rng.integers(0, cfg.vocab_size, (batch_size, n_txt),
+                            dtype=np.int32)
+        return {
+            "image_embeds": rng.standard_normal(
+                (batch_size, n_img, cfg.d_model)).astype(np.float32),
+            "tokens": toks, "labels": toks.copy(),
+        }
+    raise ValueError(cfg.input_kind)

@@ -45,7 +45,7 @@ from repro_torch.models.transformer import (MOE_KINDS, check_supported,
 #: the reference does, and Mamba's ``a_log``, which the scan reads as
 #: float32.
 CAST_TO_MODEL_DTYPE = {"wq", "wk", "wv", "wo", "wg", "w1", "w2", "w3",
-                       "embed", "unembed",
+                       "embed", "unembed", "frontend_proj", "img_proj",
                        "w_up", "w_z", "wif", "w_down",        # mLSTM
                        "w_zifo", "w_up1", "w_up2",            # sLSTM
                        "w_in", "w_dt", "w_b", "w_c", "w_out"}  # Mamba
@@ -83,8 +83,10 @@ def params_from_jax(np_params: dict, cfg, device=None,
         for j in range(cfg.pattern_period):
             layers.append(conv(slice_tree(groups[j], g)))
     out = {"layers": layers}
-    for k in ("embed", "unembed", "final_norm"):
-        out[k] = _tensor(np_params[k], k, dt, dev)
+    for k in ("embed", "unembed", "final_norm", "frontend_proj",
+              "img_proj"):
+        if k in np_params:          # the input kind's embeddings
+            out[k] = _tensor(np_params[k], k, dt, dev)
     return out
 
 
@@ -100,7 +102,10 @@ def init_params(cfg, generator: torch.Generator | None = None,
     hybrid blocks draw the leaves of the reference's ``init_mlstm_params``,
     ``init_slstm_params`` and ``init_mamba_params`` (``models/ssm.py``),
     with its constant biases (forget gates at 3, ``a_log`` 0, ``d_skip``
-    1).  A Hymba block is ``{ln1, ln2, attn, mamba, ffn}``."""
+    1).  A Hymba block is ``{ln1, ln2, attn, mamba, ffn}``.  The
+    embeddings are those the reference draws for ``cfg.input_kind``:
+    ``embed`` for tokens and mixed inputs, a (d, d) LeCun-normal
+    ``frontend_proj`` for frames and ``img_proj`` for mixed inputs."""
     check_supported(cfg)
     dev = resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
@@ -180,7 +185,15 @@ def init_params(cfg, generator: torch.Generator | None = None,
             layer["ln1_post"] = zeros()
             layer["ln2_post"] = zeros()
         layers.append(layer)
-    embed = torch.randn((cfg.vocab_size, d), generator=generator, device=dev,
-                        dtype=torch.float32).mul_(0.02).to(dt)
-    return {"layers": layers, "embed": embed,
-            "unembed": dense((d, cfg.vocab_size), d), "final_norm": zeros()}
+    out = {"layers": layers}
+    if cfg.input_kind in ("tokens", "mixed"):
+        out["embed"] = torch.randn(
+            (cfg.vocab_size, d), generator=generator, device=dev,
+            dtype=torch.float32).mul_(0.02).to(dt)
+    out["unembed"] = dense((d, cfg.vocab_size), d)
+    out["final_norm"] = zeros()
+    if cfg.input_kind == "frames":
+        out["frontend_proj"] = dense((d, d), d)
+    if cfg.input_kind == "mixed":
+        out["img_proj"] = dense((d, d), d)
+    return out

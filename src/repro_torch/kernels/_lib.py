@@ -47,10 +47,10 @@ SIGNATURES = {
     "repro_combine": [I, P, P, P, P, I, I, I, P],
     "repro_paged_attention": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                               I, I, F, F, P],
-    "repro_fused_moe_fwd": [I, P, P, P, P, P, P, P, P, P, I, I, I, I, I,
-                            I, P, P, I, P],
-    "repro_fused_moe_bwd": [I, P, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
-                            I, I, I, I, I, I, P, P, I, P],
+    "repro_fused_moe_fwd": [I, I, P, P, P, P, P, P, P, P, P, I, I, I, I,
+                            I, I, P, P, I, P],
+    "repro_fused_moe_bwd": [I, I, P, P, P, P, P, P, P, P, P, P, P, P, P, P,
+                            P, I, I, I, I, I, I, P, P, I, P],
     "repro_fused_swiglu_fwd": [I, P, P, P, P, P, P, P, P, I, I, I, I, I,
                                P],
     "repro_fused_swiglu_bwd_x": [I, P, P, P, P, P, P, I, I, I, P],

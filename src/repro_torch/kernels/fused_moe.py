@@ -39,14 +39,21 @@ is rounded to the I/O dtype before the second GEMM and in the backward;
 outputs are float32 (the caller casts).  The bf16 backward also rounds
 ``da``, ``db`` and ``g·y_swi`` to bf16, the tensor cores' operands.
 
+The general path (float32, or bf16 with d or h not a multiple of 8, or a
+tensor off 16-byte alignment: :func:`tensor_core_path` says which) walks
+the same h-ranges through float32 chunks (:func:`general_pass_width`,
+:func:`general_bwd_pass_width`: ``y_swi``, or da, db and g·y_swi, as
+float32 values, ``y_swi`` rounded to the I/O dtype first) with float32-FMA
+kernels, da and db kept in float32; its dgates partials are per 32-column
+tile, a float32 ``(⌈h/32⌉, S)`` buffer.
+
 Bound on the card: operations (6·S·d·h forward, 16·S·d·h backward) in
 training, the touched experts' weight bytes at decode (and the backward's
 float32 weight gradients).  ``csrc/fused_moe_fwd.cu`` and
 ``csrc/fused_moe_bwd.cu`` (wgmma + TMA, the kernels of
-``csrc/moe_wgmma.cuh``) give every element of every output one writer, so
-a repeated call gives the same bits; the general path (float32, or widths
-the tensor cores do not take) sums with float32 atomics in an order that
-varies from run to run.  See the sources for the designs.
+``csrc/moe_wgmma.cuh``, and the float32-FMA kernels of the general path)
+give every element of every output one writer on both paths, so a
+repeated call gives the same bits.  See the sources for the designs.
 """
 
 from __future__ import annotations
@@ -92,6 +99,38 @@ def bwd_pass_width(S: int, h: int) -> int:
     :data:`BWD_CHUNK_CAP_BYTES`, no wider than h rounded up to the tile,
     never below one tile (1280 at S = 8192: 60 MiB)."""
     return _width(BWD_CHUNK_CAP_BYTES, 6, S, h)
+
+
+def general_pass_width(S: int, h: int) -> int:
+    """Width ``hc`` of the general forward's h-ranges: its float32
+    ``(S, hc)`` chunk within :data:`CHUNK_CAP_BYTES`, as
+    :func:`pass_width` (one range up to 4096 columns at 2048 slots)."""
+    return _width(CHUNK_CAP_BYTES, 4, S, h)
+
+
+def general_bwd_pass_width(S: int, h: int) -> int:
+    """Width ``hc`` of the general backward's h-ranges: its three float32
+    ``(S, hc)`` chunks within :data:`BWD_CHUNK_CAP_BYTES`, as
+    :func:`bwd_pass_width` (one range up to 2688 columns at 2048 slots)."""
+    return _width(BWD_CHUNK_CAP_BYTES, 12, S, h)
+
+
+#: Columns of h per dgates partial on the general path.
+GENERAL_H_TILE = 32
+
+
+def tensor_core_path(x: torch.Tensor, ws, dy=None) -> bool:
+    """Whether the kernels take the tensor-core path for these inputs
+    (bf16, d and h multiples of 8, x, dy and the weights ``ws`` 16-byte
+    aligned) rather than the general one.  The one place the path is
+    chosen: :func:`fused_moe_fwd` and :func:`fused_moe_bwd` size the
+    workspace for it and pass it to ``csrc/fused_moe_fwd.cu`` and
+    ``csrc/fused_moe_bwd.cu``, which refuse the tensor-core path for
+    inputs it cannot take."""
+    d, h = x.shape[1], ws[0].shape[2]
+    ts = (x, *ws) if dy is None else (x, dy, *ws)
+    return (x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0
+            and all(t.data_ptr() % 16 == 0 for t in ts))
 
 
 def h_ranges(h: int, hc: int) -> list[tuple[int, int]]:
@@ -281,28 +320,29 @@ def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
     plain version, which adds slots by ``index_add_``, takes none).
     Returns the combined (L, d) output in float32.  A CPU tensor takes the
     plain version; a CUDA tensor launches the kernels (counted once per
-    call in ``fused_moe_fwd.launches``).  In
-    bf16 with d and h multiples of 8 the call allocates one ``(S, hc)``
-    bf16 workspace of at most :data:`CHUNK_CAP_BYTES` (:func:`pass_width`;
-    ``S · 128`` values above 131,072 slots) and a float32 ``(S, d)``
-    per-slot buffer besides y."""
+    call in ``fused_moe_fwd.launches``).  The call allocates one
+    ``(S, hc)`` workspace of at most :data:`CHUNK_CAP_BYTES` (bf16 on the
+    tensor-core path, :func:`pass_width`; float32 on the general one,
+    :func:`general_pass_width`; ``S · 128`` values above 131,072 or 65,536
+    slots) and a float32 ``(S, d)`` per-slot buffer besides y."""
     if not x.is_cuda:
         return fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3)
     _check_tim(tim, idx, L)
     y = torch.zeros(L, d, dtype=torch.float32, device=x.device)
-    chunk, ys, hc = None, None, 0
-    if x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0 and S > 0:
+    tc = tensor_core_path(x, (w1, w2, w3))
+    if tc:
         hc = pass_width(S, h)
         chunk = torch.empty(S, hc, dtype=x.dtype, device=x.device)
-        ys = torch.zeros(S, d, dtype=torch.float32, device=x.device)
+    else:
+        hc = general_pass_width(S, h)
+        chunk = torch.empty(S, hc, dtype=torch.float32, device=x.device)
+    ys = torch.zeros(S, d, dtype=torch.float32, device=x.device)
     code = _lib.lib().repro_fused_moe_fwd(
-        _lib.DTYPE_CODE[x.dtype], x.data_ptr(), g_slot.data_ptr(),
+        _lib.DTYPE_CODE[x.dtype], int(tc), x.data_ptr(), g_slot.data_ptr(),
         idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(), w2.data_ptr(),
-        w3.data_ptr(), y.data_ptr(),
-        None if chunk is None else chunk.data_ptr(), hc, S, L, d, h, E,
-        None if ys is None else ys.data_ptr(), tim.data_ptr(), tim.shape[1],
-        _lib.stream_ptr(x))
+        w3.data_ptr(), y.data_ptr(), chunk.data_ptr(), hc, S, L, d, h, E,
+        ys.data_ptr(), tim.data_ptr(), tim.shape[1], _lib.stream_ptr(x))
     _lib.check("repro_fused_moe_fwd", code)
     fused_moe_fwd.launches += 1
     return y
@@ -316,39 +356,37 @@ def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
     ``tim`` as there.  Returns ``(dx (L, d), dgates_slot (S,), dw1, dw2,
     dw3)``, all float32.  A CPU tensor takes the plain version; a CUDA
     tensor launches the kernels (counted once per call in
-    ``fused_moe_bwd.launches``).  In bf16 with d and h multiples of 8 the
-    call allocates a bf16 ``(3, S, hc)`` workspace within
-    :data:`BWD_CHUNK_CAP_BYTES` (:func:`bwd_pass_width`), a float32
-    ``(⌈h/128⌉, S)`` one and a float32 ``(S, d)`` per-slot dx besides the
-    outputs."""
+    ``fused_moe_bwd.launches``).  The call allocates a ``(3, S, hc)``
+    workspace within :data:`BWD_CHUNK_CAP_BYTES` (bf16 on the tensor-core
+    path, :func:`bwd_pass_width`; float32 on the general one,
+    :func:`general_bwd_pass_width`), a float32 ``(⌈h/128⌉, S)`` buffer of
+    dgates partials (``(⌈h/32⌉, S)`` on the general path) and a float32
+    ``(S, d)`` per-slot dx besides the outputs."""
     if not x.is_cuda:
         return fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3)
     S, L, d, h, E = _check(x, g_slot, idx, offsets, w1, w2, w3, dy=dy)
     _check_tim(tim, idx, L)
     f32 = dict(dtype=torch.float32, device=x.device)
-    fast = (x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0
-            and S > 0 and all(t.data_ptr() % 16 == 0
-                              for t in (x, dy, w1, w2, w3)))
-    new = torch.empty if fast else torch.zeros
     dx = torch.zeros(L, d, **f32)
-    dg = new(S, **f32)
-    dw1, dw2 = new(E, d, h, **f32), new(E, d, h, **f32)
-    dw3 = new(E, h, d, **f32)
-    ws = part = dxs = None
-    hc = 0
-    if fast:
+    dg = torch.empty(S, **f32)
+    dw1, dw2 = torch.empty(E, d, h, **f32), torch.empty(E, d, h, **f32)
+    dw3 = torch.empty(E, h, d, **f32)
+    tc = tensor_core_path(x, (w1, w2, w3), dy)
+    if tc:
         hc = bwd_pass_width(S, h)
         ws = torch.empty(3, S, hc, dtype=x.dtype, device=x.device)
         part = torch.empty(-(-h // H_TILE), S, **f32)
-        dxs = torch.zeros(S, d, **f32)
+    else:
+        hc = general_bwd_pass_width(S, h)
+        ws = torch.empty(3, S, hc, **f32)
+        part = torch.empty(-(-h // GENERAL_H_TILE), S, **f32)
+    dxs = torch.zeros(S, d, **f32)
     code = _lib.lib().repro_fused_moe_bwd(
-        _lib.DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(),
+        _lib.DTYPE_CODE[x.dtype], int(tc), x.data_ptr(), dy.data_ptr(),
         g_slot.data_ptr(), idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(),
         w2.data_ptr(), w3.data_ptr(), dx.data_ptr(), dg.data_ptr(),
-        dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(),
-        None if ws is None else ws.data_ptr(),
-        None if part is None else part.data_ptr(), hc, S, L, d, h, E,
-        None if dxs is None else dxs.data_ptr(), tim.data_ptr(),
+        dw1.data_ptr(), dw2.data_ptr(), dw3.data_ptr(), ws.data_ptr(),
+        part.data_ptr(), hc, S, L, d, h, E, dxs.data_ptr(), tim.data_ptr(),
         tim.shape[1], _lib.stream_ptr(x))
     _lib.check("repro_fused_moe_bwd", code)
     fused_moe_bwd.launches += 1

@@ -16,7 +16,11 @@ through the async runtime with live token streaming.
 
 The paged engine serves attention block patterns only: for hymba-1.5b
 and xlstm-1.3b it raises the reference engine's ``ValueError`` (their
-recurrent state decodes through ``models.transformer.decode_step``).
+recurrent state decodes through ``models.transformer.decode_step``).  An
+encoder (hubert-xlarge) has nothing to decode: the launcher exits with
+the reference's message.  The paged engine decodes token streams: for
+llava-next-mistral-7b (image and text inputs) its prefill raises the
+reference's ``ValueError``.
 
 Runs on the card by default (``--device cuda``).  ``--kv-dtype int8``
 stores the KV pages as int8 with float16 scales.  ``--ckpt DIR`` serves
@@ -83,6 +87,8 @@ def main(argv=None):
         cfg = cfg.reduced()
     if args.layers is not None:
         cfg = cfg.replace(num_layers=args.layers)
+    if not cfg.causal or cfg.input_kind == "frames":
+        raise SystemExit(f"{cfg.name} is encoder-only; nothing to decode")
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(0)
     params = init_params(cfg, gen, dev)

@@ -24,6 +24,13 @@ grouped-GEMM backend is chosen, as in the reference, by
 ``REPRO_GMM_BACKEND`` (``ragged``, ``torch._grouped_mm``, when unset;
 ``pallas_fused`` runs the fused kernel pair).  Kernels take their plain versions on the CPU.
 
+The launcher feeds the pipeline's packed token batches, as the
+reference's does, so a model of frame or mixed inputs (hubert-xlarge,
+llava-next-mistral-7b) stops at its first step with the reference's
+``KeyError`` for the missing ``features`` or ``image_embeds``; train
+those through ``train.loop.make_train_step`` on
+``data.pipeline.synthesize_batch`` batches.
+
 ``--microbatches M`` accumulates the gradients of M pieces of each batch
 (the live activations are one piece's).  ``--ckpt-dir DIR`` saves the
 parameters and the optimizer state to ``DIR/step_<n>`` at step ``steps //

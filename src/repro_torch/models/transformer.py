@@ -6,8 +6,10 @@ decode entry points of serving.
 Mirrors ``repro/models/transformer.py`` (``_apply_sublayer`` for the
 ``attn_moe`` / ``attn_local_moe`` and ``attn_ffn`` / ``attn_local_ffn``
 kinds, whose dense blocks add no auxiliary loss, and for ``mlstm``,
-``slstm`` and ``hymba``; ``forward`` and ``train_loss`` for token
-inputs; ``init_cache`` and ``decode_step``; ``paged_supported``,
+``slstm`` and ``hymba``; ``_embed_inputs`` for token, frame and mixed
+inputs; ``forward`` and ``train_loss``, causal or not; ``init_cache``
+and ``decode_step``, which decodes token streams and refuses an
+encoder's frames; ``paged_supported``,
 ``init_paged_cache``, ``prefill`` with prefix offsets,
 ``paged_decode_step``).  Layers run in a Python loop where the
 reference scans over stacked groups; ``params["layers"]`` is a list with
@@ -66,10 +68,6 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"block kinds {bad} are not ported; the port runs "
             f"{KINDS}")
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"input_kind={cfg.input_kind!r}: the port takes token inputs "
-            "only (ROADMAP.md §A item 5: frames and mixed inputs)")
     CK.resolve_plan(config=cfg.remat_policy)  # raises for a bad spec
     if (set(cfg.block_pattern) & {*DENSE_KINDS, "hymba"}
             and cfg.ffn_act not in FFN_ACTS):
@@ -213,6 +211,25 @@ def _embed(params, tokens, cfg):
     return params["embed"][tokens.long()].to(dt) * (cfg.d_model ** 0.5)
 
 
+def _embed_inputs(params, batch, cfg):
+    """The model's input rows, in the model dtype, times sqrt(d): token
+    embeddings; frame embeddings ``features`` (B, S, d) through
+    ``frontend_proj``; or image patch embeddings ``image_embeds`` (B, n, d)
+    through ``img_proj`` followed by the text tokens' embeddings."""
+    dt = getattr(torch, cfg.dtype)
+    if cfg.input_kind == "tokens":
+        return _embed(params, batch["tokens"], cfg)
+    if cfg.input_kind == "frames":
+        x = batch["features"].to(dt) @ params["frontend_proj"].to(dt)
+    elif cfg.input_kind == "mixed":
+        img = batch["image_embeds"].to(dt) @ params["img_proj"].to(dt)
+        tok = params["embed"][batch["tokens"].long()].to(dt)
+        x = torch.cat([img, tok], dim=1)
+    else:
+        raise ValueError(cfg.input_kind)
+    return x * (cfg.d_model ** 0.5)
+
+
 def _logits(params, x, cfg):
     x = rms_norm(x, params["final_norm"])
     return softcap((x @ params["unembed"].to(x.dtype)).float(),
@@ -232,11 +249,16 @@ def _layers(params, x, cfg, *, positions, cache, page_table, prefill,
 
 
 def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
-            with_stats: bool = False):
-    """Full-sequence forward (training).  batch["tokens"]: (B, S) token
-    ids.  Returns float32 logits (B, S, vocab) and the layers' summed
-    auxiliary loss (float32 scalar), plus ``{"moe_overflow"}`` (the
-    layers' summed ``ep_a2a`` overflow share) with ``with_stats``.
+            last_only: bool = False, with_stats: bool = False):
+    """Full-sequence forward (training and prefill).  ``batch`` holds the
+    input kind's arrays: ``tokens`` (B, S) token ids; ``features`` (B, S,
+    d) frame embeddings; or ``image_embeds`` (B, n, d) and ``tokens`` (B,
+    S - n), the image positions first.  Returns float32 logits (B, S,
+    vocab), or (B, 1, vocab) for the last position with ``last_only``,
+    and the layers' summed auxiliary loss (float32 scalar), plus
+    ``{"moe_overflow"}`` (the layers' summed ``ep_a2a`` overflow share)
+    with ``with_stats``.  Attention is causal unless ``cfg.causal`` is
+    False (an encoder's).
 
     Under a mesh, ``batch`` and ``params`` are this rank's (its batch rows
     when the batch is split over ``dp_axes``, its
@@ -245,7 +267,7 @@ def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
     check_supported(cfg)
     if cfg.is_moe:
         check_moe(cfg)
-    x = _embed(params, batch["tokens"], cfg)
+    x = _embed_inputs(params, batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     attend = partial(attention_sublayer, positions=positions)
     sub = partial(_apply_sublayer, cfg=cfg, attend=attend, mesh=mesh,
@@ -269,6 +291,8 @@ def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
             x, a, o = group(x)
         aux = aux + a
         overflow = overflow + o
+    if last_only:
+        x = x[:, -1:]
     logits = _logits(params, x, cfg)
     if with_stats:
         return logits, aux, {"moe_overflow": overflow}
@@ -295,7 +319,10 @@ def _checkpointed(sub, policies, x, p, kind):
 
 def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data")):
     """Next-token cross entropy (labels < 0 masked) plus the auxiliary
-    loss.  Returns ``(loss, {"ce", "aux", "moe_overflow"})``.
+    loss.  Returns ``(loss, {"ce", "aux", "moe_overflow"})``.  Image
+    positions (mixed inputs) carry no loss: their logits are dropped
+    before the shift.  An encoder (``cfg.causal`` False) predicts each
+    position's own label, with no shift.
 
     Under a mesh whose ``dp_axes`` split the batch, the cross entropy is
     the global masked mean: this rank's masked sum over the mask count
@@ -305,6 +332,8 @@ def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data")):
     logits, aux, stats = forward(params, batch, cfg, mesh=mesh,
                                  dp_axes=dp_axes, with_stats=True)
     labels = batch["labels"].long()
+    if cfg.input_kind == "mixed":
+        logits = logits[:, batch["image_embeds"].shape[1]:]
     if cfg.causal:
         logits = logits[:, :-1]
         labels = labels[:, 1:]
@@ -346,8 +375,12 @@ def prefill(params, tokens, lengths, cache, page_table, cfg, *,
     absolute ``offsets[b] + t`` and attend through the page table, reading
     the shared prefix from the cache; the logits row is still the last real
     token (relative index ``lengths - 1``).  ``attn_impl`` is accepted for
-    the reference's signature; prefill attends without the paged kernel."""
+    the reference's signature; prefill attends without the paged kernel.
+    Raises ``ValueError`` for frame and mixed inputs, as the reference
+    does."""
     check_supported(cfg)
+    if cfg.input_kind != "tokens":
+        raise ValueError("paged serving decodes token streams")
     B, S = tokens.shape
     x = _embed(params, tokens, cfg)
     positions = torch.arange(S, device=x.device)

@@ -107,7 +107,7 @@ def _finish_request(r: Request, reason: str) -> None:
 
 
 def _params_device(params) -> torch.device:
-    return params["embed"].device
+    return params["unembed"].device
 
 
 class ServeEngine:

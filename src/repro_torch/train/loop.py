@@ -93,7 +93,9 @@ def _dp_shards(mesh) -> int:
 def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
                     remat_policy=None, hbm_budget=None):
     """Returns ``step_fn(params, opt_state, batch) -> (params, opt_state,
-    metrics)``.  ``batch`` holds ``tokens`` and ``labels`` (B, S) as numpy
+    metrics)``.  ``batch`` holds the input kind's arrays (``tokens`` and
+    ``labels`` (B, S); ``features`` and ``labels``; or ``image_embeds``,
+    ``tokens`` and ``labels``: ``data/pipeline.synthesize_batch``) as numpy
     arrays or tensors; ``params`` is the port's parameter tree of float32
     masters (``interop.init_params(..., dtype=torch.float32)``), updated in
     place with ``opt_state``.  The metrics are 0-d tensors on the device
@@ -158,7 +160,7 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
         try:
             for mb in _microbatches(batch, n_micro):
                 if mesh is not None:
-                    dp = SH.batch_axes(mesh, mb["tokens"].shape[0])
+                    dp = SH.batch_axes(mesh, mb["labels"].shape[0])
                     mb = SH.local_batch(mb, SH.batch_specs(mb, mesh), mesh)
                 # Spans that name the step's parts in a profiler trace (no
                 # cost without a profiler).  The backward's kernels are
@@ -215,8 +217,9 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
 
 
 def _microbatches(batch: dict, n: int):
-    """The batch's ``n`` equal pieces along its leading axis, in order."""
-    rows = batch["tokens"].shape[0]
+    """The batch's ``n`` equal pieces along its leading axis, in order
+    (every entry: tokens, labels, frame or image embeddings)."""
+    rows = batch["labels"].shape[0]
     if rows % n:
         raise ValueError(f"a batch of {rows} rows does not split into "
                          f"{n} microbatches")

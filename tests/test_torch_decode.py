@@ -251,8 +251,10 @@ def test_decode_steps_match_reference(tp, name, jcfg, capacity, steps,
 def test_refusals_match_reference(tp):
     """A recurrent pattern is refused by ``init_paged_cache`` and
     ``ServeEngine`` with the reference's ``ValueError``; ``decode_step``
-    refuses frame inputs as the reference does."""
-    T, SE = tp.transformer, tp.engine
+    refuses frame inputs as the reference does, the paged engine refuses
+    them at prefill and the serving launcher refuses the encoder, each
+    with the reference's message, while ``forward`` runs the encoder."""
+    T, SE, torch = tp.transformer, tp.engine, tp.torch
     for arch in ("hymba_1_5b", "xlstm_1_3b"):
         tcfg = torch_config(get_config(arch).reduced())
         assert not T.paged_supported(tcfg)
@@ -272,5 +274,19 @@ def test_refusals_match_reference(tp):
     hubert = torch_config(get_config("hubert_xlarge").reduced())
     with pytest.raises(ValueError, match="encoder-only"):
         T.decode_step({}, [], {"tokens": None}, 0, hubert)
-    with pytest.raises(NotImplementedError, match="§A item 5"):
-        T.forward({}, {"tokens": None}, hubert)
+    hp = tp.interop.init_params(hubert, device="cpu")
+    feats = torch.randn(1, 8, hubert.d_model,
+                        generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        logits, _ = T.forward(hp, {"features": feats}, hubert)
+    assert logits.shape == (1, 8, hubert.vocab_size)
+    assert bool(torch.isfinite(logits).all())
+    eng = SE.ServeEngine(hubert, hp, batch_slots=1, capacity=64,
+                         device="cpu")
+    with pytest.raises(ValueError, match="paged serving decodes token "
+                                         "streams"):
+        eng.generate([SE.Request(prompt=np.arange(3, 8, dtype=np.int32),
+                                 max_new_tokens=2)])
+    with pytest.raises(SystemExit, match="encoder-only; nothing to decode"):
+        launch_serve.main(["--arch", "hubert-xlarge", "--reduced",
+                           "--device", "cpu"])

@@ -13,11 +13,13 @@ combine rounds each product and sum as the plain version does).  Gather-GMM,
 the grouped weight gradient and paged attention sum in another order than
 the plain version, so float32 agrees to 1e-5 and bfloat16 to one bf16 step
 (2^-7 relative) plus 1e-2.  Flash attention in bf16 scales the float32
-scores where the plain version scales q in bf16, so 2e-2 absolute.  The
+scores where the plain version scales q in bf16, so 2e-2 absolute; where
+each output averages hundreds of keys (the bidirectional cases), 2^-5 of
+|o| plus its row's mean |o|.  The
 expert layer's autograd Function against autograd through the plain
 versions: float32 1e-4 relative over a floor of 1e-4 times each output's
 scale (a chain of products summed in other orders).  The fused MoE pair:
-float32 outputs summed by atomics in another order, so float32 agrees to
+float32 outputs summed in another order, so float32 agrees to
 1e-5 relative over 1e-5 of each output's scale, and bfloat16 (whose
 backward also feeds da, db and g y_swi to the tensor cores in bf16) to one
 bf16 step (2^-7) of each output's scale plus 1e-2.  The fused dense SwiGLU
@@ -1236,17 +1238,25 @@ def test_sampling_noise_bit_equal_on_cpu_and_card(dev):
                           SM.sample(logits.to(dev), n_dev, temp).cpu())
 
 
-@pytest.mark.parametrize("L,E,k,d,h", [
-    pytest.param(4096, 8, 2, 4096, 14336, id="mixtral-training"),
-    pytest.param(4096, 128, 8, 2048, 768, id="qwen3-moe-training")])
-def test_fused_moe_repeats_bit_equal(dev, K, L, E, k, d, h):
+@pytest.mark.parametrize("L,E,k,d,h,dtype", [
+    pytest.param(4096, 8, 2, 4096, 14336, "bfloat16", id="mixtral-training"),
+    pytest.param(4096, 128, 8, 2048, 768, "bfloat16",
+                 id="qwen3-moe-training"),
+    # the general path (float32, and bf16 with d off the multiple of 8)
+    pytest.param(1024, 8, 2, 1024, 2048, "float32", id="general-float32"),
+    pytest.param(1024, 8, 2, 1020, 2048, "bfloat16",
+                 id="general-bf16-d1020")])
+def test_fused_moe_repeats_bit_equal(dev, K, L, E, k, d, h, dtype):
     """The fused MoE forward's y and the backward's outputs are bit-equal
     across repeated calls at Mixtral-8x7B's training shape (2 x 2048
     tokens, 8192 slots, seven forward h-ranges) and Qwen3-30B-A3B's
-    (32,768 slots over 128 experts, top-8): every output element has one
+    (32,768 slots over 128 experts, top-8), and on the general path
+    (float32, and bf16 with d = 1020): every output element has one
     writer (a per-slot buffer summed over each token's slots in a fixed
-    order), so the recompute inside a checkpoint region sees the forward's
-    bits; against the plain version at the bf16 tolerance."""
+    order, weight-gradient tiles that walk their expert's rows), so the
+    recompute inside a checkpoint region sees the forward's bits; y
+    against the plain version at its dtype's tolerance, and on the
+    general path every output."""
     import torch
     F = K.fused_moe
     gen = torch.Generator(device=dev).manual_seed(L + E)
@@ -1254,13 +1264,15 @@ def test_fused_moe_repeats_bit_equal(dev, K, L, E, k, d, h):
             .to(torch.int32).contiguous())
     disp = K.routing.build_dispatch(topk, E)
     S = disp.num_slots
-    bf = dict(device=dev, dtype=torch.bfloat16)
-    x, dy = (torch.randn(L, d, generator=gen, device=dev).to(bf["dtype"])
+    dt = dict(device=dev, dtype=getattr(torch, dtype))
+    x, dy = (torch.randn(L, d, generator=gen, device=dev).to(dt["dtype"])
              for _ in range(2))
     w1, w2 = ((torch.randn(E, d, h, generator=gen, device=dev)
-               * d ** -0.5).to(**bf) for _ in range(2))
+               * d ** -0.5).to(**dt) for _ in range(2))
     w3 = (torch.randn(E, h, d, generator=gen, device=dev)
-          * h ** -0.5).to(**bf)
+          * h ** -0.5).to(**dt)
+    general = not F.tensor_core_path(x, (w1, w2, w3), dy)
+    assert general == (dtype == "float32" or d % 8 != 0)
     g = torch.rand(S, generator=gen, device=dev)
     idx, off = disp.expert_token_indices, disp.expert_token_offsets
     tim = disp.token_index_map
@@ -1268,13 +1280,128 @@ def test_fused_moe_repeats_bit_equal(dev, K, L, E, k, d, h):
     for call in range(2):
         assert _equal(F.fused_moe_fwd(x, g, idx, off, w1, w2, w3, tim), y)
     _scale_close("y", y, F.fused_moe_fwd_plain(x, g, idx, off, w1, w2, w3),
-                 "bfloat16")
+                 dtype)
     outs = F.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3, tim)
     again = F.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3, tim)
     for name, a, b in zip(("dx", "dgates", "dw1", "dw2", "dw3"), outs, again):
         assert _equal(a, b), name
+    if general:
+        want = F.fused_moe_bwd_plain(x, dy, g, idx, off, w1, w2, w3)
+        for name, a, b in zip(("dx", "dgates", "dw1", "dw2", "dw3"), outs,
+                              want):
+            _scale_close(name, a, b, dtype)
     del outs, again
     _sync()
+
+
+@pytest.mark.parametrize("d,dtype", [
+    pytest.param(64, "bfloat16", id="tensor-core"),
+    pytest.param(64, "float32", id="general-float32"),
+    pytest.param(60, "bfloat16", id="general-bf16-d60")])
+def test_fused_moe_no_tokens(dev, K, d, dtype):
+    """A call with no tokens (L = 0, so no slots) on either path gives
+    y and dx of shape (0, d), no dgates, and weight gradients of exact
+    zeros, though the allocator hands the outputs memory that last held
+    NaNs."""
+    import torch
+    F = K.fused_moe
+    E, k, h = 4, 2, 128
+    dt = dict(device=dev, dtype=getattr(torch, dtype))
+    x = dy = torch.empty(0, d, **dt)
+    w1, w2 = (torch.randn(E, d, h, device=dev).to(**dt) for _ in range(2))
+    w3 = torch.randn(E, h, d, device=dev).to(**dt)
+    assert F.tensor_core_path(x, (w1, w2, w3), dy) == (
+        dtype == "bfloat16" and d % 8 == 0)
+    idx = torch.empty(0, dtype=torch.int32, device=dev)
+    off = torch.zeros(E + 1, dtype=torch.int32, device=dev)
+    tim = torch.empty(0, k, dtype=torch.int32, device=dev)
+    g = torch.empty(0, device=dev)
+    stale = torch.full((8 * E * d * h,), float("nan"), device=dev)
+    del stale
+    y = F.fused_moe_fwd(x, g, idx, off, w1, w2, w3, tim)
+    dx, dg, dw1, dw2, dw3 = F.fused_moe_bwd(x, dy, g, idx, off, w1, w2, w3,
+                                            tim)
+    _sync()
+    assert y.shape == dx.shape == (0, d) and dg.shape == (0,)
+    for name, dw, w in (("dw1", dw1, w1), ("dw2", dw2, w2),
+                        ("dw3", dw3, w3)):
+        assert dw.shape == w.shape, name
+        assert _equal(dw, torch.zeros_like(dw)), name
+
+
+def test_fused_moe_refuses_tensor_cores_it_cannot_take(dev, K):
+    """The wrappers choose the path (``tensor_core_path``) and size the
+    workspace for it; the C entries refuse the tensor-core path for
+    inputs it cannot take (float32, d off the multiple of 8) rather than
+    write its bf16 chunk into a workspace sized for the other path."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    F = K.fused_moe
+    E, k, h, L = 2, 1, 128, 16
+    lib = _lib.lib()
+    for dtype, d in ((torch.float32, 64), (torch.bfloat16, 60)):
+        x = dy = torch.randn(L, d, device=dev).to(dtype)
+        w1, w2 = (torch.randn(E, d, h, device=dev).to(dtype)
+                  for _ in range(2))
+        w3 = torch.randn(E, h, d, device=dev).to(dtype)
+        assert not F.tensor_core_path(x, (w1, w2, w3), dy)
+        idx = torch.arange(L, dtype=torch.int32, device=dev)
+        off = torch.tensor([0, L // 2, L], dtype=torch.int32, device=dev)
+        tim = idx.view(L, k)
+        g = torch.ones(L, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        y, ys = torch.zeros(L, d, **f32), torch.zeros(L, d, **f32)
+        ws = torch.empty(3, L, h, **f32)
+        code = _lib.DTYPE_CODE[dtype]
+        rc = lib.repro_fused_moe_fwd(
+            code, 1, x.data_ptr(), g.data_ptr(), idx.data_ptr(),
+            off.data_ptr(), w1.data_ptr(), w2.data_ptr(), w3.data_ptr(),
+            y.data_ptr(), ws.data_ptr(), h, L, L, d, h, E, ys.data_ptr(),
+            tim.data_ptr(), k, _lib.stream_ptr(x))
+        assert rc != 0
+        outs = [torch.empty(L, d, **f32), torch.empty(L, **f32),
+                torch.empty(E, d, h, **f32), torch.empty(E, d, h, **f32),
+                torch.empty(E, h, d, **f32)]
+        part = torch.empty(h // F.GENERAL_H_TILE, L, **f32)
+        rc = lib.repro_fused_moe_bwd(
+            code, 1, x.data_ptr(), dy.data_ptr(), g.data_ptr(),
+            idx.data_ptr(), off.data_ptr(), w1.data_ptr(), w2.data_ptr(),
+            w3.data_ptr(), *(t.data_ptr() for t in outs), ws.data_ptr(),
+            part.data_ptr(), h, L, L, d, h, E, ys.data_ptr(),
+            tim.data_ptr(), k, _lib.stream_ptr(x))
+        assert rc != 0
+    _sync()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("Dh", [80, 64, 128])
+def test_flash_attention_bidirectional(dev, K, dtype, Dh):
+    """Flash attention without the causal mask (an encoder's, HuBERT's)
+    at head widths 80 (the general kernel in bf16, HuBERT-XLarge's),
+    64 and 128 (the wgmma kernel's non-causal branch in bf16), with a
+    GQA group of 2 and S = 300, not a multiple of the 128-key tile."""
+    rng = np.random.default_rng(Dh)
+    S, H, Hkv = 300, 8, 4
+    q = _t(rng.normal(size=(2, S, H, Dh)), dev, dtype)
+    k, v = (_t(rng.normal(size=(2, S, Hkv, Dh)), dev, dtype)
+            for _ in range(2))
+    A = K.flash_attention
+    before = A.flash_attention.launches
+    got = A.flash_attention(q, k, v, causal=False)
+    want = A.flash_attention_plain(q, k, v, causal=False, chunk=S)
+    _sync()
+    assert A.flash_attention.launches == before + 1
+    if dtype == "bfloat16":
+        # each output averages up to 300 keys (|o| about 0.06), so each
+        # element is held to 2^-5 of |o| plus its row's mean |o|, as
+        # chip_smoke.py's phase 41 holds the long sequences
+        w = want.float()
+        scale = w.abs() + w.abs().mean(-1, keepdim=True)
+        ratio = float(((got.float() - w).abs() / scale).max())
+        assert ratio <= 2 ** -5, ratio
+    else:
+        _close(got, want, dtype)
 
 
 @pytest.mark.parametrize("B,S,window", [(2, 2048, 1024), (1, 300, 100)])

@@ -4,8 +4,8 @@ Shape arithmetic only, so every number must equal the reference's
 exactly: the train-step timeline of ``simulate`` (every phase's name,
 held, transient and collective bytes, the base bytes, the recompute bytes,
 the peak and its phase) and ``simulate_peak``, over the reference memory
-bench's two small configs, Mixtral-8x7B, Qwen3-14B and two of the paper's
-Table-1 configs, x every candidate plan of ``fit_candidates`` x the MoE
+bench's two small configs, Mixtral-8x7B, Qwen3-14B, two of the paper's
+Table-1 configs, HuBERT-XLarge and LLaVA-NeXT-Mistral-7B, x every candidate plan of ``fit_candidates`` x the MoE
 modes ``single`` / ``ep`` / ``ep_a2a`` x the three bases; then
 ``param_bytes``, ``moe_layer_sizes``, the KV byte functions and
 ``simulate_serve``.
@@ -28,6 +28,8 @@ CONFIGS = {
     "qwen3_14b": get_config("qwen3_14b"),
     "paper_conf2": get_config("paper_conf2"),
     "paper_conf3": get_config("paper_conf3"),
+    "hubert_xlarge": get_config("hubert_xlarge"),
+    "llava_next_mistral_7b": get_config("llava_next_mistral_7b"),
 }
 MODES = (("single", 1), ("ep", 2), ("ep", 4), ("ep_a2a", 2), ("ep_a2a", 4))
 

@@ -122,14 +122,14 @@ def main() -> int:
             ys.zero_()
             if args.direction == "fwd":
                 rc = lib.repro_fused_moe_fwd(
-                    code, x.data_ptr(), g_slot.data_ptr(), idx.data_ptr(),
+                    code, 1, x.data_ptr(), g_slot.data_ptr(), idx.data_ptr(),
                     off.data_ptr(), w1.data_ptr(), w2.data_ptr(),
                     w3.data_ptr(), outs[0].data_ptr(), chunk.data_ptr(), hc,
                     S, L, D, H, E, ys.data_ptr(), tim.data_ptr(),
                     tim.shape[1], stream)
             else:
                 rc = lib.repro_fused_moe_bwd(
-                    code, x.data_ptr(), dy.data_ptr(), g_slot.data_ptr(),
+                    code, 1, x.data_ptr(), dy.data_ptr(), g_slot.data_ptr(),
                     idx.data_ptr(), off.data_ptr(), w1.data_ptr(),
                     w2.data_ptr(), w3.data_ptr(),
                     *(t.data_ptr() for t in outs), chunk.data_ptr(),

@@ -18,6 +18,9 @@ that a row is held to.  Inputs are bf16 from seed 0:
   14336, top-2 of 8 experts) and Qwen3-30B-A3B (d = 2048, h = 768, top-8
   of 128 experts), each at training (2 x 2048 tokens) and decode (4
   tokens), experts from a random gate;
+- ``fused_moe_general``: the pair's general path (forward, then
+  backward), 1024 tokens top-2 of 8 experts, d = 1024, h = 2048, in
+  float32 and in bf16 with d = 1020 (off the multiple of 8);
 - ``gather_gmm``: Mixtral's routing and weights, each instantiation as the
   training step calls it (the dual branch with ``save_ab``, the w3
   forward over identity rows, the backward's w3ᵀ and w1ᵀ), and the dual
@@ -56,7 +59,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
            "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw",
-           "fused_swiglu_fwd", "combine", "build_dispatch", "gather_rows")
+           "fused_swiglu_fwd", "combine", "build_dispatch", "gather_rows",
+           "fused_moe_general")
 TAG = "KERNEL_AB "
 
 
@@ -134,6 +138,8 @@ def cases(name: str, dev):
     from repro_torch.core import routing
     if name in ("fused_moe_fwd", "fused_moe_bwd"):
         return fused_moe_cases(name, dev, randn, gen)
+    if name == "fused_moe_general":
+        return fused_moe_general_cases(dev, gen)
     L, d, h, E = 4096, 4096, 14336, 8
     if name == "combine":
         from repro_torch.kernels import combine as KC
@@ -222,6 +228,37 @@ def fused_moe_cases(name: str, dev, randn, gen):
             kw = {"tim": ds.token_index_map} if takes_tim else {}
             out.append((f"{model} {label}: L={n}, S={S}, d={d}, h={h}, "
                         f"E={E}", lambda args=args, kw=kw: fn(*args, **kw)))
+    return out
+
+
+def fused_moe_general_cases(dev, gen):
+    """The fused MoE pair's general path, forward and backward, at 1024
+    tokens, top-2 of 8 experts from uniform scores, d = 1024, h = 2048 in
+    float32 and d = 1020 in bf16."""
+    import torch
+
+    from repro_torch.core import routing
+    from repro_torch.kernels import fused_moe as FM
+    L, E, k, h = 1024, 8, 2, 2048
+    topk = (torch.rand(L, E, generator=gen, device=dev).argsort(1)[:, :k]
+            .to(torch.int32).contiguous())
+    ds = routing.build_dispatch(topk, E)
+    idx, off = ds.expert_token_indices, ds.expert_token_offsets
+    g_slot = torch.rand(ds.num_slots, generator=gen, device=dev)
+    out = []
+    for dtype, d in ((torch.float32, 1024), (torch.bfloat16, 1020)):
+        def randn(*shape, scale=1.0):
+            return (torch.randn(*shape, generator=gen, device=dev)
+                    * scale).to(dtype)
+        x, dy = randn(L, d), randn(L, d)
+        ws = (randn(E, d, h, scale=d ** -0.5), randn(E, d, h, scale=d ** -0.5),
+              randn(E, h, d, scale=h ** -0.5))
+        label = f"{str(dtype)[6:]}: L={L}, S={ds.num_slots}, d={d}, h={h}"
+        out += [
+            (f"forward {label}", lambda x=x, ws=ws: FM.fused_moe_fwd(
+                x, g_slot, idx, off, *ws, ds.token_index_map)),
+            (f"backward {label}", lambda x=x, dy=dy, ws=ws: FM.fused_moe_bwd(
+                x, dy, g_slot, idx, off, *ws, ds.token_index_map))]
     return out
 
 
