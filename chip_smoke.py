@@ -290,14 +290,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    writer per element) and held against its plain version, then timed;
 41. the kernels at the frame and mixed paths' shapes, held and timed as
    phase 4: flash attention without the causal mask at HuBERT-XLarge's
-   training shape (B = 2, S = 2048, 16/16 heads of 80: the general
-   kernel) and at 32/8 heads of 128 (the wgmma kernel's non-causal
+   training shape (B = 2, S = 2048, 16/16 heads of 80: the tensor cores,
+   padded to 128, in bf16; the general kernel in float32, beside SDPA in
+   float32) and at 32/8 heads of 128 (the wgmma kernel's non-causal
    branch), causal at LLaVA-NeXT's prefill (B = 1, S = 6144, 32/8 heads
-   of 128), the fused-SwiGLU trio at d = 4096, h = 14336 over 6144 rows;
+   of 128), each with the kernel that ran and its time over SDPA's; the
+   fused-SwiGLU trio at d = 4096, h = 14336 over 6144 rows;
 42. HuBERT-XLarge training at all 48 layers (frames from
    ``synthesize_batch``, 2 x 2048, about 82 s of 20 ms frames), as phase
    7: 96 flash launches a step (48 in the forward, 48 in the recompute),
-   frames/s, peak and busy share; then a CPU cross-check of the forward
+   none on the general kernel, frames/s, peak, busy share and the flash
+   kernels' share of the device time; then a CPU cross-check of the forward
    on a 2-layer cut (64 frames; every position's logits within the bf16
    tolerance of phase 6);
 43. LLaVA-NeXT-Mistral-7B at full width and depth (32 layers, 14.5 GB
@@ -1288,12 +1291,23 @@ def main() -> int:
                              steps_warm=5, spans=False, seq=HUBERT_SEQ)
     check(hutrain["launches_per_step"]["flash_attention"] == 96,
           "train [hubert-xlarge]: not 96 flash launches a step")
+    # heads of 80 in bf16 take the tensor cores (padded to 128)
+    check(hutrain["launches_per_step"]["flash_attention_general"] == 0,
+          "train [hubert-xlarge]: flash launches on the general kernel")
+    flash_ms = sum(ms for name, ms in hutrain["by_kernel_ms"].items()
+                   if "flash_wgmma_kernel" in name
+                   or "flash_tiled_kernel" in name)
+    hutrain["flash_share"] = flash_ms / (hutrain["busy_s"] * 1e3)
     log(f"train [hubert-xlarge]: {hutrain['tokens_per_s']:.1f} frames/s "
         f"({hutrain['tokens_per_s'] * 0.02:.1f} s of 20 ms frames a second "
         f"of training), step {hutrain['step_s']:.4f} s, peak "
         f"{hutrain['peak_bytes'] / 2 ** 30:.3f} GiB, device busy "
         f"{100 * hutrain['busy_s'] / hutrain['traced_wall_s']:.1f}%, flash "
-        f"launches a step {hutrain['launches_per_step']['flash_attention']:g}")
+        f"launches a step {hutrain['launches_per_step']['flash_attention']:g} "
+        "(all on the tensor cores), flash kernels "
+        f"{flash_ms:.3f} ms of the traced step's "
+        f"{hutrain['busy_s'] * 1e3:.3f} ms of device time "
+        f"({100 * hutrain['flash_share']:.2f}%)")
     torch.cuda.empty_cache()
     gen = torch.Generator(device=dev).manual_seed(0)
     hu2 = cfg_hu.replace(num_layers=2, dtype="bfloat16")
@@ -1933,9 +1947,12 @@ def flash_row(M, timer, entry, q, k, v, window, shape, cap=0.0,
               causal=True) -> dict:
     """Phase 4's row for the flash-attention forward, causal unless
     ``causal`` is False (no window then): operations 4 B H Dh a live
-    (query, key) pair; library: SDPA (with a boolean causal-window mask
-    where the window is shorter than the sequence; none with a softcap,
-    which SDPA does not compute)."""
+    (query, key) pair, over the bf16 tensor-core peak or, for float32
+    inputs, the float32 rate; bytes each input read and the output
+    written once at the inputs' element size; library: SDPA on the same
+    dtype (with a boolean causal-window mask where the window is shorter
+    than the sequence; none with a softcap, which SDPA does not
+    compute)."""
     B, T_, H, Dh = q.shape
     pairs = (T_ * T_ if not causal else
              sum(min(t + 1, window) if window else t + 1 for t in range(T_)))
@@ -1957,8 +1974,10 @@ def flash_row(M, timer, entry, q, k, v, window, shape, cap=0.0,
                                                  window=window, cap=cap,
                                                  chunk=512),
               warm=1, reps=3),
-        (2 * q.numel() + k.numel() + v.numel()) * EB,
-        4.0 * B * H * Dh * pairs, library, shape)
+        (2 * q.numel() + k.numel() + v.numel()) * q.element_size(),
+        4.0 * B * H * Dh * pairs, library, shape,
+        ops_per_s=F32_OPS_PER_S if q.dtype == torch.float32
+        else BF16_OPS_PER_S)
 
 
 def paged_row(M, timer, entry, q, pages, table, pos, window, shape,
@@ -5186,12 +5205,15 @@ LLAVA_PREFILL, LLAVA_TRAIN_SEQ, LLAVA_DECODE_NEW = 6144, 4096, 16
 # The short inputs of the CPU cross-checks (phase 43): 64 frames; 48
 # positions of which 24 image slots.
 XCHECK_SEQ = {"frames": 64, "mixed": 48}
-# Phase 41's flash-attention shapes (label, (B, S, H, Hkv, Dh, causal))
-# and LLaVA's FFN widths (d, h).
+# Phase 41's flash-attention shapes (label, (B, S, H, Hkv, Dh, causal,
+# dtype)) and LLaVA's FFN widths (d, h).  HuBERT's shape also in float32:
+# the general kernel.
 FRAMES_MIXED_FLASH = (
-    ("hubert-xlarge training", (2, 2048, 16, 16, 80, False)),
-    ("bidirectional, wgmma", (2, 2048, 32, 8, 128, False)),
-    ("llava-next-mistral-7b prefill", (1, 6144, 32, 8, 128, True)))
+    ("hubert-xlarge training", (2, 2048, 16, 16, 80, False, BF16)),
+    ("hubert-xlarge training, float32",
+     (2, 2048, 16, 16, 80, False, torch.float32)),
+    ("bidirectional, wgmma", (2, 2048, 32, 8, 128, False, BF16)),
+    ("llava-next-mistral-7b prefill", (1, 6144, 32, 8, 128, True, BF16)))
 LLAVA_FFN = (4096, 14336)
 
 
@@ -5200,9 +5222,11 @@ def frames_mixed_kernels(M, dev, timer, entry, errs) -> dict:
     them, each against its plain version and timed beside its bound,
     plain time and library time: flash attention without the causal mask
     at HuBERT-XLarge's training shape (B = 2, S = 2048, 16/16 heads of 80:
-    the general kernel) and at 32/8 heads of 128 (the wgmma kernel's
-    non-causal branch), and causal at LLaVA-NeXT's prefill (B = 1, S =
-    6144, 32/8 heads of 128); the fused-SwiGLU trio at LLaVA's widths
+    the tensor cores in bf16, padded to 128; the general kernel in
+    float32, beside SDPA in float32) and at 32/8 heads of 128 (the wgmma
+    kernel's non-causal branch), and causal at LLaVA-NeXT's prefill (B =
+    1, S = 6144, 32/8 heads of 128), each row naming the kernel that ran
+    and its time over SDPA's; the fused-SwiGLU trio at LLaVA's widths
     (d = 4096, h = 14336) over the prefill's L = 6144 rows.  Returns the
     timing rows by kernel."""
     KF, KS = M.KF, M.KS
@@ -5213,26 +5237,44 @@ def frames_mixed_kernels(M, dev, timer, entry, errs) -> dict:
 
     rows = {n: [] for n in ("flash_attention", "fused_swiglu_fwd",
                             "fused_swiglu_bwd_x", "fused_swiglu_bwd_w")}
-    for label, (B, S, H, Hkv, Dh, causal) in FRAMES_MIXED_FLASH:
-        q, k, v = randn(B, S, H, Dh), randn(B, S, Hkv, Dh), \
-            randn(B, S, Hkv, Dh)
+    for label, (B, S, H, Hkv, Dh, causal, dt) in FRAMES_MIXED_FLASH:
+        q, k, v = (randn(B, S, n, Dh, dtype=dt) for n in (H, Hkv, Hkv))
+        tensor_cores = KF.tensor_core_path(q, k, v)
+        general = KF.flash_attention.general_launches
         got = KF.flash_attention(q, k, v, causal=causal)
+        check(KF.flash_attention.general_launches
+              == general + (not tensor_cores),
+              f"flash_attention [{label}]: not the kernel tensor_core_path "
+              "chose")
         check(torch.equal(got, KF.flash_attention(q, k, v, causal=causal)),
               f"flash_attention [{label}]: a repeated call differs")
         want = KF.flash_attention_plain(q, k, v, causal=causal, chunk=512)
-        r = require_row_close(f"flash_attention [{label}]", got, want,
-                              FLASH_ROW_REL)
-        errs["flash_attention"] = max(errs["flash_attention"],
-                                      r["max_abs_err"])
+        path = "tensor cores" if tensor_cores else "general kernel"
         shape = (f"{label}: B={B}, S={S}, {H}/{Hkv} heads of {Dh}, "
-                 + ("causal" if causal else "causal=False"))
-        log(f"parity flash_attention [{shape}]: max |err| "
-            f"{r['max_abs_err']:.4g}, max |o| {r['max_abs_o']:.4g}, mean "
-            f"|o| {r['mean_abs_o']:.4g}, max |err| / (|o| + row mean |o|) "
-            f"{r['max_ratio']:.4g} (bound {FLASH_ROW_REL:.4g}); repeated "
-            "call bit-equal")
-        rows["flash_attention"].append(flash_row(
-            M, timer, entry, q, k, v, 0, shape, causal=causal))
+                 + ("causal" if causal else "causal=False") + f", {path}")
+        if dt == torch.float32:
+            e = require_close(f"flash_attention [{label}]", got, want,
+                              F32_RTOL, F32_FLOOR)
+            errs["flash_attention"] = max(errs["flash_attention"], e)
+            log(f"parity flash_attention [{shape}]: max |err| {e:.4g} (rtol "
+                f"{F32_RTOL}, atol {F32_FLOOR}); repeated call bit-equal")
+        else:
+            r = require_row_close(f"flash_attention [{label}]", got, want,
+                                  FLASH_ROW_REL)
+            errs["flash_attention"] = max(errs["flash_attention"],
+                                          r["max_abs_err"])
+            log(f"parity flash_attention [{shape}]: max |err| "
+                f"{r['max_abs_err']:.4g}, max |o| {r['max_abs_o']:.4g}, mean "
+                f"|o| {r['mean_abs_o']:.4g}, max |err| / (|o| + row mean "
+                f"|o|) {r['max_ratio']:.4g} (bound {FLASH_ROW_REL:.4g}); "
+                "repeated call bit-equal")
+        row = flash_row(M, timer, entry, q, k, v, 0, shape, causal=causal)
+        log(f"flash_attention [{shape}]: {row['ms']:.4f} ms on the "
+            f"{path}, bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"SDPA ({str(dt)[6:]}) {row['library_ms']:.4f} ms, "
+            f"{row['ms'] / row['library_ms']:.2f}x SDPA's time, "
+            f"{row['ms'] / row['bound_ms']:.1f}x the bound")
+        rows["flash_attention"].append(row)
         del q, k, v, got, want
     (d, h), L = LLAVA_FFN, LLAVA_PREFILL
     w1, w2 = randn(d, h, scale=d ** -0.5), randn(d, h, scale=d ** -0.5)

@@ -3,7 +3,8 @@
 Every wrapper takes the plain PyTorch version for CPU tensors and launches
 its kernel for CUDA tensors (or raises); it counts its launches in its
 ``launches`` attribute.  :func:`launch_counts` and :func:`reset_launches`
-read and zero those counts together.
+read and zero those counts together, with the flash-attention general
+kernel's share of its wrapper's launches (``flash_attention_general``).
 """
 
 from __future__ import annotations
@@ -34,9 +35,15 @@ def _wrappers() -> dict:
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    wrappers = _wrappers()
+    counts = {name: fn.launches for name, fn in wrappers.items()}
+    counts["flash_attention_general"] = (
+        wrappers["flash_attention"].general_launches)
+    return counts
 
 
 def reset_launches() -> None:
-    for fn in _wrappers().values():
+    wrappers = _wrappers()
+    for fn in wrappers.values():
         fn.launches = 0
+    wrappers["flash_attention"].general_launches = 0

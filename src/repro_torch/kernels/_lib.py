@@ -43,7 +43,8 @@ SIGNATURES = {
     "repro_gather_gmm": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I,
                          P],
     "repro_gmm_dw": [I, P, P, P, P, I, I, I, I, P],
-    "repro_flash_attention": [I, P, P, P, P, I, I, I, I, I, I, I, F, F, P],
+    "repro_flash_attention": [I, I, P, P, P, P, I, I, I, I, I, I, I, F, F,
+                              P],
     "repro_combine": [I, P, P, P, P, I, I, I, P],
     "repro_paged_attention": [I, P, P, P, P, P, P, P, P, I, I, I, I, I, I,
                               I, I, F, F, P],

@@ -9,12 +9,20 @@ online softmax, P rounded to v's dtype for P·V, float32 accumulation,
 output ``acc / max(l, 1e-30)`` in ``q.dtype``.
 
 Bound on the card: operations (4·B·S²·H·Dh/2 for causal attention).
-``csrc/flash_attention.cu`` runs one block per (batch·head, 128-query
-tile) that walks its kv tiles in a loop, instead of the TPU's kv grid axis
+``csrc/flash_attention.cu`` runs one block per (batch·head, query tile)
+that walks its kv tiles in a loop, instead of the TPU's kv grid axis
 carried across steps, and reads the group's kv head in place instead of
-repeating it: in bf16 with Dh 64 or 128, TMA tiles cut from the
-``(B, S, H, Dh)`` layout feed ``wgmma`` for Q·Kᵀ and for P·V (P in
-registers); float32 and other head widths take a plain kernel.
+repeating it.  It has two kernels, and :func:`tensor_core_path` chooses:
+
+- tensor cores, for bf16 at any head width up to 128 that is a multiple
+  of 8, with 16-byte aligned tensors: TMA tiles cut from the
+  ``(B, S, H, Dh)`` layout, padded with zero columns to 64 or 128, feed
+  ``wgmma`` for Q·Kᵀ and for P·V (P in registers);
+- general, for float32 at any width and for the bf16 calls the tensor
+  cores cannot take (Dh off the multiple of 8 or above 128, a pointer off
+  16 bytes): K and V tiles staged in shared memory as float32 and
+  register-tiled float32 FMAs, with the same online softmax and P rounded
+  to v's dtype.
 
 The plain version, :func:`flash_attention_plain`, is the chunked
 online-softmax attention of ``repro/models/attention.py:flash_attention``;
@@ -85,13 +93,33 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(B, Sq, Hq, Dh).to(q.dtype)
 
 
+#: the widest head the tensor-core kernel takes (its padded width)
+TENSOR_CORE_MAX_DH = 128
+
+
+def tensor_core_path(q: torch.Tensor, k: torch.Tensor,
+                     v: torch.Tensor) -> bool:
+    """Whether the kernel call takes the tensor cores (bf16, a head width
+    that is a multiple of 8 up to :data:`TENSOR_CORE_MAX_DH`, q, k and v
+    16-byte aligned) rather than the general kernel.  The one place the
+    path is chosen: :func:`flash_attention` passes it to
+    ``csrc/flash_attention.cu``, which refuses the tensor cores for inputs
+    they cannot take."""
+    Dh = q.shape[-1]
+    return (q.dtype == torch.bfloat16 and Dh % 8 == 0
+            and Dh <= TENSOR_CORE_MAX_DH
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0,
                     cap: float = 0.0) -> torch.Tensor:
     """Forward of ``flash_attention_pallas``: q (B, S, H, Dh), k and v
     (B, S, Hkv, Dh) -> (B, S, H, Dh).  A CPU tensor takes the plain
     version (in the TPU kernel's ``min(128, S)`` tiles); a CUDA tensor
-    launches the kernel (counted in ``flash_attention.launches``)."""
+    launches the kernel of :func:`tensor_core_path`'s choice (counted in
+    ``flash_attention.launches``, the general kernel's launches also in
+    ``flash_attention.general_launches``)."""
     if not q.is_cuda:
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      cap=cap, chunk=min(128, k.shape[1]))
@@ -109,17 +137,21 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(k.shape)}, v {tuple(v.shape)}")
     if Dh > 256:
         raise ValueError(f"head width {Dh} > 256")
+    tensor_cores = tensor_core_path(q, k, v)
     out = torch.empty_like(q)
     code = _lib.lib().repro_flash_attention(
-        _lib.DTYPE_CODE[dt], q.data_ptr(), k.data_ptr(), v.data_ptr(),
-        out.data_ptr(), B, S, H, k.shape[2], Dh, int(causal), int(window),
-        float(cap), float(Dh ** -0.5), _lib.stream_ptr(q))
+        _lib.DTYPE_CODE[dt], int(tensor_cores), q.data_ptr(), k.data_ptr(),
+        v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], Dh, int(causal),
+        int(window), float(cap), float(Dh ** -0.5), _lib.stream_ptr(q))
     _lib.check("repro_flash_attention", code)
     flash_attention.launches += 1
+    if not tensor_cores:
+        flash_attention.general_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.general_launches = 0
 
 
 class FlashAttention(torch.autograd.Function):

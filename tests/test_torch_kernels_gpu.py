@@ -13,9 +13,11 @@ combine rounds each product and sum as the plain version does).  Gather-GMM,
 the grouped weight gradient and paged attention sum in another order than
 the plain version, so float32 agrees to 1e-5 and bfloat16 to one bf16 step
 (2^-7 relative) plus 1e-2.  Flash attention in bf16 scales the float32
-scores where the plain version scales q in bf16, so 2e-2 absolute; where
-each output averages hundreds of keys (the bidirectional cases), 2^-5 of
-|o| plus its row's mean |o|.  The
+scores where the plain version scales q in bf16, so 2e-2 absolute
+(``FLASH_ATOL``); where each output averages hundreds of keys (the
+bidirectional cases), 2^-5 of |o| plus its row's mean |o|
+(``FLASH_ROW_REL``); each flash call also holds the kernel it ran (the
+tensor cores or the general kernel).  The
 expert layer's autograd Function against autograd through the plain
 versions: float32 1e-4 relative over a floor of 1e-4 times each output's
 scale (a chain of products summed in other orders).  The fused MoE pair:
@@ -38,6 +40,8 @@ pytestmark = pytest.mark.gpu
 
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=2 ** -7, atol=1e-2)}
+FLASH_ATOL = 2e-2
+FLASH_ROW_REL = 2 ** -5
 
 
 @pytest.fixture
@@ -540,6 +544,43 @@ def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
             assert not any(t[e].any() for t in got[2:]), e
 
 
+# The tensor-core kernel's other widths (multiples of 8 up to 128, padded
+# to 64 or 128 with zero columns), each at one position, at S = 100 with a
+# window and a softcap, and at S = 300 causal and with both; GQA groups
+# 1-8 by turns.
+_GROUPS = ((4, 4), (4, 2), (6, 2), (8, 2), (10, 2), (6, 1), (7, 1), (8, 1))
+_WIDTH_CASES = [
+    (S, *_GROUPS[(4 * i + j) % 8], Dh, True, window, cap)
+    for i, Dh in enumerate((16, 48, 72, 80, 96, 112))
+    for j, (S, window, cap) in enumerate(((1, 0, 0.0), (100, 30, 20.0),
+                                          (300, 0, 0.0), (300, 200, 5.0)))]
+
+
+def _flash_run(A, q, k, v, **kw):
+    """One kernel call through the wrapper: its output and whether it took
+    the tensor cores, held against the launch counts (every call counted,
+    the general kernel's also on their own)."""
+    before = (A.flash_attention.launches, A.flash_attention.general_launches)
+    tensor_cores = A.tensor_core_path(q, k, v)
+    got = A.flash_attention(q, k, v, **kw)
+    assert A.flash_attention.launches == before[0] + 1
+    assert (A.flash_attention.general_launches
+            == before[1] + (not tensor_cores))
+    return got, tensor_cores
+
+
+def _tensor_core_width(dtype, Dh) -> bool:
+    return dtype == "bfloat16" and Dh % 8 == 0 and Dh <= 128
+
+
+def _row_close(got, want):
+    """Each element within FLASH_ROW_REL of |o| plus its row's mean |o|."""
+    w = want.float()
+    scale = w.abs() + w.abs().mean(-1, keepdim=True)
+    ratio = float(((got.float() - w).abs() / scale).max())
+    assert ratio <= FLASH_ROW_REL, ratio
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("S,H,Hkv,Dh,causal,window,cap", [
     (256, 4, 4, 64, True, 0, 0.0),
@@ -552,7 +593,8 @@ def test_fused_moe_bwd_wgmma(dev, K, L, E, d, h, experts, lo, count):
     (2048, 4, 2, 128, True, 700, 30.0),    # window < S and a softcap
     (300, 4, 2, 64, True, 0, 0.0),         # S not a multiple of 128
     (300, 8, 2, 128, True, 200, 0.0),
-    (2048, 32, 4, 128, True, 0, 0.0)])     # Qwen3-30B-A3B's heads: G = 8
+    (2048, 32, 4, 128, True, 0, 0.0),      # Qwen3-30B-A3B's heads: G = 8
+    *_WIDTH_CASES])
 def test_flash_attention_kernel(dev, K, dtype, S, H, Hkv, Dh, causal,
                                 window, cap):
     rng = np.random.default_rng(S + Dh)
@@ -560,17 +602,89 @@ def test_flash_attention_kernel(dev, K, dtype, S, H, Hkv, Dh, causal,
     k, v = (_t(rng.normal(size=(2, S, Hkv, Dh)), dev, dtype)
             for _ in range(2))
     A = K.flash_attention
-    before = A.flash_attention.launches
-    got = A.flash_attention(q, k, v, causal=causal, window=window, cap=cap)
+    got, tensor_cores = _flash_run(A, q, k, v, causal=causal, window=window,
+                                   cap=cap)
     want = A.flash_attention_plain(q, k, v, causal=causal, window=window,
                                    cap=cap, chunk=S)
     _sync()
-    assert A.flash_attention.launches == before + 1
+    assert tensor_cores == _tensor_core_width(dtype, Dh)
     if dtype == "bfloat16":
         np.testing.assert_allclose(got.float().cpu().numpy(),
-                                   want.float().cpu().numpy(), atol=2e-2)
+                                   want.float().cpu().numpy(),
+                                   atol=FLASH_ATOL)
     else:
         _close(got, want, dtype)
+
+
+@pytest.mark.parametrize("dtype,S,H,Hkv,Dh,causal,window,cap,misaligned", [
+    ("float32", 300, 8, 2, 64, True, 0, 0.0, False),
+    ("float32", 300, 6, 2, 80, True, 100, 5.0, False),
+    ("float32", 2048, 16, 16, 80, False, 0, 0.0, False),   # HuBERT's heads
+    ("float32", 100, 4, 1, 80, True, 0, 0.0, True),
+    ("bfloat16", 300, 8, 2, 100, True, 0, 0.0, False),     # Dh % 8 != 0
+    ("bfloat16", 300, 4, 4, 100, False, 0, 0.0, False),
+    ("bfloat16", 300, 8, 1, 160, True, 200, 20.0, False),  # Dh > 128
+    ("bfloat16", 256, 4, 2, 256, True, 0, 0.0, False),
+    ("bfloat16", 1, 4, 2, 256, True, 0, 0.0, False),
+    ("bfloat16", 300, 8, 2, 80, True, 0, 0.0, True),       # off 16 bytes
+    ("bfloat16", 300, 4, 4, 128, False, 0, 0.0, True)])
+def test_flash_attention_general_kernel(dev, K, dtype, S, H, Hkv, Dh,
+                                        causal, window, cap, misaligned):
+    """The general kernel: float32 at the tensor-core widths and at
+    HuBERT-XLarge's (its whole training shape without the causal mask),
+    bf16 at widths the tensor cores do not take, and tensors one element
+    off their allocation's 16-byte start (q misaligned, k and v aligned),
+    against the plain version."""
+    import torch
+    rng = np.random.default_rng(S + Dh + misaligned)
+    q = _t(rng.normal(size=(2, S, H, Dh)), dev, dtype)
+    if misaligned:
+        buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=dev)
+        q = buf[1:].view(q.shape).copy_(q)
+        assert q.data_ptr() % 16 != 0
+    k, v = (_t(rng.normal(size=(2, S, Hkv, Dh)), dev, dtype)
+            for _ in range(2))
+    A = K.flash_attention
+    got, tensor_cores = _flash_run(A, q, k, v, causal=causal, window=window,
+                                   cap=cap)
+    want = A.flash_attention_plain(q, k, v, causal=causal, window=window,
+                                   cap=cap, chunk=S if S <= 512 else 512)
+    _sync()
+    assert not tensor_cores
+    if dtype == "float32":
+        _close(got, want, dtype)
+    elif not causal and S >= 300:
+        _row_close(got, want)
+    else:
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(),
+                                   atol=FLASH_ATOL)
+
+
+def test_flash_attention_refuses_tensor_cores_it_cannot_take(dev, K):
+    """The C entry point refuses the tensor-core kernel for float32, a
+    width off the multiple of 8 or above 128, and a pointer off 16 bytes
+    (nothing launched: the output keeps its sentinel)."""
+    import torch
+
+    from repro_torch.kernels import _lib
+    lib = _lib.lib()
+    for dtype, Dh, shift in ((torch.float32, 64, 0), (torch.bfloat16, 100, 0),
+                             (torch.bfloat16, 160, 0),
+                             (torch.bfloat16, 64, 1)):
+        n = 2 * 128 * 4 * Dh
+        buf = torch.randn(n + 1, device=dev).to(dtype)
+        q = buf[shift:shift + n].view(2, 128, 4, Dh)
+        k = torch.randn(2, 128, 2, Dh, device=dev).to(dtype)
+        v = torch.randn(2, 128, 2, Dh, device=dev).to(dtype)
+        out = torch.full_like(q, 7.0)
+        rc = lib.repro_flash_attention(
+            _lib.DTYPE_CODE[dtype], 1, q.data_ptr(), k.data_ptr(),
+            v.data_ptr(), out.data_ptr(), 2, 128, 4, 2, Dh, 1, 0, 0.0,
+            Dh ** -0.5, _lib.stream_ptr(q))
+        assert rc != 0, (dtype, Dh, shift)
+        _sync()
+        assert bool((out == 7.0).all()), (dtype, Dh, shift)
 
 
 def _plain_layer(K, x, gates, disp, w1, w3, w2):
@@ -662,15 +776,17 @@ def test_blaze_pallas_layer_in_a_checkpoint_region(dev, K, spec):
         assert _equal(a, b), name
 
 
-def test_flash_attention_function_backward(dev, K):
+@pytest.mark.parametrize("Dh", [64, 80])
+def test_flash_attention_function_backward(dev, K, Dh):
     """dq, dk, dv of the differentiable wrapper equal autograd through the
-    plain attention (the wrapper's backward recomputes through it)."""
+    plain attention (the wrapper's backward recomputes through it), at
+    head widths 64 and 80 (HuBERT-XLarge's)."""
     import torch
     rng = np.random.default_rng(3)
-    q = _t(rng.normal(size=(1, 128, 4, 64)), dev, "float32").requires_grad_()
-    k, v = (_t(rng.normal(size=(1, 128, 2, 64)), dev,
+    q = _t(rng.normal(size=(1, 128, 4, Dh)), dev, "float32").requires_grad_()
+    k, v = (_t(rng.normal(size=(1, 128, 2, Dh)), dev,
                "float32").requires_grad_() for _ in range(2))
-    do = _t(rng.normal(size=(1, 128, 4, 64)), dev, "float32")
+    do = _t(rng.normal(size=(1, 128, 4, Dh)), dev, "float32")
     A = K.flash_attention
     got = torch.autograd.grad(A.flash_attention_fused(q, k, v, True, 50),
                               (q, k, v), do)
@@ -1375,31 +1491,28 @@ def test_fused_moe_refuses_tensor_cores_it_cannot_take(dev, K):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("Dh", [80, 64, 128])
+@pytest.mark.parametrize("Dh", [80, 64, 128, 16, 48, 72, 96, 112])
 def test_flash_attention_bidirectional(dev, K, dtype, Dh):
     """Flash attention without the causal mask (an encoder's, HuBERT's)
-    at head widths 80 (the general kernel in bf16, HuBERT-XLarge's),
-    64 and 128 (the wgmma kernel's non-causal branch in bf16), with a
-    GQA group of 2 and S = 300, not a multiple of the 128-key tile."""
+    at head widths 80 (HuBERT-XLarge's), 64 and 128 and the tensor-core
+    kernel's padded widths, with a GQA group of 2 and S = 300, not a
+    multiple of the 128-key tile: bf16 on the tensor cores at every one
+    of these widths, float32 on the general kernel."""
     rng = np.random.default_rng(Dh)
     S, H, Hkv = 300, 8, 4
     q = _t(rng.normal(size=(2, S, H, Dh)), dev, dtype)
     k, v = (_t(rng.normal(size=(2, S, Hkv, Dh)), dev, dtype)
             for _ in range(2))
     A = K.flash_attention
-    before = A.flash_attention.launches
-    got = A.flash_attention(q, k, v, causal=False)
+    got, tensor_cores = _flash_run(A, q, k, v, causal=False)
     want = A.flash_attention_plain(q, k, v, causal=False, chunk=S)
     _sync()
-    assert A.flash_attention.launches == before + 1
+    assert tensor_cores == (dtype == "bfloat16")
     if dtype == "bfloat16":
         # each output averages up to 300 keys (|o| about 0.06), so each
         # element is held to 2^-5 of |o| plus its row's mean |o|, as
         # chip_smoke.py's phase 41 holds the long sequences
-        w = want.float()
-        scale = w.abs() + w.abs().mean(-1, keepdim=True)
-        ratio = float(((got.float() - w).abs() / scale).max())
-        assert ratio <= 2 ** -5, ratio
+        _row_close(got, want)
     else:
         _close(got, want, dtype)
 

@@ -3,7 +3,8 @@
 Times kernels at their training shapes with each checkout's kernels, so
 that two commits can be compared on one card in one call: a kernel's
 reading moves between smoke runs of the same code by more than the 5%
-that a row is held to.  Inputs are bf16 from seed 0:
+that a row is held to.  Inputs are bf16 from seed 0 (bf16 values in
+float32 for ``flash_attention_general``):
 
 - ``fused_swiglu_bwd_x``: Qwen3-14B, L = 4096, d = 5120, h = 17408 (a
   and b from the checkout's own ``fused_swiglu_fwd``);
@@ -13,7 +14,14 @@ that a row is held to.  Inputs are bf16 from seed 0:
 - ``combine``: Mixtral-8x7B's width (d = 4096), top-2 of 8 experts from a
   random gate, at prefill (L = 2048, S = 4096) and decode (L = 4, S = 8);
 - ``flash_attention``: B = 2, S = 2048, 32/8 heads of 128 (Mixtral) and
-  40/8 (Qwen3-14B), causal, window 4096;
+  40/8 (Qwen3-14B), causal, window 4096; 32/8 heads of 128 without the
+  causal mask; Hymba-1.5B's 25/5 heads of 64 with its window of 1024;
+  Gemma2-27B's 32/16 heads of 128 at B = 1, S = 8192 with its window of
+  4096 and softcap 50; LLaVA-NeXT's prefill, B = 1, S = 6144, 32/8 heads of
+  128, causal; HuBERT-XLarge's 16/16 heads of 80 without the causal mask
+  (B = 2, S = 2048);
+- ``flash_attention_general``: the general kernel in float32 at
+  HuBERT-XLarge's shape and at Mixtral's (32/8 heads of 128, causal);
 - ``fused_moe_fwd`` and ``fused_moe_bwd``: Mixtral-8x7B (d = 4096, h =
   14336, top-2 of 8 experts) and Qwen3-30B-A3B (d = 2048, h = 768, top-8
   of 128 experts), each at training (2 x 2048 tokens) and decode (4
@@ -60,7 +68,19 @@ ROOT = Path(__file__).resolve().parents[1]
 KERNELS = ("fused_swiglu_bwd_x", "flash_attention", "fused_moe_fwd",
            "gather_gmm", "fused_swiglu_bwd_w", "fused_moe_bwd", "gmm_dw",
            "fused_swiglu_fwd", "combine", "build_dispatch", "gather_rows",
-           "fused_moe_general")
+           "fused_moe_general", "flash_attention_general")
+# flash attention's shapes: (label, B, S, H, Hkv, Dh, causal, window, cap)
+FLASH_SHAPES = (
+    ("mixtral-8x7b", 2, 2048, 32, 8, 128, True, 4096, 0.0),
+    ("qwen3-14b", 2, 2048, 40, 8, 128, True, 4096, 0.0),
+    ("bidirectional", 2, 2048, 32, 8, 128, False, 0, 0.0),
+    ("hymba-1.5b", 2, 2048, 25, 5, 64, True, 1024, 0.0),
+    ("gemma2-27b", 1, 8192, 32, 16, 128, True, 4096, 50.0),
+    ("llava-next-mistral-7b prefill", 1, 6144, 32, 8, 128, True, 0, 0.0),
+    ("hubert-xlarge", 2, 2048, 16, 16, 80, False, 0, 0.0))
+FLASH_GENERAL_SHAPES = (
+    ("hubert-xlarge float32", 2, 2048, 16, 16, 80, False, 0, 0.0),
+    ("mixtral-8x7b float32", 2, 2048, 32, 8, 128, True, 0, 0.0))
 TAG = "KERNEL_AB "
 
 
@@ -90,15 +110,23 @@ def cases(name: str, dev):
                      lambda: KS.fused_swiglu_bwd_w(x, dy, a, b))]
         return [(f"L={L}, d={d}, h={h}",
                  lambda: KS.fused_swiglu_bwd_x(dy, a, b, w1, w2))]
-    if name == "flash_attention":
+    if name.startswith("flash_attention"):
         from repro_torch.kernels import flash_attention as KF
-        k, v = randn(2, 2048, 8, 128), randn(2, 2048, 8, 128)
+        general = name == "flash_attention_general"
         out = []
-        for H in (32, 40):
-            q = randn(2, 2048, H, 128)
-            out.append((f"B=2, S=2048, {H}/8 heads of 128", (
-                lambda q=q: KF.flash_attention(q, k, v, causal=True,
-                                               window=4096))))
+        for label, B, S, H, Hkv, Dh, causal, window, cap in (
+                FLASH_GENERAL_SHAPES if general else FLASH_SHAPES):
+            # float32 inputs for the general kernel hold bf16 values
+            q, k, v = (randn(B, S, n, Dh).to(
+                torch.float32 if general else torch.bfloat16)
+                for n in (H, Hkv, Hkv))
+            out.append((
+                f"{label}: B={B}, S={S}, {H}/{Hkv} heads of {Dh}, "
+                + ("causal" if causal else "causal=False")
+                + (f", window {window}" if window else "")
+                + (f", softcap {cap:g}" if cap else ""),
+                lambda q=q, k=k, v=v, c=causal, w=window, cap=cap:
+                KF.flash_attention(q, k, v, causal=c, window=w, cap=cap)))
         return out
     if name == "build_dispatch":
         from chip_smoke import DISPATCH_SHAPES, random_topk
