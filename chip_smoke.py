@@ -115,14 +115,14 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    row gather, the exchanges and the trash expert all run on the card):
    ``gather_rows`` exactly twice per MoE layer a step (the forward and the
    backward's recompute), overflow 0;
-13. several ranks on the one card — spawned ranks share the H100 over gloo
-   (staged through host memory) at a reduced width (d=1024, expert width
-   3584, 1024 tokens per rank): 2 ranks run ``ep``, ``ep_a2a`` (one and
-   two chunks), ``tp`` and ``ep_a2a`` at capacity 0.25; 4 ranks run
-   ``ep_a2a_hier``; 4 ranks (data=2, model=2) run one ``ep_a2a`` training
-   step; each rank is held against this process's result without a mesh,
-   the tight ``ep_a2a`` against this process's layer with the slots a
-   plain pack drops given gate 0;
+13. several ranks on the one card — spawned ranks share the H100 (gloo
+   for the handles, CUDA IPC for the tensors) at a reduced width (d=1024,
+   expert width 3584, 1024 tokens per rank): 2 ranks run ``ep``,
+   ``ep_a2a`` (one and two chunks), ``tp`` and ``ep_a2a`` at capacity
+   0.25; 4 ranks run ``ep_a2a_hier``; 4 ranks (data=2, model=2) run one
+   ``ep_a2a`` training step; each rank is held against this process's
+   result without a mesh, the tight ``ep_a2a`` against this process's
+   layer with the slots a plain pack drops given gate 0;
 14. Qwen3-14B parity — with Mixtral's state freed, the dense model's
    kernels against their plain versions on the card in bf16 at its widths
    (d=5120, FFN width 17408, 40/8 heads of 128): the fused-SwiGLU forward,
@@ -314,7 +314,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (bf16, measured), 16 greedy tokens timed and traced; a 2-layer float32
    cut held against the forward;
 45. LLaVA-NeXT training with the depth cut to 4 layers, 2 x 4096
-   positions (2048 image slots each), ``use_pallas=True``, as phase 7.
+   positions (2048 image slots each), ``use_pallas=True``, as phase 7;
+46. ``moe_parallel="auto"`` at the H100's constants: the cost model's
+   table (``roofline.select_moe_parallel``) for Mixtral-8x7B and
+   Qwen3-30B-A3B on (data, model) = (1, 2) and (2, 2) and (data, node,
+   model) = (1, 2, 2), at the training slab (2048 tokens a rank) and the
+   decode slab (B = 4); every chosen mode feasible;
+47. FSDP training in ranks sharing the card (gloo for the handles, CUDA
+   IPC for the tensors; not NCCL): Mixtral-8x7B at full width, 2 layers, global
+   batch 2 x 2048, ``blaze_pallas``, plan ``"none"``, three steps, on (a)
+   2 ranks (data=2, model=1) and (b) 4 ranks (data=2, model=2) under
+   ``auto`` (which must run phase 46's choice); each rank holds only its
+   blocks of the parameters and AdamW moments (allocated bytes within 5%
+   of its blocks under ``param_specs``), its step-1 loss and grad norm
+   against this process's step without a mesh, the copies of a block on
+   two ranks bit-equal after step 3, each rank's peak and step seconds;
+48. a checkpoint under (a)'s mesh after step 2: saved from the ranks'
+   blocks, restored without a mesh and held to the ranks' blocks exactly,
+   restored under the mesh and one step taken, equal to the uninterrupted
+   step 3 (loss, grad norm, every leaf's bits);
+49. ``ServeEngine(mesh=...)``: Mixtral-8x7B at full width, 2 layers, 2
+   ranks (data=1, model=2), ``ep`` and ``ep_a2a`` (served as ``ep``), 8
+   greedy requests over bf16 pages, each rank's tokens held to this
+   process's engine without a mesh (C7's rule), each rank launching paged
+   attention, the dispatch build, gather-GMM and combine; tokens/s a rank.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -1363,6 +1386,15 @@ def main() -> int:
         steps_warm=NEW_WARM_STEPS, seq=LLAVA_TRAIN_SEQ)
     torch.cuda.empty_cache()
 
+    mark("46")
+    # -- 46. moe_parallel="auto" at the H100's constants ----------------------
+    auto = auto_phase(M)
+
+    mark("47-49")
+    # -- 47-49. FSDP training, a checkpoint and serving under a mesh ---------
+    meshrec = mesh_phases(M, dev, auto)
+    torch.cuda.empty_cache()
+
     # -- report ---------------------------------------------------------------
     sources = {
         "build_dispatch": ("src/repro_torch/csrc/dispatch.cu",
@@ -1430,6 +1462,12 @@ def main() -> int:
             "launches_llava_forward": lfwd["launches"].get(name, 0),
             "launches_llava_decode": ldec["launches"].get(name, 0),
             "launches_llava_train": ltrain["launches"].get(name, 0),
+            **{f"launches_mesh_train_{lb}": [
+                r_.get(name, 0) for r_ in rec_["launches"]]
+               for lb, rec_ in meshrec["train"].items()},
+            **{f"launches_mesh_serve_{md}": [
+                r_.get(name, 0) for r_ in rec_["launches"]]
+               for md, rec_ in meshrec["serve"].items()},
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -1466,6 +1504,8 @@ def main() -> int:
         "cpu cross-check [llava-next-mistral-7b, 2 layers]": lx}))
     log(f"layer-record [one-rank mesh]: {json.dumps(layer1)}")
     log(f"multi-rank-record: {json.dumps(multi)}")
+    log(f"auto-record: {json.dumps(auto)}")
+    log(f"mesh-record: {json.dumps(meshrec)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
                          ("blaze+pallas_fused", train_fused, xcheck_fused),
                          ("ep_a2a", train_a2a, None),
@@ -1503,6 +1543,597 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# -- phases 46-49: the distribution slice: auto at the H100's constants,
+#    FSDP training, a checkpoint and serving under a mesh ------------------
+
+# Phase 46's tables: (label, mesh axes) x (label, per-rank token slab)
+AUTO_MESHES = (("(data, model) = (1, 2)", {"data": 1, "model": 2}),
+               ("(data, model) = (2, 2)", {"data": 2, "model": 2}),
+               ("(data, node, model) = (1, 2, 2)",
+                {"data": 1, "node": 2, "model": 2}))
+AUTO_SLABS = (("training", TRAIN_SEQ), ("decode", 4))
+# Phase 47: Mixtral-8x7B at full width, global batch 2 x 2048, three steps;
+# (label, mesh sizes, names, moe_parallel, layers).  The ranks read each
+# other's large tensors on the card (CUDA IPC): through host memory over
+# gloo the 2-layer steps took 34-88 s on the H100 (PERF.md).
+MESH_TRAIN = (("a", (2, 1), ("data", "model"), "auto", 2),
+              ("b", (2, 2), ("data", "model"), "auto", 2))
+MESH_TRAIN_STEPS = 3
+# each rank's parameter and moment bytes against the sum of its blocks
+MESH_HELD_TOL = 0.05
+# Phase 49: 8 greedy requests over bf16 pages on 2 ranks (data=1, model=2)
+MESH_SERVE_REQS, MESH_SERVE_NEW = 8, 16
+
+
+def auto_phase(M) -> dict:
+    """Phase 46: ``roofline.select_moe_parallel``'s table at the H100's
+    constants for Mixtral-8x7B and Qwen3-30B-A3B on (1, 2), (2, 2) and
+    (1, 2, 2) meshes at each model's training slab (2048 tokens a rank)
+    and decode slab (B = 4).  Every chosen mode must be feasible.  Pure
+    arithmetic: no rank, no card."""
+    from repro_torch import roofline as RL
+    from repro_torch.configs import get_config
+    out = {}
+    for arch in ("mixtral-8x7b", "qwen3-moe-30b-a3b"):
+        cfg = get_config(arch)
+        for mlabel, shape in AUTO_MESHES:
+            mesh = SimpleNamespace(shape=shape, axis_names=tuple(shape))
+            for slabel, L in AUTO_SLABS:
+                dec = RL.select_moe_parallel(cfg, mesh, L)
+                chosen = [c for c in dec.table if c.chosen]
+                check(len(chosen) == 1 and chosen[0].feasible,
+                      f"auto [{arch} {mlabel} {slabel}]: chose "
+                      f"{dec.mode!r}, which is not feasible")
+                rows = "; ".join(
+                    f"{c.mode}{'*' if c.chosen else ''} "
+                    + (f"{c.t_total_s * 1e6:.1f} us, live "
+                       f"{c.live_bytes / 2 ** 20:.1f} MiB, a2a "
+                       f"{c.a2a_bytes / 2 ** 20:.2f} MiB, psum "
+                       f"{c.psum_bytes / 2 ** 20:.2f} MiB"
+                       if c.feasible else f"infeasible ({c.why})")
+                    for c in dec.table)
+                log(f"auto [{arch} {mlabel}, {slabel} slab {L} tokens a "
+                    f"rank, H100 constants]: {dec.mode} ({rows})")
+                out[f"{arch} {mlabel} {slabel}"] = {
+                    "mode": dec.mode, "tokens": L,
+                    "table": dec.table_rows()}
+    return out
+
+
+def _block_bytes(cfg, mesh_shape, mode) -> int:
+    """Bytes of one rank's float32 blocks of the parameters and both AdamW
+    moments under ``param_specs(..., fsdp=True, moe_parallel=mode)`` on a
+    mesh of ``mesh_shape`` (from the specs and the whole shapes, not from
+    the tensors)."""
+    from repro_torch import sharding as SH
+    from repro_torch.interop import param_shapes
+    mesh = SimpleNamespace(shape=mesh_shape, axis_names=tuple(mesh_shape))
+    size = lambda ax: int(np.prod([mesh_shape[a] for a in (
+        ax if isinstance(ax, tuple) else (ax,))]))
+    shapes = param_shapes(cfg)
+    total = 0
+    for shape, spec in zip(_leaves(shapes), SH.spec_leaves(
+            SH.param_specs(shapes, mesh, fsdp=True, moe_parallel=mode),
+            shapes)):
+        n = 1
+        for dim, ax in zip(shape, spec):
+            n *= dim // (size(ax) if ax else 1)
+        total += n
+    return 3 * 4 * total
+
+
+def _checksums(t: torch.Tensor) -> tuple:
+    """Exact fingerprint of a float32 leaf's bits: sums of its int32
+    words, of their squares and of every 7th, in int64 (wrapping)."""
+    v = t.detach().reshape(-1).view(torch.int32)
+    out = [0, 0, 0]
+    for i in range(0, v.numel(), 1 << 26):
+        c = v[i:i + (1 << 26)].long()
+        out[0] += int(c.sum())
+        out[1] += int((c * c).sum())
+        out[2] += int(c[(7 - i % 7) % 7::7].sum())
+    return tuple(x % (1 << 64) for x in out)
+
+
+def _on_card(dev, fn, default=0):
+    """``fn()`` on the card; ``default`` for a CPU rehearsal."""
+    return fn() if dev.type == "cuda" else default
+
+
+def mesh_phases(M, dev, auto, base=None, seq: int = TRAIN_SEQ) -> dict:
+    """Phases 47-49 in ranks spawned on the one card, as phase 13's (gloo
+    for the handles, CUDA IPC for the tensors).
+
+    47. FSDP training: Mixtral-8x7B at full width and ``MESH_TRAIN``'s
+       depth, global batch 2 x 2048, ``blaze_pallas``, plan
+       ``"none"``, three steps, on (a) 2 ranks (data=2, model=1) and (b)
+       4 ranks (data=2, model=2) under ``moe_parallel="auto"``, which
+       must run the mode phase 46 chose at the training slab.  Each rank's
+       loss and grad norm of step 1 against this process's step without a mesh
+       (MR_STEP_RTOL); after step 3 the ranks that hold the same block of a
+       leaf hold it bit for bit; each rank's parameter and moment bytes
+       (allocated before the first step, less the baseline) within
+       MESH_HELD_TOL of its blocks' bytes under the specs.
+    48. A checkpoint under (a)'s mesh after step 2: saved, restored without
+       a mesh by rank 0 and held to the ranks' blocks exactly (rank 0's
+       by ``torch.equal``, the others' by their bits' fingerprints),
+       restored under the mesh, one step taken and held to the
+       uninterrupted step 3 exactly (loss, grad norm and every leaf's
+       fingerprint).
+    49. Serving under a mesh: Mixtral-8x7B at full width, 2 layers, 2
+       ranks (data=1, model=2), ``ep``, ``ep_a2a`` (served as ``ep``) and
+       ``auto`` (resolved per slab; the engine lays the experts out for
+       each mode it resolves to), MESH_SERVE_REQS greedy requests over bf16
+       pages; each rank's tokens held to this process's engine without a
+       mesh by ``_explain``; every rank must launch paged attention, the
+       dispatch build, gather-GMM and combine.  Phase 46's decode choice
+       must be ``ep``, a layout every engine made.  Prints each rank's
+       warm prefill and decode seconds and its peak memory.
+    A rank's failure fails the phase.  ``base`` and ``seq`` cut the model
+    and the sequence for a rehearsal on the CPU."""
+    import torch.multiprocessing as mp
+    from repro_torch import roofline as RL
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import make_batch_iterator
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+    base = base or get_config("mixtral-8x7b").replace(
+        moe_impl="blaze_pallas", use_pallas=True)
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       batch_size=TRAIN_BATCH, seq_len=seq, seed=0)
+    batch = next(make_batch_iterator(base.vocab_size, tcfg.seq_len,
+                                     tcfg.batch_size, tcfg.seed))
+    refs = {}
+    for layers in sorted({j[4] for j in MESH_TRAIN}):
+        cfg = base.replace(num_layers=layers)
+        params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                             dev, dtype=torch.float32)
+        m = make_train_step(cfg, tcfg, dev)(params, init_adamw(params),
+                                            batch)[2]
+        refs[layers] = {k_: float(m[k_]) for k_ in ("loss", "grad_norm")}
+        del params, m
+        _on_card(dev, torch.cuda.empty_cache)
+    out = {"train": {}, "reference_step": refs}
+    with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
+        work = Path(tmp)
+
+        def spawn(job):
+            torch.save(job, work / "job.pt")
+            world = int(np.prod(job["sizes"]))
+            t0 = time.perf_counter()
+            mp.start_processes(_mesh_rank_main, args=(world, str(work)),
+                               nprocs=world, join=True,
+                               start_method="spawn")
+            ranks = [torch.load(work / f"rank{r}.pt", weights_only=False)
+                     for r in range(world)]
+            for f in work.glob("rank*.pt"):
+                f.unlink()
+            (work / "store").unlink(missing_ok=True)
+            return ranks, time.perf_counter() - t0
+
+        for label, sizes, names, mode, layers in MESH_TRAIN:
+            cfg = base.replace(num_layers=layers, moe_parallel=mode)
+            shape = dict(zip(names, sizes))
+            # auto at the live per-rank slab: phase 46's training row for
+            # the (2, 2) mesh (a (2, 1) mesh has no expert axis: tp)
+            want_mode = RL.select_moe_parallel(cfg, SimpleNamespace(
+                shape=shape, axis_names=names),
+                TRAIN_BATCH // shape["data"] * seq).mode
+            job = {"kind": "train", "sizes": sizes, "names": names,
+                   "cfg": cfg, "tcfg": tcfg, "batch": batch,
+                   "steps": MESH_TRAIN_STEPS, "ckpt": label == "a",
+                   "work": str(work), "device": dev.type}
+            ranks, secs = spawn(job)
+            tag = (f"mesh train [{label}: {len(ranks)} ranks {shape}, "
+                   f"{cfg.name} d={cfg.d_model}, {layers} layers, "
+                   f"{TRAIN_BATCH} x {seq}]")
+            mode_run = ranks[0]["mode"]
+            check(mode_run == want_mode, f"{tag}: ran {mode_run!r}, auto "
+                  f"chose {want_mode!r} in phase 46")
+            want_held = _block_bytes(cfg, shape, mode_run)
+            for r, res in enumerate(ranks):
+                for k_, v in refs[layers].items():
+                    got = res["metrics"][0][k_]
+                    check(abs(got - v) <= MR_STEP_RTOL * abs(v),
+                          f"{tag} rank {r}: step 1 {k_} {got} vs {v}")
+                check(abs(res["held"] - want_held) <= MESH_HELD_TOL
+                      * want_held, f"{tag} rank {r}: holds "
+                      f"{res['held']} B of parameters and moments, its "
+                      f"blocks are {want_held} B")
+                for name in ("build_dispatch", "gather_gmm", "combine",
+                             "gmm_dw", "flash_attention"):
+                    check(res["launches"][name] > 0,
+                          f"{tag} rank {r}: {name} was not launched")
+            # the same block on two ranks: bit for bit after the last step
+            same = 0
+            for key in ranks[0]["sums"]:
+                groups = {}
+                for res in ranks:
+                    blk, sums = res["sums"][key]
+                    groups.setdefault(blk, []).append(sums)
+                for sums in groups.values():
+                    check(all(s == sums[0] for s in sums),
+                          f"{tag}: the ranks' copies of a block of {key} "
+                          "differ after the last step")
+                    same += len(sums) - 1
+            rec = {"mode": mode_run, "layers": layers, "seconds": secs,
+                   "held_bytes": [res["held"] for res in ranks],
+                   "blocks_bytes": want_held,
+                   "whole_bytes": _block_bytes(cfg, {"data": 1, "model": 1},
+                                               mode_run),
+                   "peak_bytes": [res["peak"] for res in ranks],
+                   "step_s": [res["step_s"] for res in ranks],
+                   "metrics": [res["metrics"] for res in ranks],
+                   "replica_pairs_equal": same,
+                   "launches": [res["launches"] for res in ranks],
+                   "transport": ranks[0]["transport"]}
+            for r, res in enumerate(ranks):
+                log(f"{tag} rank {r}: mode {mode_run}, holds "
+                    f"{res['held'] / 2 ** 30:.3f} GiB of parameters and "
+                    f"moments (its blocks {want_held / 2 ** 30:.3f} GiB, "
+                    f"the whole tree {rec['whole_bytes'] / 2 ** 30:.3f} "
+                    f"GiB), peak {res['peak'] / 2 ** 30:.3f} GiB, step s "
+                    f"{', '.join(f'{t:.3f}' for t in res['step_s'])} over "
+                    f"{res['transport']} (ranks sharing one card, not "
+                    f"NCCL), step 1 loss {res['metrics'][0]['loss']:.6f} "
+                    f"(no mesh {refs[layers]['loss']:.6f}), grad norm "
+                    f"{res['metrics'][0]['grad_norm']:.6f} (no mesh "
+                    f"{refs[layers]['grad_norm']:.6f})")
+            log(f"{tag}: {same} pairs of ranks hold the same block bit for "
+                "bit after the last step")
+            if "ckpt" in ranks[0]:
+                ck = ranks[0]["ckpt"]
+                log(f"mesh checkpoint [a, after step 2]: save "
+                    f"{ck['save_s']:.1f} s ({ck['bytes'] / 2 ** 30:.3f} GiB "
+                    f"on disk), restored without a mesh in "
+                    f"{ck['restore_whole_s']:.1f} s and equal to the "
+                    f"ranks' blocks ({ck['leaves']} leaves), restored "
+                    f"under the mesh in "
+                    f"{max(r_['ckpt']['restore_mesh_s'] for r_ in ranks):.1f}"
+                    " s; the resumed step 3 equals the uninterrupted one "
+                    f"(loss {ck['resumed']['loss']:.6f})")
+                rec["checkpoint"] = [r_["ckpt"] for r_ in ranks]
+            out["train"][label] = rec
+
+        # -- 49. serving ----------------------------------------------------
+        scfg = base.replace(num_layers=2, dtype="bfloat16")
+        rng = np.random.default_rng(49)
+        prompts = [rng.integers(3, scfg.vocab_size, size=n_).astype(np.int32)
+                   for n_ in rng.integers(16, 600, size=MESH_SERVE_REQS)]
+        params = init_params(scfg, torch.Generator(device=dev).manual_seed(0),
+                             dev)
+        eng = M.SE.ServeEngine(scfg, params, batch_slots=4, capacity=1024,
+                               device=dev)
+        ref_reqs = [M.SE.Request(prompt=p, max_new_tokens=MESH_SERVE_NEW,
+                                 eos_id=-1) for p in prompts]
+        with _Rows(M.SE) as rec_rows:
+            rec_rows.watch(eng)
+            eng.generate(ref_reqs)
+        first = ref_reqs[0].rid
+        ref_rows = {(rid_ - first, t_): v_ for (rid_, t_), v_ in
+                    rec_rows.rows.items()}
+        ref = [list(r.out_tokens) for r in ref_reqs]
+        rids = [r.rid - first for r in ref_reqs]
+        del eng, params
+        _on_card(dev, torch.cuda.empty_cache)
+        want_mode = auto["mixtral-8x7b (data, model) = (1, 2) decode"]["mode"]
+        job = {"kind": "serve", "sizes": (1, 2), "names": ("data", "model"),
+               "cfg": scfg, "prompts": prompts,
+               "modes": ("ep", "ep_a2a", "auto"), "work": str(work),
+               "device": dev.type}
+        ranks, secs = spawn(job)
+        serve = {}
+        for mode in job["modes"]:
+            recs = [res[mode] for res in ranks]
+            tag = f"mesh serve [{mode}, 2 ranks (data=1, model=2)]"
+            served = "auto" if mode == "auto" else "ep"
+            check(all(r_["engine_mode"] == served for r_ in recs),
+                  f"{tag}: the engine does not serve as {served!r}")
+            check(want_mode == "ep", f"{tag}: auto chose {want_mode!r} at "
+                  "the decode slab in phase 46, the engine serves 'ep'")
+            check(all("ep" in r_["layouts"] for r_ in recs),
+                  f"{tag}: the decode slab's layout 'ep' was never made")
+            div = []
+            for r, r_ in enumerate(recs):
+                check(r_["cold_tokens"] == r_["tokens"],
+                      f"{tag} rank {r}: warm tokens differ from cold ones")
+                div.append(_explain(f"{tag} rank {r}", M.SM,
+                                    r_["cold_tokens"], r_["rows"], ref,
+                                    ref_rows, rids))
+                for name in ("paged_attention", "build_dispatch",
+                             "gather_gmm", "combine"):
+                    check(r_["launches"][name] > 0,
+                          f"{tag} rank {r}: {name} was not launched")
+            serve[mode] = {
+                "tokens_per_s": [r_["tokens_per_s"] for r_ in recs],
+                "wall_s": [r_["wall_s"] for r_ in recs],
+                "prefill_s": [r_["prefill_s"] for r_ in recs],
+                "decode_s": [r_["decode_s"] for r_ in recs],
+                "peak_bytes": [r_["peak_bytes"] for r_ in recs],
+                "layouts": recs[0]["layouts"],
+                "divergences": div, "launches": [r_["launches"]
+                                                 for r_ in recs],
+                "local_w1": recs[0]["local_w1"],
+                "equal_to_reference": [r_["cold_tokens"] == ref
+                                       for r_ in recs]}
+            each = lambda key, f: ", ".join(f(v) for v in serve[mode][key])
+            log(f"{tag}: tokens/s a rank "
+                f"{each('tokens_per_s', lambda v: f'{v:.1f}')}"
+                f" ({MESH_SERVE_REQS} requests x {MESH_SERVE_NEW} tokens, "
+                f"warm, over {ranks[0]['transport']}: ranks sharing one "
+                f"card, not NCCL); prefill s "
+                f"{each('prefill_s', lambda v: f'{v:.4f}')}, decode s "
+                f"{each('decode_s', lambda v: f'{v:.4f}')}, peak GiB "
+                f"{each('peak_bytes', lambda v: f'{v / 2 ** 30:.3f}')}; "
+                f"expert layouts {recs[0]['layouts']}, experts a rank "
+                f"{recs[0]['local_w1']}; "
+                f"tokens equal to the engine without a mesh: "
+                f"{serve[mode]['equal_to_reference']}, divergences "
+                f"explained by rounding: {div}")
+        out["serve"] = serve
+        out["serve_seconds"] = secs
+    return out
+
+
+def _mesh_rank_main(rank: int, world: int, workdir: str) -> None:
+    """One rank of phases 47-49, spawned: the job in ``workdir/job.pt``,
+    its results to ``workdir/rank<r>.pt``."""
+    import os
+    from datetime import timedelta
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                      LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world))
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.core.collectives import transport
+    from repro_torch.launch.mesh import Mesh, init_distributed
+    work = Path(workdir)
+    job = torch.load(work / "job.pt", weights_only=False)
+    dev = init_distributed(job["device"], backend="gloo",
+                           init_method=f"file://{work / 'store'}",
+                           timeout=timedelta(seconds=900))
+    mesh = Mesh(job["sizes"], job["names"])
+    fn = _mesh_train_rank if job["kind"] == "train" else _mesh_serve_rank
+    out = fn(mesh, dev, job)
+    out["transport"] = transport(mesh.group(mesh.axis_names), dev)
+    torch.save(out, work / f"rank{rank}.pt")
+    torch.distributed.destroy_process_group()
+
+
+def _mesh_train_rank(mesh, dev, job) -> dict:
+    import torch.distributed as dist
+    from repro_torch import kernels as K
+    from repro_torch import sharding as SH
+    from repro_torch.interop import init_params
+    from repro_torch.train.checkpointing import restore_checkpoint
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import AdamWState, init_adamw
+    cfg, tcfg, batch = job["cfg"], job["tcfg"], job["batch"]
+    sync = lambda: _on_card(dev, torch.cuda.synchronize)
+    sync()
+    base = _on_card(dev, torch.cuda.memory_allocated)
+    step = make_train_step(cfg, tcfg, dev, mesh=mesh)
+    specs = step.param_specs
+    local = None
+    for r in range(mesh.axis_size(mesh.axis_names)):
+        # one rank at a time draws the whole tree and keeps its blocks
+        if r == mesh.rank:
+            whole = init_params(cfg, torch.Generator(device=dev).manual_seed(
+                0), dev, dtype=torch.float32)
+            local = SH.shard_params(whole, mesh, specs)
+            del whole
+            _on_card(dev, torch.cuda.empty_cache)
+        dist.barrier()
+    opt = init_adamw(local)
+    sync()
+    out = {"held": _on_card(dev, torch.cuda.memory_allocated) - base,
+           "mode": step.moe_parallel, "metrics": [], "step_s": []}
+    _on_card(dev, torch.cuda.reset_peak_memory_stats)
+    K.reset_launches()
+
+    def run(local, opt):
+        sync()
+        t0 = time.perf_counter()
+        local, opt, m = step(local, opt, batch)
+        m = {k_: float(v) for k_, v in m.items()}
+        return local, opt, m, time.perf_counter() - t0
+
+    ck = None
+    for i in range(job["steps"]):
+        local, opt, m, secs = run(local, opt)
+        out["metrics"].append(m)
+        out["step_s"].append(secs)
+        if i == 0:
+            out["launches"] = K.launch_counts()
+        if job["ckpt"] and i == 1:
+            ck = _mesh_checkpoint(mesh, dev, job, local, opt, specs)
+    out["peak"] = _on_card(dev, torch.cuda.max_memory_allocated) - base
+    leaves = SH.spec_leaves(specs, local)
+    out["sums"] = {}
+    for (key, t), spec in zip(_paths(local).items(), leaves):
+        axes = SH.split_axes(spec, mesh)
+        blk = tuple(mesh.axis_index(a) for a in axes)
+        out["sums"][key] = (blk, _checksums(t))
+    for i, (m_, v_) in enumerate(zip(opt.mu, opt.nu)):
+        blk = tuple(mesh.axis_index(a) for a in SH.split_axes(leaves[i],
+                                                              mesh))
+        out["sums"][f"mu/{i}"] = (blk, _checksums(m_))
+        out["sums"][f"nu/{i}"] = (blk, _checksums(v_))
+    if ck is not None:
+        # resume from the checkpoint under the mesh: one step from step 2's
+        # state must give the uninterrupted step 3
+        final = {k_: s_ for k_, (_, s_) in out["sums"].items()}
+        del local, opt
+        _on_card(dev, torch.cuda.empty_cache)
+        tmpl = ck.pop("template")
+        t0 = time.perf_counter()
+        _, rl, ro = restore_checkpoint(
+            ck.pop("path"), tmpl, AdamWState(
+                0, [_meta(t) for t in _leaves(tmpl)],
+                [_meta(t) for t in _leaves(tmpl)]),
+            mesh=mesh, specs=specs, device=dev)
+        ck["restore_mesh_s"] = time.perf_counter() - t0
+        rl, ro, m, _ = run(rl, ro)
+        ck["resumed"] = m
+        check(m == out["metrics"][-1], f"rank {mesh.rank}: the resumed step "
+              f"3 {m} differs from the uninterrupted {out['metrics'][-1]}")
+        got = {k_: _checksums(t) for k_, t in _paths(rl).items()}
+        got.update({f"mu/{i}": _checksums(t) for i, t in enumerate(ro.mu)})
+        got.update({f"nu/{i}": _checksums(t) for i, t in enumerate(ro.nu)})
+        check(got == final, f"rank {mesh.rank}: the resumed step 3's "
+              "parameters or moments differ from the uninterrupted ones")
+        out["ckpt"] = ck
+    return out
+
+
+def _mesh_checkpoint(mesh, dev, job, local, opt, specs) -> dict:
+    """Phase 48 on each rank, after step 2: save under the mesh; rank 0
+    restores without a mesh and holds every leaf to the tree the ranks
+    hold: its own blocks exactly (``torch.equal``), the other ranks'
+    blocks by their bits' fingerprints (``_checksums``), which the ranks
+    exchange instead of gathering the tree again."""
+    from repro_torch import sharding as SH
+    from repro_torch.train.checkpointing import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.train.optimizer import AdamWState
+    path = f"{job['work']}/ckpt/step_2"
+    t0 = time.perf_counter()
+    save_checkpoint(path, 2, local, opt, mesh=mesh, specs=specs)
+    rec = {"save_s": time.perf_counter() - t0, "path": path,
+           "template": _map_leaves(local, _meta)}
+    if mesh.rank == 0:
+        rec["bytes"] = sum(f.stat().st_size for f in Path(path).iterdir())
+    leaf_specs = SH.spec_leaves(specs, local)
+    mine = list(_leaves(local)) + opt.mu + opt.nu
+    specs3 = leaf_specs * 3
+    blocks = [tuple(mesh.axis_index(a) for a in mesh.axis_names)
+              for _ in mine]
+    sums = [_checksums(t) for t in mine]
+    every = [None] * mesh.axis_size(mesh.axis_names)
+    torch.distributed.all_gather_object(every, (blocks, sums))
+    t0 = time.perf_counter()
+    if mesh.rank == 0:
+        whole = lambda t, sp: torch.empty(
+            [n * (mesh.axis_size(ax) if ax else 1)
+             for n, ax in zip(t.shape, sp)], dtype=t.dtype, device="meta")
+        shapes = iter([whole(t, sp) for t, sp in zip(_leaves(local),
+                                                     leaf_specs)])
+        tmpl = _map_leaves(local, lambda _: next(shapes))
+        _, rp, ro = restore_checkpoint(path, tmpl, AdamWState(
+            0, [_meta(t) for t in _leaves(tmpl)],
+            [_meta(t) for t in _leaves(tmpl)]), device="cpu")
+        check(ro.step == opt.step, "checkpoint: the restored step differs")
+        restored = list(_leaves(rp)) + ro.mu + ro.nu
+        del rp, ro
+        for i, (t, sp) in enumerate(zip(restored, specs3)):
+            t = t.to(dev)
+            for r, (blks, sms) in enumerate(every):
+                coords = dict(zip(mesh.axis_names, blks[i]))
+                blk = t
+                for dim, ax in enumerate(sp):
+                    if ax is None or mesh.axis_size(ax) == 1:
+                        continue
+                    axes = ax if isinstance(ax, tuple) else (ax,)
+                    idx = 0
+                    for a in axes:
+                        idx = idx * mesh.shape[a] + coords[a]
+                    n = blk.shape[dim] // mesh.axis_size(ax)
+                    blk = blk.narrow(dim, idx * n, n)
+                if r == 0:
+                    check(torch.equal(blk, mine[i]),
+                          f"checkpoint: leaf {i} restored without a mesh "
+                          "differs from rank 0's block")
+                check(_checksums(blk.contiguous()) == sms[i],
+                      f"checkpoint: leaf {i} restored without a mesh "
+                      f"differs from rank {r}'s block")
+            restored[i] = t = None
+    rec["restore_whole_s"] = time.perf_counter() - t0
+    rec["leaves"] = len(mine)
+    torch.distributed.barrier()     # step 3 starts on every rank at once
+    return rec
+
+
+def _paths(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _paths(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _paths(v, f"{prefix}{i}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def _meta(t: torch.Tensor) -> torch.Tensor:
+    """A storage-free stand-in of ``t`` (a checkpoint template)."""
+    return torch.empty(t.shape, dtype=t.dtype, device="meta")
+
+
+def _mesh_serve_rank(mesh, dev, job) -> dict:
+    """Phase 49 on one rank: the engine under the mesh for each mode, a
+    recorded cold run (the logits rows kept) and a warm timed one."""
+    from repro_torch import kernels as K
+    from repro_torch.interop import init_params
+    from repro_torch.models import transformer as T
+    from repro_torch.serve import engine as SE
+    cfg = job["cfg"]
+    params = init_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                         dev)
+    out = {}
+    for mode in job["modes"]:
+        _on_card(dev, torch.cuda.reset_peak_memory_stats)
+        eng = SE.ServeEngine(cfg.replace(moe_parallel=mode), params,
+                             batch_slots=4, capacity=1024, device=dev,
+                             mesh=mesh)
+        reqs = lambda: [SE.Request(prompt=p, max_new_tokens=MESH_SERVE_NEW,
+                                   eos_id=-1) for p in job["prompts"]]
+        cold = reqs()
+        with _Rows(SE) as rec_rows:
+            rec_rows.watch(eng)
+            eng.generate(cold)
+        warm = reqs()
+        K.reset_launches()
+        phase_s = {"prefill": 0.0, "decode": 0.0}
+
+        def timed(kind, fn):
+            def run(*a, **kw):
+                _on_card(dev, torch.cuda.synchronize)
+                t0 = time.perf_counter()
+                y = fn(*a, **kw)
+                _on_card(dev, torch.cuda.synchronize)
+                phase_s[kind] += time.perf_counter() - t0
+                return y
+            return run
+
+        real = T.prefill, T.paged_decode_step
+        T.prefill = timed("prefill", real[0])
+        T.paged_decode_step = timed("decode", real[1])
+        try:
+            _on_card(dev, torch.cuda.synchronize)
+            t0 = time.perf_counter()
+            eng.generate(warm)
+            _on_card(dev, torch.cuda.synchronize)
+            wall = time.perf_counter() - t0
+        finally:
+            T.prefill, T.paged_decode_step = real
+        # the recorded rows by (rid, token index), relabelled to the rids
+        # the reference run gave the same requests (0, 1, ...)
+        first = cold[0].rid
+        out[mode] = {
+            "engine_mode": eng.cfg.moe_parallel,
+            "cold_tokens": [list(r.out_tokens) for r in cold],
+            "tokens": [list(r.out_tokens) for r in warm],
+            "rows": {(rid - first, t): v for (rid, t), v in
+                     rec_rows.rows.items()},
+            "launches": K.launch_counts(), "wall_s": wall,
+            "tokens_per_s": sum(len(r.out_tokens) for r in warm) / wall,
+            "prefill_s": phase_s["prefill"], "decode_s": phase_s["decode"],
+            "peak_bytes": _on_card(dev, torch.cuda.max_memory_allocated),
+            "layouts": sorted(eng._layouts),
+            "local_w1": tuple(eng.params["layers"][0]["moe"]["w1"].shape)}
+        del eng
+        _on_card(dev, torch.cuda.empty_cache)
+    return out
 
 
 def serving_phase(M, cfg, params, prompts, dev, required, tag,
@@ -2895,15 +3526,15 @@ def _a2a_tight_want(M, x, p, cfg, n: int):
 
 
 def multi_rank_phase(M, dev) -> dict:
-    """Phase 13: several ranks share the one card over gloo, staged through
-    host memory, at a reduced width (MR_WIDTHS; 1024 tokens per rank,
-    bf16, ``blaze`` on ``pallas``): 2 ranks (data=1, model=2) run ``ep``,
-    ``ep_a2a`` (one and two chunks), ``tp`` and ``ep_a2a`` at capacity
-    0.25; 4 ranks (data=1, node=2, model=2) run ``ep_a2a_hier``; 4 ranks
-    (data=2, model=2) run one ``ep_a2a`` training step.  Every rank holds
-    its output rows and gradients against this process's layer without a
-    mesh (LAYER_MESH_TOL), the output at capacity 0.25 against this
-    process's layer with the slots a plain pack drops given gate 0
+    """Phase 13: several ranks share the one card (gloo for the handles,
+    CUDA IPC for the tensors) at a reduced width (MR_WIDTHS; 1024 tokens
+    per rank, bf16, ``blaze`` on ``pallas``): 2 ranks (data=1, model=2) run
+    ``ep``, ``ep_a2a`` (one and two chunks), ``tp`` and ``ep_a2a`` at
+    capacity 0.25; 4 ranks (data=1, node=2, model=2) run ``ep_a2a_hier``;
+    4 ranks (data=2, model=2) run one ``ep_a2a`` training step.  Every
+    rank holds its output rows and gradients against this process's layer
+    without a mesh (LAYER_MESH_TOL), the output at capacity 0.25 against
+    this process's layer with the slots a plain pack drops given gate 0
     (LAYER_MESH_TOL; the same overflow share, which must be positive), the
     training step's loss and grad norm against this process's step without
     a mesh (MR_STEP_RTOL); the overflow must be 0 at capacity 8.0, and
@@ -3055,7 +3686,8 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
             else:
                 grads = {k_[1:]: v for k_, v in got.items()
                          if k_ not in ("y", "dx")}
-                whole = SH.gather_params({"moe": grads}, mesh, mode)["moe"]
+                whole = SH.gather_params({"moe": grads}, mesh, SH.moe_specs(
+                    {"moe": grads}, mesh, mode))["moe"]
                 got.update({"d" + k_: v for k_, v in whole.items()})
                 rec["err_over_scale"] = {
                     k_: _scaled_close(f"rank {rank} [{label}] {k_}", v,
@@ -3067,7 +3699,7 @@ def _rank_main(rank: int, world: int, workdir: str) -> None:
         gen = torch.Generator(device=dev).manual_seed(0)
         params = init_params(cfg, gen, dev, dtype=torch.float32)
         step = make_train_step(cfg, job["tcfg"], dev, mesh=mesh)
-        local = SH.local_params(params, mesh, step.moe_parallel)
+        local = SH.shard_params(params, mesh, step.param_specs)
         del params
         _, _, m = step(local, init_adamw(local), job["batch"])
         out["train"] = {k_: float(v) for k_, v in m.items()}
@@ -3104,7 +3736,7 @@ def training_phase(cfg, dev, K, required, tag, mesh=None, per_step=None,
     params = init_params(cfg, gen, dev, dtype=torch.float32)
     step_fn = make_train_step(cfg, tcfg, dev, mesh=mesh)
     if mesh is not None:
-        params = SH.local_params(params, mesh, step_fn.moe_parallel)
+        params = SH.shard_params(params, mesh, step_fn.param_specs)
     opt = init_adamw(params)
     n_params = sum(t.numel() for t in _leaves(params))
     if cfg.input_kind == "tokens":
@@ -5213,7 +5845,12 @@ FRAMES_MIXED_FLASH = (
     ("hubert-xlarge training, float32",
      (2, 2048, 16, 16, 80, False, torch.float32)),
     ("bidirectional, wgmma", (2, 2048, 32, 8, 128, False, BF16)),
-    ("llava-next-mistral-7b prefill", (1, 6144, 32, 8, 128, True, BF16)))
+    ("llava-next-mistral-7b prefill", (1, 6144, 32, 8, 128, True, BF16)),
+    # bf16 widths off a multiple of 64, which the tensor cores take padded
+    # to 64 or 128 inside the kernel; causal and not
+    *((f"bf16 Dh {dh}{', causal' if causal else ''}",
+       (2, 2048, 16, 16, dh, causal, BF16))
+      for dh in (16, 48, 72, 96, 112) for causal in (True, False)))
 LLAVA_FFN = (4096, 14336)
 
 
@@ -5224,8 +5861,10 @@ def frames_mixed_kernels(M, dev, timer, entry, errs) -> dict:
     at HuBERT-XLarge's training shape (B = 2, S = 2048, 16/16 heads of 80:
     the tensor cores in bf16, padded to 128; the general kernel in
     float32, beside SDPA in float32) and at 32/8 heads of 128 (the wgmma
-    kernel's non-causal branch), and causal at LLaVA-NeXT's prefill (B =
-    1, S = 6144, 32/8 heads of 128), each row naming the kernel that ran
+    kernel's non-causal branch), causal at LLaVA-NeXT's prefill (B =
+    1, S = 6144, 32/8 heads of 128), and at B = 2, S = 2048, 16/16 heads
+    of 16, 48, 72, 96 and 112 in bf16, causal and not (widths the tensor
+    cores take off a multiple of 64), each row naming the kernel that ran
     and its time over SDPA's; the fused-SwiGLU trio at LLaVA's widths
     (d = 4096, h = 14336) over the prefill's L = 6144 rows.  Returns the
     timing rows by kernel."""

@@ -90,6 +90,17 @@ def params_from_jax(np_params: dict, cfg, device=None,
     return out
 
 
+def param_shapes(cfg) -> dict:
+    """The parameter tree's leaves as shape tuples (no storage)."""
+    def walk(t):
+        if isinstance(t, dict):
+            return {k: walk(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [walk(v) for v in t]
+        return tuple(t.shape)
+    return walk(init_params(cfg, device="meta"))
+
+
 def init_params(cfg, generator: torch.Generator | None = None,
                 device=None, dtype: torch.dtype | None = None) -> dict:
     """Random parameters drawn from ``generator`` on ``device``, with the
@@ -105,19 +116,26 @@ def init_params(cfg, generator: torch.Generator | None = None,
     1).  A Hymba block is ``{ln1, ln2, attn, mamba, ffn}``.  The
     embeddings are those the reference draws for ``cfg.input_kind``:
     ``embed`` for tokens and mixed inputs, a (d, d) LeCun-normal
-    ``frontend_proj`` for frames and ``img_proj`` for mixed inputs."""
+    ``frontend_proj`` for frames and ``img_proj`` for mixed inputs.
+    ``device="meta"`` gives the tree's shapes and dtypes without storage
+    (:func:`param_shapes`)."""
     check_supported(cfg)
-    dev = resolve_device(device)
+    meta = str(device) == "meta"
+    dev = torch.device("meta") if meta else resolve_device(device)
     dt = dtype or getattr(torch, cfg.dtype)
-    if generator is None:
+    if generator is None and not meta:
         generator = torch.Generator(device=dev).manual_seed(0)
+
+    def randn(shape):
+        if meta:
+            return torch.empty(shape, device=dev)
+        return torch.randn(shape, generator=generator, device=dev,
+                           dtype=torch.float32)
     d, E, h, d_ff = cfg.d_model, cfg.num_experts, cfg.moe_d_ff, cfg.d_ff
     H, Hkv, dh = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
 
     def dense(shape, fan_in):
-        w = torch.randn(shape, generator=generator, device=dev,
-                        dtype=torch.float32)
-        return w.div_(fan_in ** 0.5).to(dt)
+        return randn(shape).div_(fan_in ** 0.5).to(dt)
 
     zeros = lambda: torch.zeros(d, dtype=torch.float32, device=dev)
     f32 = dict(dtype=torch.float32, device=dev)
@@ -187,9 +205,7 @@ def init_params(cfg, generator: torch.Generator | None = None,
         layers.append(layer)
     out = {"layers": layers}
     if cfg.input_kind in ("tokens", "mixed"):
-        out["embed"] = torch.randn(
-            (cfg.vocab_size, d), generator=generator, device=dev,
-            dtype=torch.float32).mul_(0.02).to(dt)
+        out["embed"] = randn((cfg.vocab_size, d)).mul_(0.02).to(dt)
     out["unembed"] = dense((d, cfg.vocab_size), d)
     out["final_norm"] = zeros()
     if cfg.input_kind == "frames":

@@ -17,6 +17,11 @@ variables (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``): NCCL with
 Ranks that share a card over gloo are a setup the caller asks for by
 name (``backend="gloo"``), never one inferred from the card count.  A
 world of one rank is allowed and needs no rendezvous address.
+
+:class:`Hardware` holds the per-device constants of the roofline cost
+model (``roofline.py``), the counterpart of the reference's module
+constants; :data:`H100_SXM` is the port's default and
+:func:`axis_bandwidth` charges a mesh axis its tier's bandwidth.
 """
 
 from __future__ import annotations
@@ -24,6 +29,7 @@ from __future__ import annotations
 import itertools
 import math
 import os
+from dataclasses import dataclass
 from datetime import timedelta
 
 import torch
@@ -85,6 +91,10 @@ class Mesh:
                              f"axes {self.axis_names}")
         return tuple(a for a in self.axis_names if a in axes)
 
+    def coords(self, rank: int) -> dict[str, int]:
+        """The coordinates of ``rank`` on every axis."""
+        return dict(self._coords[rank])
+
     def axis_index(self, name: str) -> int:
         """This rank's coordinate on axis ``name``."""
         return self._coords[self.rank][self._axes(name)[0]]
@@ -106,6 +116,45 @@ class Mesh:
         coordinates on every axis outside ``axes``; its ranks are in
         row-major order over ``axes``."""
         return self._groups[self._axes(axes)]
+
+
+@dataclass(frozen=True)
+class Hardware:
+    """Per-device constants of the roofline cost model (``roofline.py``),
+    the counterpart of the reference's module constants
+    (``repro/launch/mesh.py:32-37``).  ``gemm_tile`` is the width a
+    grouped GEMM's minor dimension pads to: the cost model charges a
+    sliver narrower than a tile at the tile's cost."""
+
+    name: str
+    peak_flops_bf16: float      # FLOP/s, dense bf16
+    hbm_bw: float               # B/s
+    hbm_bytes: int
+    intra_node_bw: float        # B/s per device, per direction
+    cross_node_bw: float        # B/s per device
+    gemm_tile: int
+
+
+#: The port's default: one H100 SXM5 80GB of a DGX H100.  From the
+#: datasheets: 989e12 dense bf16 FLOP/s (NVIDIA H100 Tensor Core GPU
+#: datasheet, SXM5, without sparsity); HBM3 at 3.35e12 B/s, 80 GB; NVLink 4
+#: through NVSwitch at 900 GB/s per GPU, i.e. 450e9 B/s in each direction;
+#: across nodes one 400 Gb/s ConnectX-7 NIC per GPU (DGX H100 user guide),
+#: 50e9 B/s.  The tile is the N tile of the ``up``/``down`` grouped GEMMs
+#: (``csrc/moe_wgmma.cuh``: 128).  NVLink and the NIC cannot be measured on
+#: a machine with one card: ranks that share it read each other's memory on
+#: the card (``core/collectives.py``), which none of these numbers
+#: describes.
+H100_SXM = Hardware(name="H100 SXM5 80GB", peak_flops_bf16=989e12,
+                    hbm_bw=3.35e12, hbm_bytes=80 * 10 ** 9,
+                    intra_node_bw=450e9, cross_node_bw=50e9, gemm_tile=128)
+
+
+def axis_bandwidth(axis: str, hw: Hardware = H100_SXM) -> float:
+    """Bytes/s the collective cost model charges for traffic over
+    ``axis``: ``'node'`` and ``'pod'`` cross the network between hosts,
+    every other axis stays inside the node (the reference's rule)."""
+    return hw.cross_node_bw if axis in ("node", "pod") else hw.intra_node_bw
 
 
 def make_debug_mesh(data: int = 1, model: int = 1) -> Mesh:
@@ -134,7 +183,8 @@ def init_distributed(device=None, *, backend: str | None = None,
     card (the default device) the backend is NCCL on ``cuda:LOCAL_RANK``,
     and a host with fewer cards than ranks raises.  ``backend="gloo"`` on
     the card lets ranks share cards (``cuda:LOCAL_RANK % cards``; the
-    collectives then stage through host memory, see
+    collectives then read the tensors of ranks on the same card through
+    CUDA IPC, and stage the others' through host memory, see
     ``core/collectives.py``).  On the CPU the backend is gloo.
     ``init_method`` defaults to torchrun's ``env://``; a world of one rank
     without ``MASTER_ADDR`` uses an in-process store.  ``timeout`` bounds

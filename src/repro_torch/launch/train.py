@@ -39,10 +39,15 @@ parameters and the optimizer state to ``DIR/step_<n>`` at step ``steps //
 ``--mesh D,M`` (or ``D,M,N``) lays the ranks that torchrun starts out as a
 ``('data', 'model')`` mesh of D x M ranks (or ``('data', 'node',
 'model')`` with N nodes of M ranks each) and runs the MoE layers in the
-``--moe-parallel`` mode (``ep``, ``ep_a2a``, ``ep_a2a_hier`` or ``tp``).
-Every rank prints its steps' lines only on rank 0.  Prints a line per
-logged step and then one JSON run record (rank 0), which names the
-resolved backend, the mode, the mesh and the transport.
+``--moe-parallel`` mode (``ep``, ``ep_a2a``, ``ep_a2a_hier``, ``tp``, or
+the config's default ``auto``, which the roofline cost model resolves at
+the per-rank slab).  Each rank keeps only its block of every parameter
+and AdamW moment, placed by ``sharding.param_specs(..., fsdp=True)`` as
+the reference's launcher places them, and gathers a layer's leaves whole
+just before the layer runs.  ``--ckpt-dir`` under a mesh writes the whole
+trees from rank 0.  Prints a line per logged step and then one JSON run
+record (rank 0), which names the resolved backend, the resolved mode, the
+mesh, the transport and rank 0's parameter and moment bytes.
 """
 
 from __future__ import annotations
@@ -58,6 +63,7 @@ from repro_torch.core.device import resolve_device
 from repro_torch.launch.mesh import (init_distributed, make_debug_mesh,
                                      make_node_mesh)
 from repro_torch.train.loop import train
+from repro_torch.train.optimizer import tree_leaves
 
 
 def _mesh(spec: str):
@@ -88,7 +94,8 @@ def main(argv=None):
     ap.add_argument("--mesh", default=None,
                     help="D,M: data x model ranks; D,M,N: with N nodes")
     ap.add_argument("--moe-parallel", default=None,
-                    help="ep | ep_a2a | ep_a2a_hier | tp (with --mesh)")
+                    help="auto | ep | ep_a2a | ep_a2a_hier | tp (with "
+                         "--mesh; the config's default is auto)")
     args = ap.parse_args(argv)
 
     cfg = get_config(args.arch)
@@ -114,14 +121,18 @@ def main(argv=None):
         dev = resolve_device(args.device)
     rank0 = mesh is None or mesh.rank == 0
     log = print if rank0 else (lambda *_: None)
-    _, _, history = train(cfg, tcfg, device=dev, mesh=mesh, log=log)
+    params, opt, history = train(cfg, tcfg, device=dev, mesh=mesh, log=log)
+    nbytes = lambda ts: sum(t.numel() * t.element_size() for t in ts)
     rec = {"arch": cfg.name, "layers": cfg.num_layers, "dtype": cfg.dtype,
            "param_dtype": cfg.param_dtype, "device": str(dev),
            "device_name": (torch.cuda.get_device_name(dev)
                            if dev.type == "cuda" else "cpu"),
            "moe_impl": cfg.moe_impl if cfg.is_moe else None,
            "gmm_backend": history[-1]["gmm_backend"],
-           "moe_parallel": cfg.moe_parallel if mesh is not None else None,
+           "moe_parallel": (history[-1]["moe_parallel"] if mesh is not None
+                            else None),
+           "rank_param_bytes": nbytes(tree_leaves(params)),
+           "rank_moment_bytes": nbytes(opt.mu + opt.nu),
            "mesh": mesh.shape if mesh is not None else None,
            "transport": (transport(mesh.group(mesh.axis_names), dev)
                          if mesh is not None else None),

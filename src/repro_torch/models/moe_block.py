@@ -43,8 +43,10 @@ The collectives carry ``shard_map``'s gradient semantics
 ``enter_replicated`` over the axes whose partial outputs are summed, so
 ``dx`` and ``dwg`` match the single-device gradients on every rank, and
 the expert shards get their own gradients.  ``moe_parallel="auto"`` under
-a mesh ranks the modes with the reference's roofline cost model, whose
-constants are a TPU's; it is not ported and raises.
+a mesh ranks the modes with the roofline cost model (``roofline.py``, at
+the H100's constants) at the rank's token slab; the caller lays the
+expert leaves out for the mode chosen there (a training step by its
+``param_specs``, a serving engine per slab).
 
 The expert weights are cast to the activations' dtype before the layer,
 where the reference multiplies bf16 activations by its float32 expert
@@ -82,7 +84,8 @@ def check_supported(cfg) -> None:
         raise NotImplementedError(
             f"moe_impl={cfg.moe_impl!r} is not ported; the port runs "
             f"{MOE_IMPLS} (the reference's 'proxy_gmm' is a cost-model "
-            "stand-in of its dry run, ROADMAP.md §A item 6)")
+            "stand-in of its dry run, which is not ported: ROADMAP.md §A "
+            "item 6, the dry run)")
     if cfg.moe_parallel not in MOE_PARALLEL_MODES:
         raise ValueError(f"unknown moe_parallel {cfg.moe_parallel!r}; "
                          f"known: {MOE_PARALLEL_MODES}")
@@ -96,26 +99,33 @@ def check_supported(cfg) -> None:
     moe_residual_mode(cfg)  # raises for a plan that splits A from B
 
 
-def resolve_moe_parallel(cfg, mesh) -> str:
-    """The concrete distribution mode for (cfg, mesh): ``single`` without a
-    mesh (or for a dense model), else the forced ``cfg.moe_parallel``,
-    validated at entry as the reference does: expert parallelism with
-    ``E`` not divisible by the expert axes would drop experts; flat
-    ``ep_a2a`` on a node mesh would route cross-node rows over the flat
-    exchange; ``ep_a2a_hier`` without a 'node' axis has no second hop."""
+def resolve_moe_parallel(cfg, mesh, n_tokens: int | None = None) -> str:
+    """The concrete distribution mode for (cfg, mesh): ``single``,
+    ``ep``, ``ep_a2a``, ``ep_a2a_hier`` or ``tp`` (the string half of
+    :func:`resolve_moe_parallel_ex`)."""
+    return resolve_moe_parallel_ex(cfg, mesh, n_tokens).mode
+
+
+def resolve_moe_parallel_ex(cfg, mesh, n_tokens: int | None = None):
+    """Resolve ``cfg.moe_parallel`` against a mesh, with provenance: a
+    ``roofline.ParallelDecision`` (the mode, its source and the table of
+    predicted costs it was ranked from, at the H100's constants).
+    ``n_tokens`` is the per-device token slab where the caller knows it;
+    ``auto`` only selects a mode that is feasible at that slab.
+
+    A forced mode is validated here, as the reference does: expert
+    parallelism with ``E`` not divisible by the expert axes would drop
+    experts; flat ``ep_a2a`` on a node mesh would route cross-node rows
+    over the flat exchange; ``ep_a2a_hier`` without a 'node' axis has no
+    second hop."""
+    from repro_torch import roofline
     if cfg.moe_parallel not in MOE_PARALLEL_MODES:
         raise ValueError(f"unknown moe_parallel {cfg.moe_parallel!r}; "
                          f"known: {MOE_PARALLEL_MODES}")
-    if mesh is None or not cfg.is_moe:
-        return "single"
-    mode = cfg.moe_parallel
-    if mode == "auto":
-        raise NotImplementedError(
-            "moe_parallel='auto' under a mesh ranks the modes with the "
-            "reference's roofline cost model, whose constants are a TPU's; "
-            "it is not ported (ROADMAP.md §A item 7: the cost model with the "
-            "card's constants).  Force one of 'ep', 'ep_a2a', "
-            "'ep_a2a_hier', 'tp'.")
+    decision = roofline.select_moe_parallel(cfg, mesh, n_tokens)
+    if decision.mode == "single":
+        return decision
+    mode = decision.mode
     n_model = mesh.shape.get("model", 1)
     n_node = mesh.shape.get("node", 1)
     n_exp = max(n_model, 1) * max(n_node, 1)
@@ -136,7 +146,7 @@ def resolve_moe_parallel(cfg, mesh) -> str:
             "mesh must declare a 'node' axis (see "
             "launch.mesh.make_node_mesh); this mesh has none.  Use "
             "moe_parallel='ep_a2a' on flat meshes.")
-    return mode
+    return decision
 
 
 def _aux_of(g: routing.GatingOut, cfg) -> torch.Tensor:
@@ -166,18 +176,22 @@ def _blaze(xf, gates, disp, p, cfg, rb):
                          residuals=moe_residual_mode(cfg), backend=rb)
 
 
-def _moe_dispatch(xf, p, cfg, g, disp, rb, *, sliced: bool = False):
+def _moe_dispatch(xf, p, cfg, g, disp, rb):
     """The Dispatch-driven expert compute over a whole or sliced dispatch:
     the tagged gates and the layer of ``cfg.moe_impl``.  Under a sliced
-    dispatch ``blaze_pallas`` and ``dense`` fall through to
-    ``moe_ffn_blaze``, as in the reference (the kernel composition is a
-    single-device path; the dense oracle has no dispatch to slice)."""
+    dispatch ``dense`` falls through to ``moe_ffn_blaze``, as in the
+    reference (the dense oracle has no dispatch to slice).  The kernel
+    composition (``blaze_pallas``) runs on the sliced dispatch too, where
+    the reference falls through: its grouped GEMMs write zeros in the
+    dead zone, so the combine adds nothing for a non-local slot and the
+    backward's slot gradients there are zero (the partial output and
+    gradients of the local experts, as ``moe_ffn_blaze`` gives them)."""
     gates = _gates(g, xf.dtype)
     if cfg.moe_impl == "megablocks":
         w1, w3, w2 = _weights(p, xf.dtype)
         return moe_ffn_megablocks(xf, gates, disp, w1, w3, w2,
                                   activation=cfg.ffn_act, backend=rb)
-    if cfg.moe_impl == "blaze_pallas" and not sliced:
+    if cfg.moe_impl == "blaze_pallas":
         # The kernel composition has a fixed residual set; a plan whose
         # moe-scoped decisions ask for another one fails here.
         mode = moe_residual_mode(cfg)
@@ -216,13 +230,13 @@ def _moe_ep(xf, p, cfg, n_exp: int, idx: int, rb):
     """Expert-parallel body: this rank owns experts ``[idx * E_loc, (idx +
     1) * E_loc)``.  Gating and the dispatch build run on the whole slab;
     the sliced dispatch runs ``_moe_dispatch`` (``moe_ffn_blaze`` under
-    ``blaze_pallas`` and ``dense`` too, as in the reference)."""
+    ``dense``, as in the reference)."""
     E, k = cfg.num_experts, cfg.top_k
     E_loc = E // max(n_exp, 1)
     g = routing.top_k_gating(xf, p["wg"].to(xf.dtype), k)
     disp = build_dispatch(g.topk_experts.contiguous(), E)
     loc = routing.slice_dispatch(disp, idx * E_loc, count=E_loc)
-    y = _moe_dispatch(xf, p, cfg, g, loc, rb, sliced=True)
+    y = _moe_dispatch(xf, p, cfg, g, loc, rb)
     return y, _aux_of(g, cfg)
 
 
@@ -454,7 +468,7 @@ def moe_sublayer(x: torch.Tensor, p: dict, cfg, *, mesh=None,
     rank's slab of the layer's output; the aux loss is averaged over the
     batch and expert ranks, as the reference's ``pmean``."""
     B, S, d = x.shape
-    mode = resolve_moe_parallel(cfg, mesh)
+    mode = resolve_moe_parallel(cfg, mesh, B * S)
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if mode == "single":
         y, aux = moe_local(x.reshape(B * S, d), p, cfg)

@@ -36,7 +36,7 @@ from functools import partial
 import torch
 
 from repro_torch.core import checkpoint as CK
-from repro_torch.core.collectives import all_reduce_
+from repro_torch.core.collectives import all_reduce_, regather_saved
 from repro_torch.models import ssm
 from repro_torch.models.attention import (attention_sublayer, init_kv_cache,
                                           paged_attention_sublayer)
@@ -76,7 +76,7 @@ def check_supported(cfg) -> None:
 
 
 def _apply_sublayer(x, p, kind: str, cfg, attend, *, cache=None, mesh=None,
-                    dp_axes=("pod", "data")):
+                    dp_axes=("pod", "data"), fsdp=None, spec=None):
     """One block.  ``attend(h, p_attn, cfg, is_local=..., cache=...)`` is
     the attention sublayer (full-sequence, cache decode or paged) and
     returns ``(out, new_cache)``.  ``cache`` is the layer's decode cache
@@ -84,7 +84,11 @@ def _apply_sublayer(x, p, kind: str, cfg, attend, *, cache=None, mesh=None,
     block's auxiliary loss and its ``ep_a2a`` overflow share (both zero
     but for a MoE block) and the layer's new cache tuple (its entries None
     where there is no cache).  ``mesh`` and ``dp_axes`` go to the MoE
-    sublayer."""
+    sublayer.  With ``fsdp`` (``sharding.FSDP``), ``p`` holds this rank's
+    blocks under ``spec`` and is gathered first, inside whatever
+    checkpoint region runs the block."""
+    if fsdp is not None:
+        p = fsdp.gather(p, spec)
     zero = (None if kind in MOE_KINDS
             else torch.zeros((), dtype=torch.float32, device=x.device))
     c0 = cache[0] if cache is not None else None
@@ -187,11 +191,14 @@ def init_cache(cfg, batch: int, capacity: int, device) -> list:
     return [sub_cache(kind) for kind in layer_kinds(cfg)]
 
 
-def decode_step(params, cache: list, batch, pos, cfg):
+def decode_step(params, cache: list, batch, pos, cfg, *, mesh=None):
     """One-token decode.  batch["tokens"]: (B, 1); ``pos``: the scalar
     absolute position of the token (an int or a 0-d tensor; the batch
     decodes in lockstep).  Returns float32 logits (B, vocab) and the new
-    cache (the KV buffers written in place, the recurrent states new)."""
+    cache (the KV buffers written in place, the recurrent states new).
+    Under a ``mesh`` every rank decodes the same batch and ``params`` are
+    its ``sharding.local_params``: the MoE sublayers split the experts
+    over the mesh and sum their partial outputs."""
     if cfg.input_kind == "frames":
         raise ValueError("encoder-only architectures do not decode")
     check_supported(cfg)
@@ -201,7 +208,8 @@ def decode_step(params, cache: list, batch, pos, cfg):
     attend = partial(attention_sublayer, positions=positions)
     new_cache = []
     for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache):
-        x, _, _, nc = _apply_sublayer(x, p, kind, cfg, attend, cache=c)
+        x, _, _, nc = _apply_sublayer(x, p, kind, cfg, attend, cache=c,
+                                      mesh=mesh, dp_axes=())
         new_cache.append(nc)
     return _logits(params, x[:, 0], cfg), new_cache
 
@@ -237,19 +245,20 @@ def _logits(params, x, cfg):
 
 
 def _layers(params, x, cfg, *, positions, cache, page_table, prefill,
-            offsets=None, attn_impl="pallas"):
+            offsets=None, attn_impl="pallas", mesh=None):
     for p, kind, pages in zip(params["layers"], layer_kinds(cfg), cache):
         def attend(h, p_attn, cfg, *, is_local, cache, pages=pages):
             return paged_attention_sublayer(
                 h, p_attn, cfg, is_local=is_local, positions=positions,
                 pages=pages, page_table=page_table, prefill=prefill,
                 offsets=offsets, attn_impl=attn_impl), None
-        x = _apply_sublayer(x, p, kind, cfg, attend)[0]
+        x = _apply_sublayer(x, p, kind, cfg, attend, mesh=mesh,
+                            dp_axes=())[0]
     return x
 
 
 def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
-            last_only: bool = False, with_stats: bool = False):
+            fsdp=None, last_only: bool = False, with_stats: bool = False):
     """Full-sequence forward (training and prefill).  ``batch`` holds the
     input kind's arrays: ``tokens`` (B, S) token ids; ``features`` (B, S,
     d) frame embeddings; or ``image_embeds`` (B, n, d) and ``tokens`` (B,
@@ -261,17 +270,35 @@ def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
     False (an encoder's).
 
     Under a mesh, ``batch`` and ``params`` are this rank's (its batch rows
-    when the batch is split over ``dp_axes``, its
+    when the batch is split over ``dp_axes``; its blocks of the leaves,
+    ``sharding.shard_params``, with ``fsdp``, else its
     ``sharding.local_params``); every block but the MoE sublayer runs
-    whole on each rank."""
+    whole on each rank.  With ``fsdp`` each leaf is gathered whole just
+    before its use: a layer's inside its checkpoint region (the backward's
+    recompute gathers it again), the embeddings before the first layer and
+    the head after the last; outside a region, autograd saves a gathered
+    leaf as its shard and the backward gathers it again
+    (``collectives.regather_saved``), so under every plan the graph holds
+    no whole leaf."""
+    if fsdp is None:
+        return _forward(params, batch, cfg, mesh, dp_axes, None, last_only,
+                        with_stats)
+    with regather_saved():
+        return _forward(params, batch, cfg, mesh, dp_axes, fsdp, last_only,
+                        with_stats)
+
+
+def _forward(params, batch, cfg, mesh, dp_axes, fsdp, last_only,
+             with_stats):
     check_supported(cfg)
     if cfg.is_moe:
         check_moe(cfg)
-    x = _embed_inputs(params, batch, cfg)
+    x = _embed_inputs(_top(params, fsdp, ("embed", "frontend_proj",
+                                           "img_proj")), batch, cfg)
     positions = torch.arange(x.shape[1], device=x.device)
     attend = partial(attention_sublayer, positions=positions)
     sub = partial(_apply_sublayer, cfg=cfg, attend=attend, mesh=mesh,
-                  dp_axes=dp_axes)
+                  dp_axes=dp_axes, fsdp=fsdp)
     mode, payload = CK.plan_policies(
         CK.resolve_plan(config=cfg.remat_policy).plan, cfg.block_pattern)
     if not torch.is_grad_enabled():
@@ -282,9 +309,11 @@ def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
     overflow = torch.zeros((), dtype=torch.float32, device=x.device)
     P = cfg.pattern_period
     for g in range(cfg.num_groups):
+        specs = (fsdp.specs["layers"][g * P:(g + 1) * P]
+                 if fsdp is not None else [None] * P)
         group = partial(_apply_group, sub=sub,
                         layers=params["layers"][g * P:(g + 1) * P],
-                        kinds=cfg.block_pattern)
+                        kinds=cfg.block_pattern, specs=specs)
         if mode == "group":
             x, a, o = CK.checkpoint(group, x, policy=payload)
         else:
@@ -293,31 +322,40 @@ def forward(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
         overflow = overflow + o
     if last_only:
         x = x[:, -1:]
-    logits = _logits(params, x, cfg)
+    logits = _logits(_top(params, fsdp, ("final_norm", "unembed")), x, cfg)
     if with_stats:
         return logits, aux, {"moe_overflow": overflow}
     return logits, aux
 
 
-def _apply_group(x, *, sub, layers, kinds):
+def _top(params, fsdp, keys) -> dict:
+    """``params``' top-level leaves ``keys`` (those it has), whole."""
+    part = {k: params[k] for k in keys if k in params}
+    if fsdp is None:
+        return part
+    return fsdp.gather(part, {k: fsdp.specs[k] for k in part})
+
+
+def _apply_group(x, *, sub, layers, kinds, specs):
     """One pattern group: its sublayers in order, their auxiliary losses
     and overflow shares summed."""
     aux = overflow = 0.0
-    for p, kind in zip(layers, kinds):
-        x, a, o, _ = sub(x, p, kind)
+    for p, kind, spec in zip(layers, kinds, specs):
+        x, a, o, _ = sub(x, p, kind, spec=spec)
         aux = aux + a
         overflow = overflow + o
     return x, aux, overflow
 
 
-def _checkpointed(sub, policies, x, p, kind):
+def _checkpointed(sub, policies, x, p, kind, spec=None):
     """``sub`` in a checkpoint region of its own, with its kind's policy
     (the ``per_kind`` application)."""
-    return CK.checkpoint(partial(sub, p=p, kind=kind), x,
+    return CK.checkpoint(partial(sub, p=p, kind=kind, spec=spec), x,
                          policy=policies[kind])
 
 
-def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data")):
+def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data"),
+               fsdp=None):
     """Next-token cross entropy (labels < 0 masked) plus the auxiliary
     loss.  Returns ``(loss, {"ce", "aux", "moe_overflow"})``.  Image
     positions (mixed inputs) carry no loss: their logits are dropped
@@ -330,7 +368,7 @@ def train_loss(params, batch, cfg, *, mesh=None, dp_axes=("pod", "data")):
     share, whose gradients summed over the data axes are the global
     loss's; ``metrics["ce"]`` is the global cross entropy (no gradient)."""
     logits, aux, stats = forward(params, batch, cfg, mesh=mesh,
-                                 dp_axes=dp_axes, with_stats=True)
+                                 dp_axes=dp_axes, fsdp=fsdp, with_stats=True)
     labels = batch["labels"].long()
     if cfg.input_kind == "mixed":
         logits = logits[:, batch["image_embeds"].shape[1]:]
@@ -360,7 +398,7 @@ def _data_group(mesh, dp_axes):
     return mesh.group(axes) if axes else None
 
 
-def prefill(params, tokens, lengths, cache, page_table, cfg, *,
+def prefill(params, tokens, lengths, cache, page_table, cfg, *, mesh=None,
             offsets=None, attn_impl: str = "pallas"):
     """Whole-prompt forward that fills the paged cache in one call.
 
@@ -377,7 +415,8 @@ def prefill(params, tokens, lengths, cache, page_table, cfg, *,
     token (relative index ``lengths - 1``).  ``attn_impl`` is accepted for
     the reference's signature; prefill attends without the paged kernel.
     Raises ``ValueError`` for frame and mixed inputs, as the reference
-    does."""
+    does.  Under a ``mesh`` every rank runs the same batch and ``params``
+    are its ``sharding.local_params`` (as in :func:`decode_step`)."""
     check_supported(cfg)
     if cfg.input_kind != "tokens":
         raise ValueError("paged serving decodes token streams")
@@ -388,22 +427,23 @@ def prefill(params, tokens, lengths, cache, page_table, cfg, *,
         positions = offsets.long()[:, None] + positions[None, :]
     x = _layers(params, x, cfg, positions=positions, cache=cache,
                 page_table=page_table, prefill=True, offsets=offsets,
-                attn_impl=attn_impl)
+                attn_impl=attn_impl, mesh=mesh)
     idx = torch.clamp(lengths.long() - 1, 0, S - 1)
     x_last = x[torch.arange(B, device=x.device), idx]
     return _logits(params, x_last, cfg)
 
 
 def paged_decode_step(params, cache, tokens, lengths, page_table, cfg, *,
-                      attn_impl: str = "pallas"):
+                      mesh=None, attn_impl: str = "pallas"):
     """One decode step with every request at its own position.
 
     tokens: (B, 1) last token per request; lengths: (B,) int32 position the
     token is written at.  ``attn_impl`` picks the paged-attention
     implementation (``pallas``: the kernel; ``dense``: the plain gather).
-    Returns float32 logits (B, vocab)."""
+    Returns float32 logits (B, vocab).  ``mesh`` as in :func:`prefill`."""
     check_supported(cfg)
     x = _embed(params, tokens, cfg)
     x = _layers(params, x, cfg, positions=lengths, cache=cache,
-                page_table=page_table, prefill=False, attn_impl=attn_impl)
+                page_table=page_table, prefill=False, attn_impl=attn_impl,
+                mesh=mesh)
     return _logits(params, x[:, 0], cfg)

@@ -48,6 +48,20 @@ on the card, ``dense`` on the CPU) and the checkpoint plan (engine
 argument ``remat_policy`` > ``cfg.remat_policy``; decode runs no backward,
 so the plan is provenance) are resolved at construction as well.
 
+Under a ``mesh`` (``ServeEngine(..., mesh=...)``, counterpart of
+``repro/serve/engine.py:153-167``) every rank runs the same engine on the
+same requests: the dense weights are replicated on every rank and the
+expert weights split over the expert axes (``sharding.local_params`` of
+the whole tree the engine is given), and the MoE sublayers' collectives
+keep the ranks in step.  The pairing of ``moe_parallel`` and mesh is
+validated at construction; ``ep_a2a`` and ``ep_a2a_hier`` become ``ep``
+(decode slabs rarely divide over the expert axes, and the exchange gives
+the same numbers), and ``auto`` stays ``auto``: the cost model resolves it
+per prefill or decode slab.  The engine keeps the expert weights in the
+layout of every mode its slabs have resolved to: the one ``param_specs``
+gives ``auto`` from the start, another the first time a slab picks it
+(``sharding.relayout_moe``, once per mode), so a step never reslices.
+
 ``kv_dtype="int8"`` stores the pools quantized with ``serve/kv_quant``'s
 symmetric per-(position, head) scheme; ``kv_bytes_per_token`` reports the
 pools' bytes per cached token as the reference's serving bench does.
@@ -64,11 +78,13 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.core import checkpoint as CK
 from repro_torch.core import gmm_backend as GB
 from repro_torch.core.device import resolve_device
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_block import check_supported as check_moe
+from repro_torch.models.moe_block import resolve_moe_parallel
 from repro_torch.serve import paged_cache as PC
 from repro_torch.serve import sampling
 from repro_torch.serve.kv_quant import cache_bytes
@@ -110,9 +126,21 @@ def _params_device(params) -> torch.device:
     return params["unembed"].device
 
 
+def _home_mode(cfg, mesh) -> str:
+    """The layout the engine keeps the expert weights in: the forced mode,
+    or under ``auto`` the reference's ``param_specs`` choice (experts
+    split over the expert axes when they divide, else the hidden dim)."""
+    if cfg.moe_parallel != "auto":
+        return cfg.moe_parallel
+    n = mesh.axis_size(SH.expert_axes(mesh))
+    return "ep" if cfg.num_experts % n == 0 else "tp"
+
+
 class ServeEngine:
     """Paged serving of ``cfg`` with ``params`` on ``device`` (default
-    ``"cuda"``; raises when no card is present)."""
+    ``"cuda"``; raises when no card is present).  Under a ``mesh``,
+    ``params`` is the whole tree (every rank the same) and the engine keeps
+    this rank's ``sharding.local_params`` of it."""
 
     def __init__(self, cfg, params, *, batch_slots: int = 4,
                  capacity: int = 512, page_size: int = 16,
@@ -121,10 +149,6 @@ class ServeEngine:
                  seed: int = 0, gmm_backend: str | None = None,
                  prefix_cache: bool = False, paged_kernel: str | None = None,
                  remat_policy=None, device=None, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving over a mesh is not ported; the engine runs on one "
-                "card (ROADMAP.md §A item 6: ServeEngine(mesh=...))")
         self.device = resolve_device(device)
         self.backend = GB.resolve(gmm_backend, config=cfg.gmm_backend)
         # an unknown paged kernel or an unparseable plan raises here, never
@@ -148,13 +172,23 @@ class ServeEngine:
         T.check_supported(cfg)
         if cfg.is_moe:
             check_moe(cfg)
+        if mesh is not None and cfg.is_moe:
+            # a bad (mode, mesh) pairing raises here, never mid-generate
+            if cfg.moe_parallel in ("ep_a2a", "ep_a2a_hier"):
+                cfg = cfg.replace(moe_parallel="ep")
+            resolve_moe_parallel(cfg, mesh)
+            params = SH.local_params(params, mesh, _home_mode(cfg, mesh))
         pdev = _params_device(params)
         if pdev.type != self.device.type or (
                 self.device.index is not None and pdev != self.device):
             raise ValueError(f"params live on {pdev}, the engine runs on "
                              f"{self.device}")
         self.cfg = cfg
+        self.mesh = mesh
         self.params = params
+        # under a mesh and auto: the weights in each mode's layout so far
+        self._layouts = ({_home_mode(cfg, mesh): params}
+                         if mesh is not None and cfg.is_moe else {})
         self.slots = batch_slots
         self.capacity = capacity
         self.page_size = page_size
@@ -264,6 +298,20 @@ class ServeEngine:
             self._prefill_fns[key] = fn
         return fn
 
+    def _weights_for(self, n_tokens: int, cfg):
+        """The parameters and config a step over ``n_tokens`` rows runs
+        with: under a mesh and ``auto``, the mode the cost model picks at
+        that slab, forced, and the weights in its layout (made the first
+        time a slab picks the mode)."""
+        if self.mesh is None or cfg.moe_parallel != "auto" or not cfg.is_moe:
+            return self.params, cfg
+        mode = resolve_moe_parallel(cfg, self.mesh, n_tokens)
+        layout = "ep" if mode in SH.EP_MODES else mode
+        if layout not in self._layouts:
+            self._layouts[layout] = SH.relayout_moe(
+                self.params, self.mesh, _home_mode(cfg, self.mesh), layout)
+        return self._layouts[layout], cfg.replace(moe_parallel=mode)
+
     def _copy_page(self, src: int, dst: int) -> None:
         """Copy-on-write fork of one physical page in every layer's pool."""
         for pages in self._cache:
@@ -367,8 +415,9 @@ class ServeEngine:
 def _decode_step(eng: ServeEngine, tok, lens, pt, keys, *, cfg, impl):
     """One decode step over the full slot array: logits, then tokens.
     ``T.paged_decode_step`` is looked up at each call."""
-    logits = T.paged_decode_step(eng.params, eng._cache, tok, lens, pt, cfg,
-                                 attn_impl=impl)
+    params, cfg = eng._weights_for(tok.numel(), cfg)
+    logits = T.paged_decode_step(params, eng._cache, tok, lens, pt, cfg,
+                                 mesh=eng.mesh, attn_impl=impl)
     return eng._sample(logits, keys)
 
 
@@ -376,8 +425,10 @@ def _prefill_step(eng: ServeEngine, tok, lens, pt, offs, keys, *, cfg, impl,
                   prefix: bool):
     """One prefill (suffixes at ``offs`` with ``prefix``): the logits at
     each last token, then tokens (token index 0)."""
-    logits = T.prefill(eng.params, tok, lens, eng._cache, pt, cfg,
-                       offsets=offs if prefix else None, attn_impl=impl)
+    params, cfg = eng._weights_for(tok.numel(), cfg)
+    logits = T.prefill(params, tok, lens, eng._cache, pt, cfg,
+                       mesh=eng.mesh, offsets=offs if prefix else None,
+                       attn_impl=impl)
     return eng._sample(logits, keys)
 
 

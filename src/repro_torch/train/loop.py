@@ -19,13 +19,21 @@ gradient of a leaf is freed once it is added.  The loss and each metric are the 
 over the microbatches; clipping and AdamW run once, on the sum.
 
 Under a :class:`~repro_torch.launch.mesh.Mesh` every rank runs the step
-on its own batch rows (``sharding.batch_specs``) and its own parameters
-(``sharding.local_params`` for the resolved MoE mode), and the step gives
-the single-device step's numbers: the loss is the global masked mean, the
-gradients are summed over the data axes the batch is split over (once,
-after accumulation), the global norm counts each expert shard once (summed
-over the axes the shards are split over) and each replicated leaf once,
-and AdamW updates the local shards.  Every rank reports the same metrics.
+on its own batch rows (``sharding.batch_specs``) and holds only its block
+of every parameter leaf and of its AdamW moments, as the reference's
+launcher places them (``sharding.param_specs(..., fsdp=True,
+moe_parallel=<the resolved mode>)``, ``step_fn.param_specs``;
+``sharding.shard_params`` cuts them).  ``moe_parallel="auto"`` resolves
+through the roofline cost model at the live per-shard slab (the
+microbatch's rows on one data shard times ``seq_len``), as the
+reference's step does.  The forward gathers each leaf whole just before
+its use (``sharding.FSDP``); the backward sums a gathered leaf's gradient
+over the data axes the batch is split over into this rank's block, and
+the gradients of the leaves not split over those axes are summed over
+them once, after accumulation.  The step gives the single-device step's
+numbers: the loss is the global masked mean, the global norm counts each
+element of the global tree once, and AdamW updates the local blocks.
+Every rank reports the same metrics.
 
 The grouped-GEMM backend (``moe_impl="blaze"``) is resolved once per step
 function, as in the reference: call-site argument > active
@@ -54,10 +62,10 @@ from repro_torch.core import memsim
 from repro_torch.core.collectives import all_reduce_
 from repro_torch.core.device import resolve_device
 from repro_torch.data.pipeline import make_batch_iterator
-from repro_torch.interop import init_params
+from repro_torch.interop import init_params, param_shapes
 from repro_torch.models import transformer as T
 from repro_torch.models.moe_block import check_supported as check_moe
-from repro_torch.models.moe_block import resolve_moe_parallel
+from repro_torch.models.moe_block import resolve_moe_parallel_ex
 from repro_torch.train.checkpointing import save_checkpoint
 from repro_torch.train.optimizer import (AdamWState, adamw_update,
                                          clip_by_global_norm,
@@ -116,20 +124,28 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     (``core/memsim.py``, ``base="train"``).
 
     With a ``mesh``, ``batch`` is the global batch (each rank takes its
-    rows) and ``params`` this rank's
-    ``sharding.local_params(whole, mesh, step_fn.moe_parallel)``."""
+    rows) and ``params`` this rank's blocks,
+    ``sharding.shard_params(whole, mesh, step_fn.param_specs)``; the
+    AdamW state is ``init_adamw`` of them (its moments mirror the blocks,
+    ``sharding.opt_specs``).  ``step_fn.moe_decision`` is the mode's
+    ``roofline.ParallelDecision``."""
     dev = resolve_device(device)
     resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
     cfg = cfg.replace(gmm_backend=resolved.name)
     n_micro = max(tcfg.num_microbatches, 1)
-    mode, shard_group = "single", None
-    if mesh is not None:
-        # an invalid (mode, mesh) pairing raises here, at construction
-        if cfg.is_moe:
-            mode = resolve_moe_parallel(cfg, mesh)
-        ax = SH.shard_axes(mesh, mode)
-        shard_group = mesh.group(ax) if ax else None
     b_live = max(tcfg.batch_size // n_micro // _dp_shards(mesh), 1)
+    mode, decision, specs = "single", None, None
+    if mesh is not None:
+        # an invalid (mode, mesh) pairing raises here, at construction;
+        # 'auto' resolves at the live per-shard slab, as moe_sublayer does
+        if cfg.is_moe:
+            decision = resolve_moe_parallel_ex(cfg, mesh,
+                                               b_live * tcfg.seq_len)
+            mode = decision.mode
+        specs = SH.param_specs(param_shapes(cfg), mesh, fsdp=True,
+                               moe_parallel=(mode if cfg.is_moe
+                                             else "auto"))
+
     if hbm_budget is not None:
         prefer = (CK.get_plan(remat_policy) if remat_policy is not None
                   else None)
@@ -146,6 +162,9 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
 
     def _step(params, opt_state: AdamWState, batch):
         leaves = tree_leaves(params)
+        split = (None if mesh is None else
+                 [SH.split_axes(sp, mesh)
+                  for sp in SH.spec_leaves(specs, params)])
         if n_micro > 1 and any(p.dtype != torch.float32 for p in leaves):
             raise ValueError("gradient accumulation sums in the leaves' "
                              ".grad and takes float32 leaves only")
@@ -159,9 +178,12 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
         per_micro, dp = [], ()
         try:
             for mb in _microbatches(batch, n_micro):
+                fsdp = None
                 if mesh is not None:
                     dp = SH.batch_axes(mesh, mb["labels"].shape[0])
                     mb = SH.local_batch(mb, SH.batch_specs(mb, mesh), mesh)
+                    fsdp = SH.FSDP(mesh, specs, dp,
+                                   getattr(torch, cfg.dtype))
                 # Spans that name the step's parts in a profiler trace (no
                 # cost without a profiler).  The backward's kernels are
                 # launched from autograd's own thread, so a trace does not
@@ -169,7 +191,7 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
                 with record_function("train_step.forward"):
                     loss, metrics = T.train_loss(
                         params, batch_to_device(mb, dev), cfg, mesh=mesh,
-                        dp_axes=dp)
+                        dp_axes=dp, fsdp=fsdp)
                 with record_function("train_step.backward"):
                     torch.autograd.backward(loss, inputs=leaves)
                 per_micro.append({k: v.detach() for k, v in metrics.items()})
@@ -181,13 +203,15 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
         for p in leaves:
             p.grad = None
         with record_function("train_step.optimizer"):
-            if dp:
-                for g in grads:
-                    all_reduce_(g, mesh.group(dp))
-            sharded = (SH.sharded_leaves(params, mesh, mode)
-                       if shard_group is not None else None)
-            gnorm = clip_by_global_norm(grads, tcfg.grad_clip,
-                                        sharded=sharded, group=shard_group)
+            if mesh is not None:
+                # a gathered leaf's gradient was summed over the batch
+                # axes it is split over in the backward; over the rest, here
+                for g, axes in zip(grads, split):
+                    rest = tuple(a for a in dp if a not in axes)
+                    if rest:
+                        all_reduce_(g, mesh.group(rest))
+            gnorm = clip_by_global_norm(
+                grads, tcfg.grad_clip, split=split, mesh=mesh)
             lr = cosine_schedule(opt_state.step, peak_lr=tcfg.learning_rate,
                                  warmup=tcfg.warmup_steps,
                                  total=tcfg.total_steps)
@@ -212,7 +236,9 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
         cfg, b_live * tcfg.seq_len, batch=b_live, plan=resolved_plan.plan,
         base="train", **_sim_mesh(cfg, mesh, mode))
     step_fn.moe_parallel = mode
+    step_fn.moe_decision = decision
     step_fn.mesh = mesh
+    step_fn.param_specs = specs
     return step_fn
 
 
@@ -260,17 +286,14 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     (``train/checkpointing.py``), as the reference saves them.
 
     With a ``mesh`` every rank draws the same whole parameters (or takes
-    ``params``, the whole tree) and keeps its
-    ``sharding.local_params``; the returned ``params`` are this rank's.
-    Checkpoints are not saved under a mesh."""
+    ``params``, the whole tree) and keeps its blocks under the step's
+    ``param_specs``; the returned ``params`` and optimizer state are this
+    rank's.  A checkpoint under a mesh holds the whole trees, in the files
+    a run without a mesh writes (rank 0 writes them; every rank gathers
+    and waits for it)."""
     dev = resolve_device(device)
-    if tcfg.checkpoint_every:
-        if not tcfg.checkpoint_dir:
-            raise ValueError("checkpoint_every needs a checkpoint_dir")
-        if mesh is not None:
-            raise NotImplementedError(
-                "saving checkpoints under a mesh is not ported (ROADMAP.md "
-                "§A item 6: distribution)")
+    if tcfg.checkpoint_every and not tcfg.checkpoint_dir:
+        raise ValueError("checkpoint_every needs a checkpoint_dir")
     if params is None:
         gen = torch.Generator(device=dev).manual_seed(tcfg.seed)
         params = init_params(cfg, gen, dev,
@@ -286,9 +309,10 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
     def resolve_backend() -> str:
         return GB.resolve(None, config=_config_backend(cfg, tcfg)).name
 
+    specs = None
     if mesh is not None:
-        params = SH.local_params(params, mesh,
-                                 step_fn_for(resolve_backend()).moe_parallel)
+        specs = step_fn_for(resolve_backend()).param_specs
+        params = SH.shard_params(params, mesh, specs)
     opt_state = init_adamw(params)
     if batch_iterator is None:
         batch_iterator = make_batch_iterator(
@@ -306,6 +330,7 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
         m["gmm_backend"] = backend
         m["remat_plan"] = step_fn.resolved_plan.spec
         m["peak_sim_bytes"] = step_fn.peak_sim_bytes
+        m["moe_parallel"] = step_fn.moe_parallel
         if step_hook is not None:
             step_hook(step, m)
         if step % tcfg.log_every == 0 or step == tcfg.total_steps - 1:
@@ -319,5 +344,5 @@ def train(cfg, tcfg, *, device=None, params=None, log=print,
                 step % tcfg.checkpoint_every == 0:
             save_checkpoint(os.path.join(tcfg.checkpoint_dir,
                                          f"step_{step}"),
-                            step, params, opt_state)
+                            step, params, opt_state, mesh=mesh, specs=specs)
     return params, opt_state, history

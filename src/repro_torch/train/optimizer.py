@@ -51,27 +51,33 @@ def cosine_schedule(step: int, *, peak_lr: float, warmup: int, total: int,
                       * 0.5 * (1 + math.cos(math.pi * frac)))
 
 
-def global_norm(grads: list[torch.Tensor], *, sharded=None,
-                group=None) -> torch.Tensor:
-    """The norm of all gradient leaves.  With ``sharded`` (one flag per
-    leaf) and ``group``, the flagged leaves are this rank's shards of
-    leaves split over ``group``: their squares are summed over the group,
-    so each shard counts once, and every other leaf counts once."""
+def global_norm(grads: list[torch.Tensor], *, split=None,
+                mesh=None) -> torch.Tensor:
+    """The norm of all gradient leaves.  With ``split`` (per leaf, the
+    mesh axes its gradient is this rank's block over; ``()`` for a whole
+    leaf) and ``mesh``, each leaf's squares are summed over the ranks of
+    its axes, so every element of the global tree counts once."""
     sq = lambda gs: sum((g.float().square().sum() for g in gs),
                         torch.zeros((), device=grads[0].device))
-    if sharded is None:
+    if split is None:
         return torch.sqrt(sq(grads))
-    local = sq(g for g, s in zip(grads, sharded) if s)
-    rest = sq(g for g, s in zip(grads, sharded) if not s)
-    return torch.sqrt(rest + all_reduce_(local, group))
+    by_axes: dict[tuple, list] = {}
+    for g, axes in zip(grads, split):
+        by_axes.setdefault(tuple(axes), []).append(g)
+    total = torch.zeros((), device=grads[0].device)
+    for axes, gs in by_axes.items():
+        part = sq(gs)
+        total = total + (all_reduce_(part, mesh.group(axes)) if axes
+                         else part)
+    return torch.sqrt(total)
 
 
 def clip_by_global_norm(grads: list[torch.Tensor], max_norm: float, *,
-                        sharded=None, group=None) -> torch.Tensor:
+                        split=None, mesh=None) -> torch.Tensor:
     """Scales ``grads`` in place to a global norm of at most ``max_norm``;
-    returns the norm before clipping (``sharded`` and ``group`` as in
+    returns the norm before clipping (``split`` and ``mesh`` as in
     :func:`global_norm`)."""
-    norm = global_norm(grads, sharded=sharded, group=group)
+    norm = global_norm(grads, split=split, mesh=mesh)
     scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-9), max=1.0)
     for g in grads:
         g.mul_(scale.to(g.dtype))

@@ -31,7 +31,9 @@ a floor of 1e-4 times each leaf's scale, as ``tests/test_torch_train.py``
 holds the gradients.  These steps run the configs' default checkpoint
 plan, ``"none"``, so every rank reruns its exchanges in the backward's
 recompute; one more ``ep_a2a`` step under ``"paper"`` (the tagged
-projections kept, the rest recomputed) is held to the same gradients, and
+projections kept, the rest recomputed) is held to the same gradients, as
+is one ``ep`` step under ``"full"`` (no region: the backward gathers the
+leaves the products saved again), and
 one with two microbatches (the gradients accumulated over them, then
 summed over the data axis once) to the reference's single-device step
 with two microbatches (``tests/test_sharding.py:243-260``).
@@ -72,9 +74,16 @@ BACKENDS = ("segment", "pallas")
 # case name -> (moe_parallel, extra config fields)
 FLAT_MODES = {"ep": ("ep", {}), "ep_a2a": ("ep_a2a", {}),
               "ep_a2a_chunks2": ("ep_a2a", {"moe_a2a_chunks": 2}),
-              "tp": ("tp", {})}
-TRAIN_MODES = ("ep", "ep_a2a", "tp")
+              "tp": ("tp", {}),
+              "ep_kernels": ("ep", {"moe_impl": "blaze_pallas"})}
+TRAIN_MODES = ("ep", "ep_a2a", "tp", "auto")
 TIGHT = 0.25
+# ServeEngine under the (1, 2) mesh: requests, budget and pool
+SERVE_PROMPTS = ((5, 17, 99, 3, 42, 7, 61), (88, 1, 12, 30), (9,) * 11)
+SERVE_NEW, SERVE_CAPACITY = 6, 32
+SERVE_MODES = ("ep", "ep_a2a", "auto")
+# a reduced config whose vocabulary divides over no axis of the 2 x 2 mesh
+ODD = dict(vocab_size=127)
 
 
 def _inputs(dtype: str):
@@ -192,10 +201,42 @@ def jtrain():
     return out
 
 
+def _whole_ckpt(tp, path, params_np):
+    """A checkpoint written without a mesh: the parameters and an AdamW
+    state of seeded moments at step 5; returns the trees as numpy."""
+    torch = tp.torch
+    from repro_torch.train.checkpointing import save_checkpoint
+    from repro_torch.train.optimizer import AdamWState, tree_leaves
+    params = _port_tree(tp, params_np)
+    gen = torch.Generator().manual_seed(9)
+    leaves = tree_leaves(params)
+    mu = [torch.randn(t.shape, generator=gen) for t in leaves]
+    nu = [torch.rand(t.shape, generator=gen) for t in leaves]
+    save_checkpoint(str(path), 5, params, AdamWState(step=5, mu=mu, nu=nu))
+    as_np = lambda ts: [t.numpy() for t in ts]
+    return {"params": [t.numpy() for t in leaves], "mu": as_np(mu),
+            "nu": as_np(nu), "step": 5}
+
+
 @pytest.fixture(scope="module")
-def flat12(tmp_path_factory):
-    return _spawn(tmp_path_factory.mktemp("mesh12"), (1, 2),
-                  ("data", "model"), _flat_cases())
+def flat12(tmp_path_factory, tp, jtrain):
+    work = tmp_path_factory.mktemp("mesh12")
+    cases = _flat_cases()
+    cfg = dataclasses.asdict(torch_config(MOE_CFG))
+    written = _whole_ckpt(tp, work / "ck_in", jtrain["params"])
+    cases["ckpt"] = {"kind": "ckpt", "cfg": cfg, "tcfg": TCFG,
+                     "params": jtrain["params"], "batch": jtrain["batch"],
+                     "in": str(work / "ck_in"), "out": str(work / "ck_out")}
+    cases["held"] = {"kind": "held", "cfg": dict(cfg, moe_parallel="ep"),
+                     "tcfg": TCFG, "params": jtrain["params"],
+                     "batch": {k: v[:2] for k, v in jtrain["batch"].items()}}
+    for mode in SERVE_MODES:
+        cases[f"serve/{mode}"] = {
+            "kind": "serve", "cfg": dict(cfg, moe_parallel=mode),
+            "params": jtrain["params"], "prompts": SERVE_PROMPTS,
+            "max_new": SERVE_NEW, "capacity": SERVE_CAPACITY, "slots": 4}
+    ranks = _spawn(work, (1, 2), ("data", "model"), cases)
+    return {"ranks": ranks, "work": work, "written": written}
 
 
 @pytest.fixture(scope="module")
@@ -216,10 +257,22 @@ def flat22(tmp_path_factory, jtrain):
         "kind": "train", "cfg": dataclasses.asdict(cfg), "tcfg": TCFG,
         "params": jtrain["params"], "batch": jtrain["batch"]}
     cfg = torch_config(TRAIN_CFGS["train_noaux"]).replace(
+        moe_parallel="ep", remat_policy="full")
+    cases["train_noaux/ep/full"] = {
+        "kind": "train", "cfg": dataclasses.asdict(cfg), "tcfg": TCFG,
+        "params": jtrain["params"], "batch": jtrain["batch"]}
+    cfg = torch_config(TRAIN_CFGS["train_noaux"]).replace(
         moe_parallel="ep_a2a")
     cases["train_noaux/ep_a2a/mb2"] = {
         "kind": "train", "cfg": dataclasses.asdict(cfg), "tcfg": TCFG_MB2,
         "params": jtrain["params"], "batch": jtrain["batch"]}
+    cases["odd/auto"] = {"kind": "train", "cfg": dataclasses.asdict(
+        torch_config(MOE_CFG.replace(**ODD))), "tcfg": TCFG,
+        "params": np_params(JT.init_params(jax.random.PRNGKey(1),
+                                           MOE_CFG.replace(**ODD))),
+        "batch": {k: v % ODD["vocab_size"]
+                  for k, v in jtrain["batch"].items()},
+        "steps": 3, "local": True}
     return _spawn(tmp_path_factory.mktemp("mesh22"), (2, 2),
                   ("data", "model"), cases)
 
@@ -255,8 +308,9 @@ def _check_layer(ranks, name, ref, dtype):
 @pytest.mark.parametrize("mesh", ["flat12", "flat22"])
 def test_mode_matches_single_device(request, oracle, mesh, mode, backend,
                                     dtype):
-    _check_layer(request.getfixturevalue(mesh), f"{mode}/{backend}/{dtype}",
-                 oracle[dtype], dtype)
+    ranks = request.getfixturevalue(mesh)
+    ranks = ranks["ranks"] if mesh == "flat12" else ranks
+    _check_layer(ranks, f"{mode}/{backend}/{dtype}", oracle[dtype], dtype)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -316,13 +370,26 @@ def _same_metrics(ranks, name):
         assert res[name]["metrics"] == ranks[0][name]["metrics"]
 
 
+def _want_mode(mode: str, tokens: int) -> str:
+    """The mode a step on the 2 x 2 mesh runs: a forced one, or the one
+    the port's cost model gives ``auto`` at the per-rank slab."""
+    if mode != "auto":
+        return mode
+    from repro_torch.roofline import select_moe_parallel
+    return select_moe_parallel(torch_config(MOE_CFG),
+                               _FakeMesh(data=2, model=2), tokens).mode
+
+
 @pytest.mark.parametrize("mode", TRAIN_MODES)
 def test_sharded_train_step_matches_reference(tp, flat22, jtrain, mode):
+    """The FSDP step (each rank holding its blocks of the parameters and
+    moments) against the reference's single-device step, at the
+    reference's tolerances (tests/test_sharding.py:264-270)."""
     ref = jtrain["train"]
     want = _port_tree(tp, ref["p1"])
     for r, res in enumerate(flat22):
         got = res[f"train/{mode}"]
-        assert got["mode"] == mode
+        assert got["mode"] == _want_mode(mode, 4 * 32)
         np.testing.assert_allclose(got["metrics"]["loss"],
                                    ref["metrics"]["loss"], rtol=5e-4,
                                    err_msg=f"rank {r}")
@@ -333,7 +400,7 @@ def test_sharded_train_step_matches_reference(tp, flat22, jtrain, mode):
 
 
 @pytest.mark.parametrize("mode", TRAIN_MODES + ("ep_a2a/paper",
-                                                 "ep_a2a/mb2"))
+                                                 "ep_a2a/mb2", "ep/full"))
 def test_sharded_train_step_gradients_match_reference(tp, flat22, jtrain,
                                                       mode):
     ref = jtrain["train_noaux_mb2" if mode.endswith("/mb2")
@@ -347,8 +414,11 @@ def test_sharded_train_step_gradients_match_reference(tp, flat22, jtrain,
 
     for r, res in enumerate(flat22):
         got = res[f"train_noaux/{mode}"]
-        assert got["plan"] == ("paper" if mode.endswith("/paper")
-                               else "none")
+        assert got["plan"] == {"paper": "paper", "full": "full"}.get(
+            mode.split("/")[-1], "none")
+        assert got["mode"] == _want_mode(mode.split("/")[0],
+                                         (2 if mode.endswith("/mb2")
+                                          else 4) * 32)
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(got["metrics"][k], ref["metrics"][k],
                                        rtol=1e-5, err_msg=f"{k} rank {r}")
@@ -389,12 +459,17 @@ def test_validation_errors(tp):
     with pytest.raises(ValueError, match="tokens/device"):
         moe_sublayer(tp.torch.zeros(2, 15, D), {},
                      cfg.replace(moe_parallel="ep_a2a"), mesh=flat)
-    with pytest.raises(NotImplementedError, match="roofline"):
-        resolve_moe_parallel(cfg, flat)
+    # auto never raises: it falls back to tp for an awkward expert count
+    assert resolve_moe_parallel(bad.replace(moe_parallel="auto"),
+                                flat) == "tp"
+    assert resolve_moe_parallel(cfg, flat) in ("ep", "ep_a2a", "tp")
     assert resolve_moe_parallel(cfg, None) == "single"
+    # the engine validates the pairing at construction, after turning
+    # ep_a2a into ep (tests/test_sharding.py:151-165)
     from repro_torch.serve.engine import ServeEngine
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ServeEngine(cfg, {}, device="cpu", mesh=flat)
+    with pytest.raises(ValueError, match="divisible"):
+        ServeEngine(bad.replace(moe_parallel="ep_a2a"), {}, device="cpu",
+                    mesh=flat)
 
 
 def test_init_distributed_backend_choice(tp, monkeypatch):
@@ -417,3 +492,160 @@ def test_init_distributed_backend_choice(tp, monkeypatch):
     with pytest.raises(RuntimeError, match="NCCL needs a card per rank"):
         MESH.init_distributed(backend="nccl")
     assert not torch.distributed.is_initialized()
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [x for k in tree for x in _leaves(tree[k])]
+    if isinstance(tree, list):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def _spec_shapes(cfg, mode):
+    """Leaf path -> the block shape ``param_specs`` gives a rank of the
+    2 x 2 mesh under ``mode``."""
+    from repro_torch import sharding as SH
+    from repro_torch.interop import param_shapes
+    mesh = _FakeMesh(data=2, model=2)
+    shapes = param_shapes(cfg)
+    specs = SH.param_specs(shapes, mesh, fsdp=True, moe_parallel=mode)
+    out = {}
+    for path, shape in torch_dist_worker._paths(shapes).items():
+        spec = SH._at(specs, path.split("/"))
+        out[path] = tuple(n // (mesh.axis_size(ax) if ax else 1)
+                          for n, ax in zip(shape, spec))
+    return out
+
+
+@pytest.mark.parametrize("case", ["train/ep", "train/tp", "train/auto",
+                                  "odd/auto"])
+def test_fsdp_blocks_have_the_spec_shapes(tp, flat22, case):
+    """Each rank holds exactly its blocks under ``param_specs(...,
+    fsdp=True, moe_parallel=<the step's mode>)``: a quarter of a leaf split
+    over both axes, half of one split over one, the whole of a dimension
+    that divides over no axis (the odd vocabulary's rows)."""
+    jcfg = MOE_CFG.replace(**ODD) if case.startswith("odd") else MOE_CFG
+    cfg = torch_config(jcfg)
+    for r, res in enumerate(flat22):
+        got = res[case]
+        want = _spec_shapes(cfg, got["mode"])
+        assert got["shapes"] == want, f"rank {r}"
+    whole = dict(torch_dist_worker._paths(
+        __import__("repro_torch.interop", fromlist=["x"]).param_shapes(cfg)))
+    mine = flat22[0][case]["shapes"]
+    split = [k for k in mine if mine[k] != whole[k]]
+    assert "layers/0/attn/wq" in split and "embed" in split
+    if case.startswith("odd"):
+        # (127, 64): the rows divide over no axis, the columns over 'data'
+        assert mine["embed"] == (127, 32)
+        assert mine["unembed"] == (32, 127)
+    held = sum(np.prod(v) for v in mine.values())
+    assert held < 0.4 * sum(np.prod(v) for v in whole.values())
+
+
+def test_replicated_blocks_bit_equal_after_three_steps(flat22):
+    """Three FSDP steps on the odd-vocabulary config under ``auto``: every
+    two ranks that hold the same block of a leaf (the same coordinates on
+    the axes it is split over; every rank for a whole leaf) hold it bit for
+    bit, and every rank reports the same metrics."""
+    from repro_torch import sharding as SH
+    cfg = torch_config(MOE_CFG.replace(**ODD))
+    from repro_torch.interop import param_shapes
+    mesh = _FakeMesh(data=2, model=2)
+    mode = flat22[0]["odd/auto"]["mode"]
+    specs = SH.param_specs(param_shapes(cfg), mesh, fsdp=True,
+                           moe_parallel=mode)
+    checked = 0
+    for path, a in flat22[0]["odd/auto"]["local"].items():
+        spec = SH._at(specs, path.split("/"))
+        axes = {x for ax in spec if ax for x in
+                (ax if isinstance(ax, tuple) else (ax,))}
+        groups = {}
+        for res in flat22:
+            got = res["odd/auto"]
+            key = tuple(got["coords"][x] for x in sorted(axes))
+            groups.setdefault(key, []).append(got["local"][path])
+        for blocks in groups.values():
+            for b in blocks[1:]:
+                assert np.array_equal(b, blocks[0]), path
+                checked += 1
+    assert checked > 0
+    _same_metrics(flat22, "odd/auto")
+
+
+def test_checkpoint_under_a_mesh_round_trips(tp, flat12, jtrain):
+    """Saved under the (1, 2) mesh, a checkpoint restores without a mesh
+    to the tree the ranks gather, exactly; a checkpoint written without a
+    mesh restores under it to the tree written, exactly."""
+    from repro_torch.train.checkpointing import restore_checkpoint
+    from repro_torch.train.optimizer import init_adamw, tree_leaves
+    ranks = flat12["ranks"]
+    tmpl = _port_tree(tp, jtrain["params"])
+    step, p, o = restore_checkpoint(str(flat12["work"] / "ck_out"), tmpl,
+                                    init_adamw(tmpl))
+    assert step == 1 and o.step == 1
+    for r, res in enumerate(ranks):
+        saved = res["ckpt"]["saved"]
+        assert saved["step"] == 1
+        for a, b in zip(tree_leaves(p), _leaves(saved["params"])):
+            assert np.array_equal(a.numpy(), b), f"params rank {r}"
+        for name, got in (("mu", o.mu), ("nu", o.nu)):
+            for a, b in zip(got, _leaves(saved[name])):
+                assert np.array_equal(a.numpy(), b), f"{name} rank {r}"
+        back = res["ckpt"]["restored"]
+        written = flat12["written"]
+        assert back["step"] == written["step"]
+        for name in ("params", "mu", "nu"):
+            for a, b in zip(_leaves(back[name]), written[name]):
+                assert np.array_equal(a, b), f"restored {name} rank {r}"
+    assert ranks[0]["ckpt"]["shapes"]["layers/0/moe/w1"][0] * 2 == \
+        MOE_CFG.num_experts or ranks[0]["ckpt"]["shapes"][
+            "layers/0/moe/w1"][2] * 2 == MOE_CFG.moe_d_ff
+
+
+@pytest.fixture(scope="module")
+def greedy_ref(jtrain):
+    """The reference model's greedy continuation of the serving prompts
+    (float32, the same weights)."""
+    from torch_parity import greedy_continuation
+    params = jax.tree.map(jnp.asarray, jtrain["params"])
+    return greedy_continuation(params, MOE_CFG, SERVE_PROMPTS, SERVE_NEW,
+                               SERVE_CAPACITY)
+
+
+@pytest.mark.parametrize("mode", SERVE_MODES)
+def test_serve_engine_under_a_mesh(flat12, greedy_ref, mode):
+    """``ServeEngine(mesh=...)`` on the (1, 2) mesh: every rank's greedy
+    float32 tokens equal the reference model's greedy continuation of the
+    same weights (the port's engines are held to it, not to the
+    reference engine's run-to-run tokens: ROADMAP.md §C); ``ep_a2a``
+    serves as ``ep`` (tests/test_sharding.py:168), ``auto`` stays ``auto``
+    and resolves per slab (``ep`` at the decode slab of 4 rows, ``tp`` at
+    the prefill slabs of 16 rows and more: the engine lays the experts
+    out for both); the experts are split over 'model'."""
+    want_mode = {"ep_a2a": "ep"}.get(mode, mode)
+    for r, res in enumerate(flat12["ranks"]):
+        got = res[f"serve/{mode}"]
+        assert got["mode"] == want_mode, f"rank {r}"
+        assert got["layouts"] == (["ep", "tp"] if mode == "auto"
+                                  else ["ep"]), f"rank {r}"
+        assert got["w1"] == (MOE_CFG.num_experts // 2, MOE_CFG.d_model,
+                             MOE_CFG.moe_d_ff)
+        assert got["tokens"] == [list(t) for t in greedy_ref], f"rank {r}"
+
+
+def test_fsdp_forward_holds_no_gathered_leaf(flat12):
+    """Under every plan the FSDP forward's graph holds exactly what the
+    same forward holds with the dense leaves whole and no gather: inside a
+    checkpoint region (``"none"``) the recompute gathers a layer's leaves
+    again, and outside one (the head, and every layer under ``"full"``)
+    autograd saves a gathered leaf as its shard and the backward gathers
+    it again (``collectives.regather_saved``).  The gathered leaves are
+    not empty: the layers' and the head's whole values are larger than
+    the rank's blocks."""
+    for r, res in enumerate(flat12["ranks"]):
+        held = res["held"]
+        assert held["gathered"] > 0 and held["head"] > 0, (r, held)
+        for plan in ("none", "full"):
+            assert held[plan]["fsdp"] == held[plan]["whole"], (r, plan, held)

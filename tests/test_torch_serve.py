@@ -146,14 +146,21 @@ def test_engine_without_device_needs_cuda(tp, params, monkeypatch):
 
 
 def test_engine_refuses_unported_options(tp, params):
-    """Only serving over a mesh still refuses as not ported; an SSM block
-    pattern is refused with the reference engine's ValueError (it pages
-    attention KV only); the options ported since (sampling, prefix
+    """No serving option still refuses as not ported: a mesh is taken, and
+    a pairing of mode and mesh that cannot run is refused at construction
+    with the reference engine's ValueError (tests/test_sharding.py:151:
+    ``ep_a2a``, served as ``ep``, with 4 experts over 3 ranks); an SSM
+    block pattern is refused with the reference engine's ValueError (it
+    pages attention KV only); the options ported since (sampling, prefix
     sharing, the paged kernel choice, a per-request backend) are
     accepted."""
+    from types import SimpleNamespace
     ServeEngine, Request = tp.engine.ServeEngine, tp.engine.Request
-    with pytest.raises(NotImplementedError, match="§A item 6"):
-        ServeEngine(TCFG, params[1], device="cpu", mesh=object())
+    mesh = SimpleNamespace(shape={"data": 1, "model": 3},
+                           axis_names=("data", "model"))
+    with pytest.raises(ValueError, match="divisible"):
+        ServeEngine(TCFG.replace(moe_parallel="ep_a2a"), params[1],
+                    device="cpu", mesh=mesh)
     with pytest.raises(ValueError, match="T.decode_step"):
         ServeEngine(TCFG.replace(block_pattern=("mlstm",)), params[1],
                     device="cpu")

@@ -69,15 +69,35 @@ def layer_case(mesh, case: dict) -> dict:
     if dp:
         for g in gp.values():
             all_reduce_(g, mesh.group(dp))
-    whole = SH.gather_params({"moe": gp}, mesh, cfg.moe_parallel)["moe"]
+    whole = SH.gather_params({"moe": gp}, mesh, SH.moe_specs(
+        {"moe": gp}, mesh, cfg.moe_parallel))["moe"]
     return {"lo": lo, "y": _np(y), "dx": _np(grads[0]),
             "grads": {k: _np(v) for k, v in whole.items()},
             "aux": float(aux), "overflow": float(stats["a2a_overflow"])}
 
 
+def _paths(tree, prefix=""):
+    """Leaf path -> leaf."""
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _paths(v, f"{prefix}{k}/").items()}
+    if isinstance(tree, list):
+        return {k2: v2 for i, v in enumerate(tree)
+                for k2, v2 in _paths(v, f"{prefix}{i}/").items()}
+    return {prefix.rstrip("/"): tree}
+
+
+def _moments(local, opt):
+    mu, nu = iter(opt.mu), iter(opt.nu)
+    return (_tree(local, lambda _: next(mu)), _tree(local, lambda _: next(nu)))
+
+
 def train_case(mesh, case: dict) -> dict:
-    """One sharded training step from the whole parameters; returns the
-    metrics and the updated parameters gathered whole."""
+    """``case["steps"]`` (default 1) FSDP training steps from the whole
+    parameters, each rank holding its blocks under the step's
+    ``param_specs``; returns the first step's metrics, the parameters and
+    first moments gathered whole, and this rank's blocks (their shapes,
+    with ``local`` the blocks themselves and the rank's coordinates)."""
     import torch
 
     from repro_torch import sharding as SH
@@ -91,18 +111,128 @@ def train_case(mesh, case: dict) -> dict:
     params = params_from_jax(case["params"], cfg, device="cpu",
                              dtype=torch.float32)
     step = make_train_step(cfg, tcfg, "cpu", mesh=mesh)
-    local = SH.local_params(params, mesh, step.moe_parallel)
-    local, opt, m = step(local, init_adamw(local), case["batch"])
-    mu = iter(opt.mu)
-    mu = _tree(local, lambda _: next(mu))
-    gather = lambda t: _tree(SH.gather_params(t, mesh, step.moe_parallel),
+    local = SH.shard_params(params, mesh, step.param_specs)
+    opt = init_adamw(local)
+    first = None
+    for _ in range(case.get("steps", 1)):
+        local, opt, m = step(local, opt, case["batch"])
+        first = first or {k: float(v) for k, v in m.items()}
+    mu, _ = _moments(local, opt)
+    gather = lambda t: _tree(SH.gather_params(t, mesh, step.param_specs),
                              _np)
-    return {"metrics": {k: float(v) for k, v in m.items()},
-            "params": gather(local), "mu": gather(mu),
-            "mode": step.moe_parallel, "plan": step.resolved_plan.spec}
+    out = {"metrics": first, "params": gather(local), "mu": gather(mu),
+           "mode": step.moe_parallel, "plan": step.resolved_plan.spec,
+           "shapes": {k: tuple(v.shape) for k, v in _paths(local).items()}}
+    if case.get("local"):
+        out["local"] = {k: v.detach().numpy().copy()
+                        for k, v in _paths(local).items()}
+        out["coords"] = {a: mesh.axis_index(a) for a in mesh.axis_names}
+    return out
 
 
-CASES = {"layer": layer_case, "train": train_case}
+def ckpt_case(mesh, case: dict) -> dict:
+    """A checkpoint under the mesh both ways: one FSDP step, saved under
+    the mesh to ``case["out"]`` (returned gathered whole); and the whole
+    checkpoint at ``case["in"]`` restored under the mesh (returned
+    gathered whole)."""
+    import torch
+
+    from repro_torch import sharding as SH
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.interop import params_from_jax
+    from repro_torch.train.checkpointing import (restore_checkpoint,
+                                                 save_checkpoint)
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+
+    cfg = ModelConfig(**case["cfg"])
+    params = params_from_jax(case["params"], cfg, device="cpu",
+                             dtype=torch.float32)
+    step = make_train_step(cfg, TrainConfig(**case["tcfg"]), "cpu",
+                           mesh=mesh)
+    specs = step.param_specs
+    local = SH.shard_params(params, mesh, specs)
+    local, opt, _ = step(local, init_adamw(local), case["batch"])
+    save_checkpoint(case["out"], 1, local, opt, mesh=mesh, specs=specs)
+
+    def whole(p, o):
+        mu, nu = _moments(p, o)
+        g = lambda t: _tree(SH.gather_params(t, mesh, specs), _np)
+        return {"params": g(p), "mu": g(mu), "nu": g(nu), "step": o.step}
+
+    tmpl = SH.shard_params(params, mesh, specs)
+    _, rp, ro = restore_checkpoint(case["in"], tmpl, init_adamw(tmpl),
+                                   mesh=mesh, specs=specs)
+    return {"saved": whole(local, opt), "restored": whole(rp, ro),
+            "shapes": {k: tuple(v.shape) for k, v in _paths(rp).items()}}
+
+
+def serve_case(mesh, case: dict) -> dict:
+    """``ServeEngine(mesh=...)`` on the whole weights: greedy tokens of
+    every request, the engine's mode, the expert layouts it made and this
+    rank's expert shard."""
+    from repro_torch.configs.base import ModelConfig
+    from repro_torch.interop import params_from_jax
+    from repro_torch.serve.engine import Request, ServeEngine
+
+    cfg = ModelConfig(**case["cfg"])
+    params = params_from_jax(case["params"], cfg, device="cpu")
+    eng = ServeEngine(cfg, params, device="cpu", mesh=mesh,
+                      batch_slots=case["slots"], capacity=case["capacity"],
+                      page_size=8)
+    reqs = [Request(prompt=np.asarray(p, np.int32),
+                    max_new_tokens=case["max_new"], eos_id=-1)
+            for p in case["prompts"]]
+    eng.generate(reqs)
+    return {"tokens": [list(r.out_tokens) for r in reqs],
+            "mode": eng.cfg.moe_parallel, "layouts": sorted(eng._layouts),
+            "w1": tuple(eng.params["layers"][0]["moe"]["w1"].shape)}
+
+
+def held_case(mesh, case: dict) -> dict:
+    """Bytes the training forward's graph holds for its backward, with the
+    FSDP gathers and with every dense leaf whole (the serving layout, no
+    gather), under the checkpoint plans ``"none"`` and ``"full"``; the
+    bytes of the whole values of the layers' leaves the FSDP forward
+    gathers, and of the head's (``unembed``)."""
+    import torch
+
+    from repro_torch import sharding as SH
+    from repro_torch.compat import saved_residual_nbytes
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.interop import params_from_jax
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import batch_to_device, make_train_step
+
+    out = {}
+    for plan in ("none", "full"):
+        cfg = ModelConfig(**case["cfg"]).replace(remat_policy=plan)
+        params = params_from_jax(case["params"], cfg, device="cpu",
+                                 dtype=torch.float32)
+        step = make_train_step(cfg, TrainConfig(**case["tcfg"]), "cpu",
+                               mesh=mesh)
+        local = SH.shard_params(params, mesh, step.param_specs)
+        whole = SH.local_params(params, mesh, step.moe_parallel)
+        batch = batch_to_device(case["batch"], "cpu")
+        fsdp = SH.FSDP(mesh, step.param_specs, (), torch.float32)
+        for tree in (local, whole):
+            for t in _paths(tree).values():
+                t.requires_grad_(True)
+        loss = lambda p, f: T.train_loss(p, batch, cfg, mesh=mesh,
+                                         dp_axes=(), fsdp=f)[0]
+        out[plan] = {"fsdp": saved_residual_nbytes(loss, local, fsdp),
+                     "whole": saved_residual_nbytes(loss, whole, None)}
+    extra = {k: w.numel() * w.element_size() if w.numel() != b.numel()
+             else 0 for (k, w), b in zip(_paths(whole).items(),
+                                         _paths(local).values())}
+    out["gathered"] = sum(v for k, v in extra.items()
+                          if k.startswith("layers/"))
+    out["head"] = extra["unembed"]
+    return out
+
+
+CASES = {"layer": layer_case, "train": train_case, "ckpt": ckpt_case,
+         "serve": serve_case, "held": held_case}
 
 
 def run(rank: int, world: int, workdir: str) -> None:
