@@ -337,7 +337,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ranks (data=1, model=2), ``ep`` and ``ep_a2a`` (served as ``ep``), 8
    greedy requests over bf16 pages, each rank's tokens held to this
    process's engine without a mesh (C7's rule), each rank launching paged
-   attention, the dispatch build, gather-GMM and combine; tokens/s a rank.
+   attention, the dispatch build, gather-GMM and combine; tokens/s a rank;
+50. the dry run (``launch/dryrun.py``: the step traced on fake CUDA
+   tensors through the kernel wrappers, which launch nothing, and
+   shape-only collectives): phase 7's step (peak within 10% of its
+   measured peak, launches per kernel equal), phase 47's rank 0 on both
+   meshes (parameter and moment bytes equal to its blocks, peak within
+   10%, collectives per kind equal to rank 0's step 1), and ``run_one``
+   for Mixtral-8x7B and Qwen3-30B-A3B x ``train_4k`` on the production
+   mesh (16, 16), in processes of their own started after the build.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -348,6 +356,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import shutil
 import statistics
 import subprocess
 import sys
@@ -624,6 +633,9 @@ def main() -> int:
     _lib.lib()
     log(f"build: {_lib.build_info['seconds']:.1f} s "
         f"(cached={_lib.build_info['cached']}) -> {_lib.build_info['path']}")
+    # phase 50 (c)'s traces start now, on the host's spare cores
+    dry_work = Path(tempfile.mkdtemp(dir=ROOT / "build"))
+    dry_procs = dryrun_start(dry_work)
 
     # -- model and weights (used by every later phase) ----------------------
     cfg = get_config("mixtral-8x7b").replace(
@@ -1395,6 +1407,11 @@ def main() -> int:
     meshrec = mesh_phases(M, dev, auto)
     torch.cuda.empty_cache()
 
+    mark("50")
+    # -- 50. the dry run, held to phases 7 and 47, and on (16, 16) ---------
+    dryrec = dryrun_phase(dev, train, cfg_train, meshrec, dry_procs)
+    shutil.rmtree(dry_work)
+
     # -- report ---------------------------------------------------------------
     sources = {
         "build_dispatch": ("src/repro_torch/csrc/dispatch.cu",
@@ -1468,6 +1485,8 @@ def main() -> int:
             **{f"launches_mesh_serve_{md}": [
                 r_.get(name, 0) for r_ in rec_["launches"]]
                for md, rec_ in meshrec["serve"].items()},
+            "launches_dryrun_train": dryrec["train"]["launches"].get(
+                name, 0),
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -1506,6 +1525,7 @@ def main() -> int:
     log(f"multi-rank-record: {json.dumps(multi)}")
     log(f"auto-record: {json.dumps(auto)}")
     log(f"mesh-record: {json.dumps(meshrec)}")
+    log(f"dryrun-record: {json.dumps(dryrec)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
                          ("blaze+pallas_fused", train_fused, xcheck_fused),
                          ("ep_a2a", train_a2a, None),
@@ -1769,6 +1789,8 @@ def mesh_phases(M, dev, auto, base=None, seq: int = TRAIN_SEQ) -> dict:
                    "metrics": [res["metrics"] for res in ranks],
                    "replica_pairs_equal": same,
                    "launches": [res["launches"] for res in ranks],
+                   "peak_step1_bytes": [res["peak_step1"] for res in ranks],
+                   "collectives": [res["collectives"] for res in ranks],
                    "transport": ranks[0]["transport"]}
             for r, res in enumerate(ranks):
                 log(f"{tag} rank {r}: mode {mode_run}, holds "
@@ -1904,6 +1926,7 @@ def _mesh_rank_main(rank: int, world: int, workdir: str) -> None:
 def _mesh_train_rank(mesh, dev, job) -> dict:
     import torch.distributed as dist
     from repro_torch import kernels as K
+    from repro_torch.core import collectives as CL
     from repro_torch import sharding as SH
     from repro_torch.interop import init_params
     from repro_torch.train.checkpointing import restore_checkpoint
@@ -1941,7 +1964,14 @@ def _mesh_train_rank(mesh, dev, job) -> dict:
 
     ck = None
     for i in range(job["steps"]):
-        local, opt, m, secs = run(local, opt)
+        with CL.recording() as coll:
+            local, opt, m, secs = run(local, opt)
+        if i == 0:
+            # what phase 50's dry run of this step is held to
+            out["collectives"] = {"counts": coll.counts(),
+                                  "bytes": coll.bytes_by_kind()}
+            out["peak_step1"] = _on_card(
+                dev, torch.cuda.max_memory_allocated) - base
         out["metrics"].append(m)
         out["step_s"].append(secs)
         if i == 0:
@@ -2133,6 +2163,158 @@ def _mesh_serve_rank(mesh, dev, job) -> dict:
             "local_w1": tuple(eng.params["layers"][0]["moe"]["w1"].shape)}
         del eng
         _on_card(dev, torch.cuda.empty_cache)
+    return out
+
+
+# -- phase 50: the dry run, held to the card -------------------------------
+
+# a predicted peak within this share of the measured one
+DRYRUN_PEAK_TOL = 0.10
+# (c): launch.dryrun on the production mesh (16, 16), a process each
+DRYRUN_PROD = (("mixtral_8x7b", "train_4k"), ("qwen3_moe_30b_a3b", "train_4k"))
+# what phase 50 waits for them beyond (a) and (b)
+DRYRUN_PROD_WAIT = 300
+
+
+def dryrun_start(work: Path) -> list:
+    """Start phase 50 (c): ``python -m repro_torch.launch.dryrun`` for each
+    pair of DRYRUN_PROD (rank 0 of (16, 16) on fake CUDA tensors), in
+    processes of their own at a lower priority, each writing its record
+    to ``work``.  A trace takes one host core for minutes and touches no
+    device memory, so the smoke starts them after the build and collects
+    them in phase 50; they are killed when this process exits."""
+    import atexit
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape in DRYRUN_PROD:
+        out = work / f"{arch}.{shape}.jsonl"
+        err = open(work / f"{arch}.{shape}.log", "w")
+        procs.append((arch, shape, out, err, subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", str(out)], env=env,
+            stdout=err, stderr=subprocess.STDOUT, cwd=str(ROOT),
+            preexec_fn=lambda: os.nice(10))))
+    atexit.register(dryrun_stop, procs)
+    return procs
+
+
+def dryrun_stop(procs) -> None:
+    """Kill phase 50 (c)'s processes that still run."""
+    for *_, err, proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        err.close()
+
+
+def _dry_vs(tag, dry, peak, launches=None, coll=None, held=None,
+            batch_bytes=0) -> dict:
+    """Hold one dry-run trace (``train.loop.compiled_step_memory``) to a
+    measured step: its peak within DRYRUN_PEAK_TOL of ``peak``, its
+    launches per kernel equal to ``launches``, its collectives per kind
+    equal to ``coll``, its held bytes (arguments less the batch) equal to
+    ``held``."""
+    got_l = {k_: v["launches"] for k_, v in dry["kernels"].items()}
+    err = abs(dry["peak_bytes"] - peak) / peak
+    log(f"dryrun {tag}: predicted peak {dry['peak_bytes'] / 2 ** 30:.3f} "
+        f"GiB (arg {dry['arg_bytes'] / 2 ** 30:.3f}, temp "
+        f"{dry['temp_bytes'] / 2 ** 30:.3f}, alias "
+        f"{dry['alias_bytes'] / 2 ** 30:.3f}), measured "
+        f"{peak / 2 ** 30:.3f} GiB ({100 * err:.2f}% off); launches "
+        f"{got_l}; collectives {dry['collective_counts']} "
+        f"{dry['collective_bytes_by_kind']}; {dry['flops']:.4e} FLOP, "
+        f"{dry['bytes_accessed']:.4e} B accessed; traced in "
+        f"{dry['trace_s']:.1f} s")
+    check(err <= DRYRUN_PEAK_TOL, f"dryrun {tag}: predicted peak "
+          f"{dry['peak_bytes']} B is {100 * err:.2f}% off the measured "
+          f"{peak} B")
+    if launches is not None:
+        want = {k_: int(v) for k_, v in launches.items() if v}
+        check(got_l == want, f"dryrun {tag}: launches {got_l}, the step "
+              f"launched {want}")
+    if coll is not None:
+        check(dry["collective_counts"] == coll["counts"]
+              and dry["collective_bytes_by_kind"] == coll["bytes"],
+              f"dryrun {tag}: collectives {dry['collective_counts']} "
+              f"{dry['collective_bytes_by_kind']}, rank 0 called {coll}")
+    if held is not None:
+        got = dry["arg_bytes"] - batch_bytes
+        log(f"dryrun {tag}: holds {got} B of parameters and moments, "
+            f"its blocks are {held} B")
+        check(got == held, f"dryrun {tag}: holds {got} B, its blocks are "
+              f"{held} B")
+    return {"peak_pred": dry["peak_bytes"], "peak_meas": peak,
+            "peak_err": err, **{k_: v for k_, v in dry.items()
+                                if k_ != "kernels"},
+            "launches": got_l}
+
+
+def dryrun_phase(dev, train, train_cfg, meshrec, procs) -> dict:
+    """Phase 50: the dry run (``launch/dryrun.py``: fake CUDA tensors
+    through the kernel wrappers, shape-only collectives) held to what the
+    card measured.
+
+    (a) ``compiled_step_memory`` of phase 7's step: its peak within
+        DRYRUN_PEAK_TOL of phase 7's ``max_memory_allocated``, its
+        launches per kernel equal to the warm steps' per step;
+    (b) the same on ``DryMesh`` rank 0 of phase 47's (2, 1) and (2, 2)
+        meshes: its parameter and moment bytes equal to ``_block_bytes``,
+        its peak within DRYRUN_PEAK_TOL of rank 0's step-1 peak, its
+        collectives per kind equal to what rank 0 called in step 1;
+    (c) ``run_one`` on (16, 16) for DRYRUN_PROD, started by
+        :func:`dryrun_start` after the build: a one-line summary each,
+        status OK.
+    Kills (c)'s processes if anything fails."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.mesh import DryMesh
+    from repro_torch.train.loop import compiled_step_memory
+    tcfg = TrainConfig(learning_rate=1e-4, warmup_steps=2, total_steps=100,
+                       batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ, seed=0)
+    out = {"train": {}, "mesh": {}, "production": {}}
+    try:
+        dry = compiled_step_memory(train_cfg, tcfg, device=dev)
+        out["train"] = _dry_vs(
+            "[phase 7's step, blaze_pallas, 2 layers]", dry,
+            train["peak_bytes"], launches=train["launches_per_step"])
+        for label, sizes, names, mode, layers in MESH_TRAIN:
+            cfg = train_cfg.replace(num_layers=layers, moe_parallel=mode)
+            rec = meshrec["train"][label]
+            shape = dict(zip(names, sizes))
+            mesh = DryMesh(sizes, names, rank=0)
+            dry = compiled_step_memory(cfg, tcfg, mesh=mesh, device=dev)
+            n_dp = int(np.prod([shape[a] for a in names if a == "data"]))
+            out["mesh"][label] = _dry_vs(
+                f"[phase 47 {label}: {shape}, rank 0]", dry,
+                rec["peak_step1_bytes"][0], launches=rec["launches"][0],
+                coll=rec["collectives"][0],
+                held=_block_bytes(cfg, shape, rec["mode"]),
+                batch_bytes=2 * 4 * TRAIN_BATCH // n_dp * TRAIN_SEQ)
+        t0 = time.perf_counter()
+        for arch, shape, path, err, proc in procs:
+            left = DRYRUN_PROD_WAIT - (time.perf_counter() - t0)
+            rc = proc.wait(timeout=max(left, 1))
+            err.close()
+            check(rc == 0, f"dryrun [{arch} x {shape} x 16x16]: exit "
+                  f"{rc}: {Path(err.name).read_text()[-2000:]}")
+            r = json.loads(path.read_text().splitlines()[-1])
+            check(r["status"] == "OK", f"dryrun [{arch} x {shape}]: "
+                  f"{r['status']}")
+            log(f"dryrun [{arch} x {shape} x {r['mesh']}, rank 0, fake "
+                f"CUDA]: moe_parallel {r.get('moe_parallel')}, plan "
+                f"{r['remat_plan']}, peak {r['peak_bytes'] / 2 ** 30:.3f} "
+                f"GiB (arg {r['arg_bytes'] / 2 ** 30:.3f}, temp "
+                f"{r['temp_bytes'] / 2 ** 30:.3f}), fits {r['fits_hbm']}, "
+                f"simulated {r['peak_sim_bytes'] / 2 ** 30:.3f} GiB; "
+                f"{r['flops_per_dev']:.4e} FLOP/dev, "
+                f"{r['collective_bytes'] / 2 ** 20:.1f} MiB of collectives "
+                f"{r['collective_counts']}; t compute "
+                f"{r['t_compute_s']:.4f} s, memory {r['t_memory_s']:.4f} "
+                f"s, collective {r['t_collective_s']:.4f} s: "
+                f"{r['dominant']}; traced in {r['trace_s']} s")
+            out["production"][f"{arch} x {shape}"] = r
+    finally:
+        dryrun_stop(procs)
     return out
 
 

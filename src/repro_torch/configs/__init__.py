@@ -14,7 +14,8 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import (INPUT_SHAPES, InputShape, ModelConfig,
+                                      TrainConfig)
 from repro_torch.configs.paper_tables import PAPER_CONFS
 
 ARCH_IDS = ["yi_6b", "qwen3_moe_30b_a3b", "xlstm_1_3b", "deepseek_coder_33b",
@@ -36,4 +37,4 @@ def get_config(arch_id: str) -> ModelConfig:
 
 
 __all__ = ["get_config", "ARCH_IDS", "ModelConfig", "TrainConfig",
-           "PAPER_CONFS"]
+           "PAPER_CONFS", "InputShape", "INPUT_SHAPES"]

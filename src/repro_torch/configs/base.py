@@ -6,7 +6,10 @@ and defaults, so that a reference config converts field for field:
 ``checkpoint_plan`` and ``resolved_save_yswi`` read the plan through the
 port's ``core/checkpoint.py``.  :class:`TrainConfig` is the reference's
 training config; its checkpoint directory has no default (the reference
-writes under ``/tmp``), so saving needs one named.
+writes under ``/tmp``), so saving needs one named.  :class:`InputShape`
+and :data:`INPUT_SHAPES` are the reference's four workload shapes
+(``repro/configs/base.py:157-170``), which the dry run
+(``launch/dryrun.py``) traces every architecture at.
 """
 
 from __future__ import annotations
@@ -138,6 +141,26 @@ class ModelConfig:
         if self.num_image_tokens:
             kw.update(num_image_tokens=16)
         return self.replace(**kw)
+
+
+@dataclass(frozen=True)
+class InputShape:
+    """A workload shape: ``seq_len`` positions for each of
+    ``global_batch`` rows, of ``kind`` train, prefill or decode (a decode
+    shape is one new token a row over a ``seq_len`` cache)."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                            # train | prefill | decode
+
+
+INPUT_SHAPES = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
 
 
 @dataclass(frozen=True)

@@ -36,20 +36,130 @@ order (so a sum is the same bits on every rank), and all wait until every
 read is done before one of them may write its own again.  Otherwise a
 CUDA tensor is copied to host memory, exchanged there by gloo and copied
 back.
+
+Over a :class:`ShapeGroup` (the groups of a ``launch.mesh.DryMesh``)
+every function returns a tensor of its result's shape and moves nothing:
+the dry run (``launch/dryrun.py``) traces a rank's step that way.
+
+:func:`recording` counts the collectives called inside it, real or
+shape-only, under the reference's kind names (``all-gather``,
+``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+``collective-permute``; ``gather`` for :func:`gather_to_rank0`, which has
+no counterpart there): each call's kind, its result's bytes (the
+reference's convention, ``repro/roofline.py:49-54``) and the mesh axes of
+its group.  The transport's own messages (handle exchanges, barriers) are
+not counted.
 """
 
 from __future__ import annotations
 
+import contextlib
 import socket
+import weakref
+from dataclasses import dataclass, field
 
 import torch
 import torch.distributed as dist
 
 
+@dataclass(frozen=True)
+class ShapeGroup:
+    """A group with no processes: the ``size`` ranks over mesh ``axes``
+    of which this rank is number ``rank``."""
+
+    axes: tuple
+    size: int
+    rank: int
+
+
+def group_size(group) -> int:
+    """The number of ranks of ``group`` (a process group or a
+    :class:`ShapeGroup`)."""
+    if isinstance(group, ShapeGroup):
+        return group.size
+    return dist.get_world_size(group)
+
+
+def group_rank(group) -> int:
+    """This rank's index in ``group``."""
+    if isinstance(group, ShapeGroup):
+        return group.rank
+    return dist.get_rank(group)
+
+
+#: the mesh axes of each process group a ``launch.mesh.Mesh`` made
+_GROUP_AXES: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def name_group(group, axes: tuple) -> None:
+    """Remember that ``group`` spans mesh ``axes`` (for the record)."""
+    _GROUP_AXES[group] = tuple(axes)
+
+
+def group_axes(group) -> tuple:
+    """The mesh axes ``group`` spans (``()`` for a group no mesh made)."""
+    if isinstance(group, ShapeGroup):
+        return group.axes
+    return _GROUP_AXES.get(group, ())
+
+
+@dataclass
+class Recording:
+    """The collectives called inside :func:`recording`: one ``(kind,
+    result bytes, axes)`` a call, in call order."""
+
+    calls: list = field(default_factory=list)
+
+    def counts(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for kind, _, _ in self.calls:
+            out[kind] = out.get(kind, 0) + 1
+        return out
+
+    def bytes_by_kind(self) -> dict[str, int]:
+        out: dict[str, int] = {}
+        for kind, nbytes, _ in self.calls:
+            out[kind] = out.get(kind, 0) + nbytes
+        return out
+
+    def bytes_by_axes(self) -> dict[str, int]:
+        """Result bytes by the axes of the groups (``"data,model"``)."""
+        out: dict[str, int] = {}
+        for _, nbytes, axes in self.calls:
+            key = ",".join(axes)
+            out[key] = out.get(key, 0) + nbytes
+        return out
+
+
+_RECORDINGS: list[Recording] = []
+
+
+@contextlib.contextmanager
+def recording():
+    """Count the collectives called inside (nested recordings each see
+    every call)."""
+    rec = Recording()
+    _RECORDINGS.append(rec)
+    try:
+        yield rec
+    finally:
+        _RECORDINGS.remove(rec)
+
+
+def _record(kind: str, nbytes: int, group) -> None:
+    for rec in _RECORDINGS:
+        rec.calls.append((kind, int(nbytes), group_axes(group)))
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
 def staged(t: torch.Tensor, group) -> bool:
     """True when ``t`` crosses ``group`` through host memory (a CUDA
     tensor over a gloo group)."""
-    return t.is_cuda and dist.get_backend(group) == "gloo"
+    return (not isinstance(group, ShapeGroup) and t.is_cuda
+            and dist.get_backend(group) == "gloo")
 
 
 _SAME_CARD: dict = {}
@@ -58,7 +168,9 @@ _SAME_CARD: dict = {}
 def same_card(group, device: torch.device) -> bool:
     """True when every rank of the gloo ``group`` runs on ``device``'s card
     of this host.  Asked of the group once, collectively (every rank of it
-    must call), and remembered."""
+    must call), and remembered.  False for a shape-only group."""
+    if isinstance(group, ShapeGroup):
+        return False
     key = (group, device.index)
     if key not in _SAME_CARD:
         mine = (socket.gethostname(),
@@ -111,6 +223,8 @@ def _reads_done(group) -> None:
 def transport(group, device: torch.device) -> str:
     """How tensors on ``device`` travel over ``group``, for run records
     (a collective call over ``group`` on the card)."""
+    if isinstance(group, ShapeGroup):
+        return "none (shape-only group)"
     backend = dist.get_backend(group)
     if device.type == "cuda" and backend == "gloo":
         if same_card(group, device):
@@ -122,6 +236,9 @@ def transport(group, device: torch.device) -> str:
 
 def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     """In-place sum over ``group`` (no gradient); returns ``t``."""
+    _record("all-reduce", _nbytes(t), group)
+    if isinstance(group, ShapeGroup):
+        return t
     if _ipc(t, group):
         views = _peer_views(t, group)
         acc = views[0].clone()
@@ -141,6 +258,9 @@ def all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
 
 def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
+    _record("all-to-all", _nbytes(x), group)
+    if isinstance(group, ShapeGroup):
+        return torch.empty_like(x)
     if _ipc(x, group):
         me = dist.get_rank(group)
         views = _peer_views(x, group)
@@ -188,9 +308,10 @@ class PendingAllToAll:
 
     def __init__(self, x: torch.Tensor, group):
         self.x, self.group = x.contiguous(), group
-        if staged(self.x, group):
+        if isinstance(group, ShapeGroup) or staged(self.x, group):
             self.out, self.work = _all_to_all(self.x, group), None
         else:
+            _record("all-to-all", _nbytes(self.x), group)
             self.out = torch.empty_like(self.x)
             self.work = dist.all_to_all_single(self.out, self.x, group=group,
                                                async_op=True)
@@ -233,7 +354,7 @@ def enter_replicated(x: torch.Tensor, group) -> torch.Tensor:
 class _Pmean(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
-        ctx.n = dist.get_world_size(group)
+        ctx.n = group_size(group)
         return all_reduce_(x.clone(), group) / ctx.n
 
     @staticmethod
@@ -249,8 +370,13 @@ def pmean(x: torch.Tensor, group) -> torch.Tensor:
 def all_gather_cat(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     """Concatenate every rank's ``x`` along ``dim`` in group-rank order
     (no gradient)."""
-    n = dist.get_world_size(group)
+    n = group_size(group)
     src = x.detach().contiguous()
+    shape = list(src.shape)
+    shape[dim] *= n
+    _record("all-gather", _nbytes(src) * n, group)
+    if isinstance(group, ShapeGroup):
+        return src.new_empty(shape)
     if _ipc(src, group):
         views = _peer_views(src, group)
         out = torch.cat(views, dim=dim)
@@ -334,8 +460,12 @@ def regather_saved():
 def gather_to_rank0(x: torch.Tensor, group) -> list[torch.Tensor] | None:
     """Every rank's ``x`` (the same shape on each), in group-rank order, on
     the group's rank 0 (on ``x``'s device); None on the others."""
-    me = dist.get_rank(group)
+    me = group_rank(group)
     src = x.detach().contiguous()
+    n = group_size(group)
+    _record("gather", _nbytes(src) * n, group)
+    if isinstance(group, ShapeGroup):
+        return [torch.empty_like(src) for _ in range(n)] if me == 0 else None
     if _ipc(src, group):
         views = _peer_views(src, group)
         out = [v.clone() for v in views] if me == 0 else None
@@ -343,8 +473,6 @@ def gather_to_rank0(x: torch.Tensor, group) -> list[torch.Tensor] | None:
         _reads_done(group)
         return out
     host = src.cpu()
-    parts = ([torch.empty_like(host)
-              for _ in range(dist.get_world_size(group))]
-             if me == 0 else None)
+    parts = [torch.empty_like(host) for _ in range(n)] if me == 0 else None
     dist.gather(host, parts, dst=dist.get_global_rank(group, 0), group=group)
     return None if parts is None else [p.to(x.device) for p in parts]

@@ -11,10 +11,18 @@ builds.
 Each C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :func:`check` turns a non-zero code into an
 exception.
+
+:func:`dry_run` is the dry run's context (``launch/dryrun.py``): inside
+it a wrapper checks its fake inputs and allocates its fake outputs and
+workspaces as always, then records the call (:func:`dry`) and returns
+before any ``data_ptr()``, :func:`stream_ptr` or :func:`lib` call.
+Nothing is computed and the outputs hold nothing.  Outside it a fake
+tensor that reaches a wrapper raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -22,6 +30,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from dataclasses import dataclass, field
 from pathlib import Path
 
 import torch
@@ -134,6 +143,87 @@ def build() -> Path:
     return lib_path
 
 
+@dataclass
+class DryRecord:
+    """The kernel calls of a dry run: per kernel its launches (the
+    wrapper's count), operations (``kernels/cost.py``) and bytes (every
+    input read and every output written once)."""
+
+    kernels: dict = field(default_factory=dict)
+
+    def add(self, name: str, ops: float, nbytes: int) -> None:
+        k = self.kernels.setdefault(name, {"launches": 0, "ops": 0.0,
+                                           "bytes": 0})
+        k["launches"] += 1
+        k["ops"] += float(ops)
+        k["bytes"] += int(nbytes)
+
+
+_DRY: list[DryRecord] = []
+
+#: SMs of an H100 SXM, which a dry run plans the launches for when the
+#: build it runs on has no card (``sm_count``)
+DRY_SM_COUNT = 132
+
+
+@contextlib.contextmanager
+def dry_run():
+    """Record the kernel calls made inside, on fake tensors, instead of
+    launching them; yields the :class:`DryRecord`."""
+    rec = DryRecord()
+    _DRY.append(rec)
+    try:
+        yield rec
+    finally:
+        _DRY.remove(rec)
+
+
+def is_dry() -> bool:
+    """Whether a :func:`dry_run` is active."""
+    return bool(_DRY)
+
+
+def is_fake(t) -> bool:
+    from torch._subclasses.fake_tensor import is_fake as _is_fake
+    return isinstance(t, torch.Tensor) and _is_fake(t)
+
+
+def dry(name: str, ops: float, inputs, outputs) -> bool:
+    """Called by a wrapper once its outputs and workspaces are allocated
+    and before it touches a pointer.  Inside :func:`dry_run` it records
+    the call and returns True (the wrapper returns its outputs
+    unwritten); every tensor must then be fake.  Outside, it returns
+    False (:func:`require` has refused a fake input there: a fake
+    tensor's ``data_ptr()`` is no address)."""
+    if not _DRY:
+        return False
+    ts = [t for t in (*inputs, *outputs) if t is not None]
+    if not all(is_fake(t) for t in ts):
+        raise RuntimeError(f"{name}: a real tensor reached the kernel "
+                           "inside _lib.dry_run(), which launches nothing")
+    nbytes = sum(t.numel() * t.element_size() for t in ts)
+    for rec in _DRY:
+        rec.add(name, ops, nbytes)
+    return True
+
+
+def aligned16(t: torch.Tensor) -> bool:
+    """Whether ``t`` starts on a 16-byte boundary.  A fake tensor has no
+    address: its storage is taken as the caching allocator places every
+    block (512-byte aligned), so only its offset counts."""
+    if is_fake(t):
+        return t.storage_offset() * t.element_size() % 16 == 0
+    return t.data_ptr() % 16 == 0
+
+
+def sm_count(device: torch.device) -> int:
+    """The SM count of ``device``'s card; in a dry run on a build with no
+    card, :data:`DRY_SM_COUNT`."""
+    if _DRY and not torch.cuda.is_available():
+        return DRY_SM_COUNT
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def lib() -> ctypes.CDLL:
     """The loaded kernel library (built on first use)."""
     global _lib
@@ -173,6 +263,9 @@ def require(t: torch.Tensor, name: str, *, dtype, ndim: int,
     dtype, rank and device.  Raises ``ValueError`` otherwise."""
     if not t.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if not _DRY and is_fake(t):
+        raise RuntimeError(f"{name}: a fake tensor reached a kernel outside "
+                           "_lib.dry_run()")
     if device is not None and t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 
 
 def combine_plain(p_out: torch.Tensor, token_index_map: torch.Tensor,
@@ -51,6 +51,9 @@ def combine(p_out: torch.Tensor, token_index_map: torch.Tensor,
     L, k = token_index_map.shape
     d = p_out.shape[1]
     y = torch.empty(L, d, dtype=dt, device=p_out.device)
+    if _lib.dry("combine", cost.combine(L, k, d),
+                (p_out, token_index_map, gates), (y,)):
+        return y
     code = _lib.lib().repro_combine(
         _lib.DTYPE_CODE[dt], p_out.data_ptr(), token_index_map.data_ptr(),
         gates.data_ptr(), y.data_ptr(), L, k, d, _lib.stream_ptr(p_out))

@@ -93,12 +93,14 @@ def build_dispatch(topk_experts: torch.Tensor, num_experts: int) -> Dispatch:
     offsets = torch.empty(E + 1, **i32)
     tim = torch.empty(n, **i32)
     eti = torch.empty(n, **i32)
-    code = _lib.lib().repro_dispatch_build(
-        topk_experts.data_ptr(), n, k, E, plan["tile"], counts.data_ptr(),
-        lengths.data_ptr(), offsets.data_ptr(), tim.data_ptr(),
-        eti.data_ptr(), _lib.stream_ptr(topk_experts))
-    _lib.check("repro_dispatch_build", code)
-    build_dispatch.launches += 1
+    if not _lib.dry("build_dispatch", 0.0, (topk_experts,),
+                    (lengths, offsets, tim, eti)):
+        code = _lib.lib().repro_dispatch_build(
+            topk_experts.data_ptr(), n, k, E, plan["tile"],
+            counts.data_ptr(), lengths.data_ptr(), offsets.data_ptr(),
+            tim.data_ptr(), eti.data_ptr(), _lib.stream_ptr(topk_experts))
+        _lib.check("repro_dispatch_build", code)
+        build_dispatch.launches += 1
     return Dispatch(
         expert_token_indices=eti,
         expert_token_offsets=offsets,

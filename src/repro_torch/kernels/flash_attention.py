@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 from repro_torch.models.common import softcap
 
 NEG_INF = -1e30
@@ -108,7 +108,7 @@ def tensor_core_path(q: torch.Tensor, k: torch.Tensor,
     Dh = q.shape[-1]
     return (q.dtype == torch.bfloat16 and Dh % 8 == 0
             and Dh <= TENSOR_CORE_MAX_DH
-            and all(t.data_ptr() % 16 == 0 for t in (q, k, v)))
+            and all(_lib.aligned16(t) for t in (q, k, v)))
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -139,6 +139,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"head width {Dh} > 256")
     tensor_cores = tensor_core_path(q, k, v)
     out = torch.empty_like(q)
+    if _lib.dry("flash_attention",
+                cost.flash_attention(B, S, H, Dh, causal, window),
+                (q, k, v), (out,)):
+        return out
     code = _lib.lib().repro_flash_attention(
         _lib.DTYPE_CODE[dt], int(tensor_cores), q.data_ptr(), k.data_ptr(),
         v.data_ptr(), out.data_ptr(), B, S, H, k.shape[2], Dh, int(causal),

@@ -60,7 +60,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 from repro_torch.kernels.gather_gmm import MAX_EXPERTS, _silu
 
 
@@ -130,7 +130,7 @@ def tensor_core_path(x: torch.Tensor, ws, dy=None) -> bool:
     d, h = x.shape[1], ws[0].shape[2]
     ts = (x, *ws) if dy is None else (x, dy, *ws)
     return (x.dtype == torch.bfloat16 and d % 8 == 0 and h % 8 == 0
-            and all(t.data_ptr() % 16 == 0 for t in ts))
+            and all(_lib.aligned16(t) for t in ts))
 
 
 def h_ranges(h: int, hc: int) -> list[tuple[int, int]]:
@@ -338,6 +338,9 @@ def fused_moe_fwd(x: torch.Tensor, g_slot: torch.Tensor, idx: torch.Tensor,
         hc = general_pass_width(S, h)
         chunk = torch.empty(S, hc, dtype=torch.float32, device=x.device)
     ys = torch.zeros(S, d, dtype=torch.float32, device=x.device)
+    if _lib.dry("fused_moe_fwd", cost.fused_moe(S, d, h, False),
+                (x, g_slot, idx, offsets, w1, w2, w3, tim), (y,)):
+        return y
     code = _lib.lib().repro_fused_moe_fwd(
         _lib.DTYPE_CODE[x.dtype], int(tc), x.data_ptr(), g_slot.data_ptr(),
         idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(), w2.data_ptr(),
@@ -381,6 +384,10 @@ def fused_moe_bwd(x: torch.Tensor, dy: torch.Tensor, g_slot: torch.Tensor,
         ws = torch.empty(3, S, hc, **f32)
         part = torch.empty(-(-h // GENERAL_H_TILE), S, **f32)
     dxs = torch.zeros(S, d, **f32)
+    if _lib.dry("fused_moe_bwd", cost.fused_moe(S, d, h, True),
+                (x, dy, g_slot, idx, offsets, w1, w2, w3, tim),
+                (dx, dg, dw1, dw2, dw3)):
+        return dx, dg, dw1, dw2, dw3
     code = _lib.lib().repro_fused_moe_bwd(
         _lib.DTYPE_CODE[x.dtype], int(tc), x.data_ptr(), dy.data_ptr(),
         g_slot.data_ptr(), idx.data_ptr(), offsets.data_ptr(), w1.data_ptr(),

@@ -35,7 +35,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 
 
 def _silu(a: torch.Tensor) -> torch.Tensor:
@@ -128,8 +128,7 @@ _SPLIT_COUNTS: dict = {}
 
 def _sm_count(device: torch.device) -> int:
     if device not in _SM_COUNT:
-        _SM_COUNT[device] = torch.cuda.get_device_properties(
-            device).multi_processor_count
+        _SM_COUNT[device] = _lib.sm_count(device)
     return _SM_COUNT[device]
 
 
@@ -164,7 +163,12 @@ def fused_swiglu_fwd(x: torch.Tensor, w1: torch.Tensor, w2: torch.Tensor):
     if tail and x.dtype == torch.bfloat16:
         ws = torch.empty(2 * tail * L * 2 * FWD_BN, dtype=torch.float32,
                          device=x.device)
-        counts = _split_counts(x.device, n_sm)
+        # a dry run's fake counters are its own, never the cached ones
+        counts = (torch.zeros(2 * n_sm, dtype=torch.int32, device=x.device)
+                  if _lib.is_dry() else _split_counts(x.device, n_sm))
+    if _lib.dry("fused_swiglu_fwd", cost.fused_swiglu(L, d, h), (x, w1, w2),
+                (y, a, b)):
+        return y, a, b
     code = _lib.lib().repro_fused_swiglu_fwd(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), w1.data_ptr(), w2.data_ptr(),
         y.data_ptr(), a.data_ptr(), b.data_ptr(),
@@ -193,6 +197,9 @@ def fused_swiglu_bwd_x(dy: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  f"b {tuple(b.shape)}, w1 {tuple(w1.shape)}, "
                  f"w2 {tuple(w2.shape)}")
     dx = torch.empty(L, d, dtype=dy.dtype, device=dy.device)
+    if _lib.dry("fused_swiglu_bwd_x", cost.fused_swiglu(L, d, h),
+                (dy, a, b, w1, w2), (dx,)):
+        return dx
     code = _lib.lib().repro_fused_swiglu_bwd_x(
         _lib.DTYPE_CODE[dy.dtype], dy.data_ptr(), a.data_ptr(), b.data_ptr(),
         w1.data_ptr(), w2.data_ptr(), dx.data_ptr(), L, d, h,
@@ -219,6 +226,9 @@ def fused_swiglu_bwd_w(x: torch.Tensor, dy: torch.Tensor, a: torch.Tensor,
                  f"a {tuple(a.shape)}, b {tuple(b.shape)}")
     dw1 = torch.empty(d, h, dtype=x.dtype, device=x.device)
     dw2 = torch.empty_like(dw1)
+    if _lib.dry("fused_swiglu_bwd_w", cost.fused_swiglu(L, d, h),
+                (x, dy, a, b), (dw1, dw2)):
+        return dw1, dw2
     code = _lib.lib().repro_fused_swiglu_bwd_w(
         _lib.DTYPE_CODE[x.dtype], x.data_ptr(), dy.data_ptr(), a.data_ptr(),
         b.data_ptr(), dw1.data_ptr(), dw2.data_ptr(), L, d, h,

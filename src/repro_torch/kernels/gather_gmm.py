@@ -29,7 +29,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 
 MAX_EXPERTS = 256
 
@@ -121,6 +121,10 @@ def gather_gmm(x: torch.Tensor, idx: torch.Tensor | None,
     y = torch.empty(S, h, dtype=dt, device=x.device)
     a = torch.empty_like(y) if save_ab else None
     b = torch.empty_like(y) if save_ab else None
+    if _lib.dry("gather_gmm",
+                cost.grouped_gemm(S, d, h, 1 if w2 is None else 2),
+                (x, idx, offsets, w1, w2), (y, a, b)):
+        return (y, a, b) if save_ab else y
     ptr = lambda t: None if t is None else t.data_ptr()
     code = _lib.lib().repro_gather_gmm(
         _lib.DTYPE_CODE[dt], x.data_ptr(), ptr(idx), offsets.data_ptr(),

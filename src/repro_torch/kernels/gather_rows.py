@@ -45,6 +45,8 @@ def gather_rows(src: torch.Tensor, row_ids: torch.Tensor) -> torch.Tensor:
     out = torch.empty(N, d, dtype=dt, device=src.device)
     if N == 0 or d == 0:
         return out
+    if _lib.dry("gather_rows", 0.0, (src, row_ids), (out,)):
+        return out
     code = _lib.lib().repro_gather_rows(
         src.element_size(), src.data_ptr(), row_ids.data_ptr(),
         out.data_ptr(), N, L, d, _lib.stream_ptr(src))

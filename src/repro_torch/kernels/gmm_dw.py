@@ -26,7 +26,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 from repro_torch.kernels.gather_gmm import MAX_EXPERTS
 
 
@@ -67,6 +67,9 @@ def gmm_dw(lhs: torch.Tensor, dout: torch.Tensor,
     if not 1 <= E <= MAX_EXPERTS:
         raise ValueError(f"offsets must have 2..{MAX_EXPERTS + 1} entries")
     dw = torch.empty(E, d, h, dtype=dt, device=lhs.device)
+    if _lib.dry("gmm_dw", cost.grouped_gemm(S, d, h), (lhs, dout, offsets),
+                (dw,)):
+        return dw
     code = _lib.lib().repro_gmm_dw(
         _lib.DTYPE_CODE[dt], lhs.data_ptr(), dout.data_ptr(),
         offsets.data_ptr(), dw.data_ptr(), S, d, h, E, _lib.stream_ptr(lhs))

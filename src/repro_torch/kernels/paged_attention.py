@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, cost
 
 NEG_INF = -1e30
 
@@ -221,14 +221,13 @@ def _check_paged(q, k_pages, v_pages, page_table, positions, page_dtype):
 
 @functools.cache
 def _sm_count(device_index: int) -> int:
-    return torch.cuda.get_device_properties(
-        device_index).multi_processor_count
+    return _lib.sm_count(torch.device("cuda", device_index))
 
 
 def _workspace(q, Hkv, pps):
     """Pages per split and the float32 split workspace, per (request,
     query head, split) ``acc`` (Dh values) and then ``(m, l)``: returns
-    the pages, the two pointers and the tensor that holds them."""
+    the pages, the tensor and the offset of ``(m, l)`` in it."""
     B, _, Hq, Dh = q.shape
     idx = q.device.index if q.device.index is not None else \
         torch.cuda.current_device()
@@ -236,7 +235,7 @@ def _workspace(q, Hkv, pps):
     n_acc = B * Hq * -(-pps // pages) * Dh
     ws = torch.empty(n_acc + 2 * n_acc // Dh, dtype=torch.float32,
                      device=q.device)
-    return pages, ws.data_ptr(), ws.data_ptr() + 4 * n_acc, ws
+    return pages, ws, 4 * n_acc
 
 
 def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
@@ -256,8 +255,12 @@ def paged_attention(q: torch.Tensor, k_pages: torch.Tensor,
     B, _, Hq, Dh = q.shape
     _, ps, Hkv, _ = k_pages.shape
     pps = page_table.shape[1]
-    pages, ws_acc, ws_ml, _ws = _workspace(q, Hkv, pps)
+    pages, ws, ml_at = _workspace(q, Hkv, pps)
     out = torch.empty_like(q)
+    if _lib.dry("paged_attention", cost.paged_attention(B, Hq, Dh, pps * ps),
+                (q, k_pages, v_pages, page_table, positions), (out,)):
+        return out
+    ws_acc, ws_ml = ws.data_ptr(), ws.data_ptr() + ml_at
     code = _lib.lib().repro_paged_attention(
         _lib.DTYPE_CODE[dt], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), page_table.data_ptr(), positions.data_ptr(),
@@ -291,8 +294,14 @@ def paged_attention_int8(q: torch.Tensor, k_pages: torch.Tensor,
     B, _, Hq, Dh = q.shape
     _, ps, Hkv, _ = k_pages.shape
     pps = page_table.shape[1]
-    pages, ws_acc, ws_ml, _ws = _workspace(q, Hkv, pps)
+    pages, ws, ml_at = _workspace(q, Hkv, pps)
     out = torch.empty_like(q)
+    if _lib.dry("paged_attention_int8",
+                cost.paged_attention(B, Hq, Dh, pps * ps),
+                (q, k_pages, v_pages, k_scale, v_scale, page_table,
+                 positions), (out,)):
+        return out
+    ws_acc, ws_ml = ws.data_ptr(), ws.data_ptr() + ml_at
     code = _lib.lib().repro_paged_attention_int8(
         _lib.DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),

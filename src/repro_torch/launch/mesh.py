@@ -18,6 +18,11 @@ Ranks that share a card over gloo are a setup the caller asks for by
 name (``backend="gloo"``), never one inferred from the card count.  A
 world of one rank is allowed and needs no rendezvous address.
 
+:class:`DryMesh` is a mesh with no processes, for the dry run
+(``launch/dryrun.py``): its groups are shape-only, and
+:func:`make_production_mesh` builds the reference's production layouts
+as either.
+
 :class:`Hardware` holds the per-device constants of the roofline cost
 model (``roofline.py``), the counterpart of the reference's module
 constants; :data:`H100_SXM` is the port's default and
@@ -35,38 +40,22 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
+from repro_torch.core.collectives import ShapeGroup, name_group
 from repro_torch.core.device import resolve_device
 
 
-class Mesh:
-    """Named axes over the ranks of the default process group.
+class _Axes:
+    """Named axes over ``prod(sizes)`` ranks and this rank's place on
+    them: what :class:`Mesh` and :class:`DryMesh` share."""
 
-    ``shape`` maps each axis name to its size, in axis order (like the
-    reference's ``mesh.shape``); their product must be the world size."""
-
-    def __init__(self, sizes, names):
-        if not dist.is_initialized():
-            raise RuntimeError("Mesh needs a process group: call "
-                               "launch.mesh.init_distributed first")
+    def __init__(self, sizes, names, rank: int):
         sizes, names = tuple(int(s) for s in sizes), tuple(names)
         if len(sizes) != len(names) or len(set(names)) != len(names):
             raise ValueError(f"mesh axes {names} do not match sizes {sizes}")
-        world = dist.get_world_size()
-        if math.prod(sizes) != world:
-            raise ValueError(f"mesh {dict(zip(names, sizes))} has "
-                             f"{math.prod(sizes)} ranks; the world has "
-                             f"{world}")
         self.axis_names = names
         self.shape = dict(zip(names, sizes))
-        self.rank = dist.get_rank()
-        self._coords = [self._unravel(r) for r in range(world)]
-        self._groups: dict[tuple, dist.ProcessGroup] = {}
-        for n_axes in range(1, len(names) + 1):
-            for axes in itertools.combinations(names, n_axes):
-                for ranks in self._slices(axes):
-                    group = dist.new_group(ranks)
-                    if self.rank in ranks:
-                        self._groups[axes] = group
+        self.rank = rank
+        self._coords = [self._unravel(r) for r in range(math.prod(sizes))]
 
     def _unravel(self, rank: int) -> dict[str, int]:
         coords = {}
@@ -111,11 +100,86 @@ class Mesh:
             idx = idx * self.shape[a] + self.axis_index(a)
         return idx
 
+
+class Mesh(_Axes):
+    """Named axes over the ranks of the default process group.
+
+    ``shape`` maps each axis name to its size, in axis order (like the
+    reference's ``mesh.shape``); their product must be the world size."""
+
+    def __init__(self, sizes, names):
+        if not dist.is_initialized():
+            raise RuntimeError("Mesh needs a process group: call "
+                               "launch.mesh.init_distributed first")
+        world = dist.get_world_size()
+        if math.prod(int(s) for s in sizes) != world:
+            raise ValueError(f"mesh {dict(zip(names, sizes))} has "
+                             f"{math.prod(int(s) for s in sizes)} ranks; "
+                             f"the world has {world}")
+        super().__init__(sizes, names, dist.get_rank())
+        self._groups: dict[tuple, dist.ProcessGroup] = {}
+        for n_axes in range(1, len(self.axis_names) + 1):
+            for axes in itertools.combinations(self.axis_names, n_axes):
+                for ranks in self._slices(axes):
+                    group = dist.new_group(ranks)
+                    if self.rank in ranks:
+                        self._groups[axes] = group
+                        name_group(group, axes)
+
     def group(self, axes) -> dist.ProcessGroup:
         """The process group of the ranks that share this rank's
         coordinates on every axis outside ``axes``; its ranks are in
         row-major order over ``axes``."""
         return self._groups[self._axes(axes)]
+
+
+class DryMesh(_Axes):
+    """A mesh with no processes behind it, for the dry run: rank ``rank``
+    of ``sizes`` named ``names``, with :class:`Mesh`'s ``shape``,
+    ``axis_names``, ``coords``, ``axis_index``, ``axis_size`` and
+    ``flat_index``.  :meth:`group` returns a shape-only
+    ``collectives.ShapeGroup``, over which every collective of
+    ``core/collectives.py`` returns a tensor of its result's shape and
+    moves nothing."""
+
+    def __init__(self, sizes, names, rank: int = 0):
+        super().__init__(sizes, names, int(rank))
+        if not 0 <= self.rank < len(self._coords):
+            raise ValueError(f"rank {rank} outside a mesh of "
+                             f"{len(self._coords)} ranks")
+
+    def group(self, axes) -> ShapeGroup:
+        """The shape-only group of the ranks that share this rank's
+        coordinates outside ``axes``: its size and this rank's index."""
+        axes = self._axes(axes)
+        return ShapeGroup(axes=axes, size=self.axis_size(axes),
+                          rank=self.flat_index(axes))
+
+
+#: The reference's production meshes (``repro/launch/mesh.py:9-12``):
+#: 16 x 16 ranks ``('data', 'model')``, or two such pods.
+PRODUCTION_MESH = ((16, 16), ("data", "model"))
+PRODUCTION_MESH_MULTI_POD = ((2, 16, 16), ("pod", "data", "model"))
+
+
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False,
+                         rank: int = 0):
+    """The reference's production mesh: (16, 16) over ``('data',
+    'model')``, or (2, 16, 16) over ``('pod', 'data', 'model')`` with
+    ``multi_pod``, so that a record of the port and one of the reference
+    describe the same layout.  A :class:`Mesh` over 256 (512) ranks of a
+    process group, or with ``dry`` the :class:`DryMesh` of rank ``rank``
+    that the dry run traces.
+
+    On H100s a 'model' axis of 16 spans two 8-GPU NVLink nodes; the cost
+    model (``roofline.py``) still charges it at ``intra_node_bw``, as the
+    reference charges its 'model' axis at ICI rates: only 'node' and
+    'pod' are priced as the network between hosts."""
+    sizes, names = PRODUCTION_MESH_MULTI_POD if multi_pod \
+        else PRODUCTION_MESH
+    if dry:
+        return DryMesh(sizes, names, rank)
+    return Mesh(sizes, names)
 
 
 @dataclass(frozen=True)

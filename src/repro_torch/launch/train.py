@@ -41,7 +41,11 @@ parameters and the optimizer state to ``DIR/step_<n>`` at step ``steps //
 'model')`` with N nodes of M ranks each) and runs the MoE layers in the
 ``--moe-parallel`` mode (``ep``, ``ep_a2a``, ``ep_a2a_hier``, ``tp``, or
 the config's default ``auto``, which the roofline cost model resolves at
-the per-rank slab).  Each rank keeps only its block of every parameter
+the per-rank slab).  ``--production-mesh`` lays them out as the
+reference's production mesh instead, (16, 16) over ``('data', 'model')``
+(256 ranks), or with ``--multi-pod`` (2, 16, 16) over ``('pod', 'data',
+'model')`` (512 ranks); ``launch/dryrun.py`` traces one rank of it
+without the ranks.  Each rank keeps only its block of every parameter
 and AdamW moment, placed by ``sharding.param_specs(..., fsdp=True)`` as
 the reference's launcher places them, and gathers a layer's leaves whole
 just before the layer runs.  ``--ckpt-dir`` under a mesh writes the whole
@@ -61,7 +65,7 @@ from repro_torch.configs import TrainConfig, get_config
 from repro_torch.core.collectives import transport
 from repro_torch.core.device import resolve_device
 from repro_torch.launch.mesh import (init_distributed, make_debug_mesh,
-                                     make_node_mesh)
+                                     make_node_mesh, make_production_mesh)
 from repro_torch.train.loop import train
 from repro_torch.train.optimizer import tree_leaves
 
@@ -93,6 +97,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
                     help="D,M: data x model ranks; D,M,N: with N nodes")
+    ap.add_argument("--production-mesh", action="store_true",
+                    help="the reference's (16, 16) ('data', 'model') mesh "
+                         "over 256 torchrun ranks")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="with --production-mesh: (2, 16, 16) ('pod', "
+                         "'data', 'model') over 512 ranks")
     ap.add_argument("--moe-parallel", default=None,
                     help="auto | ep | ep_a2a | ep_a2a_hier | tp (with "
                          "--mesh; the config's default is auto)")
@@ -114,7 +124,12 @@ def main(argv=None):
                                          else 0),
                        checkpoint_dir=args.ckpt_dir)
     mesh = None
-    if args.mesh is not None:
+    if args.production_mesh and args.mesh is not None:
+        ap.error("--production-mesh and --mesh name two meshes")
+    if args.production_mesh:
+        dev = init_distributed(args.device)
+        mesh = make_production_mesh(multi_pod=args.multi_pod)
+    elif args.mesh is not None:
         dev = init_distributed(args.device)
         mesh = _mesh(args.mesh)
     else:

@@ -11,8 +11,12 @@ residual set of the checkpoint plan, ``core/checkpoint.moe_residual_mode``),
 backward and a fixed residual set; a plan whose moe-scoped decisions ask
 for another set raises), and the paper's baselines of
 ``core/baseline.py``: ``"megablocks"`` (the materialized routed buffer,
-plain autograd) and ``"dense"`` (the masked dense oracle).  The router's
-top-k weights are the producer of the checkpoint tag ``MOE_GATES``.
+plain autograd) and ``"dense"`` (the masked dense oracle); and
+``"proxy_gmm"``, the reference's cost stand-in for its dry run's probes
+(``repro/models/moe_block.py:178-199``, ``_moe_proxy_ep`` at ``:220``):
+the grouped GEMM's useful operations and one read of the expert bank,
+NOT numerically the MoE.  The router's top-k weights are the producer of
+the checkpoint tag ``MOE_GATES``.
 
 Under a mesh each rank runs the reference's ``shard_map`` body on its own
 slab (``x`` holds this rank's batch rows, ``p`` its slice of the expert
@@ -72,7 +76,7 @@ from repro_torch.core.moe_layer import moe_ffn_blaze
 from repro_torch.kernels.dispatch import build_dispatch
 from repro_torch.kernels.ops import gather_rows, moe_ffn_blaze_pallas
 
-MOE_IMPLS = ("blaze", "blaze_pallas", "megablocks", "dense")
+MOE_IMPLS = ("blaze", "blaze_pallas", "megablocks", "dense", "proxy_gmm")
 FFN_ACTS = ("swiglu", "silu", "relu", "gelu")
 MOE_PARALLEL_MODES = ("auto", "ep", "ep_a2a", "ep_a2a_hier", "tp")
 _EP_MODES = ("ep", "ep_a2a", "ep_a2a_hier")
@@ -81,11 +85,8 @@ _EP_MODES = ("ep", "ep_a2a", "ep_a2a_hier")
 def check_supported(cfg) -> None:
     """Raise for MoE settings the port does not run yet."""
     if cfg.moe_impl not in MOE_IMPLS:
-        raise NotImplementedError(
-            f"moe_impl={cfg.moe_impl!r} is not ported; the port runs "
-            f"{MOE_IMPLS} (the reference's 'proxy_gmm' is a cost-model "
-            "stand-in of its dry run, which is not ported: ROADMAP.md §A "
-            "item 6, the dry run)")
+        raise ValueError(f"unknown moe_impl {cfg.moe_impl!r}; known: "
+                         f"{MOE_IMPLS}")
     if cfg.moe_parallel not in MOE_PARALLEL_MODES:
         raise ValueError(f"unknown moe_parallel {cfg.moe_parallel!r}; "
                          f"known: {MOE_PARALLEL_MODES}")
@@ -106,7 +107,8 @@ def resolve_moe_parallel(cfg, mesh, n_tokens: int | None = None) -> str:
     return resolve_moe_parallel_ex(cfg, mesh, n_tokens).mode
 
 
-def resolve_moe_parallel_ex(cfg, mesh, n_tokens: int | None = None):
+def resolve_moe_parallel_ex(cfg, mesh, n_tokens: int | None = None, *,
+                            hw=None):
     """Resolve ``cfg.moe_parallel`` against a mesh, with provenance: a
     ``roofline.ParallelDecision`` (the mode, its source and the table of
     predicted costs it was ranked from, at the H100's constants).
@@ -117,12 +119,14 @@ def resolve_moe_parallel_ex(cfg, mesh, n_tokens: int | None = None):
     parallelism with ``E`` not divisible by the expert axes would drop
     experts; flat ``ep_a2a`` on a node mesh would route cross-node rows
     over the flat exchange; ``ep_a2a_hier`` without a 'node' axis has no
-    second hop."""
+    second hop.  ``hw`` (a ``launch.mesh.Hardware``) prices the modes at
+    other constants than the H100's."""
     from repro_torch import roofline
     if cfg.moe_parallel not in MOE_PARALLEL_MODES:
         raise ValueError(f"unknown moe_parallel {cfg.moe_parallel!r}; "
                          f"known: {MOE_PARALLEL_MODES}")
-    decision = roofline.select_moe_parallel(cfg, mesh, n_tokens)
+    decision = roofline.select_moe_parallel(
+        cfg, mesh, n_tokens, **({} if hw is None else {"hw": hw}))
     if decision.mode == "single":
         return decision
     mode = decision.mode
@@ -206,6 +210,44 @@ def _moe_dispatch(xf, p, cfg, g, disp, rb):
     return _blaze(xf, gates, disp, p, cfg, rb)
 
 
+def _moe_proxy(xf, p, cfg, g):
+    """``proxy_gmm`` on one device or a ``tp`` shard: the dispatch build,
+    the L·k routed rows through one d -> h -> d product on the sum of the
+    expert bank (one read of every expert's weights) and the gated
+    combine.  A cost stand-in, not the MoE."""
+    dt = xf.dtype
+    L, k = g.topk_experts.shape
+    disp = build_dispatch(g.topk_experts.contiguous(), cfg.num_experts)
+    gates = g.topk_weights.to(dt)
+    xg = xf[disp.expert_token_indices.long()]
+    a = xg @ p["w1"].sum(0).to(dt)
+    y_act = F.silu(a)
+    if "w2" in p:
+        y_act = y_act * (xg @ p["w2"].sum(0).to(dt))
+    p_out = y_act @ p["w3"].sum(0).to(dt)
+    parts = p_out[disp.token_index_map.reshape(-1).long()].reshape(L, k, -1)
+    return torch.einsum("lk,lkd->ld", gates, parts)
+
+
+def _moe_proxy_ep(xf, p, cfg, n_exp: int):
+    """``proxy_gmm`` under an expert-parallel mode: about L·k / n_exp
+    rows through one d -> h -> d product on the sum of the local expert
+    bank, scattered back onto the slab and scaled by the mean gate, as
+    the reference's ``_moe_proxy_ep``.  A cost stand-in, not the MoE."""
+    dt = xf.dtype
+    L = xf.shape[0]
+    g = routing.top_k_gating(xf, p["wg"].to(dt), cfg.top_k)
+    rows = max(L * cfg.top_k // n_exp, 1)
+    ids = torch.arange(rows, device=xf.device) % L
+    xg = xf[ids]
+    y_act = F.silu(xg @ p["w1"].sum(0).to(dt))
+    if "w2" in p:
+        y_act = y_act * (xg @ p["w2"].sum(0).to(dt))
+    p_out = y_act @ p["w3"].sum(0).to(dt)
+    y = torch.zeros_like(xf).index_add(0, ids, p_out)
+    return y * g.topk_weights.to(dt).mean(), _aux_of(g, cfg)
+
+
 def moe_local(xf: torch.Tensor, p: dict, cfg, backend=None):
     """(L, d) token slab -> ((L, d), aux loss).  ``backend`` enters the
     grouped-GEMM precedence chain at the call-site slot, ``cfg.gmm_backend``
@@ -214,6 +256,8 @@ def moe_local(xf: torch.Tensor, p: dict, cfg, backend=None):
     check_supported(cfg)
     dt = xf.dtype
     g = routing.top_k_gating(xf, p["wg"].to(dt), cfg.top_k)
+    if cfg.moe_impl == "proxy_gmm":
+        return _moe_proxy(xf, p, cfg, g), _aux_of(g, cfg)
     if cfg.moe_impl == "dense":
         w1, w3, w2 = _weights(p, dt)
         y = moe_ffn_dense(xf, g.router_probs, g.topk_experts,
@@ -495,7 +539,9 @@ def moe_sublayer(x: torch.Tensor, p: dict, cfg, *, mesh=None,
     xf = C.enter_replicated(x.reshape(B * S, d), group)
     pl = dict(p, wg=C.enter_replicated(p["wg"], group))
     overflow = zero
-    if mode == "ep":
+    if mode in _EP_MODES and cfg.moe_impl == "proxy_gmm":
+        y, aux = _moe_proxy_ep(xf, pl, cfg, n_exp)
+    elif mode == "ep":
         y, aux = _moe_ep(xf, pl, cfg, n_exp, mesh.flat_index(psum_axes), rb)
     elif mode == "ep_a2a":
         y, aux, overflow = _moe_ep_a2a(xf, pl, cfg, mesh, rb)

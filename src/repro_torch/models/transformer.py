@@ -35,6 +35,7 @@ from functools import partial
 
 import torch
 
+from repro_torch import sharding as SH
 from repro_torch.core import checkpoint as CK
 from repro_torch.core.collectives import all_reduce_, regather_saved
 from repro_torch.models import ssm
@@ -191,27 +192,46 @@ def init_cache(cfg, batch: int, capacity: int, device) -> list:
     return [sub_cache(kind) for kind in layer_kinds(cfg)]
 
 
-def decode_step(params, cache: list, batch, pos, cfg, *, mesh=None):
+def decode_step(params, cache: list, batch, pos, cfg, *, mesh=None,
+                fsdp=None, cache_specs=None):
     """One-token decode.  batch["tokens"]: (B, 1); ``pos``: the scalar
     absolute position of the token (an int or a 0-d tensor; the batch
     decodes in lockstep).  Returns float32 logits (B, vocab) and the new
     cache (the KV buffers written in place, the recurrent states new).
-    Under a ``mesh`` every rank decodes the same batch and ``params`` are
-    its ``sharding.local_params``: the MoE sublayers split the experts
-    over the mesh and sum their partial outputs."""
+    Under a ``mesh`` the ranks that share the MoE's expert axes decode
+    the same batch (ranks at other 'data' coordinates may decode other
+    rows) and ``params`` are each rank's ``sharding.local_params``: the
+    MoE sublayers split the experts over the mesh and sum their partial
+    outputs.  With ``fsdp`` (``sharding.FSDP``) ``params`` are instead
+    this rank's blocks under ``fsdp.specs``, each layer's gathered whole
+    just before it runs, as in :func:`forward` (the dry run's layout of
+    a decode step).  With ``cache_specs`` (``sharding.cache_specs``)
+    ``cache`` holds this rank's blocks: each layer's is gathered whole
+    but for the batch rows before the layer runs and its new value
+    written back into the blocks in place (``sharding.gather_cache`` /
+    ``keep_cache_block``)."""
     if cfg.input_kind == "frames":
         raise ValueError("encoder-only architectures do not decode")
     check_supported(cfg)
-    x = _embed(params, batch["tokens"], cfg)
+    x = _embed(_top(params, fsdp, ("embed",)), batch["tokens"], cfg)
     positions = torch.full((1,), int(pos), dtype=torch.long,
                            device=x.device)
     attend = partial(attention_sublayer, positions=positions)
     new_cache = []
-    for p, kind, c in zip(params["layers"], layer_kinds(cfg), cache):
-        x, _, _, nc = _apply_sublayer(x, p, kind, cfg, attend, cache=c,
-                                      mesh=mesh, dp_axes=())
+    specs = (fsdp.specs["layers"] if fsdp is not None
+             else [None] * len(cache))
+    for p, kind, c, spec, cs in zip(params["layers"], layer_kinds(cfg),
+                                    cache, specs,
+                                    cache_specs or [None] * len(cache)):
+        whole = c if cs is None else SH.gather_cache(c, cs, mesh)
+        x, _, _, nc = _apply_sublayer(x, p, kind, cfg, attend, cache=whole,
+                                      mesh=mesh, dp_axes=(), fsdp=fsdp,
+                                      spec=spec)
+        if cs is not None:
+            nc = SH.keep_cache_block(c, nc, cs, mesh)
         new_cache.append(nc)
-    return _logits(params, x[:, 0], cfg), new_cache
+    return (_logits(_top(params, fsdp, ("final_norm", "unembed")), x[:, 0],
+                    cfg), new_cache)
 
 
 def _embed(params, tokens, cfg):

@@ -8,9 +8,13 @@ Mirrors the analytic half of ``repro/roofline.py``: ``model_flops``
 Python.  Every function takes the device's constants as ``hw``
 (:class:`~repro_torch.launch.mesh.Hardware`, default ``H100_SXM``): the
 reference's are a TPU's, and its tests pass them in to hold the two models
-to each other.  The half that reads XLA's compiled module
-(``collective_stats``, ``analyze_compiled``, ``bench_entries``) has no
-PyTorch counterpart until the dry run is ported.
+to each other.
+
+The half that reads XLA's compiled module has its counterparts over the
+dry run's trace (``compat.trace_step``): :func:`collective_stats` over a
+``collectives.Recording`` and :func:`analyze` for
+``analyze_compiled``.  ``bench_entries`` waits for the port's benchmark
+(``repro/bench/record.py``).
 
 The model ranks the candidate modes on ONE MoE layer at the per-device
 token slab, with three terms in seconds:
@@ -35,6 +39,77 @@ from dataclasses import dataclass
 
 from repro_torch.core import memsim
 from repro_torch.launch.mesh import H100_SXM, Hardware, axis_bandwidth
+
+#: the reference's collective kinds (``repro/roofline.py:34-35``)
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+
+
+def collective_stats(rec) -> dict:
+    """Result bytes and counts per collective kind of a
+    ``collectives.Recording``, with the reference's keys (``bytes``,
+    ``counts``, ``total_bytes``, ``total_count``): every call counted once
+    with its result's bytes, the reference's convention.  The five kinds
+    always appear; a kind the reference has no name for (``gather``)
+    appears when it was called."""
+    stats = {k: 0 for k in COLLECTIVES}
+    counts = {k: 0 for k in COLLECTIVES}
+    for kind, nbytes, _ in rec.calls:
+        stats[kind] = stats.get(kind, 0) + nbytes
+        counts[kind] = counts.get(kind, 0) + 1
+    return {"bytes": stats, "counts": counts,
+            "total_bytes": sum(stats.values()),
+            "total_count": sum(counts.values())}
+
+
+def analyze(trace, cfg, shape, *, n_chips: int,
+            hw: Hardware = H100_SXM) -> dict:
+    """The counterpart of the reference's ``analyze_compiled``
+    (``repro/roofline.py:108-165``) over a ``compat.StepTrace`` of one
+    rank, with every key of its dict and ``alias_bytes`` and
+    ``collective_bytes_by_axes`` beside them.  Where the origin differs
+    from XLA's:
+
+      * ``flops_per_dev``: aten's products
+        and attention plus the kernels' operations (``kernels/cost.py``),
+        where XLA's cost analysis counts every HLO op;
+      * ``hlo_bytes_per_dev``: the traced bytes, each aten op's inputs
+        and outputs once (no fusion assumed) plus the kernels' bytes;
+      * ``collective_*``: the collectives the rank called
+        (``core/collectives.recording``), result bytes, where XLA's are
+        parsed from the compiled module;
+      * ``arg_bytes`` / ``out_bytes`` / ``temp_bytes`` / ``peak_bytes``:
+        the live-storage accounting of ``compat.trace_step``, where XLA's
+        are its buffer assignment;
+      * ``fits_hbm`` against ``hw.hbm_bytes``; the times at ``hw``'s
+        peak rate, HBM rate and ``intra_node_bw``."""
+    coll = collective_stats(trace.collectives)
+    mf = model_flops(cfg, global_batch=shape.global_batch,
+                     seq_len=shape.seq_len, kind=shape.kind)
+    flops, hbm = trace.flops, trace.bytes_accessed
+    t_compute = flops / hw.peak_flops_bf16
+    t_memory = hbm / hw.hbm_bw
+    t_coll = coll["total_bytes"] / hw.intra_node_bw
+    dominant = max((("compute", t_compute), ("memory", t_memory),
+                    ("collective", t_coll)), key=lambda kv: kv[1])[0]
+    return {
+        "flops_per_dev": flops,
+        "hlo_bytes_per_dev": hbm,
+        "collective_bytes": coll["total_bytes"],
+        "collective_counts": coll["counts"],
+        "collective_bytes_by_kind": coll["bytes"],
+        "collective_bytes_by_axes": trace.collectives.bytes_by_axes(),
+        "arg_bytes": trace.arg_bytes, "out_bytes": trace.out_bytes,
+        "temp_bytes": trace.temp_bytes, "alias_bytes": trace.alias_bytes,
+        "peak_bytes": trace.peak_bytes,
+        "fits_hbm": bool(trace.peak_bytes <= hw.hbm_bytes),
+        "t_compute_s": t_compute, "t_memory_s": t_memory,
+        "t_collective_s": t_coll, "dominant": dominant,
+        "model_flops_global": mf,
+        "useful_flops_ratio": mf / max(flops * n_chips, 1.0),
+        "n_chips": n_chips,
+    }
+
 
 #: modes the optimizer ranks, in tie-break order (earlier wins a tie)
 MOE_MODE_ORDER = ("ep", "ep_a2a_hier", "ep_a2a", "tp")

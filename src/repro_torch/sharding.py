@@ -152,6 +152,83 @@ def batch_specs(batch_shapes: dict, mesh) -> dict:
     return out
 
 
+def cache_specs(cfg, cache, mesh):
+    """Specs of a decode cache (``transformer.init_cache``: one tuple a
+    layer of ``(B, capacity or state...)`` leaves), by the reference's
+    rule (``repro/sharding.py:127-158``) on its ``(groups, B, ...)``
+    leaves without the group dimension: the batch over the data axes
+    when it divides; the largest remaining dimension (the KV capacity or
+    an SSM state dimension) over 'model', or, when the batch could not
+    be split, over ``('data', 'model')`` for a long context (context
+    parallelism), then 'model', then 'data'.  A 0-d leaf is replicated.
+    ``cfg`` is unused, as in the reference."""
+    dp = dp_axes(mesh)
+
+    def spec(leaf):
+        shape = _shape(leaf)
+        if not shape:
+            return ()
+        axes = [None] * len(shape)
+        b_ax = _fit(shape[0], mesh, dp) or _fit(shape[0], mesh, ("data",))
+        axes[0] = b_ax
+        if len(shape) >= 2:
+            big = max(range(1, len(shape)), key=lambda i: shape[i])
+            if b_ax is None:
+                cand = (_fit(shape[big], mesh, ("data", "model"))
+                        or _fit(shape[big], mesh, ("model",))
+                        or _fit(shape[big], mesh, ("data",)))
+            else:
+                cand = _fit(shape[big], mesh, ("model",))
+            axes[big] = cand
+        return tuple(axes)
+
+    return _map_cache(spec, cache)
+
+
+def _map_cache(fn, *trees):
+    """``fn(leaf, ...)`` over congruent cache trees (lists and tuples,
+    named ones too, of tensors; the first tree's leaves are tensors)."""
+    head = trees[0]
+    if isinstance(head, torch.Tensor):
+        return fn(*trees)
+    parts = [_map_cache(fn, *leaves) for leaves in zip(*trees)]
+    return type(head)(*parts) if hasattr(head, "_fields") \
+        else type(head)(parts)
+
+
+def shard_cache(cache, specs, mesh):
+    """This rank's block of every leaf of a decode cache under
+    :func:`cache_specs` (views; the dry run takes their shapes)."""
+    return _map_cache(lambda t, s: _block(t, s, mesh, "cache"), cache,
+                      specs)
+
+
+def gather_cache(cache, specs, mesh):
+    """One layer's cache blocks (:func:`shard_cache`) gathered whole but
+    for the batch rows: each leaf over the axes its other dimensions are
+    split over (no gradient).  How ``transformer.decode_step`` runs a
+    layer over a cache split by :func:`cache_specs`."""
+    def leaf(t, spec):
+        for dim, ax in enumerate(spec):
+            if dim and ax is not None and mesh.axis_size(ax) > 1:
+                t = all_gather_cat(t, mesh.group(ax), dim)
+        return t
+    return _map_cache(leaf, cache, specs)
+
+
+def keep_cache_block(block, whole, specs, mesh):
+    """Write this rank's block of a layer's new ``whole`` cache (as
+    :func:`gather_cache` gave it, then updated) into ``block`` in place;
+    returns ``block``."""
+    def leaf(b, w, spec):
+        for dim, ax in enumerate(spec):
+            if dim and ax is not None and mesh.axis_size(ax) > 1:
+                size = w.shape[dim] // mesh.axis_size(ax)
+                w = w.narrow(dim, mesh.flat_index(ax) * size, size)
+        return b if w is b else b.copy_(w)
+    return _map_cache(leaf, block, whole, specs)
+
+
 def local_batch(batch: dict, specs: dict, mesh) -> dict:
     """This rank's rows of each batch leaf under ``specs``."""
     out = {}

@@ -127,7 +127,11 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     rows) and ``params`` this rank's blocks,
     ``sharding.shard_params(whole, mesh, step_fn.param_specs)``; the
     AdamW state is ``init_adamw`` of them (its moments mirror the blocks,
-    ``sharding.opt_specs``).  ``step_fn.moe_decision`` is the mode's
+    ``sharding.opt_specs``).  ``step_fn(..., local_batch=True)`` takes
+    ``batch`` as this rank's rows already (its block under
+    ``sharding.batch_specs`` of the global batch of ``tcfg.batch_size``
+    rows), as the dry run places it: each microbatch is then its
+    ``1/M`` of those rows.  ``step_fn.moe_decision`` is the mode's
     ``roofline.ParallelDecision``."""
     dev = resolve_device(device)
     resolved = GB.resolve(backend, config=_config_backend(cfg, tcfg))
@@ -160,7 +164,7 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     if cfg.is_moe:
         check_moe(cfg)
 
-    def _step(params, opt_state: AdamWState, batch):
+    def _step(params, opt_state: AdamWState, batch, local_batch):
         leaves = tree_leaves(params)
         split = (None if mesh is None else
                  [SH.split_axes(sp, mesh)
@@ -179,9 +183,12 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
         try:
             for mb in _microbatches(batch, n_micro):
                 fsdp = None
-                if mesh is not None:
+                if mesh is not None and local_batch:
+                    dp = SH.batch_axes(mesh, tcfg.batch_size // n_micro)
+                elif mesh is not None:
                     dp = SH.batch_axes(mesh, mb["labels"].shape[0])
                     mb = SH.local_batch(mb, SH.batch_specs(mb, mesh), mesh)
+                if mesh is not None:
                     fsdp = SH.FSDP(mesh, specs, dp,
                                    getattr(torch, cfg.dtype))
                 # Spans that name the step's parts in a profiler trace (no
@@ -225,9 +232,10 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
                for k in ("ce", "aux", "moe_overflow")},
             "grad_norm": gnorm, "lr": lr}
 
-    def step_fn(params, opt_state: AdamWState, batch):
+    def step_fn(params, opt_state: AdamWState, batch, *,
+                local_batch: bool = False):
         with GB.use_backend(resolved.name):
-            return _step(params, opt_state, batch)
+            return _step(params, opt_state, batch, local_batch)
 
     step_fn.device = dev
     step_fn.resolved_backend = resolved
@@ -240,6 +248,73 @@ def make_train_step(cfg, tcfg, device=None, backend=None, mesh=None, *,
     step_fn.mesh = mesh
     step_fn.param_specs = specs
     return step_fn
+
+
+def traceable_step(cfg, tcfg, device, *, mesh=None, backend=None):
+    """``(step_fn, make_args)``: ``make_train_step(cfg, tcfg, device,
+    backend=backend, mesh=mesh)`` and a function that, called under
+    ``FakeTensorMode``, gives its ``(args, kwargs)`` as fake tensors on
+    ``device``: float32 masters of ``init_params``' shapes, their AdamW
+    moments and a batch of ``tcfg``'s shape; under a ``mesh`` this rank's
+    blocks under ``step_fn.param_specs`` and its rows of the batch
+    (``local_batch=True``).  What the dry run traces for a training
+    step."""
+    from repro_torch.compat import empty_tree
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch.specs import batch_shapes
+    step_fn = make_train_step(cfg, tcfg, device, backend=backend, mesh=mesh)
+    whole = init_params(cfg, device="meta",
+                        dtype=getattr(torch, cfg.param_dtype))
+    batch = batch_shapes(cfg, InputShape("step", tcfg.seq_len,
+                                         tcfg.batch_size, "train"))
+    if mesh is not None:
+        whole = SH.shard_params(whole, mesh, step_fn.param_specs)
+        batch = SH.local_batch(batch, SH.batch_specs(batch, mesh), mesh)
+
+    def make_args():
+        params = empty_tree(whole, device)
+        return ((params, init_adamw(params), empty_tree(batch, device)),
+                {"local_batch": True} if mesh is not None else {})
+    return step_fn, make_args
+
+
+def compiled_step_memory(cfg, tcfg, *, mesh=None, backend=None,
+                         device=None) -> dict:
+    """The memory and cost of one training step without running it: the
+    counterpart of the reference's hook (``repro/train/loop.py:169-192``,
+    which ``repro/bench/memory.py`` reads), with its keys but
+    ``compiled``.  The step of ``make_train_step(cfg, tcfg, device,
+    backend=backend, mesh=mesh)`` is traced on fake tensors
+    (``compat.trace_step``): float32 masters from ``init_params``, AdamW
+    moments and a batch of ``tcfg``'s shape, on ``device`` (the card
+    unless the caller names the CPU); no array is allocated and no kernel
+    is launched (the wrappers record their calls).  Under a ``mesh``
+    (a ``launch.mesh.DryMesh``) the parameters and moments are this
+    rank's blocks under ``step_fn.param_specs`` and the batch its rows.
+
+    Returns the reference's ``arg_bytes``, ``out_bytes``, ``temp_bytes``,
+    ``alias_bytes``, ``gmm_backend`` and ``remat_plan``, and beside them
+    ``peak_bytes``, ``flops``, ``bytes_accessed``, ``kernels`` (per kernel
+    its launches, operations and bytes: fake CUDA tensors only),
+    ``collective_counts`` / ``collective_bytes_by_kind`` and
+    ``trace_s``."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.compat import trace_step
+    step_fn, make_args = traceable_step(cfg, tcfg, resolve_device(device),
+                                        mesh=mesh, backend=backend)
+    with FakeTensorMode():
+        args, kwargs = make_args()
+        _, tr = trace_step(step_fn, *args, **kwargs)
+    return {"arg_bytes": tr.arg_bytes, "out_bytes": tr.out_bytes,
+            "temp_bytes": tr.temp_bytes, "alias_bytes": tr.alias_bytes,
+            "gmm_backend": step_fn.resolved_backend.name,
+            "remat_plan": step_fn.resolved_plan.spec,
+            "peak_bytes": tr.peak_bytes, "flops": tr.flops,
+            "bytes_accessed": tr.bytes_accessed, "kernels": tr.kernels,
+            "collective_counts": tr.collectives.counts(),
+            "collective_bytes_by_kind": tr.collectives.bytes_by_kind(),
+            "trace_s": tr.seconds}
 
 
 def _microbatches(batch: dict, n: int):

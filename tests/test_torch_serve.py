@@ -214,7 +214,8 @@ def test_port_imports_no_jax_and_no_reference():
     one-rank mesh), with the checkpoint plans, the simulator, the
     baselines, the Table-1 configs, ``compat``, the training checkpoints
     and the Qwen3-30B-A3B config imported, and decode steps and a
-    training step of reduced Hymba and xLSTM (``models/ssm.py``), leave
+    training step of reduced Hymba and xLSTM (``models/ssm.py``), and the
+    dry run's modules (``launch.dryrun``, ``launch.specs``) imported, leave
     JAX and the reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
@@ -225,6 +226,7 @@ def test_port_imports_no_jax_and_no_reference():
         "from repro_torch.serve.engine import Request, ServeEngine\n"
         "from repro_torch.train.loop import train\n"
         "import repro_torch.launch.train, repro_torch.launch.serve\n"
+        "import repro_torch.launch.dryrun, repro_torch.launch.specs\n"
         "import repro_torch.kernels.flash_attention\n"
         "import repro_torch.kernels.gmm_dw, repro_torch.data.pipeline\n"
         "import repro_torch.sharding, repro_torch.core.collectives\n"

@@ -231,8 +231,35 @@ def held_case(mesh, case: dict) -> dict:
     return out
 
 
+def collectives_case(mesh, case: dict) -> dict:
+    """One FSDP training step from parameters drawn on the rank, under
+    ``collectives.recording()``: the counts and result bytes per kind of
+    the collectives this rank called."""
+    import torch
+
+    from repro_torch import sharding as SH
+    from repro_torch.configs.base import ModelConfig, TrainConfig
+    from repro_torch.core.collectives import recording
+    from repro_torch.interop import init_params
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.optimizer import init_adamw
+
+    cfg = ModelConfig(**case["cfg"])
+    tcfg = TrainConfig(**case["tcfg"])
+    step = make_train_step(cfg, tcfg, "cpu", mesh=mesh)
+    params = init_params(cfg, torch.Generator().manual_seed(0), "cpu",
+                         dtype=torch.float32)
+    local = SH.shard_params(params, mesh, step.param_specs)
+    rows = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (tcfg.batch_size, tcfg.seq_len)).astype(np.int32)
+    with recording() as rec:
+        step(local, init_adamw(local), {"tokens": rows, "labels": rows})
+    return {"counts": rec.counts(), "bytes": rec.bytes_by_kind()}
+
+
 CASES = {"layer": layer_case, "train": train_case, "ckpt": ckpt_case,
-         "serve": serve_case, "held": held_case}
+         "serve": serve_case, "held": held_case,
+         "collectives": collectives_case}
 
 
 def run(rank: int, world: int, workdir: str) -> None:
