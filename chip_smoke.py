@@ -345,7 +345,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    meshes (parameter and moment bytes equal to its blocks, peak within
    10%, collectives per kind equal to rank 0's step 1), and ``run_one``
    for Mixtral-8x7B and Qwen3-30B-A3B x ``train_4k`` on the production
-   mesh (16, 16), in processes of their own started after the build.
+   mesh (16, 16), in processes of their own started after the build;
+51. the bench harness (``repro_torch.bench``): its kernels, memory and
+   serving suites at the full sweep (records under ``build/bench_torch/``),
+   its four same-run gates (any failure line fails the script), then
+   ``paper_tables.run()`` at the paper's full Table-1 sizes, each row
+   printed beside the card's name and power limit.
 
 The line before the last is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or of the
@@ -1411,6 +1416,11 @@ def main() -> int:
     # -- 50. the dry run, held to phases 7 and 47, and on (16, 16) ---------
     dryrec = dryrun_phase(dev, train, cfg_train, meshrec, dry_procs)
     shutil.rmtree(dry_work)
+    torch.cuda.empty_cache()
+
+    mark("51")
+    # -- 51. the bench harness: its suites, same-run gates, paper tables -----
+    benchrec = bench_phase(M, dev, card)
 
     # -- report ---------------------------------------------------------------
     sources = {
@@ -1487,6 +1497,7 @@ def main() -> int:
                for md, rec_ in meshrec["serve"].items()},
             "launches_dryrun_train": dryrec["train"]["launches"].get(
                 name, 0),
+            "launches_bench": benchrec["launches"].get(name, 0),
             "max_abs_err": errs[name], "ms": main_row["ms"],
             "plain_ms": main_row["plain_ms"],
             "bound_ms": main_row["bound_ms"],
@@ -1526,6 +1537,7 @@ def main() -> int:
     log(f"auto-record: {json.dumps(auto)}")
     log(f"mesh-record: {json.dumps(meshrec)}")
     log(f"dryrun-record: {json.dumps(dryrec)}")
+    log(f"bench-record: {json.dumps(benchrec)}")
     for tag, rec, xc in (("blaze_pallas", train, xcheck),
                          ("blaze+pallas_fused", train_fused, xcheck_fused),
                          ("ep_a2a", train_a2a, None),
@@ -1563,6 +1575,100 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)
     return 0
+
+
+# -- phase 51: the bench harness (repro_torch.bench) on the card ------------
+
+#: where phase 51 writes the suites' records (git ignores build/)
+BENCH_DIR = ROOT / "build" / "bench_torch"
+
+#: the kernels the bench's suites and paper tables must launch
+BENCH_KERNELS = ("build_dispatch", "gather_gmm", "gmm_dw", "combine",
+                 "fused_moe_fwd", "fused_moe_bwd", "fused_swiglu_fwd",
+                 "paged_attention", "paged_attention_int8")
+
+
+def bench_phase(M, dev, card) -> dict:
+    """Phase 51: ``repro_torch.bench``'s kernels, memory and serving suites
+    at their full sweep on the card, each record written under
+    ``build/bench_torch/``; the four same-run gates (simulated against
+    traced peaks within 20%, the fused path against the unfused kernels,
+    the parallel ranking against the cost model, the serving pairings),
+    any failure line failing the script; then ``paper_tables.run()`` at the
+    paper's full Table-1 sizes.  Launches are counted from 0 over the
+    whole phase; each of ``BENCH_KERNELS`` must rise."""
+    from repro_torch.bench import memory as BM
+    from repro_torch.bench import paper_tables as BP
+    from repro_torch.bench import record as BR
+    from repro_torch.bench import serving as BS
+    from repro_torch.bench import timing as BT
+    K = M.K
+    t_phase = time.perf_counter()
+    BENCH_DIR.mkdir(parents=True, exist_ok=True)
+    K.reset_launches()
+    records, seconds = {}, {}
+    for suite, fn in (("kernels", BT.kernels_suite),
+                      ("memory", BM.memory_suite),
+                      ("serving", BS.serving_suite)):
+        t0 = time.perf_counter()
+        entries = fn(small=False, device=dev)
+        records[suite] = BR.make_record(suite, entries,
+                                        config={"small": False}, device=dev)
+        path = BR.write_record(records[suite],
+                               str(BENCH_DIR / BR.BENCH_FILES[suite]))
+        seconds[suite] = time.perf_counter() - t0
+        log(f"bench [{suite}]: {len(entries)} entries in "
+            f"{seconds[suite]:.1f} s -> {path}")
+        for e in entries:
+            if e["kind"] == "time_us" or e["name"].startswith(
+                    ("peak_sim/", "serving/")) or "/allocated_bytes" in \
+                    e["name"]:
+                log(f"bench [{suite}] {e['name']}: {e['value']:.6g} "
+                    f"{e['unit']} [{card}]")
+        torch.cuda.empty_cache()
+    gates = {
+        "sim_parity": BM.sim_parity_failures(records["memory"]["entries"]),
+        "fused": BT.fused_gate_failures(records["kernels"]["entries"]),
+        "parallel": BT.parallel_gate_failures(records["kernels"]["entries"]),
+        "serving": BS.serving_gate_failures(records["serving"]["entries"])}
+    for name, fails in gates.items():
+        log(f"bench gate [{name}]: " + ("; ".join(fails) if fails else "OK"))
+    check(not any(gates.values()),
+          "bench: a same-run gate failed: " + "; ".join(
+              line for fails in gates.values() for line in fails))
+    by = {e["name"]: e["value"] for r in records.values()
+          for e in r["entries"]}
+    sims = sorted(n for n in by if n.startswith("peak_sim/"))
+    errs = {}
+    for n in sims:
+        _, c, plan, mode = n.split("/")
+        m = by[f"memory/{c}/{plan}/{'segment' if mode == 'single' else mode}"
+               "/peak_bytes"]
+        errs[n] = (by[n] - m) / m
+    log("bench sim vs traced peak: " + ", ".join(
+        f"{n[len('peak_sim/'):]} {100 * e:+.1f}%" for n, e in errs.items()))
+
+    t0 = time.perf_counter()
+    rows = BP.run(print_fn=lambda line: log(f"paper tables [{card}]: "
+                                            f"{line}"), device=dev)
+    seconds["paper_tables"] = time.perf_counter() - t0
+    for name, us, derived in rows:
+        log(f"paper-tables row [{card}]: {name},{us:.1f},{derived}")
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    for name in BENCH_KERNELS:
+        check(launches.get(name, 0) > 0,
+              f"bench: {name} never launched in phase 51 ({launches})")
+    seconds["phase"] = time.perf_counter() - t_phase
+    log(f"bench: phase 51 took {seconds['phase']:.1f} s ("
+        + ", ".join(f"{k} {v:.1f} s" for k, v in seconds.items()
+                    if k != "phase") + f"); launches {launches}")
+    torch.cuda.empty_cache()
+    return {"seconds": seconds, "launches": launches,
+            "sim_vs_traced": errs, "gates": gates,
+            "paper_tables": [list(r) for r in rows],
+            "records": {k: str(BENCH_DIR / BR.BENCH_FILES[k])
+                        for k in records}}
 
 
 # -- phases 46-49: the distribution slice: auto at the H100's constants,

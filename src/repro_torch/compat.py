@@ -144,6 +144,14 @@ def _nbytes(x) -> int:
     return 0
 
 
+def _grouped_mm_flops(a, b, *args, out_val=None, **kwargs) -> int:
+    """``torch._grouped_mm``'s operations, which ``flop_counter`` has no
+    formula for: every row of ``a`` meets one group's ``b`` once (a
+    (S, d) x (E, d, h) product or the (d, S) x (S, h) weight gradient:
+    2 · a.numel() · h either way)."""
+    return 2 * a.numel() * b.shape[-1]
+
+
 class _LiveBytes(TorchDispatchMode):
     """Follows every storage an op allocates (not a view's, not an
     in-place update's, not one that existed before: ``known``) from its
@@ -151,7 +159,8 @@ class _LiveBytes(TorchDispatchMode):
     inputs read and outputs written once; views move nothing) and counts
     its operations by ``torch.utils.flop_counter``'s formulas (aten's
     products and attention; ``FlopCounterMode``'s registry, read here so
-    that a trace takes one mode, not two)."""
+    that a trace takes one mode, not two) and ``torch._grouped_mm``'s by
+    :func:`_grouped_mm_flops`."""
 
     def __init__(self, known):
         from torch.utils.flop_counter import flop_registry
@@ -161,7 +170,9 @@ class _LiveBytes(TorchDispatchMode):
         self.flops = 0
         self.known = set(known)
         self._refs: dict[int, weakref.ref] = {}
-        self._formulas = flop_registry
+        self._formulas = dict(flop_registry)
+        if hasattr(torch.ops.aten, "_grouped_mm"):
+            self._formulas[torch.ops.aten._grouped_mm] = _grouped_mm_flops
         self._ops: dict = {}      # op -> (moves nothing, in place, formula)
 
     def _died(self, key: int, nbytes: int, ref) -> None:

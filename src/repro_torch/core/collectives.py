@@ -260,7 +260,9 @@ def _all_to_all(x: torch.Tensor, group) -> torch.Tensor:
     x = x.contiguous()
     _record("all-to-all", _nbytes(x), group)
     if isinstance(group, ShapeGroup):
-        return torch.empty_like(x)
+        # this rank's own blocks in the result's shape: the same bytes as
+        # an empty result, and defined values for a real tensor
+        return x.clone()
     if _ipc(x, group):
         me = dist.get_rank(group)
         views = _peer_views(x, group)

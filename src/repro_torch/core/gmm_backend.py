@@ -44,6 +44,7 @@ from dataclasses import dataclass
 
 import torch
 
+from repro_torch.kernels._lib import is_fake
 from repro_torch.kernels.gather_gmm import gather_gmm as _gather_gmm
 from repro_torch.kernels.gmm_dw import gmm_dw as _gmm_dw_kernel
 
@@ -154,7 +155,12 @@ class RaggedBackend:
 
 class SegmentBackend:
     """Plain PyTorch grouped GEMM: one float32 product per group's rows.
-    Exact, so it doubles as the oracle of the parity tests."""
+    Exact, so it doubles as the oracle of the parity tests.
+
+    A fake tensor (``FakeTensorMode``) has no group sizes to read, so on
+    fake tensors one product over every row stands for the groups'
+    products: the output's shape and dtype and the inputs autograd keeps
+    are theirs, for the bytes a trace of the call counts."""
 
     name = "segment"
 
@@ -165,6 +171,8 @@ class SegmentBackend:
     @staticmethod
     def gmm(lhs, rhs, group_sizes):
         S = lhs.shape[0]
+        if is_fake(lhs):
+            return (lhs.float() @ rhs[0].float()).to(lhs.dtype)
         out = lhs.new_zeros(S, rhs.shape[2], dtype=torch.float32)
         for e, lo, hi in _groups(group_sizes, S):
             out[lo:hi] = lhs[lo:hi].float() @ rhs[e].float()
@@ -173,6 +181,9 @@ class SegmentBackend:
     @staticmethod
     def gmm_dw(lhs, dout, group_sizes):
         E = group_sizes.shape[0]
+        if is_fake(lhs):
+            dw = lhs.float().T @ dout.float()
+            return dw.expand(E, *dw.shape).contiguous().to(lhs.dtype)
         out = lhs.new_zeros(E, lhs.shape[1], dout.shape[1],
                             dtype=torch.float32)
         for e, lo, hi in _groups(group_sizes, lhs.shape[0]):

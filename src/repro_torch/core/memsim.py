@@ -11,11 +11,34 @@ byte functions price the paged pools.  ``_a2a_capacity``, ``_a2a_rows``
 and ``_a2a_hier_rows`` also size the distributed MoE path's buffers.
 
 ``GRAD_FACTOR``, ``FULL_SAVE_FACTOR`` and ``LOSS_FACTOR`` are the
-reference's, calibrated there against XLA's ``memory_analysis()``; they are
-carried over only so that the port computes what the reference computes.
-How well they describe PyTorch's allocator on the H100 is measured
-(``chip_smoke.py``'s plan sweep prints each plan's measured peak beside the
-simulated one); they are not refit here.
+reference's, calibrated there against XLA's ``memory_analysis()``; with
+the default ``schedule="xla"`` the port computes what the reference
+computes (the planners and the dry run's records use it, so that a port
+record compares with the reference's).
+
+``schedule="torch"`` is the port's own timeline (a declared deviation,
+ROADMAP §C, C11), held by the bench's parity gate
+(``repro_torch/bench/memory.sim_parity_failures``) within 20% of the
+step's traced peak (``compat.trace_step``).  It differs from XLA's in
+three terms, each a difference of PyTorch's from XLA's buffer
+assignment:
+
+  * gradients accrue: XLA reserves every gradient output for the whole
+    step; PyTorch allocates a parameter's gradient when the backward
+    reaches it.  The forward and the loss hold none; the backward of
+    layer ``i`` holds the head's and those of the layers after ``i``,
+    plus layer ``i``'s FFN / MoE gradients (that sublayer runs last in
+    the forward, so its backward runs first, while the layer's recomputed
+    attention is still live);
+  * ``dots`` on a MoE layer keeps ONE slot-row copy of the expert
+    products: the port's ``segment`` grouped GEMM runs each group's rows,
+    where the reference's runs every expert over every slot row (a
+    ``fori_loop`` of masked dense products, ``E_loc`` copies that its
+    ``dots`` policy saves);
+  * under ``full`` autograd holds what each op's backward needs:
+    :data:`TORCH_FULL_SAVE_FACTOR` times the enumerable tensors where
+    XLA's step keeps :data:`FULL_SAVE_FACTOR` (fitted to the bench's
+    traced peaks at 2 x 32 and 4 x 64).
 
 Everything is shape arithmetic on the config: no tensor is made.
 """
@@ -40,6 +63,14 @@ FULL_SAVE_FACTOR = 1.9
 #: how many logits-sized buffers are live around the loss phase: the f32
 #: logits, the log-softmax statistics, and the logits cotangent.
 LOSS_FACTOR = 3
+
+#: ``FULL_SAVE_FACTOR``'s counterpart under ``schedule="torch"``: the
+#: residuals plain autograd holds under ``full``, as a multiple of the
+#: enumerable tensors, fitted to the bench configs' traced peaks.
+TORCH_FULL_SAVE_FACTOR = 1.3
+
+#: the timelines :func:`simulate` can follow (see the module docstring)
+SCHEDULES = ("xla", "torch")
 
 
 @dataclass(frozen=True)
@@ -110,6 +141,26 @@ def _layer_kinds(cfg) -> list:
     return [cfg.block_pattern[i % period] for i in range(cfg.num_layers)]
 
 
+def _layer_params(cfg, kind: str, n_model: int = 1) -> tuple[int, int]:
+    """``(all, ffn)``: one layer's parameter count and its FFN / MoE
+    sublayer's (router and experts; expert weights divide by ``n_model``
+    under ep modes)."""
+    d = cfg.d_model
+    n = 2 * d                                         # pre-norms
+    ffn = 0
+    if "attn" in kind or kind == "hymba":
+        h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
+        n += (2 * h + 2 * kv) * d * hd
+    if kind.endswith("moe"):
+        E = cfg.num_experts
+        ffn = d * E + 3 * (E // max(n_model, 1)) * d * cfg.moe_d_ff
+    elif "attn" in kind or kind == "hymba":
+        ffn = (3 if cfg.ffn_act == "swiglu" else 2) * d * cfg.d_ff
+    if kind in ("mlstm", "slstm"):
+        n += 4 * d * d                                # recurrent projections
+    return n + ffn, ffn
+
+
 def param_bytes(cfg, *, n_model: int = 1) -> int:
     """Analytic per-device parameter bytes (embed + untied head + per-layer
     projections; expert weights divide by ``n_model`` under ep modes)."""
@@ -117,20 +168,7 @@ def param_bytes(cfg, *, n_model: int = 1) -> int:
     d, V = cfg.d_model, cfg.vocab_size
     total = 2 * V * d * p + d * p          # embed + head + final norm
     for kind in _layer_kinds(cfg):
-        b = 2 * d * p                                 # pre-norms
-        if "attn" in kind or kind == "hymba":
-            h, kv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.resolved_head_dim
-            b += (2 * h + 2 * kv) * d * hd * p
-        if kind.endswith("moe"):
-            E = cfg.num_experts
-            b += d * E * p                            # router
-            b += 3 * (E // max(n_model, 1)) * d * cfg.moe_d_ff * p
-        elif "attn" in kind or kind == "hymba":
-            n_ffn = 3 if cfg.ffn_act == "swiglu" else 2
-            b += n_ffn * d * cfg.d_ff * p
-        if kind in ("mlstm", "slstm"):
-            b += 4 * d * d * p                        # recurrent projections
-        total += b
+        total += _layer_params(cfg, kind, n_model)[0] * p
     return total
 
 
@@ -195,7 +233,8 @@ class _KindSizes:
 
 
 def _kind_sizes(cfg, kind: str, n_tokens: int, batch: int,
-                mode: str, n_model: int, n_node: int = 1) -> _KindSizes:
+                mode: str, n_model: int, n_node: int = 1,
+                schedule: str = "xla") -> _KindSizes:
     it = _itemsize(cfg.dtype)
     d = cfg.d_model
     x_b = n_tokens * d * it
@@ -245,8 +284,10 @@ def _kind_sizes(cfg, kind: str, n_tokens: int, batch: int,
         moe_vjp_held = 3 * rows_held * ff_loc * it
         moe_x = tm * d * it
         # The segment grouped-GEMM backend's per-expert full-slot dots —
-        # what ``dots`` ends up saving on MoE layers in the reference.
-        dots_extra += E_loc * (2 * rows * ff_loc + rows * d) * it
+        # what ``dots`` ends up saving on MoE layers in the reference; the
+        # port's segment runs each group's rows: one copy.
+        copies = E_loc if schedule == "xla" else 1
+        dots_extra += copies * (2 * rows * ff_loc + rows * d) * it
     elif "attn" in kind or kind == "hymba":
         n_ffn = 3 if cfg.ffn_act == "swiglu" else 2
         ffn = n_ffn * n_tokens * cfg.d_ff * it + x_b
@@ -267,13 +308,13 @@ def moe_layer_sizes(cfg, n_tokens: int, *, mode: str, n_model: int = 1,
 
 
 def _held_bytes(plan, kind: str, sizes: _KindSizes, tag_sizes: dict,
-                wrapped: bool) -> int:
+                wrapped: bool, full_factor: float = FULL_SAVE_FACTOR) -> int:
     """Residual bytes one layer of ``kind`` holds across fwd->bwd under
     ``plan``.  ``wrapped`` is False for ``full`` (no checkpoint region around
     the layer): the MoE custom-VJP residuals then persist; under any
     wrapped plan they are transient (rebuilt by the bwd replay)."""
     if plan.special == "full":
-        held = int(FULL_SAVE_FACTOR
+        held = int(full_factor
                    * (sizes.attn + sizes.ffn + sizes.moe_other + sizes.ssm))
         held += _vjp_resid_bytes(plan, kind, sizes)
         return held
@@ -317,7 +358,7 @@ def _vjp_mode(plan, save_yswi: bool = True) -> str:
 
 def simulate(cfg, n_tokens: int, *, batch: int = 1, plan=None,
              mode: str | None = None, n_model: int = 1, n_node: int = 1,
-             base: str = "grad") -> MemTimeline:
+             base: str = "grad", schedule: str = "xla") -> MemTimeline:
     """Simulate one train step's per-device memory timeline.
 
     ``n_tokens`` / ``batch`` are the *per-device* token and sequence counts
@@ -334,9 +375,18 @@ def simulate(cfg, n_tokens: int, *, batch: int = 1, plan=None,
       against its compiled step's memory analysis);
     * ``"train"`` — adds AdamW m/v and an optimizer-update phase: the
       budget-relevant per-device train-step peak.
+
+    ``schedule`` is ``"xla"`` (the reference's timeline) or ``"torch"``
+    (the port's: see the module docstring).  Under ``"torch"`` the
+    gradients are not in ``base_bytes``: each backward phase's
+    ``held_bytes`` includes those accrued by then, and the optimizer
+    phase's all of them.
     """
     if base not in ("acts", "grad", "train"):
         raise ValueError(f"unknown base {base!r}; use acts|grad|train")
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}; use "
+                         + "|".join(SCHEDULES))
     if isinstance(plan, CK.CheckpointPlan):
         plan = plan
     else:
@@ -356,7 +406,7 @@ def simulate(cfg, n_tokens: int, *, batch: int = 1, plan=None,
     tag_by_kind = {k: s for k, s in
                    CK.tag_bytes_by_kind(cfg, n_tokens, batch=batch)}
     sizes_of = {k: _kind_sizes(cfg, k, n_tokens, batch, mode, n_model,
-                               n_node)
+                               n_node, schedule)
                 for k in set(kinds)}
     wrapped = plan.special != "full"
     vjp_mode = _vjp_mode(plan, cfg.save_yswi)
@@ -364,7 +414,9 @@ def simulate(cfg, n_tokens: int, *, batch: int = 1, plan=None,
     held, spikes, recs = [], [], []
     for k in kinds:
         s = sizes_of[k]
-        h = _held_bytes(plan, k, s, tag_by_kind.get(k, {}), wrapped)
+        h = _held_bytes(plan, k, s, tag_by_kind.get(k, {}), wrapped,
+                        FULL_SAVE_FACTOR if schedule == "xla"
+                        else TORCH_FULL_SAVE_FACTOR)
         if wrapped:
             rec = max(s.core - h, 0)
         else:
@@ -378,6 +430,25 @@ def simulate(cfg, n_tokens: int, *, batch: int = 1, plan=None,
         held.append(h)
         spikes.append(rec + replay + int(GRAD_FACTOR * s.core))
         recs.append(rec + replay)
+
+    # Expert weights per device: ep modes shard the expert dim over the
+    # combined node x model axes; tp shards the per-expert hidden dim over
+    # 'model' — either way the bank divides by that many ways.
+    ep_ways = (n_model * n_node
+               if mode in ("ep", "ep_a2a", "ep_a2a_hier") else n_model)
+    pb = param_bytes(cfg, n_model=max(ep_ways, 1))
+    n_params = pb // _itemsize(cfg.param_dtype)
+    grads_b = n_params * 4
+    tok_b = 2 * n_tokens * 4
+    # the gradient bytes each backward phase holds (``schedule="torch"``:
+    # they accrue, see the module docstring; ``"xla"``: all in the base)
+    accrued = [0] * len(kinds)
+    if schedule == "torch" and base in ("grad", "train"):
+        layer = [_layer_params(cfg, k, max(ep_ways, 1)) for k in kinds]
+        head = n_params - sum(n for n, _ in layer)
+        for i in range(len(kinds)):
+            accrued[i] = 4 * (head + sum(n for n, _ in layer[i + 1:])
+                              + layer[i][1])
 
     phases = []
     for i, k in enumerate(kinds):
@@ -395,25 +466,17 @@ def simulate(cfg, n_tokens: int, *, batch: int = 1, plan=None,
         s = sizes_of[k]
         phases.append(Phase(
             name=f"bwd/{k}[{i}]",
-            held_bytes=(i + 2) * x_b + sum(held[:i + 1]),
+            held_bytes=(i + 2) * x_b + sum(held[:i + 1]) + accrued[i],
             transient_bytes=spikes[i],
             collective_bytes=s.collective))
 
-    # Expert weights per device: ep modes shard the expert dim over the
-    # combined node x model axes; tp shards the per-expert hidden dim over
-    # 'model' — either way the bank divides by that many ways.
-    ep_ways = (n_model * n_node
-               if mode in ("ep", "ep_a2a", "ep_a2a_hier") else n_model)
-    pb = param_bytes(cfg, n_model=max(ep_ways, 1))
-    n_params = pb // _itemsize(cfg.param_dtype)
-    grads_b = n_params * 4
-    tok_b = 2 * n_tokens * 4
     base_b = 0
     if base in ("grad", "train"):
-        base_b = pb + grads_b + tok_b
+        base_b = pb + tok_b + (grads_b if schedule == "xla" else 0)
     if base == "train":
         base_b += 2 * n_params * 4                    # AdamW m, v
-        phases.append(Phase(name="optimizer", held_bytes=0,
+        phases.append(Phase(name="optimizer",
+                            held_bytes=0 if schedule == "xla" else grads_b,
                             transient_bytes=n_params * 4))
     return MemTimeline(phases=tuple(phases), base_bytes=base_b, base=base,
                        mode=mode, n_model=n_model,
@@ -525,7 +588,9 @@ def simulate_serve(cfg, *, batch_slots: int, num_pages: int, page_size: int,
 
 def simulate_peak(cfg, n_tokens: int, *, batch: int = 1, plan=None,
                   mode: str | None = None, n_model: int = 1,
-                  n_node: int = 1, base: str = "grad") -> int:
+                  n_node: int = 1, base: str = "grad",
+                  schedule: str = "xla") -> int:
     """Peak bytes of :func:`simulate` (the fit and train-step scalar)."""
     return simulate(cfg, n_tokens, batch=batch, plan=plan, mode=mode,
-                    n_model=n_model, n_node=n_node, base=base).peak_bytes
+                    n_model=n_model, n_node=n_node, base=base,
+                    schedule=schedule).peak_bytes

@@ -158,18 +158,38 @@ def _expert_rows(offsets: torch.Tensor, S: int):
             yield e, lo, hi
 
 
-def fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3) -> torch.Tensor:
-    """Plain PyTorch version of :func:`fused_moe_fwd`."""
+def _expert_blocks(idx: torch.Tensor, offsets: torch.Tensor):
+    """Each expert's slots as one padded block: ``(slot (E, R) int64,
+    live (E, R) bool)``, ``R`` the most slots an expert has (at least 1);
+    a padding position points at slot ``S`` (one past the last), which the
+    callers fill with zeros.  Slots past ``offsets[E]`` are in no block."""
     S = idx.shape[0]
+    off = offsets.long().clamp(max=S)
+    lens = (off[1:] - off[:-1]).clamp(min=0)
+    R = max(int(lens.max()), 1) if lens.numel() else 1
+    pos = torch.arange(R, device=idx.device)
+    live = pos[None, :] < lens[:, None]
+    return torch.where(live, off[:-1, None] + pos, S), live
+
+
+def _blocks(t: torch.Tensor, slot: torch.Tensor) -> torch.Tensor:
+    """Rows of the (S, n) ``t`` in the padded blocks of ``slot``, float32,
+    zeros at the padding."""
+    return torch.cat([t.float(), t.new_zeros(1, t.shape[1],
+                                             dtype=torch.float32)])[slot]
+
+
+def fused_moe_fwd_plain(x, g_slot, idx, offsets, w1, w2, w3) -> torch.Tensor:
+    """Plain PyTorch version of :func:`fused_moe_fwd`: every expert's
+    products in one batched product over its padded block of slots."""
+    slot, live = _expert_blocks(idx, offsets)
+    rows = idx.long()
+    xe = _blocks(x[rows], slot)                         # (E, R, d)
+    y_swi = _round(_silu(torch.bmm(xe, w1.float()))
+                   * torch.bmm(xe, w2.float()), x.dtype)
+    ye = torch.bmm(y_swi, w3.float()) * _blocks(g_slot[:, None], slot)
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
-    for e, lo, hi in _expert_rows(offsets, S):
-        rows = idx[lo:hi].long()
-        xe = x[rows].float()
-        a = xe @ w1[e].float()
-        b = xe @ w2[e].float()
-        y_swi = _round(_silu(a) * b, x.dtype)
-        y.index_add_(0, rows, g_slot[lo:hi, None] * (y_swi @ w3[e].float()))
-    return y
+    return y.index_add_(0, rows[slot[live]], ye[live])
 
 
 def fused_moe_fwd_passes_plain(x, g_slot, idx, offsets, w1, w2, w3, *,
@@ -197,32 +217,31 @@ def fused_moe_fwd_passes_plain(x, g_slot, idx, offsets, w1, w2, w3, *,
 
 
 def fused_moe_bwd_plain(x, dy, g_slot, idx, offsets, w1, w2, w3):
-    """Plain PyTorch version of :func:`fused_moe_bwd`."""
+    """Plain PyTorch version of :func:`fused_moe_bwd`, in batched products
+    over the experts' padded blocks as :func:`fused_moe_fwd_plain`."""
     S = idx.shape[0]
+    slot, live = _expert_blocks(idx, offsets)
+    rows = idx.long()
+    xe, dye = _blocks(x[rows], slot), _blocks(dy[rows], slot)
+    g = _blocks(g_slot[:, None], slot)
+    w1f, w2f, w3f = w1.float(), w2.float(), w3.float()
+    a, b = torch.bmm(xe, w1f), torch.bmm(xe, w2f)
+    sa = _silu(a)
+    y_swi = _round(sa * b, x.dtype)
+    dyu = _round(torch.bmm(dye, w3f.transpose(1, 2)), x.dtype)
+    dy_swi = dyu * g
+    da = dy_swi * b * _dsilu(a)
+    db = dy_swi * sa
     f32 = dict(dtype=torch.float32, device=x.device)
-    dx = torch.zeros(x.shape, **f32)
     dg = torch.zeros(S, **f32)
-    dw1 = torch.zeros(w1.shape, **f32)
-    dw2 = torch.zeros(w2.shape, **f32)
-    dw3 = torch.zeros(w3.shape, **f32)
-    for e, lo, hi in _expert_rows(offsets, S):
-        rows = idx[lo:hi].long()
-        xe, dye = x[rows].float(), dy[rows].float()
-        w1e, w2e, w3e = w1[e].float(), w2[e].float(), w3[e].float()
-        a, b = xe @ w1e, xe @ w2e
-        sa = _silu(a)
-        y_swi = _round(sa * b, x.dtype)
-        dyu = _round(dye @ w3e.T, x.dtype)
-        g = g_slot[lo:hi, None]
-        dy_swi = dyu * g
-        da = dy_swi * b * _dsilu(a)
-        db = dy_swi * sa
-        dg[lo:hi] = (y_swi * dyu).sum(-1)
-        dw1[e] = xe.T @ da
-        dw2[e] = xe.T @ db
-        dw3[e] = (y_swi * g).T @ dye
-        dx.index_add_(0, rows, da @ w1e.T + db @ w2e.T)
-    return dx, dg, dw1, dw2, dw3
+    dg[slot[live]] = (y_swi * dyu).sum(-1)[live]
+    xt = xe.transpose(1, 2)
+    dxe = (torch.bmm(da, w1f.transpose(1, 2))
+           + torch.bmm(db, w2f.transpose(1, 2)))
+    dx = torch.zeros(x.shape, **f32).index_add_(0, rows[slot[live]],
+                                                dxe[live])
+    return (dx, dg, torch.bmm(xt, da), torch.bmm(xt, db),
+            torch.bmm((y_swi * g).transpose(1, 2), dye))
 
 
 def fused_moe_bwd_passes_plain(x, dy, g_slot, idx, offsets, w1, w2, w3, *,

@@ -13,8 +13,8 @@ to each other.
 The half that reads XLA's compiled module has its counterparts over the
 dry run's trace (``compat.trace_step``): :func:`collective_stats` over a
 ``collectives.Recording`` and :func:`analyze` for
-``analyze_compiled``.  ``bench_entries`` waits for the port's benchmark
-(``repro/bench/record.py``).
+``analyze_compiled``; :func:`bench_entries` projects that dict into the
+port's bench records (``repro_torch/bench/record.py``).
 
 The model ranks the candidate modes on ONE MoE layer at the per-device
 token slab, with three terms in seconds:
@@ -413,3 +413,27 @@ def select_moe_tiles(n_rows: int, d: int, h: int, *, dtype_bytes: int = 2,
     while bh > 128 and bh // 2 >= h:
         bh //= 2
     return bl, bh
+
+
+def bench_entries(analysis: dict, prefix: str) -> list:
+    """Project an :func:`analyze` dict into ``repro_torch.bench.record``
+    entries, with the reference's names, kinds and tolerances
+    (``repro/roofline.py:488-508``), so roofline-model numbers and measured
+    numbers land in the same tracked report (``BENCH_memory.json``)."""
+    from repro_torch.bench.record import entry
+
+    meta = {"dominant": analysis["dominant"], "n_chips": analysis["n_chips"]}
+    return [
+        entry(f"{prefix}/flops", analysis["flops_per_dev"],
+              kind="flops", unit="flop", tolerance_pct=20.0, **meta),
+        entry(f"{prefix}/hlo_bytes", analysis["hlo_bytes_per_dev"],
+              kind="bytes_accessed", unit="bytes", tolerance_pct=100.0),
+        entry(f"{prefix}/peak_bytes", analysis["peak_bytes"],
+              kind="peak_bytes", unit="bytes", tolerance_pct=100.0),
+        entry(f"{prefix}/t_compute", analysis["t_compute_s"],
+              kind="roofline_s", unit="s"),
+        entry(f"{prefix}/t_memory", analysis["t_memory_s"],
+              kind="roofline_s", unit="s"),
+        entry(f"{prefix}/t_collective", analysis["t_collective_s"],
+              kind="roofline_s", unit="s"),
+    ]

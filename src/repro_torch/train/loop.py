@@ -279,7 +279,7 @@ def traceable_step(cfg, tcfg, device, *, mesh=None, backend=None):
 
 
 def compiled_step_memory(cfg, tcfg, *, mesh=None, backend=None,
-                         device=None) -> dict:
+                         device=None, real: bool = False) -> dict:
     """The memory and cost of one training step without running it: the
     counterpart of the reference's hook (``repro/train/loop.py:169-192``,
     which ``repro/bench/memory.py`` reads), with its keys but
@@ -291,6 +291,10 @@ def compiled_step_memory(cfg, tcfg, *, mesh=None, backend=None,
     is launched (the wrappers record their calls).  Under a ``mesh``
     (a ``launch.mesh.DryMesh``) the parameters and moments are this
     rank's blocks under ``step_fn.param_specs`` and the batch its rows.
+    ``real`` traces real tensors of the same shapes instead (zeros), for a
+    backend that cannot run on fake ones (``segment`` reads the routed
+    counts to the host); the accounting is the same, and the kernels
+    launch.
 
     Returns the reference's ``arg_bytes``, ``out_bytes``, ``temp_bytes``,
     ``alias_bytes``, ``gmm_backend`` and ``remat_plan``, and beside them
@@ -300,12 +304,19 @@ def compiled_step_memory(cfg, tcfg, *, mesh=None, backend=None,
     ``trace_s``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
-    from repro_torch.compat import trace_step
+    from repro_torch.compat import _tensors, trace_step
     step_fn, make_args = traceable_step(cfg, tcfg, resolve_device(device),
                                         mesh=mesh, backend=backend)
-    with FakeTensorMode():
+    if real:
         args, kwargs = make_args()
+        with torch.no_grad():
+            for t in _tensors((args, kwargs)):
+                t.zero_()
         _, tr = trace_step(step_fn, *args, **kwargs)
+    else:
+        with FakeTensorMode():
+            args, kwargs = make_args()
+            _, tr = trace_step(step_fn, *args, **kwargs)
     return {"arg_bytes": tr.arg_bytes, "out_bytes": tr.out_bytes,
             "temp_bytes": tr.temp_bytes, "alias_bytes": tr.alias_bytes,
             "gmm_backend": step_fn.resolved_backend.name,

@@ -235,3 +235,79 @@ def test_fused_layer_function_matches_reference(tp, dtype):
         assert t.grad.dtype == t.dtype, name
         np.testing.assert_allclose(f32(t.grad), want, **_tol(dtype, want),
                                    err_msg=f"d{name}")
+
+
+def _per_expert_pair(torch, x, dy, g_slot, idx, offsets, w1, w2, w3):
+    """The pair one expert at a time (the products of each expert's own
+    slots, as the kernels compute them), for the batched plain versions to
+    be held to."""
+    from repro_torch.kernels.fused_moe import _dsilu, _expert_rows, _round
+    S, f = idx.shape[0], torch.float32
+    y, dx = torch.zeros(x.shape, dtype=f), torch.zeros(x.shape, dtype=f)
+    dg = torch.zeros(S, dtype=f)
+    dws = [torch.zeros(w.shape, dtype=f) for w in (w1, w2, w3)]
+    for e, lo, hi in _expert_rows(offsets, S):
+        rows = idx[lo:hi].long()
+        xe, dye, g = x[rows].float(), dy[rows].float(), g_slot[lo:hi, None]
+        a, b = xe @ w1[e].float(), xe @ w2[e].float()
+        sa = torch.nn.functional.silu(a)
+        y_swi = _round(sa * b, x.dtype)
+        y.index_add_(0, rows, g * (y_swi @ w3[e].float()))
+        dyu = _round(dye @ w3[e].float().T, x.dtype)
+        da, db = dyu * g * b * _dsilu(a), dyu * g * sa
+        dg[lo:hi] = (y_swi * dyu).sum(-1)
+        dws[0][e], dws[1][e] = xe.T @ da, xe.T @ db
+        dws[2][e] = (y_swi * g).T @ dye
+        dx.index_add_(0, rows, da @ w1[e].float().T + db @ w2[e].float().T)
+    return y, (dx, dg, *dws)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", ["balanced", "empty experts",
+                                  "all on one expert", "dead slots"])
+def test_plain_pair_batches_the_experts(tp, case, dtype):
+    """The plain pair runs every expert in one batched product a weight
+    (3 products forward, 8 backward, whatever E; no per-expert product),
+    over each expert's slots padded to the largest group, and gives what
+    the pair computed one expert at a time gives, to 1e-5 of each
+    output's scale: empty experts, every slot on one expert, and slots
+    past offsets[E] (no expert's, so they add nothing)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.kernels import fused_moe as F
+    torch = tp.torch
+    L = 48
+    x, w1, w2, w3, topk, gates, dy = _inputs(L, dtype, empty=(
+        [1, 5] if case == "empty experts" else None))
+    if case == "all on one expert":
+        topk = np.stack([np.full(L, 3), np.full(L, 6)], 1).astype(np.int32)
+    x, w1, w2, w3, dy = (to_torch(a) for a in (x, w1, w2, w3, dy))
+    disp = tp.routing.build_dispatch(torch.as_tensor(topk), E)
+    idx, off = disp.expert_token_indices, disp.expert_token_offsets
+    if case == "dead slots":       # the last 20 slots belong to no expert
+        off = torch.clamp(off, max=idx.shape[0] - 20)
+    g_slot = torch.rand(idx.shape[0], generator=torch.Generator()
+                        .manual_seed(1))
+
+    class Products(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.n = {}
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            name = func.overloadpacket.__name__
+            if name in ("mm", "bmm", "addmm", "matmul"):
+                self.n[name] = self.n.get(name, 0) + 1
+            return func(*args, **(kwargs or {}))
+
+    with Products() as fwd_n:
+        y = F.fused_moe_fwd_plain(x, g_slot, idx, off, w1, w2, w3)
+    with Products() as bwd_n:
+        grads = F.fused_moe_bwd_plain(x, dy, g_slot, idx, off, w1, w2, w3)
+    assert fwd_n.n == {"bmm": 3} and bwd_n.n == {"bmm": 8}
+    want_y, want_g = _per_expert_pair(torch, x, dy, g_slot, idx, off, w1,
+                                      w2, w3)
+    for got, want in zip((y, *grads), (want_y, *want_g)):
+        want = f32(want)
+        np.testing.assert_allclose(f32(got), want, rtol=1e-5,
+                                   atol=1e-5 * max(np.abs(want).max(), 1e-30))

@@ -1594,3 +1594,23 @@ def test_hymba_decode_matches_forward_on_card(dev):
             top2 = ref.topk(2).values
             same = step.argmax(-1) == ref.argmax(-1)
             assert bool((same | (top2[:, 0] - top2[:, 1] <= 0.125)).all()), t
+
+
+def test_bench_suites_on_card(dev):
+    """``repro_torch.bench`` at its small sweep on the card: the kernels
+    suite's fused-path gates hold and its timed paths go through the
+    hand-written kernels (gather-GMM and ``gmm_dw`` under the ``pallas``
+    backend, the fused pair, the fused SwiGLU forward: each count rises);
+    the memory suite's simulated peaks agree with the traced ones."""
+    from repro_torch import kernels as KN
+    from repro_torch.bench import memory, timing
+    KN.reset_launches()
+    kern = timing.kernels_suite(small=True, device=dev)
+    launches = KN.launch_counts()
+    assert timing.fused_gate_failures(kern) == []
+    for name in ("gather_gmm", "gmm_dw", "fused_moe_fwd", "fused_moe_bwd",
+                 "fused_swiglu_fwd"):
+        assert launches[name] > 0, (name, launches)
+    mem = memory.memory_suite(small=True, device=dev)
+    assert memory.sim_parity_failures(mem) == []
+    assert any(e["name"].endswith("/allocated_bytes") for e in mem)

@@ -116,3 +116,44 @@ def test_serving_bytes_match_reference(name):
                     prefill_tokens=4096, prefill_batch=2, n_model=2)):
         assert _timeline(MS.simulate_serve(tcfg, **kw)) == \
             _timeline(JMS.simulate_serve(jcfg, **kw)), kw
+
+
+@pytest.mark.parametrize("name", sorted(CONFIGS))
+def test_torch_schedule_terms(name):
+    """The port's own timeline (``schedule="torch"``, ROADMAP §C, C11;
+    held to the traced peaks in ``tests/test_torch_bench.py``): the
+    gradients leave the base and accrue in the backward phases (the head's
+    and the later layers', plus the FFN / MoE share of the layer itself),
+    the optimizer phase holds all of them, and no phase reads above the
+    reference's timeline; without gradients (``base="acts"``) the two
+    timelines differ only where ``dots`` or ``full`` decide."""
+    CK, MS = _port()
+    cfg = torch_config(CONFIGS[name])
+    with pytest.raises(ValueError, match="schedule"):
+        MS.simulate(cfg, 64, schedule="jax")
+    kinds = MS._layer_kinds(cfg)
+    layer = [MS._layer_params(cfg, k) for k in kinds]
+    grads = 4 * (MS.param_bytes(cfg) // MS._itemsize(cfg.param_dtype))
+    for n_tokens, batch in ((64, 2), (4096, 2)):
+        for spec in [p.spec() for p in CK.fit_candidates(cfg)]:
+            for base in ("acts", "grad", "train"):
+                kw = dict(batch=batch, plan=CK.get_plan(spec), base=base)
+                xla = MS.simulate(cfg, n_tokens, **kw)
+                torch_ = MS.simulate(cfg, n_tokens, schedule="torch", **kw)
+                assert torch_.peak_bytes <= xla.peak_bytes, (spec, base)
+                special = CK.get_plan(spec).special in ("dots", "full")
+                if base == "acts" and not special:
+                    assert torch_ == xla, spec
+                if base == "acts":
+                    continue
+                assert xla.base_bytes - torch_.base_bytes == grads
+                phases = {p.name: p for p in torch_.phases}
+                ref = {p.name: p for p in xla.phases}
+                i = 0
+                bwd0 = phases[f"bwd/{kinds[i]}[{i}]"]
+                held0 = ref[f"bwd/{kinds[i]}[{i}]"].held_bytes
+                if not special:
+                    assert bwd0.held_bytes - held0 == grads - 4 * (
+                        layer[0][0] - layer[0][1])
+                if base == "train":
+                    assert phases["optimizer"].held_bytes == grads

@@ -214,9 +214,11 @@ def test_port_imports_no_jax_and_no_reference():
     one-rank mesh), with the checkpoint plans, the simulator, the
     baselines, the Table-1 configs, ``compat``, the training checkpoints
     and the Qwen3-30B-A3B config imported, and decode steps and a
-    training step of reduced Hymba and xLSTM (``models/ssm.py``), and the
-    dry run's modules (``launch.dryrun``, ``launch.specs``) imported, leave
-    JAX and the reference package out of ``sys.modules``."""
+    training step of reduced Hymba and xLSTM (``models/ssm.py``), the
+    dry run's modules (``launch.dryrun``, ``launch.specs``) and every
+    module of the bench harness (``repro_torch.bench``) imported, and
+    ``python -m repro_torch.bench --help`` run, leave JAX and the
+    reference package out of ``sys.modules``."""
     code = (
         "import sys, numpy as np, torch\n"
         "torch.set_num_threads(1)\n"
@@ -300,6 +302,15 @@ def test_port_imports_no_jax_and_no_reference():
         "    assert np.isfinite(h[0]['loss'])\n"
         "for a in ('gemma2-27b', 'yi-6b', 'deepseek-coder-33b'):\n"
         "    assert T.paged_supported(get_config(a))\n"
+        "import repro_torch.bench, repro_torch.bench.cli\n"
+        "import repro_torch.bench.memory, repro_torch.bench.paper_tables\n"
+        "import repro_torch.bench.record, repro_torch.bench.serving\n"
+        "import repro_torch.bench.timing, runpy\n"
+        "sys.argv = ['python -m repro_torch.bench', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('repro_torch.bench', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ml_dtypes', 'repro'))\n"
         "assert not bad, bad\n"
